@@ -1,0 +1,140 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, every `csrc/*.cu` of this package is compiled by `nvcc` for
+Hopper (`sm_90a`) into ONE shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/torch_kernels/libldakernels-<hash>.so \
+         csrc/*.cu
+
+The output lives under `build/torch_kernels/` at the repository root (listed
+in `.gitignore`), named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused. The library is loaded with
+`ctypes`: each C entry point takes device pointers and the CUDA stream as
+`c_void_p`, sizes as `c_int`/`c_longlong`, and returns `cudaGetLastError()`
+after its launch, which the Python wrapper turns into an exception.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_c_ptr = ctypes.c_void_p
+_c_int = ctypes.c_int
+_c_i64 = ctypes.c_longlong
+
+# C signatures of the entry points in csrc/*.cu (all return cudaError_t)
+_SIGNATURES = {
+    # label_counts.cu
+    "lda_label_counts": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int, _c_int,
+                         _c_int, _c_ptr, _c_int, _c_ptr],
+    # zdraw.cu
+    "lda_zdraw_nkw": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                      _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                      _c_i64, _c_int, _c_int, _c_int, _c_int, _c_int,
+                      _c_int, _c_int, _c_int, _c_int, _c_ptr],
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "ldagroupedgibbssampler_tpu_torch need the CUDA "
+                           "toolkit to build")
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libldakernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels if the library for these sources is missing.
+    Returns (path, seconds spent compiling; 0.0 when it was already built).
+    The compiler's output (registers, spills) goes to `<lib>.log`."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = out.with_suffix(".log")
+        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)     # atomic: concurrent builders agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, time.perf_counter() - t0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_tensor(name, t, shape, dtype=torch.int32, device=None):
+    """Validate a kernel operand: a contiguous CUDA tensor of the expected
+    dtype and shape, on `device` when given."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")
