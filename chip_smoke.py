@@ -14,11 +14,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      doc length 120, Zipf 1.1 types, default_rng(0) — the same recipe as
      bench.py), with each kernel's time, its plain version's time, the
      library yardstick where one exists, and its bound;
-  4. the main path: LDAGroupedGibbsSampler on that corpus on cuda, 30
-     iterations with the likelihood every 10; launch counters, exact
-     recounts, rising likelihood, tokens/s;
+     The PCGS sweep kernel is held against its plain version on the
+     resident layout at K=100 and the streamed layout at K=200, with
+     injected and Philox uniforms, exact zeros in phi, and a chi-square;
+  4. the main paths on that corpus on cuda, each with its launch counters
+     set to 0 just before it and read just after: LDAGroupedGibbsSampler
+     (ggs) and scheme pcgs at K=100, 30 iterations with the likelihood
+     every 10 (exact recounts, rising likelihood, tokens/s, a profile),
+     then pcgs at K=200 (streamed layout) and polyaurn at K=100, 10
+     iterations each;
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
-     cuda.
+     cuda, with a ggs and a pcgs section.
 Then one JSON line describing every kernel, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -98,6 +104,25 @@ def bound(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_counts_exact(model, corpus, label: str):
+    """N_kw, n_dk and n_k of the model's state equal a host recount of its
+    z (get_z_indicators)."""
+    zc = model.get_z_indicators()
+    k = model.config.topics
+    nkw_ref = np.zeros((corpus.num_types, k), np.int64)
+    np.add.at(nkw_ref, (corpus.tokens, zc), 1)
+    ndk_ref = np.zeros((corpus.num_docs, k), np.int64)
+    np.add.at(ndk_ref, (corpus.token_doc_ids(), zc), 1)
+    check(np.array_equal(model.get_topic_type_counts().T, nkw_ref),
+          f"{label}: N_kw differs from a recount of z")
+    check(np.array_equal(model.get_document_topic_matrix(), ndk_ref),
+          f"{label}: n_dk differs from a recount of z")
+    nk = model.get_tokens_per_topic()
+    check(np.array_equal(nk, nkw_ref.sum(axis=0))
+          and nk.sum() == corpus.num_tokens,
+          f"{label}: n_k differs from a recount of z")
+
+
 def profile_iterations(torch, model, n: int) -> str:
     """Device time by kernel over `n` more iterations (torch.profiler),
     against their host wall time."""
@@ -127,6 +152,260 @@ def profile_iterations(torch, model, n: int) -> str:
             f"{len(rows)} kernels; top: {top}")
 
 
+PCGS_LAYOUTS = ((100, "resident"), (200, "streamed"))
+
+
+def pcgs_config(LDAConfig, scheme: str, topics: int):
+    return LDAConfig(scheme=scheme, topics=topics, alpha=0.5, beta=0.01,
+                     seed=2019, exec_time=-1, topic_interval=10,
+                     device="cuda")
+
+
+def check_sweep_outputs(torch, model, label, z_old, z, nkw, table, doc_sel):
+    """One PCGS sweep's outputs against recounts: N_kw is the histogram of
+    z, the table's n_dk (minus alpha) a recount of z and its flag row
+    intact, and padding slots and unselected documents keep z."""
+    real = model._slot_mask
+    k, d = model.config.topics, model.corpus.num_docs
+    hist = torch.zeros_like(nkw)
+    hist.index_put_((model._slot_w[real], z[real].long()),
+                    torch.ones_like(z[real]), accumulate=True)
+    check(torch.equal(hist, nkw),
+          f"{label}: N_kw is not the histogram of the kernel's z")
+    ndk = torch.round(table[:k, :d].T - model.state.alpha[None, :])
+    check(torch.equal(ndk.to(torch.int32), model._count_ndk(z)),
+          f"{label}: the table's n_dk differs from a recount of z")
+    kpad = table.shape[0] - 8
+    check(torch.equal(table[kpad, :d], doc_sel.to(torch.float32)),
+          f"{label}: the table's doc-mask row changed")
+    check(torch.equal(z[~real], z_old[~real]),
+          f"{label}: a padding slot changed z")
+    unsel = real & ~doc_sel[model._slot_d]
+    check(torch.equal(z[unsel], z_old[unsel]),
+          f"{label}: an unselected document changed z")
+    sel = real & doc_sel[model._slot_d]
+    check(bool((z[sel] != z_old[sel]).any()),
+          f"{label}: no selected token moved")
+
+
+def pcgs_chi_square(torch, cuda_pcgs, gen, seed, k=100, n=200_704,
+                    block=4096, chunk=128):
+    """Chi-square of `n` Philox draws of one-token documents of one type
+    against the exact conditional alpha_k * phi[k][w] (rounded as the
+    kernel rounds). Returns (chi2, p-value)."""
+    from scipy import stats as sps
+    dev = seed.device
+    nb = n // block
+    zero3 = torch.zeros((nb, block // chunk, chunk), dtype=torch.int32,
+                        device=dev)
+    alpha = torch.rand(k, generator=gen, device=dev) + 0.05
+    phi = torch.rand((1, k), generator=gen, device=dev) + 0.05
+    phi = (phi / phi.sum()).contiguous()
+    kpad = cuda_pcgs.kpad_of(k)
+    table = torch.zeros((kpad + cuda_pcgs.FLAG_ROWS, n), device=dev)
+    table[:k] = alpha[:, None]
+    table[0] += 1.0                   # every token sits on topic 0
+    table[kpad] = 1.0
+    z, _, _ = cuda_pcgs.fused_pcgs_sweep(
+        zero3, zero3, zero3, table, phi, seed,
+        torch.zeros(nb, dtype=torch.int32, device=dev),
+        torch.ones(nb, dtype=torch.int32, device=dev),
+        torch.zeros(nb * block // chunk, dtype=torch.int32, device=dev),
+        torch.arange(n + 1, dtype=torch.int32, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev),
+        nwin_w=1, nwin_d=1, vspan=128, dspan=128, num_topics=k,
+        positive_support=True)
+    nd = table[:k, 0].clone()
+    nd[0] -= 1.0
+    bf = torch.bfloat16
+    p = (nd * phi[0].to(bf).float()).to(bf).double().cpu().numpy()
+    p /= p.sum()
+    obs = np.bincount(z.cpu().numpy().reshape(-1), minlength=k)
+    exp = p * obs.sum()
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    return chi2, float(sps.chi2.sf(chi2, k - 1))
+
+
+def pcgs_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
+    """[3 pcgs]: the sweep kernel against its plain version at the 20NG
+    shapes, on the resident layout at K=100 and the streamed one at K=200,
+    with operands built by the model as its main path builds them.
+    Returns one `kernels` entry per layout (launches filled in later)."""
+    plain_of = {
+        cuda_pcgs.fused_pcgs_sweep: cuda_pcgs.fused_pcgs_sweep_reference,
+        cuda_pcgs.fused_pcgs_sweep_streamed:
+            cuda_pcgs.fused_pcgs_sweep_streamed_reference}
+    entries = []
+    for k, layout in PCGS_LAYOUTS:
+        t0 = time.perf_counter()
+        model = create_model(pcgs_config(LDAConfig, "pcgs", k))
+        model.add_instances(corpus)
+        setup_s = time.perf_counter() - t0
+        check(model._mode == layout,
+              f"K={k}: layout {model._mode}, expected {layout}")
+        dev, st = model.device, model.state
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(k)
+        real = model._slot_mask
+        doc_sel = (torch.arange(D, device=dev) % 5) != 0
+        table = model._ndk_table(st.ndk, st.alpha, doc_sel)
+        phi_vk = st.phi.T.contiguous()
+        seed = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64,
+                            device=dev)
+        u24 = torch.randint(0, 2 ** 24, tuple(st.z.shape), generator=gen,
+                            device=dev, dtype=torch.int32)
+        agreement = {}
+        for label, u in (("u24", u24), ("philox", None)):
+            fn, args, kw = model._sweep_call(st.z, table, phi_vk, seed, u)
+            zk, nkw_k, tb_k = fn(*args, **kw)
+            zr, nkw_r, _ = plain_of[fn](*args, **kw)
+            torch.cuda.synchronize()
+            agree = float((zk == zr)[real].float().mean())
+            agreement[label] = agree
+            check(agree >= 0.999, f"pcgs K={k} ({label}): only "
+                  f"{agree:.6f} of tokens agree with the plain version")
+            check_sweep_outputs(torch, model, f"pcgs K={k} ({label})",
+                                st.z, zk, nkw_k, tb_k, doc_sel)
+            if label == "philox":
+                err = int((nkw_k - nkw_r).abs().max())
+        # exact zeros in phi (about half the entries) and no positive
+        # support: no token may land on a zero-probability topic
+        keep = torch.rand(phi_vk.shape, generator=gen, device=dev) < 0.5
+        phi_zero = torch.where(keep, phi_vk, 0.0).contiguous()
+        fn, args, kw = model._sweep_call(st.z, table, phi_zero, seed)
+        kw = {**kw, "positive_support": False}
+        zk, nkw_k, tb_k = fn(*args, **kw)
+        zr, _, _ = plain_of[fn](*args, **kw)
+        torch.cuda.synchronize()
+        agreement["philox zero-phi"] = float((zk == zr)[real].float().mean())
+        check(agreement["philox zero-phi"] >= 0.999,
+              f"pcgs K={k} zero-phi: z agreement {agreement}")
+        check_sweep_outputs(torch, model, f"pcgs K={k} (zero-phi)", st.z,
+                            zk, nkw_k, tb_k, doc_sel)
+        sel = real & doc_sel[model._slot_d]
+        check(bool((phi_zero[model._slot_w[sel], zk[sel].long()] > 0).all()),
+              f"pcgs K={k}: a draw landed on a zero-probability topic")
+        chi = ""
+        if k == 100:
+            chi2, pval = pcgs_chi_square(torch, cuda_pcgs, gen, seed)
+            check(pval > 1e-4, f"pcgs chi-square p={pval:.2e}")
+            chi = f"; chi2={chi2:.1f} (df {k - 1}, p={pval:.3g})"
+        fn, args, kw = model._sweep_call(st.z, table, phi_vk, seed)
+        ms = time_ms(torch, lambda: fn(*args, **kw))
+        plain_ms = time_ms(torch, lambda: plain_of[fn](*args, **kw),
+                           reps=3, calls=1)
+        slots, n = st.z.numel(), corpus.num_tokens
+        b = model._sblocks
+        nbytes = (4 * 3 * slots + 4 * args[6].numel() + 4 * (D + 1)
+                  + 4 * n + 4 * V * k + 8 + 2 * 4 * table.numel()
+                  + 4 * b.nwin_w * model._vspan * k)
+        bound_ms, bound_by = bound(nbytes, 3.0 * n * k)
+        print(f"[3 pcgs] K={k} {layout} layout (vspan {model._vspan}, "
+              f"{slots} slots for {n} tokens, model set up in "
+              f"{setup_s:.1f} s): z agreement {json.dumps(agreement)}; "
+              f"N_kw, n_dk, flags and kept z exact; no draw on a "
+              f"zero-probability topic{chi}; {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"max |N_kw - plain| {err}", flush=True)
+        entries.append(
+            {"name": fn.__name__, "route": "cuda",
+             "source": "ldagroupedgibbssampler_tpu_torch/csrc/pcgs.cu",
+             "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_pcgs.py:"
+                         + ("135" if layout == "resident" else "653"),
+             "launches": 0, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None})
+        del model, st, table, phi_vk, phi_zero, u24, zk, zr, tb_k, nkw_k
+        torch.cuda.empty_cache()
+    return entries
+
+
+def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
+    """[4 pcgs main path]: scheme pcgs K=100 (resident layout) for ITERS
+    iterations with a profile, then pcgs K=200 (streamed layout) and
+    polyaurn K=100 for 10 iterations each, each with its launch counts
+    set to 0 just before it and read just after. Returns the launches of
+    each wrapper in its own run."""
+    res, stm = cuda_pcgs.fused_pcgs_sweep, cuda_pcgs.fused_pcgs_sweep_streamed
+    launches = {}
+
+    res.launches = stm.launches = 0
+    model = create_model(pcgs_config(LDAConfig, "pcgs", 100))
+    model.add_instances(corpus)
+    ll0 = model.model_log_likelihood()
+    model.sample(10)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    model.sample(ITERS - 10)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    launches[res.__name__] = res.launches
+    check(res.launches == ITERS and stm.launches == 0,
+          f"pcgs: sweep launches (resident, streamed) = "
+          f"{(res.launches, stm.launches)}")
+    check_counts_exact(model, corpus, "pcgs")
+    lls = dict(model.get_log_likelihoods())
+    check(lls[30] > lls[10] > ll0, f"pcgs LL did not rise: init {ll0}, "
+          f"{lls}")
+    n = corpus.num_tokens
+    print(f"[4 pcgs main path] pcgs K=100 resident on "
+          f"{torch.cuda.get_device_name(0)} ({smi}): launches "
+          f"{launches[res.__name__]}; counts exact; LL init {ll0:.1f} -> "
+          f"it10 {lls[10]:.1f} -> it30 {lls[30]:.1f}; "
+          f"{n * (ITERS - 10) / (t_b - t_a):.0f} tokens/s over iterations "
+          f"11-30 ({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} ms/iteration, "
+          "host clock, LL at 20 and 30 included)", flush=True)
+    print(f"[4 pcgs profile] {profile_iterations(torch, model, 5)}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    for scheme, k, layout in (("pcgs", 200, "streamed"),
+                              ("polyaurn", 100, "resident")):
+        res.launches = stm.launches = 0
+        model = create_model(pcgs_config(LDAConfig, scheme, k))
+        model.add_instances(corpus)
+        check(model._mode == layout, f"{scheme} K={k}: layout "
+              f"{model._mode}")
+        ll0 = model.model_log_likelihood()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample(9)
+        phi_prev = model.get_phi()
+        model.sample(1)
+        t1 = time.perf_counter()
+        wrapper = stm if layout == "streamed" else res
+        other = res if layout == "streamed" else stm
+        if scheme == "pcgs":
+            launches[stm.__name__] = stm.launches
+        check(wrapper.launches == 10 and other.launches == 0,
+              f"{scheme} K={k}: sweep launches {wrapper.launches}, other "
+              f"layout {other.launches}")
+        check_counts_exact(model, corpus, f"{scheme} K={k}")
+        lls = dict(model.get_log_likelihoods())
+        check(lls[10] > ll0, f"{scheme} K={k}: LL did not rise: init "
+              f"{ll0}, {lls}")
+        extra = ""
+        if scheme == "polyaurn":
+            # no token drawn onto a zero phi[k][w] of the sweep that drew
+            # it; a type whose phi column is all zero keeps its z
+            z = model.get_z_indicators()
+            live = phi_prev.sum(axis=0)[corpus.tokens] > 0
+            check(bool((phi_prev[z, corpus.tokens][live] > 0).all()),
+                  "polyaurn: a token sits on a zero-probability topic")
+            extra = (f"; phi density {model.get_phi_density():.4f}; "
+                     f"{int((~live).sum())} tokens of all-zero phi columns "
+                     "kept z; no draw on a zero phi")
+        print(f"[4 {scheme} K={k}] {layout} layout: launches "
+              f"{wrapper.launches}; counts exact; LL init {ll0:.1f} -> "
+              f"it10 {lls[10]:.1f}; {(t1 - t0) / 10 * 1e3:.3f} "
+              f"ms/iteration (host clock, LL at 10 included){extra}",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -139,7 +418,8 @@ def main() -> int:
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
     from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
     from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
-    from ldagroupedgibbssampler_tpu_torch.ops import cuda_counts, cuda_zdraw
+    from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts, cuda_pcgs,
+                                                      cuda_zdraw)
     from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
     from ldagroupedgibbssampler_tpu_torch.tui import parallel_lda
 
@@ -331,6 +611,8 @@ def main() -> int:
           f"{zdraw_err}", flush=True)
     del theta, phi, theta_m, onehot, u24, z, z_b, key_b, lib
     torch.cuda.empty_cache()
+    pcgs_entries = pcgs_kernel_phase(torch, corpus, LDAConfig, create_model,
+                                     cuda_pcgs)
 
     # ---- 4. main path: the library entry point -------------------------
     cuda_counts.blocked_label_counts.launches = 0
@@ -351,18 +633,7 @@ def main() -> int:
           f"z-draw kernel launched {launches['fused_zdraw_nkw']} times")
     check(launches["blocked_label_counts"] >= ITERS,
           f"count kernel launched {launches['blocked_label_counts']} times")
-    zc = model.get_z_indicators()
-    nkw_ref = np.zeros((V, K), np.int64)
-    np.add.at(nkw_ref, (corpus.tokens, zc), 1)
-    ndk_ref = np.zeros((D, K), np.int64)
-    np.add.at(ndk_ref, (corpus.token_doc_ids(), zc), 1)
-    check(np.array_equal(model.get_topic_type_counts().T, nkw_ref),
-          "N_kw differs from a recount of z")
-    check(np.array_equal(model.get_document_topic_matrix(), ndk_ref),
-          "n_dk differs from a recount of z")
-    nk = model.get_tokens_per_topic()
-    check(np.array_equal(nk, nkw_ref.sum(axis=0)) and nk.sum() == n_tok,
-          "n_k differs from a recount of z")
+    check_counts_exact(model, corpus, "ggs")
     lls = dict(model.get_log_likelihoods())
     check(lls[30] > lls[10] > ll0, f"LL did not rise: init {ll0}, {lls}")
     tok_s = n_tok * (ITERS - 10) / (t_b - t_a)
@@ -375,6 +646,10 @@ def main() -> int:
     print(f"[4 profile] {profile_iterations(torch, model, 5)}", flush=True)
     del model
     torch.cuda.empty_cache()
+    pcgs_launches = pcgs_main_path(torch, corpus, LDAConfig, create_model,
+                                   cuda_pcgs, smi)
+    for entry in pcgs_entries:
+        entry["launches"] = pcgs_launches[entry["name"]]
 
     # ---- 5. the experiment CLI ------------------------------------------
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -391,30 +666,42 @@ def main() -> int:
                       for _ in range(4)]
             f.write(f"docno:{d}\tL{d % 3}\t{' '.join(words)}\n")
     with open(os.path.join(work, "run.cfg"), "w") as f:
-        f.write(f"configs = ggs\nno_runs = 1\n"
+        f.write(f"configs = ggs, pcgs\nno_runs = 1\n"
                 f"experiment_out_dir = {work}/runs\nexec_time = 300\n"
                 f"iterations = {ITERS}\ntopics = 3\nalpha = 1\n"
                 f"beta = 0.01\ndataset = {work}/docs.txt\n"
                 f"rare_threshold = 0\nseed = 2019\ntopic_interval = 10\n"
                 f"start_diagnostic = 1\nstoplist =\ndevice = cuda\n\n"
-                f"[ggs]\nscheme = ggs\n")
+                f"[ggs]\nscheme = ggs\n\n"
+                f"[pcgs]\nscheme = pcgs\nsave_phi = true\n")
     cuda_counts.blocked_label_counts.launches = 0
     cuda_zdraw.fused_zdraw_nkw.launches = 0
+    cuda_pcgs.fused_pcgs_sweep.launches = 0
+    cuda_pcgs.fused_pcgs_sweep_streamed.launches = 0
     parallel_lda.main([f"--run_cfg={work}/run.cfg"])
     cli_launches = (cuda_zdraw.fused_zdraw_nkw.launches,
-                    cuda_counts.blocked_label_counts.launches)
-    check(cli_launches[0] == ITERS and cli_launches[1] >= ITERS,
-          f"CLI run launches (zdraw, counts) = {cli_launches}")
-    run_dir = glob.glob(os.path.join(work, "runs", "RunSuite*", "Runggs-*"))
-    check(len(run_dir) == 1, f"CLI run directories: {run_dir}")
-    for fn in ("likelihood.txt", "TopWords.txt", "run_metadata.json"):
-        check(os.path.exists(os.path.join(run_dir[0], fn)), f"CLI: no {fn}")
-    ll_cli = [float(ln.split("\t")[1]) for ln in
-              open(os.path.join(run_dir[0], "likelihood.txt"))]
-    check(len(ll_cli) == 3 and ll_cli[-1] > ll_cli[0],
-          f"CLI LL did not rise: {ll_cli}")
-    print(f"[5 cli] parallel_lda on cuda: launches (zdraw, counts) "
-          f"{cli_launches}; LL {ll_cli}", flush=True)
+                    cuda_counts.blocked_label_counts.launches,
+                    cuda_pcgs.fused_pcgs_sweep.launches)
+    check(cli_launches[0] == ITERS and cli_launches[1] >= ITERS
+          and cli_launches[2] == ITERS,
+          f"CLI run launches (zdraw, counts, pcgs) = {cli_launches}")
+    ll_cli = {}
+    for name, files in (("ggs", ()), ("pcgs", ("phi.csv",))):
+        run_dir = glob.glob(os.path.join(work, "runs", "RunSuite*",
+                                         f"Run{name}-*"))
+        check(len(run_dir) == 1, f"CLI run directories: {run_dir}")
+        for fn in ("likelihood.txt", "TopWords.txt", "run_metadata.json",
+                   *files):
+            check(os.path.exists(os.path.join(run_dir[0], fn)),
+                  f"CLI {name}: no {fn}")
+        lls = [float(ln.split("\t")[1]) for ln in
+               open(os.path.join(run_dir[0], "likelihood.txt"))]
+        check(len(lls) == 3 and lls[-1] > lls[0],
+              f"CLI {name} LL did not rise: {lls}")
+        ll_cli[name] = lls
+    print(f"[5 cli] parallel_lda on cuda, sections ggs and pcgs: launches "
+          f"(zdraw, counts, pcgs) {cli_launches}; LL {json.dumps(ll_cli)}",
+          flush=True)
 
     kernels = [
         {"name": "blocked_label_counts", "route": "cuda",
@@ -431,6 +718,7 @@ def main() -> int:
          "ms": zdraw_ms, "plain_ms": zdraw_plain_ms,
          "bound_ms": zdraw_bound, "bound_by": zdraw_by,
          "library_ms": None},
+        *pcgs_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

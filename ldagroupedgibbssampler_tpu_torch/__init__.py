@@ -7,8 +7,9 @@ for Hopper (`csrc/`, built at first use by `ops/_build.py`). It imports
 neither JAX nor the reference package; the host-side modules it needs are
 its own copies.
 
-Ported so far: scheme `ggs` (and its invalid comparison variant
-`ggs_test`) end to end, through `create_model(cfg)` and the experiment
+Ported so far: schemes `ggs` (and its invalid comparison variant
+`ggs_test`), `pcgs`, `uncollapsed`, `efficient_uncollapsed`, `spalias` and
+`polyaurn` end to end, through `create_model(cfg)` and the experiment
 driver `python -m ldagroupedgibbssampler_tpu_torch.tui.parallel_lda`.
 Entry points run on `cuda` unless the config asks for `device = cpu`.
 """

@@ -9,11 +9,16 @@ ragged arrays (SURVEY.md §7 step 1):
     labels[D], doc_ids[D]    per-document metadata (the target alphabet)
 
 The GGS sampler consumes the two-layout cell blocks (`CellBlocks`): tokens
-sorted into (w-window, d-window) cells, padded per `chunk`. Host-side NumPy
-only; the sampler copies the arrays to its device once.
+sorted into (w-window, d-window) cells, padded per `chunk`. The PCGS family
+consumes the sequential-safe variants: `build_cell_blocks_seq` (w-window
+major) and `build_stream_blocks_seq` (d-window major, `StreamBlocks`), in
+which no chunk holds two tokens of one document. Host-side NumPy only; the
+sampler copies the arrays to its device once.
 
-This is the port's own copy of the JAX package's `corpus/ragged.py` (GGS
-subset): `build_cell_blocks` is bit-identical to that package's builder.
+This is the port's own copy of the JAX package's `corpus/ragged.py` (the
+subset the ported schemes use): every builder here is bit-identical to that
+package's. The JAX package adds native C++ builders above 1M tokens, whose
+output is bit-identical too; the port has only the NumPy paths.
 """
 
 from __future__ import annotations
@@ -105,6 +110,16 @@ class Corpus:
                                  self.num_types, self.num_docs,
                                  block=block, vspan=vspan, dspan=dspan,
                                  chunk=chunk)
+
+    def cell_blocks_seq(self, block: int = 4096, vspan: int = 128,
+                        dspan: int = 128, chunk: int = 128) -> "CellBlocks":
+        """Sequential-safe cell blocks (see build_cell_blocks_seq): no two
+        tokens of one document share a chunk — the resident layout of the
+        PCGS sweep."""
+        return build_cell_blocks_seq(self.tokens, self.token_doc_ids(),
+                                     self.num_types, self.num_docs,
+                                     block=block, vspan=vspan, dspan=dspan,
+                                     chunk=chunk)
 
     @staticmethod
     def from_token_lists(doc_tokens: list[list[int]], vocab: list[str],
@@ -353,3 +368,275 @@ def build_cell_blocks(tokens, doc_ids_all, num_types, num_docs, *,
         first_d=first_d,
         vspan=vspan, dspan=dspan, nwin_w=nwin_w, nwin_d=nwin_d,
         chunk=chunk)
+
+
+def build_cell_blocks_seq(tokens, doc_ids_all, num_types, num_docs, *,
+                          block: int = 4096, vspan: int = 128,
+                          dspan: int = 128,
+                          chunk: int = 128) -> "CellBlocks":
+    """Cell blocks with a SEQUENTIAL-SAFE chunk schedule: no two tokens of
+    the same document share a 128-token chunk.
+
+    The PCGS conditional (n_dk + alpha_k) * phi[k][w]
+    (UncollapsedParallelLDA.java:1509-1513) updates n_dk immediately per
+    token, so the tokens of one document are drawn in sequence. A Gibbs
+    sweep may visit tokens in any fixed order; this layout fixes the order
+    (w-window, d-window, occurrence-rank, doc): each (cell, rank)
+    pseudo-cell holds at most one token per document. The slot order of
+    this layout is the order in which the sweep visits each document's
+    tokens (`doc_visit_order`).
+
+    Same construction as `build_cell_blocks` with cells split by rank;
+    layout B fields are built identically (valid, though the PCGS sweep
+    does not use them).
+    """
+    assert block % chunk == 0
+    assert dspan <= chunk, "a rank group must fit one chunk per d-window"
+    tokens = np.asarray(tokens, np.int32)
+    d_all = np.asarray(doc_ids_all, np.int32)
+    n = tokens.shape[0]
+    nwin_w = max(1, (num_types + vspan - 1) // vspan)
+    nwin_d = max(1, (num_docs + dspan - 1) // dspan)
+    ww = tokens // vspan
+    dw = d_all // dspan
+
+    # occurrence rank of each token within its (cell, doc) group
+    ord0 = np.lexsort((d_all, dw, ww))
+    key0 = ((ww[ord0].astype(np.int64) * nwin_d + dw[ord0]) * num_docs
+            + d_all[ord0])
+    newgrp = np.concatenate([[True], key0[1:] != key0[:-1]]) if n else \
+        np.zeros(0, bool)
+    starts = np.flatnonzero(newgrp)
+    grp_id = np.cumsum(newgrp) - 1 if n else np.zeros(0, np.int64)
+    rank = np.empty(n, np.int64)
+    rank[ord0] = np.arange(n) - (starts[grp_id] if n else 0)
+    nrank = int(rank.max()) + 1 if n else 1
+
+    order = np.lexsort((d_all, rank, dw, ww))
+    w_s, d_s = tokens[order], d_all[order]
+    ww_s, dw_s = ww[order], dw[order]
+    rank_s = rank[order]
+    bpc = block // chunk
+
+    # ---- pseudo-cells: (w-window, d-window, rank), sorted unique keys
+    keys = (ww_s.astype(np.int64) * nwin_d + dw_s) * nrank + rank_s
+    cell_key, cell_start = np.unique(keys, return_index=True)
+    cell_end = np.append(cell_start[1:], n)
+    sizes = cell_end - cell_start
+    cpc = (sizes + chunk - 1) // chunk      # 1 when dspan <= chunk
+    ncell = len(cell_key)
+
+    total_real = int(cpc.sum())
+    cell_first_chunk = np.concatenate([[0], np.cumsum(cpc)[:-1]])
+    cell_of_chunk = np.repeat(np.arange(ncell), cpc)
+    win_of_chunk = (cell_key[cell_of_chunk] // (nwin_d * nrank)
+                    ).astype(np.int64)
+    dwin_of_chunk = (cell_key[cell_of_chunk] // nrank % nwin_d
+                     ).astype(np.int64)
+
+    win_real = np.bincount(win_of_chunk, minlength=nwin_w)
+    win_rows = np.where(win_real == 0, bpc,
+                        ((win_real + bpc - 1) // bpc) * bpc)
+    row_off = np.concatenate([[0], np.cumsum(win_rows)])
+    total_rows = int(row_off[-1]) + bpc     # + guaranteed all-pad tail block
+    first_idx = np.searchsorted(win_of_chunk, np.arange(nwin_w))
+    rnk = np.arange(total_real) - first_idx[win_of_chunk]
+    row_of_chunk = (row_off[win_of_chunk] + rnk).astype(np.int64)
+
+    nba = total_rows // bpc
+    win_w_arr = np.concatenate([
+        np.repeat(np.arange(nwin_w, dtype=np.int32),
+                  (win_rows // bpc).astype(np.int64)),
+        np.asarray([nwin_w - 1], np.int32)])
+    first_w = np.zeros(nba, np.int32)
+    first_w[0] = 1
+    first_w[1:] = (win_w_arr[1:] != win_w_arr[:-1]).astype(np.int32)
+
+    w_local = np.full(total_rows * chunk, vspan, np.int32)
+    doc_ids = np.zeros(total_rows * chunk, np.int32)
+    d_loc_a = np.full(total_rows * chunk, dspan, np.int32)
+    mask = np.zeros(total_rows * chunk, bool)
+    flat_index = np.full(total_rows * chunk, -1, np.int64)
+    cell_of_token = np.repeat(np.arange(ncell), sizes)
+    pos_in_cell = np.arange(n) - cell_start[cell_of_token]
+    chunk_of_token = cell_first_chunk[cell_of_token] + pos_in_cell // chunk
+    dest = row_of_chunk[chunk_of_token] * chunk + pos_in_cell % chunk
+    w_local[dest] = w_s - (ww_s * vspan).astype(np.int32)
+    doc_ids[dest] = d_s
+    d_loc_a[dest] = d_s - (dw_s * dspan).astype(np.int32)
+    mask[dest] = True
+    flat_index[dest] = order
+    win_d_chunks = np.zeros(total_rows, np.int32)
+    win_d_chunks[row_of_chunk] = dwin_of_chunk
+
+    pad_chunk_row = total_rows - 1
+    order_b = np.argsort(dwin_of_chunk, kind="stable")
+    dwin_sorted = dwin_of_chunk[order_b]
+    d_real = np.bincount(dwin_of_chunk, minlength=nwin_d)
+    d_rows = np.where(d_real == 0, bpc, ((d_real + bpc - 1) // bpc) * bpc)
+    d_off = np.concatenate([[0], np.cumsum(d_rows)])
+    total_b = int(d_off[-1])
+    src_chunks = np.full(total_b, pad_chunk_row, np.int32)
+    first_idx_d = np.searchsorted(dwin_sorted, np.arange(nwin_d))
+    rank_d = np.arange(total_real) - first_idx_d[dwin_sorted]
+    src_chunks[d_off[dwin_sorted] + rank_d] = row_of_chunk[order_b]
+    nbb = total_b // bpc
+    win_d_arr = np.repeat(np.arange(nwin_d, dtype=np.int32),
+                          (d_rows // bpc).astype(np.int64))
+    first_d = np.zeros(nbb, np.int32)
+    first_d[(d_off[:-1] // bpc).astype(np.int64)] = 1
+    d_local = d_loc_a.reshape(-1, chunk)[src_chunks]
+
+    return CellBlocks(
+        w_local=w_local.reshape(nba, block),
+        doc_ids=doc_ids.reshape(nba, block),
+        mask=mask.reshape(nba, block),
+        win_w=win_w_arr, first_w=first_w,
+        flat_index=flat_index.reshape(nba, block),
+        d_local_a=d_loc_a.reshape(nba, block),
+        win_d_chunks=win_d_chunks,
+        src_chunks=src_chunks,
+        d_local=d_local.reshape(nbb, block),
+        win_d=win_d_arr,
+        first_d=first_d,
+        vspan=vspan, dspan=dspan, nwin_w=nwin_w, nwin_d=nwin_d,
+        chunk=chunk)
+
+
+@dataclass
+class StreamBlocks:
+    """Sequential-safe d-window-major token blocks, the streamed layout of
+    the PCGS sweep: tokens sorted by (d-window, w-window, occurrence-rank,
+    doc), cells padded per chunk only (no per-window block alignment). Each
+    d-window's chunks are contiguous; the w-window of a chunk is
+    `win_w_chunks`.
+    """
+    w_local: np.ndarray       # [NB, B] type id minus win_w*vspan; vspan=pad
+    d_local: np.ndarray       # [NB, B] doc id minus win_d*dspan; dspan=pad
+    mask: np.ndarray          # [NB, B]
+    flat_index: np.ndarray    # [NB, B] corpus token index (-1 = pad)
+    win_w_chunks: np.ndarray  # [NB*B/chunk] w-window id per chunk
+    win_d_chunks: np.ndarray  # [NB*B/chunk] d-window id per chunk
+    vspan: int
+    dspan: int
+    nwin_w: int
+    nwin_d: int
+    chunk: int
+
+
+def build_stream_blocks_seq(tokens, doc_ids_all, num_types, num_docs, *,
+                            block: int = 4096, vspan: int = 128,
+                            dspan: int = 128,
+                            chunk: int = 128) -> "StreamBlocks":
+    """d-window-major sequential-safe blocks (see StreamBlocks)."""
+    assert block % chunk == 0
+    assert dspan <= chunk, "a rank group must fit one chunk per d-window"
+    tokens = np.asarray(tokens, np.int32)
+    d_all = np.asarray(doc_ids_all, np.int32)
+    n = tokens.shape[0]
+    nwin_w = max(1, (num_types + vspan - 1) // vspan)
+    nwin_d = max(1, (num_docs + dspan - 1) // dspan)
+    ww = tokens // vspan
+    dw = d_all // dspan
+
+    # occurrence rank of each token within its (dw, ww, doc) group
+    ord0 = np.lexsort((d_all, ww, dw))
+    key0 = ((dw[ord0].astype(np.int64) * nwin_w + ww[ord0]) * num_docs
+            + d_all[ord0])
+    newgrp = np.concatenate([[True], key0[1:] != key0[:-1]]) if n else \
+        np.zeros(0, bool)
+    starts = np.flatnonzero(newgrp)
+    grp_id = np.cumsum(newgrp) - 1 if n else np.zeros(0, np.int64)
+    rank = np.empty(n, np.int64)
+    rank[ord0] = np.arange(n) - (starts[grp_id] if n else 0)
+    nrank = int(rank.max()) + 1 if n else 1
+
+    order = np.lexsort((d_all, rank, ww, dw))
+    w_s, d_s = tokens[order], d_all[order]
+    ww_s, dw_s = ww[order], dw[order]
+    rank_s = rank[order]
+
+    # pseudo-cells (dw, ww, rank), sorted; each spans ceil(size/chunk)
+    # consecutive chunks (== 1 when dspan <= chunk)
+    keys = (dw_s.astype(np.int64) * nwin_w + ww_s) * nrank + rank_s
+    cell_key, cell_start = np.unique(keys, return_index=True)
+    cell_end = np.append(cell_start[1:], n)
+    sizes = cell_end - cell_start
+    cpc = (sizes + chunk - 1) // chunk
+    ncell = len(cell_key)
+    total_real = int(cpc.sum())
+    bpc = block // chunk
+    # pad to a block multiple, with at least one (all-pad) block
+    total_chunks = max(bpc, -(-total_real // bpc) * bpc)
+    nb = total_chunks // bpc
+
+    cell_first_chunk = np.concatenate([[0], np.cumsum(cpc)[:-1]])
+    cell_of_chunk = np.repeat(np.arange(ncell), cpc)
+    dw_of_chunk = (cell_key[cell_of_chunk] // (nwin_w * nrank)
+                   ).astype(np.int32)
+    ww_of_chunk = (cell_key[cell_of_chunk] // nrank % nwin_w
+                   ).astype(np.int32)
+    win_d_chunks = np.zeros(total_chunks, np.int32)
+    win_w_chunks = np.zeros(total_chunks, np.int32)
+    win_d_chunks[:total_real] = dw_of_chunk
+    win_w_chunks[:total_real] = ww_of_chunk
+    if total_real:
+        # pad chunks keep the last windows
+        win_d_chunks[total_real:] = dw_of_chunk[-1]
+        win_w_chunks[total_real:] = ww_of_chunk[-1]
+
+    w_local = np.full(total_chunks * chunk, vspan, np.int32)
+    d_local = np.full(total_chunks * chunk, dspan, np.int32)
+    mask = np.zeros(total_chunks * chunk, bool)
+    flat_index = np.full(total_chunks * chunk, -1, np.int64)
+    cell_of_token = np.repeat(np.arange(ncell), sizes)
+    pos_in_cell = np.arange(n) - cell_start[cell_of_token]
+    chunk_of_token = cell_first_chunk[cell_of_token] + pos_in_cell // chunk
+    dest = chunk_of_token * chunk + pos_in_cell % chunk
+    w_local[dest] = w_s - (ww_s * vspan).astype(np.int32)
+    d_local[dest] = d_s - (dw_s * dspan).astype(np.int32)
+    mask[dest] = True
+    flat_index[dest] = order
+
+    return StreamBlocks(
+        w_local=w_local.reshape(nb, block),
+        d_local=d_local.reshape(nb, block),
+        mask=mask.reshape(nb, block),
+        flat_index=flat_index.reshape(nb, block),
+        win_w_chunks=win_w_chunks, win_d_chunks=win_d_chunks,
+        vspan=vspan, dspan=dspan, nwin_w=nwin_w, nwin_d=nwin_d,
+        chunk=chunk)
+
+
+def build_stream_blocks(tokens, doc_ids_all, num_types, num_docs, *,
+                        block: int = 4096, vspan: int = 128,
+                        dspan: int = 128, chunk: int = 128
+                        ) -> "StreamBlocks":
+    """StreamBlocks for any corpus size. The JAX package switches to a
+    native C++ builder at 1M tokens, bit-identical to the NumPy one; the
+    port always takes the NumPy builder."""
+    return build_stream_blocks_seq(tokens, doc_ids_all, num_types,
+                                   num_docs, block=block, vspan=vspan,
+                                   dspan=dspan, chunk=chunk)
+
+
+def doc_visit_order(d_local, win_d_chunks, *, dspan: int, chunk: int,
+                    num_docs: int):
+    """Per-document slot lists of a sequential-safe layout, in CSR form.
+
+    d_local: [NB, B] (or flat) doc id minus win_d*dspan, sentinel dspan on
+    padding; win_d_chunks: [NB*B/chunk] d-window of each chunk. Real slots
+    are sorted stably by global document, so each document's slots stay
+    in slot order, which is the order the chunk-sequential sweep visits
+    them. Returns (offsets int32 [D+1], slots int32 [N]): document d's
+    slots are slots[offsets[d]:offsets[d+1]].
+    """
+    d_local = np.asarray(d_local).reshape(-1)
+    assert d_local.size < 2 ** 31, "slot indices must fit int32"
+    real = np.flatnonzero(d_local < dspan)
+    doc = (np.asarray(win_d_chunks, np.int64)[real // chunk] * dspan
+           + d_local[real])
+    order = np.argsort(doc, kind="stable")
+    counts = np.bincount(doc, minlength=num_docs)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return offsets, real[order].astype(np.int32)

@@ -44,47 +44,15 @@
 // token), which is what this simple kernel pays above the bound. Grouping
 // the tokens of a cell through shared memory is the later optimisation.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ float split_round(float x) {
   const float hi = bf16_round(x);
   return hi + bf16_round(x - hi);
-}
-
-// Philox4x32-10 (Salmon et al., SC'11): first output word of the block at
-// counter (ctr_lo, ctr_hi, 0, 0) under key (seed_lo, seed_hi).
-__device__ __forceinline__ unsigned philox_word0(unsigned long long seed,
-                                                 unsigned long long ctr) {
-  unsigned c0 = static_cast<unsigned>(ctr);
-  unsigned c1 = static_cast<unsigned>(ctr >> 32);
-  unsigned c2 = 0u, c3 = 0u;
-  unsigned k0 = static_cast<unsigned>(seed);
-  unsigned k1 = static_cast<unsigned>(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c0);
-    const unsigned lo0 = 0xD2511F53u * c0;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2);
-    const unsigned lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-  }
-  return c0;
 }
 
 template <bool kPrecise>
@@ -142,11 +110,7 @@ __global__ void zdraw_kernel(const int* __restrict__ w_local,
     }
     const float total = carry;
     if (total > 0.f) {
-      const unsigned bits =
-          u24 != nullptr
-              ? static_cast<unsigned>(u24[slot])
-              : philox_word0(static_cast<unsigned long long>(seed[0]),
-                             static_cast<unsigned long long>(slot)) >> 8;
+      const unsigned bits = slot_u24(u24, seed, slot);
       const float u = static_cast<float>(bits) * 5.9604644775390625e-8f
                       * total;                 // u24 * 2^-24 * total
       __syncwarp();

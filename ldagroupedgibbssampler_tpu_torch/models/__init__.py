@@ -1,1 +1,2 @@
-"""Sampler layer: the sampler base, scheme `ggs` and the registry."""
+"""Sampler layer: the sampler base, scheme `ggs`, the PCGS family
+(`fused_sweep`, `pcgs`, `spalias`, `polyaurn`) and the registry."""

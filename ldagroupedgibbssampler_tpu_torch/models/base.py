@@ -1,15 +1,18 @@
 """Sampler base: chain state + the reference's run-lifecycle API.
 
 The port's counterpart of `ldagroupedgibbssampler_tpu/models/base.py`
-(the subset scheme `ggs` needs). The reference defines `LDAGibbsSampler`
-(topics/LDAGibbsSampler.java:10-46) with `addInstances / sample(iterations)
-/ getters / lifecycle hooks`; `TorchLDASampler` provides that surface
-without the hooks and iteration listeners, which nothing here uses.
+(the subset that schemes `ggs` and the PCGS family need). The reference
+defines `LDAGibbsSampler` (topics/LDAGibbsSampler.java:10-46) with
+`addInstances / sample(iterations) / getters / lifecycle hooks`;
+`TorchLDASampler` provides that surface without the hooks and iteration
+listeners, which nothing here uses.
 
 State is a mutable `LDAState` dataclass of tensors on the sampler's device.
 Each scheme's `_step(state, doc_mask)` replaces its fields in place with
-the next iteration's tensors. Random bits come from one `torch.Generator`
-on the device, seeded from the config. The `sample()` loop mirrors
+the next iteration's tensors. z lives in the scheme's block layout; the
+layout's `flat_index` (corpus token index of each slot, -1 on padding)
+translates it to and from the canonical token order. Random bits come from
+one `torch.Generator` on the device, seeded from the config. The `sample()` loop mirrors
 `UncollapsedParallelLDA.sample` (topics/UncollapsedParallelLDA.java:
 552-943): wall-clock budget, abort flag / abort file, and the likelihood /
 log-posterior series every `topic_interval` iterations.
@@ -35,6 +38,8 @@ from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
 from ldagroupedgibbssampler_tpu_torch.evaluation.likelihood import (
     log_posterior, model_log_likelihood)
 from ldagroupedgibbssampler_tpu_torch.models import randomscan
+from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
+from ldagroupedgibbssampler_tpu_torch.ops.counts import tokens_per_topic
 from ldagroupedgibbssampler_tpu_torch.utils.device import resolve_device
 
 
@@ -91,12 +96,17 @@ def _np(t) -> np.ndarray:
 
 class TorchLDASampler:
     """Base class for the port's schemes. Subclasses implement
-    `_prepare_device_data`, `_init_state`, `_step`, the recounts
-    `_count_nkw` / `_count_ndk` and the z layout accessors."""
+    `_prepare_device_data` (which sets the z layout: `_slot_mask`, the
+    validity of every z slot, and `_flat_index`, the corpus token index of
+    every slot), `_step` and the recounts `_count_nkw` / `_count_ndk`."""
 
     # Orientation of state.nkw / state.phi: "kv" = [K, V] (reference
     # orientation), "vk" = [V, K] (type-major, GGS).
     nkw_layout = "kv"
+    # Whether phi rows are drawn with beta smoothing (LDAPartiallyCollapsed
+    # GibbsSampler.java:95-118 fixes the unsmoothed draw flagged at
+    # UncollapsedParallelLDA.java:1313-1315).
+    smooth_phi = True
 
     def __init__(self, config: LDAConfig, logger=None):
         self.config = config
@@ -132,8 +142,38 @@ class TorchLDASampler:
     def _prepare_device_data(self, corpus: Corpus):
         raise NotImplementedError
 
+    def _nk(self, nkw: torch.Tensor) -> torch.Tensor:
+        return (tokens_per_topic(nkw) if self.nkw_layout == "kv"
+                else nkw.sum(dim=0, dtype=torch.int32))
+
     def _init_state(self) -> LDAState:
-        raise NotImplementedError
+        """Uniform z over the layout's real slots, counts rebuilt from it,
+        then the scheme's initial phi (and theta where it has one)."""
+        cfg = self.config
+        z = torch.randint(0, cfg.topics, self._slot_mask.shape,
+                          generator=self.generator, device=self.device,
+                          dtype=torch.int32)
+        z = torch.where(self._slot_mask, z, 0)
+        nkw = self._count_nkw(z)
+        ndk = self._count_ndk(z)
+        alpha = torch.full((cfg.topics,), cfg.alpha, dtype=torch.float32,
+                           device=self.device)
+        beta = float(cfg.beta)
+        phi = self._initial_phi(nkw, beta)
+        theta = self._initial_theta(ndk, alpha)
+        return LDAState(z=z, ndk=ndk, nkw=nkw, nk=self._nk(nkw), phi=phi,
+                        theta=theta, alpha=alpha, beta=beta, iteration=0)
+
+    def _initial_phi(self, nkw, beta):
+        """phi rows ~ Dir(n_k + beta), or Dir(n_k + 1e-3) for the
+        unsmoothed schemes ([K, V] orientation)."""
+        return rnd.dirichlet(nkw.to(torch.float32)
+                             + (beta if self.smooth_phi else 0.0)
+                             + (0.0 if self.smooth_phi else 1e-3),
+                             self.generator)
+
+    def _initial_theta(self, ndk, alpha):
+        return None   # only GGS carries theta in state
 
     def _step(self, state: LDAState, doc_mask: Optional[torch.Tensor]):
         """One iteration, updating `state` in place. `doc_mask = None` is
@@ -246,11 +286,60 @@ class TorchLDASampler:
 
     def get_z_indicators(self) -> np.ndarray:
         """Per-token topic assignments in flat corpus order."""
-        raise NotImplementedError
+        z = self.state.z.cpu().numpy().reshape(-1)
+        idx = self._flat_index
+        out = np.zeros(self.corpus.num_tokens, np.int32)
+        valid = idx >= 0
+        out[idx[valid]] = z[valid]
+        return out
 
     def _z_from_flat(self, z_flat: np.ndarray) -> np.ndarray:
         """Inverse of get_z_indicators: canonical order -> own layout."""
-        raise NotImplementedError
+        z_flat = np.asarray(z_flat, np.int32)
+        if z_flat.shape != (self.corpus.num_tokens,):
+            raise ValueError(f"z must hold one topic per token "
+                             f"({self.corpus.num_tokens}), got "
+                             f"{z_flat.shape}")
+        z = np.zeros(self._flat_index.shape, np.int32)
+        valid = self._flat_index >= 0
+        z[valid] = z_flat[self._flat_index[valid]]
+        return z.reshape(tuple(self._slot_mask.shape))
+
+    def set_z_indicators(self, z_flat):
+        """Rebuild counts from imported z and redraw phi through the
+        scheme's own initial draw (setZIndicators,
+        UncollapsedParallelLDA.java:1797-1843)."""
+        st = self.state
+        z = torch.as_tensor(self._z_from_flat(z_flat), device=self.device)
+        nkw = self._count_nkw(z)
+        st.z, st.nkw, st.ndk = z, nkw, self._count_ndk(z)
+        st.nk = self._nk(nkw)
+        st.phi = self._initial_phi(nkw, st.beta)
+
+    def swap_corpus_tokens(self, corpus: Corpus):
+        """Replace the training tokens with a same-shape corpus, keeping
+        the chain's latents: z carries over by canonical token index,
+        counts are rebuilt for the new tokens, and phi, theta and the
+        generator's state are preserved (set_z_indicators' phi redraw is
+        undone). The data-replication step of a Geweke ("getting it
+        right") chain, as the JAX package's `swap_corpus_tokens`."""
+        if self.corpus is None:
+            raise RuntimeError("call add_instances first")
+        if (corpus.num_docs, corpus.num_tokens, corpus.num_types) != (
+                self.corpus.num_docs, self.corpus.num_tokens,
+                self.corpus.num_types):
+            raise ValueError("swap_corpus_tokens needs a corpus of the "
+                             "same documents, tokens and types")
+        z = self.get_z_indicators()
+        st = self.state
+        phi, theta = st.phi, st.theta
+        rng_state = self.generator.get_state()
+        self.corpus = corpus
+        self._prepare_device_data(corpus)
+        self.set_z_indicators(z)
+        st.phi, st.theta = phi, theta
+        self.generator.set_state(rng_state)
+        return self
 
     def _count_nkw(self, z: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -310,9 +399,7 @@ class TorchLDASampler:
             if not torch.equal(recount, getattr(state, name)):
                 raise ValueError(f"checkpoint {name} does not match a "
                                  "recount of its z")
-        nk_axis = 0 if self.nkw_layout == "vk" else 1
-        if not torch.equal(state.nkw.sum(dim=nk_axis, dtype=torch.int32),
-                           state.nk):
+        if not torch.equal(self._nk(state.nkw), state.nk):
             raise ValueError("checkpoint nk does not match its nkw")
         return state
 

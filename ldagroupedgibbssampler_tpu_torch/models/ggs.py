@@ -58,6 +58,9 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
         self.wb = dev(blocks.w_local)          # sentinel vspan on pads
         self.dla = dev(blocks.d_local_a)       # sentinel dspan on pads
         self.mf = dev(blocks.mask.reshape(-1))
+        # z stays flat over the layout-A slots
+        self._slot_mask = self.mf
+        self._flat_index = blocks.flat_index.reshape(-1)
         self.winb = dev(blocks.win_w)
         self.firstb = dev(blocks.first_w)
         self.windc = dev(blocks.win_d_chunks)
@@ -84,29 +87,18 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
             num_labels=self.config.topics)
         return ndk[: self.corpus.num_docs]
 
-    def _init_state(self) -> LDAState:
-        cfg = self.config
-        z = torch.randint(0, cfg.topics, self.mf.shape,
-                          generator=self.generator, device=self.device,
-                          dtype=torch.int32)
-        z = torch.where(self.mf, z, 0)
-        nkw = self._count_nkw(z)
-        ndk = self._count_ndk(z)
-        alpha = torch.full((cfg.topics,), cfg.alpha, dtype=torch.float32,
-                           device=self.device)
-        beta = float(cfg.beta)
-        phi = self._sample_phi(nkw, beta)
-        theta = rnd.dirichlet(ndk.to(torch.float32) + alpha, self.generator)
-        return LDAState(z=z, ndk=ndk, nkw=nkw,
-                        nk=nkw.sum(dim=0, dtype=torch.int32), phi=phi,
-                        theta=theta, alpha=alpha, beta=beta, iteration=0)
-
     # ------------------------------------------------------------------
     def _sample_phi(self, nkw_vk, beta):
         """phi in [V, K] orientation: Gamma draw + column normalisation."""
         g = rnd.gamma(nkw_vk.to(torch.float32) + beta, self.generator)
         g = g.clamp_min(rnd.DIRICHLET_FLOOR)
         return g / g.sum(dim=0, keepdim=True)
+
+    def _initial_phi(self, nkw_vk, beta):
+        return self._sample_phi(nkw_vk, beta)
+
+    def _initial_theta(self, ndk, alpha):
+        return rnd.dirichlet(ndk.to(torch.float32) + alpha, self.generator)
 
     def _theta_update(self, state, doc_mask):
         theta_new = rnd.dirichlet(state.ndk.to(torch.float32) + state.alpha,
@@ -157,35 +149,6 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
             raise ValueError(f"phi must be [K, V] = "
                              f"{tuple(self.state.phi.T.shape)}")
         self.state.phi = phi.T.contiguous()
-
-    def get_z_indicators(self) -> np.ndarray:
-        z = self.state.z.cpu().numpy().reshape(-1)
-        idx = self._blocks.flat_index.reshape(-1)
-        out = np.zeros(self.corpus.num_tokens, np.int32)
-        valid = idx >= 0
-        out[idx[valid]] = z[valid]
-        return out
-
-    def _z_from_flat(self, z_flat: np.ndarray) -> np.ndarray:
-        z_flat = np.asarray(z_flat, np.int32)
-        if z_flat.shape != (self.corpus.num_tokens,):
-            raise ValueError(f"z must hold one topic per token "
-                             f"({self.corpus.num_tokens}), got "
-                             f"{z_flat.shape}")
-        z = np.zeros(self._blocks.flat_index.shape, np.int32)
-        valid = self._blocks.flat_index >= 0
-        z[valid] = z_flat[self._blocks.flat_index[valid]]
-        return z.reshape(-1)  # GGS keeps z flat over block slots
-
-    def set_z_indicators(self, z_flat):
-        """Rebuild counts from imported z and resample phi
-        (setZIndicators, UncollapsedParallelLDA.java:1797-1843)."""
-        st = self.state
-        z = torch.as_tensor(self._z_from_flat(z_flat), device=self.device)
-        nkw = self._count_nkw(z)
-        st.z, st.nkw, st.ndk = z, nkw, self._count_ndk(z)
-        st.nk = nkw.sum(dim=0, dtype=torch.int32)
-        st.phi = self._sample_phi(nkw, st.beta)
 
 
 class LDAGroupedGibbsSamplerTest(LDAGroupedGibbsSampler):

@@ -15,6 +15,19 @@ SCHEMES = {
             "LDA Grouped Gibbs Sampler. GGS by George and Doss (2025)."),
     "ggs_test": ("ggs", "LDAGroupedGibbsSamplerTest",
                  "Invalid GGS comparison variant (stale theta)."),
+    "pcgs": ("pcgs", "LDAPartiallyCollapsedGibbsSampler",
+             "Partially Collapsed Gibbs Sampler. PCGS by Magnusson et al. "
+             "(2018)."),
+    "uncollapsed": ("pcgs", "UncollapsedParallelLDA",
+                    "Uncollapsed Parallel LDA. PCGS by Magnusson et al. "
+                    "(2018)."),
+    "efficient_uncollapsed": ("pcgs", "EfficientUncollapsedParallelLDA",
+                              "EfficientUncollapsedParallelLDA Parallel "
+                              "LDA."),
+    "spalias": ("spalias", "SpaliasUncollapsedParallelLDA",
+                "SpaliasUncollapsed Parallel LDA."),
+    "polyaurn": ("polyaurn", "PolyaUrnSpaliasLDA",
+                 "PolyaUrnSpaliasLDA Parallel LDA."),
 }
 
 

@@ -1,3 +1,4 @@
-"""Device math: Gamma/Dirichlet draws (`random`) and the two CUDA kernels
-of the GGS path with their plain PyTorch versions (`cuda_counts`,
-`cuda_zdraw`)."""
+"""Device math: Gamma/Dirichlet/Poisson draws (`random`), count rebuilds
+(`counts`), Philox (`philox`) and the CUDA kernels with their plain PyTorch
+versions: the GGS path's `cuda_counts` and `cuda_zdraw`, the PCGS family's
+`cuda_pcgs`."""

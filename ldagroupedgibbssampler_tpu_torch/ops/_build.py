@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every `csrc/*.cu` of this package is compiled by `nvcc` for
-Hopper (`sm_90a`) into ONE shared library with a plain C interface:
+Hopper (`sm_90a`), one `nvcc` per source, all started together, and the
+objects are linked into ONE shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/libldakernels-<hash>.so \
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <obj>.o csrc/<name>.cu      (each source)
+    nvcc -shared -o build/torch_kernels/libldakernels-<hash>.so *.o
 
 The output lives under `build/torch_kernels/` at the repository root (listed
 in `.gitignore`), named by a hash of the sources and flags, so an edited
@@ -36,7 +37,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -52,6 +53,10 @@ _SIGNATURES = {
                       _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                       _c_i64, _c_int, _c_int, _c_int, _c_int, _c_int,
                       _c_int, _c_int, _c_int, _c_int, _c_ptr],
+    # pcgs.cu
+    "lda_pcgs_sweep": [_c_ptr] * 11 + [_c_int, _c_i64, _c_int, _c_int,
+                                       _c_int, _c_int, _c_int, _c_int,
+                                       _c_ptr],
 }
 
 
@@ -88,20 +93,30 @@ def build() -> tuple[Path, float]:
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+                 os.path.join(tmp, src.stem + ".o"), str(src)]
+                for src in _sources()]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [nvcc, "-shared", "-o", os.path.join(tmp, "lib.so"),
+                *(c[-2] for c in cmds)]
         log = out.with_suffix(".log")
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, out)     # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        text = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            text += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = ["link"]
+        log.write_text(text)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{text[-4000:]}")
+        # atomic: concurrent builders agree
+        os.replace(os.path.join(tmp, "lib.so"), out)
     return out, time.perf_counter() - t0
 
 

@@ -1,7 +1,8 @@
-"""Gamma and Dirichlet draws for the GGS theta/phi steps.
+"""Gamma, Dirichlet and Polya-Urn draws for the theta/phi steps.
 
 The port's copy of `ldagroupedgibbssampler_tpu/ops/random.py`
-(`_gamma_marsaglia`, `gamma`, `dirichlet`, `DIRICHLET_FLOOR`) in plain
+(`_gamma_marsaglia`, `gamma`, `dirichlet`, `DIRICHLET_FLOOR`,
+`polya_urn_dirichlet`) in plain
 PyTorch: a fixed-round vectorised Marsaglia-Tsang sampler, elementwise over
 the whole [D, K] or [V, K] concentration matrix, on whatever device the
 concentration lives on. The reference draws each coordinate with a scalar
@@ -71,3 +72,22 @@ def dirichlet(concentration, generator: torch.Generator) -> torch.Tensor:
     g = _gamma_marsaglia(torch.as_tensor(concentration), generator)
     g = g.clamp_min(DIRICHLET_FLOOR)
     return g / g.sum(dim=-1, keepdim=True)
+
+
+def polya_urn_dirichlet(counts, beta: float, generator: torch.Generator):
+    """Polya-Urn phi rows: normalised Poisson(beta + n) counts.
+
+    The port's copy of the JAX package's `polya_urn_dirichlet`, after
+    types/PolyaUrnDirichlet.java:23-48 (`nextDistributionWithSparseness`):
+    each coordinate draws c ~ Poisson(beta + n_kw), rows are normalised by
+    their total, and coordinates with c == 0 stay exactly zero. A row whose
+    draws are all zero falls back to uniform.
+
+    Returns (phi rows, zero mask marking the exact zeros).
+    """
+    lam = torch.as_tensor(counts).to(torch.float32) + beta
+    c = torch.poisson(lam, generator=generator)
+    total = c.sum(dim=-1, keepdim=True)
+    safe = torch.where(total > 0, c / total.clamp_min(1.0),
+                       1.0 / c.shape[-1])
+    return safe, c == 0

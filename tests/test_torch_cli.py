@@ -45,7 +45,32 @@ def test_cli_runs_ggs_on_cpu(tmp_path):
     assert len(top) == 3 and top[0].startswith("Topic 0: ")
 
 
-def test_cli_rejects_unported_scheme(tmp_path):
+def test_cli_runs_pcgs_on_cpu(tmp_path):
+    """A [K, V]-layout scheme writes the JAX driver's artifacts: topic
+    words from its counts, the likelihood series and phi.csv."""
     cfg = _write_run(tmp_path, scheme="pcgs", device="cpu")
+    with open(cfg, "a") as f:
+        f.write("save_phi = true\n")
+    parallel_lda.main([f"--run_cfg={cfg}"])
+    run = glob.glob(str(tmp_path / "runs" / "RunSuite*" / "Runone-*"))[0]
+    lls = [float(ln.split("\t")[1])
+           for ln in open(os.path.join(run, "likelihood.txt"))]
+    assert len(lls) == 2 and lls[1] > lls[0] - 50
+    top = open(os.path.join(run, "TopWords.txt")).read().splitlines()
+    assert len(top) == 3
+    # each topic's top words come from one theme
+    themes = ["cat lynx leopard tiger kitten paw",
+              "car engine wheel road drive fuel",
+              "tree leaf forest branch root pine"]
+    for line in top:
+        words = line.split(": ", 1)[1].split()[:4]
+        assert any(all(w in t.split() for w in words) for t in themes), line
+    phi = np.loadtxt(os.path.join(run, "phi.csv"), delimiter=",")
+    assert phi.shape == (3, 18)
+    np.testing.assert_allclose(phi.sum(axis=1), 1.0, atol=1e-4)
+
+
+def test_cli_rejects_unported_scheme(tmp_path):
+    cfg = _write_run(tmp_path, scheme="lightpclda", device="cpu")
     with pytest.raises(ValueError, match="ggs"):
         parallel_lda.main([f"--run_cfg={cfg}"])

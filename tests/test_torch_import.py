@@ -18,6 +18,9 @@ import sys
 sys.path.insert(0, sys.argv[1])
 import ldagroupedgibbssampler_tpu_torch
 import ldagroupedgibbssampler_tpu_torch.models.ggs
+import ldagroupedgibbssampler_tpu_torch.models.pcgs
+import ldagroupedgibbssampler_tpu_torch.models.polyaurn
+import ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs
 import ldagroupedgibbssampler_tpu_torch.tui.parallel_lda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -52,8 +55,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 def test_unknown_scheme_names_ported_ones():
     from ldagroupedgibbssampler_tpu_torch import create_model
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
-    with pytest.raises(ValueError, match="ggs_test"):
-        create_model(LDAConfig(scheme="pcgs", device="cpu"))
+    with pytest.raises(ValueError, match="ggs_test.*pcgs"):
+        create_model(LDAConfig(scheme="lightpclda", device="cpu"))
 
 
 def test_kernel_inventory_matches_perf_table():

@@ -57,3 +57,23 @@ def test_gamma_zero_shape_is_exact_zero():
     # the Dirichlet floors such coordinates instead of dividing by zero
     d = rnd.dirichlet(torch.tensor([[0.0, 0.0, 5.0]]), _gen(4))
     assert torch.isfinite(d).all() and d[0, 2] > 0.99
+
+
+def test_polya_urn_dirichlet_sparse_and_normalised():
+    """tests/test_random_ops.py::test_polya_urn_dirichlet_sparse_and_
+    normalised on the port: rows normalise, zero-count coordinates stay
+    exactly zero with probability e^-beta, and the zero mask marks them;
+    the nonzero coordinates have the Poisson(beta + n) mean."""
+    counts = torch.tensor([[100, 0, 5, 0, 0, 1, 0, 0, 0, 0]] * 4000,
+                          dtype=torch.float32)
+    probs, zero_mask = rnd.polya_urn_dirichlet(counts, 0.01, _gen(3))
+    np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert zero_mask[:, 1].float().mean() > 0.9
+    assert torch.equal(zero_mask, probs == 0)
+    # P(c = 0) = exp(-(beta + n)) for each coordinate
+    frac_zero = zero_mask.float().mean(0).numpy()
+    expect = np.exp(-(counts[0].numpy() + 0.01))
+    np.testing.assert_allclose(frac_zero, expect, atol=0.02)
+    # an all-zero row falls back to uniform
+    probs0, _ = rnd.polya_urn_dirichlet(torch.zeros(3, 5), 0.0, _gen())
+    np.testing.assert_allclose(probs0.numpy(), 0.2)

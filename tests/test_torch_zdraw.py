@@ -14,7 +14,8 @@ from ldagroupedgibbssampler_tpu.corpus.ragged import Corpus
 from ldagroupedgibbssampler_tpu.ops.pallas_zdraw import (
     fused_zdraw_nkw as jax_fused_zdraw_nkw)
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_zdraw import (
-    fused_zdraw_nkw, fused_zdraw_nkw_reference, philox4x32_10)
+    fused_zdraw_nkw, fused_zdraw_nkw_reference)
+from ldagroupedgibbssampler_tpu_torch.ops.philox import philox4x32_10
 
 
 def _inputs(c, z_flat, seed):
