@@ -16,15 +16,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      library yardstick where one exists, and its bound;
      The PCGS sweep kernel is held against its plain version on the
      resident layout at K=100 and the streamed layout at K=200, with
-     injected and Philox uniforms, exact zeros in phi, and a chi-square;
+     injected and Philox uniforms, exact zeros in phi, and a chi-square.
+     The LightLDA MH sweep kernel likewise (resident K=100, streamed
+     K=200), with a chi-square against the enumerated MH transition;
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
-     (ggs) and scheme pcgs at K=100, 30 iterations with the likelihood
-     every 10 (exact recounts, rising likelihood, tokens/s, a profile),
-     then pcgs at K=200 (streamed layout) and polyaurn at K=100, 10
-     iterations each;
+     (ggs), scheme pcgs and scheme lightpclda at K=100, 30 iterations with
+     the likelihood every 10 (exact recounts, rising likelihood, tokens/s,
+     a profile), then pcgs at K=200 (streamed layout), polyaurn at K=100,
+     lightpcldaw2 and lightcollapsed at K=100 and lightpclda at K=200
+     (streamed), 10 iterations each;
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
-     cuda, with a ggs and a pcgs section.
+     cuda, with a ggs, a pcgs and a lightpclda section.
 Then one JSON line describing every kernel, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -406,6 +409,312 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
     return launches
 
 
+def mh_oracle(torch, z0, nd, tw_w, qw_w):
+    """A copy of tests/test_pallas_lightlda.py::_mh_oracle (inner loop
+    vectorised): the exact distribution of z after one two-step MH
+    transition from z0 with fixed nd (= n^{-i} + alpha), word target
+    column tw_w and proposal column qw_w (float64 arrays). The doc proposal
+    draws from ndq = bf16(nd) and its acceptance uses ndq for the proposal
+    ratio and nd for the target, as the kernel does."""
+    k = len(nd)
+    ndq = torch.tensor(nd, dtype=torch.float32).to(torch.bfloat16)
+    ndq = ndq.double().numpy()
+    q1 = qw_w / qw_w.sum()
+    qd = ndq / ndq.sum()
+    a1 = np.minimum(1.0, (nd * tw_w * qw_w[z0]) / (nd[z0] * tw_w[z0] * qw_w))
+    p1 = q1 * a1                         # distribution of z1
+    p1[z0] += float((q1 * (1 - a1)).sum())
+    p2 = np.zeros(k)
+    for z1 in range(k):
+        if p1[z1] == 0:
+            continue
+        a2 = np.minimum(1.0, (nd * tw_w * ndq[z1])
+                        / (nd[z1] * tw_w[z1] * ndq))
+        p2 += p1[z1] * qd * a2
+        p2[z1] += p1[z1] * float((qd * (1 - a2)).sum())
+    return p2
+
+
+def one_token_sweep_operands(torch, cuda_lightlda, fn, alpha, tw, qw, seed,
+                             n, block, chunk=128):
+    """Positional operands (up to the optional u24) and keywords of an MH
+    sweep through the wrapper `fn` over `n` one-token documents of one
+    type, every document selected and its token on topic 0; n is a
+    multiple of `block`."""
+    from ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs import (FLAG_ROWS,
+                                                                kpad_of)
+    dev = seed.device
+    k = alpha.numel()
+    nb, chunks = n // block, block // chunk
+    zero3 = torch.zeros((nb, chunks, chunk), dtype=torch.int32, device=dev)
+    kpad = kpad_of(k)
+    table = torch.zeros((kpad + FLAG_ROWS, n), device=dev)
+    table[:k] = alpha[:, None]
+    table[0] += 1.0                   # every token sits on topic 0
+    table[kpad] = 1.0
+    zeros = torch.zeros(nb * chunks, dtype=torch.int32, device=dev)
+    if fn is cuda_lightlda.fused_lightlda_sweep:
+        wins = (torch.zeros(nb, dtype=torch.int32, device=dev),
+                torch.ones(nb, dtype=torch.int32, device=dev), zeros)
+    else:
+        wins = (zeros, zeros)
+    args = (zero3, zero3, zero3, table, tw, qw, seed, *wins,
+            torch.arange(n + 1, dtype=torch.int32, device=dev),
+            torch.arange(n, dtype=torch.int32, device=dev))
+    return args, dict(nwin_w=1, nwin_d=1, vspan=128, dspan=128,
+                      num_topics=k)
+
+
+def lightlda_chi_square(torch, cuda_lightlda, fn, gen, seed, k, n=200_704,
+                        block=4096):
+    """Chi-square of `n` Philox draws of one-token documents of one type
+    through the MH sweep wrapper `fn` against the enumerated two-step MH
+    transition (mh_oracle), with a random alpha row (not bf16-exact) and
+    random target and proposal columns. Returns (chi2, p-value)."""
+    from scipy import stats as sps
+    dev = seed.device
+    alpha = torch.rand(k, generator=gen, device=dev) + 0.05
+    check(bool((alpha.to(torch.bfloat16).float() != alpha).any()),
+          "chi-square alpha row is bf16-exact")
+    tw = (torch.rand((1, k), generator=gen, device=dev) + 0.05).contiguous()
+    qw = (torch.rand((1, k), generator=gen, device=dev) + 0.05).contiguous()
+    args, kw = one_token_sweep_operands(torch, cuda_lightlda, fn, alpha, tw,
+                                        qw, seed, n, block)
+    z, _, _ = fn(*args, **kw)
+    nd = args[3][:k, 0].clone()
+    nd[0] -= 1.0                      # own token out, in f32
+    bf = torch.bfloat16
+    p = mh_oracle(torch, 0, nd.double().cpu().numpy(),
+                  tw[0].to(bf).double().cpu().numpy(),
+                  qw[0].to(bf).double().cpu().numpy())
+    obs = np.bincount(z.cpu().numpy().reshape(-1), minlength=k)
+    exp = p * obs.sum()
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    return chi2, float(sps.chi2.sf(chi2, k - 1))
+
+
+def lightlda_boundaries(torch, cuda_lightlda, fn, plain, seed, block=4096,
+                        chunk=128):
+    """Both MH acceptance tests at their boundaries, kernel against plain
+    version (tests/test_torch_lightlda_kernel.py holds the plain version
+    to the interpreted Pallas kernel on the same inputs): one-token
+    documents, K=2, non-bf16-exact alpha and tables, both draws pinned to
+    topic 1 and the accept uniform swept across the threshold, for step 1
+    (group A) and step 2 (group B). Returns the tokens per group."""
+    dev = seed.device
+    alpha = torch.tensor([0.3, 0.7], device=dev)
+    tw = torch.tensor([[0.4, 0.2]], device=dev)
+    qw = torch.tensor([[0.3, 0.5]], device=dev)
+    nd = (alpha + torch.tensor([1.0, 0.0], device=dev)
+          - torch.tensor([1.0, 0.0], device=dev)).double()
+    bf = torch.bfloat16
+    twq, qwq = tw[0].to(bf).double(), qw[0].to(bf).double()
+    ndq = nd.float().to(bf).double()
+    t1 = float((nd[1] * twq[1] * qwq[0]) / (nd[0] * twq[0] * qwq[1]))
+    t2 = float((nd[1] * twq[1] * ndq[0]) / (nd[0] * twq[0] * ndq[1]))
+    check(t1 < 1 and t2 < 1, f"boundary thresholds {t1}, {t2}")
+    groups = []
+    for t in (t1, t2):
+        c = int(t * 2 ** 24)
+        groups.append(np.concatenate([
+            np.arange(c - 16, c + 17),
+            np.linspace(c * 0.995, c * 1.005, 1000).astype(np.int64)]))
+    top = 2 ** 24 - 1
+    a, b = groups
+    words = np.concatenate([
+        np.stack([np.full_like(a, top), a, np.full_like(a, top),
+                  np.full_like(a, top)], 1),
+        np.stack([np.full_like(b, top), np.full_like(b, top),
+                  np.full_like(b, top), b], 1)])
+    n = -(-len(words) // block) * block
+    words = np.concatenate([words, np.full((n - len(words), 4), top)])
+    nb, chunks = n // block, block // chunk
+    u24 = torch.as_tensor(words.reshape(nb, chunks, chunk, 4)
+                          .transpose(0, 1, 3, 2)
+                          .reshape(nb, 4 * chunks, chunk)
+                          .astype(np.int32), device=dev)
+    args, kw = one_token_sweep_operands(torch, cuda_lightlda, fn, alpha, tw,
+                                        qw, seed, n, block, chunk)
+    z = fn(*args, u24, **kw)[0].reshape(-1)
+    zr = plain(*args, u24, **kw)[0].reshape(-1)
+    torch.cuda.synchronize()
+    check(torch.equal(z, zr), f"acceptance boundaries: kernel and plain "
+          f"version differ on {int((z != zr).sum())} tokens")
+    for lo, hi in ((0, len(a)), (len(a), len(a) + len(b))):
+        moved = int(z[lo:hi].sum())
+        check(0 < moved < hi - lo, f"boundary group {lo}:{hi} is one-sided "
+              f"({moved} of {hi - lo} accepted)")
+    return len(a), len(b)
+
+
+def lightlda_kernel_phase(torch, corpus, LDAConfig, create_model,
+                          cuda_lightlda):
+    """[3 lightlda]: the MH sweep kernel against its plain version at the
+    20NG shapes, on the resident layout at K=100 (row 5) and the streamed
+    one at K=200 (row 6), with operands built by a `lightpclda` model as
+    its main path builds them and a proposal table that differs from the
+    target (N_kw + beta, as `lightpcldaw2`). Returns one `kernels` entry
+    per layout (launches filled in later)."""
+    plain_of = {
+        cuda_lightlda.fused_lightlda_sweep:
+            cuda_lightlda.fused_lightlda_sweep_reference,
+        cuda_lightlda.fused_lightlda_sweep_streamed:
+            cuda_lightlda.fused_lightlda_sweep_streamed_reference}
+    entries = []
+    for k, layout in PCGS_LAYOUTS:
+        t0 = time.perf_counter()
+        model = create_model(pcgs_config(LDAConfig, "lightpclda", k))
+        model.add_instances(corpus)
+        setup_s = time.perf_counter() - t0
+        check(model._mode == layout,
+              f"lightlda K={k}: layout {model._mode}, expected {layout}")
+        dev, st = model.device, model.state
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(k + 1)
+        real = model._slot_mask
+        doc_sel = (torch.arange(D, device=dev) % 5) != 0
+        table = model._ndk_table(st.ndk, st.alpha, doc_sel)
+        tw = st.phi.T.contiguous()
+        qw = (st.nkw.T.to(torch.float32) + st.beta).contiguous()
+        seed = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64,
+                            device=dev)
+        nb, chunks, chunk = st.z.shape
+        u24 = torch.randint(0, 2 ** 24, (nb, 4 * chunks, chunk),
+                            generator=gen, device=dev, dtype=torch.int32)
+        agreement = {}
+        for label, u in (("u24", u24), ("philox", None)):
+            fn, args, kw = model._sweep_call(st.z, table, tw, seed, u,
+                                             proposal_vk=qw)
+            zk, nkw_k, tb_k = fn(*args, **kw)
+            zr, nkw_r, _ = plain_of[fn](*args, **kw)
+            torch.cuda.synchronize()
+            agree = float((zk == zr)[real].float().mean())
+            agreement[label] = agree
+            check(agree >= 0.999, f"lightlda K={k} ({label}): only "
+                  f"{agree:.6f} of tokens agree with the plain version")
+            check_sweep_outputs(torch, model, f"lightlda K={k} ({label})",
+                                st.z, zk, nkw_k, tb_k, doc_sel)
+            if label == "philox":
+                err = int((nkw_k - nkw_r).abs().max())
+        chi2, pval = lightlda_chi_square(torch, cuda_lightlda, fn, gen,
+                                         seed, k)
+        check(pval > 1e-4, f"lightlda K={k} chi-square p={pval:.2e}")
+        n_a, n_b = lightlda_boundaries(torch, cuda_lightlda, fn,
+                                       plain_of[fn], seed)
+        fn, args, kw = model._sweep_call(st.z, table, tw, seed,
+                                         proposal_vk=qw)
+        ms = time_ms(torch, lambda: fn(*args, **kw))
+        plain_ms = time_ms(torch, lambda: plain_of[fn](*args, **kw),
+                           reps=3, calls=1)
+        slots, n = st.z.numel(), corpus.num_tokens
+        b = model._sblocks
+        # w, z_old and z per slot, the slot lists, two bf16 [V, K] tables,
+        # the table read and written, N_kw written
+        nbytes = (4 * 3 * slots + 4 * args[7].numel() + 4 * (D + 1)
+                  + 4 * n + 2 * 2 * V * k + 8 + 2 * 4 * table.numel()
+                  + 4 * b.nwin_w * model._vspan * k)
+        # two prefix sums and two compares over K per token
+        bound_ms, bound_by = bound(nbytes, 4.0 * n * k)
+        print(f"[3 lightlda] K={k} {layout} layout (vspan {model._vspan}, "
+              f"{slots} slots for {n} tokens, model set up in "
+              f"{setup_s:.1f} s): z agreement {json.dumps(agreement)}; "
+              f"N_kw, n_dk, flags and kept z exact; chi2={chi2:.1f} "
+              f"(df {k - 1}, p={pval:.3g}, 200,704 one-token documents, "
+              f"non-bf16-exact alpha); acceptance boundaries exact on "
+              f"{n_a} + {n_b} tokens; {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}); max |N_kw - "
+              f"plain| {err}", flush=True)
+        entries.append(
+            {"name": fn.__name__, "route": "cuda",
+             "source": "ldagroupedgibbssampler_tpu_torch/csrc/lightlda.cu",
+             "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_lightlda.py:"
+                         + ("67" if layout == "resident" else "275"),
+             "launches": 0, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None})
+        del model, st, table, tw, qw, u24, zk, zr, tb_k, nkw_k
+        torch.cuda.empty_cache()
+    return entries
+
+
+def lightlda_main_path(torch, corpus, LDAConfig, create_model, cuda_lightlda,
+                       smi):
+    """[4 lightpclda main path]: scheme lightpclda K=100 (resident layout)
+    for ITERS iterations with a profile, then lightpcldaw2 K=100,
+    lightcollapsed K=100 and lightpclda K=200 (streamed layout) for 10
+    iterations each, each with its launch counts set to 0 just before it
+    and read just after. Returns the launches of each wrapper in its own
+    run."""
+    res = cuda_lightlda.fused_lightlda_sweep
+    stm = cuda_lightlda.fused_lightlda_sweep_streamed
+    launches = {}
+
+    res.launches = stm.launches = 0
+    model = create_model(pcgs_config(LDAConfig, "lightpclda", 100))
+    model.add_instances(corpus)
+    check(model._mode == "resident", f"lightpclda: layout {model._mode}")
+    ll0 = model.model_log_likelihood()
+    model.sample(10)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    model.sample(ITERS - 10)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    launches[res.__name__] = res.launches
+    check(res.launches == ITERS and stm.launches == 0,
+          f"lightpclda: sweep launches (resident, streamed) = "
+          f"{(res.launches, stm.launches)}")
+    check_counts_exact(model, corpus, "lightpclda")
+    lls = dict(model.get_log_likelihoods())
+    check(lls[30] > lls[10] > ll0, f"lightpclda LL did not rise: init "
+          f"{ll0}, {lls}")
+    n = corpus.num_tokens
+    print(f"[4 lightpclda main path] lightpclda K=100 resident on "
+          f"{torch.cuda.get_device_name(0)} ({smi}): launches "
+          f"{launches[res.__name__]}; counts exact; LL init {ll0:.1f} -> "
+          f"it10 {lls[10]:.1f} -> it30 {lls[30]:.1f}; "
+          f"{n * (ITERS - 10) / (t_b - t_a):.0f} tokens/s over iterations "
+          f"11-30 ({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} ms/iteration, "
+          "host clock, LL at 20 and 30 included)", flush=True)
+    print(f"[4 lightpclda profile] {profile_iterations(torch, model, 5)}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    for scheme, k, layout in (("lightpcldaw2", 100, "resident"),
+                              ("lightcollapsed", 100, "resident"),
+                              ("lightpclda", 200, "streamed")):
+        res.launches = stm.launches = 0
+        model = create_model(pcgs_config(LDAConfig, scheme, k))
+        model.add_instances(corpus)
+        check(model._mode == layout, f"{scheme} K={k}: layout "
+              f"{model._mode}")
+        ll0 = model.model_log_likelihood()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample(10)
+        t1 = time.perf_counter()
+        wrapper = stm if layout == "streamed" else res
+        other = res if layout == "streamed" else stm
+        if layout == "streamed":
+            launches[stm.__name__] = stm.launches
+        check(wrapper.launches == 10 and other.launches == 0,
+              f"{scheme} K={k}: sweep launches {wrapper.launches}, other "
+              f"layout {other.launches}")
+        check_counts_exact(model, corpus, f"{scheme} K={k}")
+        lls = dict(model.get_log_likelihoods())
+        check(lls[10] > ll0, f"{scheme} K={k}: LL did not rise: init "
+              f"{ll0}, {lls}")
+        print(f"[4 {scheme} K={k}] {layout} layout (vspan {model._vspan}): "
+              f"launches {wrapper.launches}; counts exact; LL init "
+              f"{ll0:.1f} -> it10 {lls[10]:.1f}; "
+              f"{(t1 - t0) / 10 * 1e3:.3f} ms/iteration (host clock, LL "
+              "at 10 included)", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -418,8 +727,9 @@ def main() -> int:
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
     from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
     from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
-    from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts, cuda_pcgs,
-                                                      cuda_zdraw)
+    from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts,
+                                                      cuda_lightlda,
+                                                      cuda_pcgs, cuda_zdraw)
     from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
     from ldagroupedgibbssampler_tpu_torch.tui import parallel_lda
 
@@ -613,6 +923,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     pcgs_entries = pcgs_kernel_phase(torch, corpus, LDAConfig, create_model,
                                      cuda_pcgs)
+    lightlda_entries = lightlda_kernel_phase(torch, corpus, LDAConfig,
+                                             create_model, cuda_lightlda)
 
     # ---- 4. main path: the library entry point -------------------------
     cuda_counts.blocked_label_counts.launches = 0
@@ -650,6 +962,10 @@ def main() -> int:
                                    cuda_pcgs, smi)
     for entry in pcgs_entries:
         entry["launches"] = pcgs_launches[entry["name"]]
+    lightlda_launches = lightlda_main_path(torch, corpus, LDAConfig,
+                                           create_model, cuda_lightlda, smi)
+    for entry in lightlda_entries:
+        entry["launches"] = lightlda_launches[entry["name"]]
 
     # ---- 5. the experiment CLI ------------------------------------------
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -666,27 +982,33 @@ def main() -> int:
                       for _ in range(4)]
             f.write(f"docno:{d}\tL{d % 3}\t{' '.join(words)}\n")
     with open(os.path.join(work, "run.cfg"), "w") as f:
-        f.write(f"configs = ggs, pcgs\nno_runs = 1\n"
+        f.write(f"configs = ggs, pcgs, lightpclda\nno_runs = 1\n"
                 f"experiment_out_dir = {work}/runs\nexec_time = 300\n"
                 f"iterations = {ITERS}\ntopics = 3\nalpha = 1\n"
                 f"beta = 0.01\ndataset = {work}/docs.txt\n"
                 f"rare_threshold = 0\nseed = 2019\ntopic_interval = 10\n"
                 f"start_diagnostic = 1\nstoplist =\ndevice = cuda\n\n"
                 f"[ggs]\nscheme = ggs\n\n"
-                f"[pcgs]\nscheme = pcgs\nsave_phi = true\n")
+                f"[pcgs]\nscheme = pcgs\nsave_phi = true\n\n"
+                f"[lightpclda]\nscheme = lightpclda\n")
     cuda_counts.blocked_label_counts.launches = 0
     cuda_zdraw.fused_zdraw_nkw.launches = 0
     cuda_pcgs.fused_pcgs_sweep.launches = 0
     cuda_pcgs.fused_pcgs_sweep_streamed.launches = 0
+    cuda_lightlda.fused_lightlda_sweep.launches = 0
+    cuda_lightlda.fused_lightlda_sweep_streamed.launches = 0
     parallel_lda.main([f"--run_cfg={work}/run.cfg"])
     cli_launches = (cuda_zdraw.fused_zdraw_nkw.launches,
                     cuda_counts.blocked_label_counts.launches,
-                    cuda_pcgs.fused_pcgs_sweep.launches)
+                    cuda_pcgs.fused_pcgs_sweep.launches,
+                    cuda_lightlda.fused_lightlda_sweep.launches)
     check(cli_launches[0] == ITERS and cli_launches[1] >= ITERS
-          and cli_launches[2] == ITERS,
-          f"CLI run launches (zdraw, counts, pcgs) = {cli_launches}")
+          and cli_launches[2] == ITERS and cli_launches[3] == ITERS,
+          f"CLI run launches (zdraw, counts, pcgs, lightlda) = "
+          f"{cli_launches}")
     ll_cli = {}
-    for name, files in (("ggs", ()), ("pcgs", ("phi.csv",))):
+    for name, files in (("ggs", ()), ("pcgs", ("phi.csv",)),
+                        ("lightpclda", ())):
         run_dir = glob.glob(os.path.join(work, "runs", "RunSuite*",
                                          f"Run{name}-*"))
         check(len(run_dir) == 1, f"CLI run directories: {run_dir}")
@@ -699,9 +1021,9 @@ def main() -> int:
         check(len(lls) == 3 and lls[-1] > lls[0],
               f"CLI {name} LL did not rise: {lls}")
         ll_cli[name] = lls
-    print(f"[5 cli] parallel_lda on cuda, sections ggs and pcgs: launches "
-          f"(zdraw, counts, pcgs) {cli_launches}; LL {json.dumps(ll_cli)}",
-          flush=True)
+    print(f"[5 cli] parallel_lda on cuda, sections ggs, pcgs and "
+          f"lightpclda: launches (zdraw, counts, pcgs, lightlda) "
+          f"{cli_launches}; LL {json.dumps(ll_cli)}", flush=True)
 
     kernels = [
         {"name": "blocked_label_counts", "route": "cuda",
@@ -719,6 +1041,7 @@ def main() -> int:
          "bound_ms": zdraw_bound, "bound_by": zdraw_by,
          "library_ms": None},
         *pcgs_entries,
+        *lightlda_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,9 +8,10 @@ neither JAX nor the reference package; the host-side modules it needs are
 its own copies.
 
 Ported so far: schemes `ggs` (and its invalid comparison variant
-`ggs_test`), `pcgs`, `uncollapsed`, `efficient_uncollapsed`, `spalias` and
-`polyaurn` end to end, through `create_model(cfg)` and the experiment
-driver `python -m ldagroupedgibbssampler_tpu_torch.tui.parallel_lda`.
+`ggs_test`), `pcgs`, `uncollapsed`, `efficient_uncollapsed`, `spalias`,
+`polyaurn`, `lightpclda`, `lightpcldaw2` and `lightcollapsed` end to end,
+through `create_model(cfg)` and the experiment runner
+`python -m ldagroupedgibbssampler_tpu_torch.tui.parallel_lda`.
 Entry points run on `cuda` unless the config asks for `device = cpu`.
 """
 

@@ -17,10 +17,10 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Philox4x32-10 (Salmon et al., SC'11): first output word of the block at
-// counter (ctr_lo, ctr_hi, 0, 0) under key (seed_lo, seed_hi).
-__device__ __forceinline__ unsigned philox_word0(unsigned long long seed,
-                                                 unsigned long long ctr) {
+// Philox4x32-10 (Salmon et al., SC'11): the four output words of the block
+// at counter (ctr_lo, ctr_hi, 0, 0) under key (seed_lo, seed_hi).
+__device__ __forceinline__ uint4 philox4(unsigned long long seed,
+                                         unsigned long long ctr) {
   unsigned c0 = static_cast<unsigned>(ctr);
   unsigned c1 = static_cast<unsigned>(ctr >> 32);
   unsigned c2 = 0u, c3 = 0u;
@@ -41,7 +41,13 @@ __device__ __forceinline__ unsigned philox_word0(unsigned long long seed,
     c2 = hi0 ^ c3 ^ k1;
     c3 = lo0;
   }
-  return c0;
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// The first of those words (the compiler drops the other three).
+__device__ __forceinline__ unsigned philox_word0(unsigned long long seed,
+                                                 unsigned long long ctr) {
+  return philox4(seed, ctr).x;
 }
 
 // The 24-bit uniform of a slot: the injected value when the caller passed

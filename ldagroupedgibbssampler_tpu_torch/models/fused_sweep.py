@@ -1,13 +1,14 @@
-"""Shared machinery of the samplers whose z-step is the PCGS conditional
-(n_dk + alpha_k) * phi[k][w] with immediate n_dk updates
-(UncollapsedParallelLDA.java:1509-1513): the PCGS family (models/pcgs.py,
-spalias, polyaurn).
+"""Shared machinery of the samplers whose z-step is a document-sequential
+sweep with immediate n_dk updates: the PCGS conditional (n_dk + alpha_k) *
+phi[k][w] (UncollapsedParallelLDA.java:1509-1513; the PCGS family of
+models/pcgs.py, spalias, polyaurn) and the LightLDA MH steps
+(models/lightlda.py).
 
 The port's counterpart of `ldagroupedgibbssampler_tpu/models/fused_sweep.py`.
-The sweep is the CUDA kernel of `ops/cuda_pcgs.py` (the plain version on a
-CPU device) over sequential-safe blocks, the resident layout
-(`corpus/ragged.py::build_cell_blocks_seq`) or the streamed one
-(`build_stream_blocks`); z lives in that block layout. The JAX package's
+The sweep is the CUDA kernel of `ops/cuda_pcgs.py` or `ops/cuda_lightlda.py`
+(the plain version on a CPU device) over sequential-safe blocks, the
+resident layout (`corpus/ragged.py::build_cell_blocks_seq`) or the streamed
+one (`build_stream_blocks`); z lives in that block layout. The JAX package's
 XLA doc-sequential sweep is its off-TPU fallback; the port has no such
 fallback: every configuration runs the kernel.
 
@@ -25,6 +26,8 @@ from ldagroupedgibbssampler_tpu_torch.corpus.ragged import (
     build_stream_blocks, doc_visit_order)
 from ldagroupedgibbssampler_tpu_torch.ops.counts import (
     doc_topic_counts, topic_word_counts)
+from ldagroupedgibbssampler_tpu_torch.ops.cuda_lightlda import (
+    fused_lightlda_sweep, fused_lightlda_sweep_streamed)
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs import (
     FLAG_ROWS, fused_pcgs_sweep, fused_pcgs_sweep_streamed, kpad_of)
 
@@ -91,6 +94,11 @@ class FusedPCGSSweepMixin:
     # of the last nonzero topic. Must stay False for zero-support phi
     # (Polya-Urn).
     fused_positive_support = False
+    # word tables the JAX package's streamed kernel buffers: 1 for the PCGS
+    # sweep (phi), 2 for the LightLDA sweep (target + proposal). As in the
+    # JAX package, 2 narrows the streamed vspan and lifts the K-tiled
+    # block cap
+    _streamed_word_tables = 1
 
     # -- layout choice (the JAX package's gate) ---------------------------
     def _kpad(self) -> int:
@@ -98,9 +106,11 @@ class FusedPCGSSweepMixin:
 
     def _streamed_block(self) -> int:
         """Token block of the streamed layout: capped at 1024 where the
-        JAX package's K-tiled body engages (kpad >= KTILE_MIN)."""
+        JAX package's K-tiled body engages (kpad >= KTILE_MIN, one word
+        table: the MH kernel is untiled at every K)."""
         blk = self.config.token_block
-        return min(blk, 1024) if self._kpad() >= KTILE_MIN else blk
+        tiled = self._kpad() >= KTILE_MIN and self._streamed_word_tables == 1
+        return min(blk, 1024) if tiled else blk
 
     def _streamed_vspan(self) -> int:
         """Largest vspan (the config's, halved down to 128) whose streamed
@@ -109,7 +119,8 @@ class FusedPCGSSweepMixin:
         while vspan >= 128:
             need = fused_pcgs_streamed_vmem_bytes(
                 self.config.topics, vspan, _SEQ_DSPAN,
-                self._streamed_block())
+                self._streamed_block(),
+                num_word_tables=self._streamed_word_tables)
             if need <= _STREAMED_VMEM_BUDGET:
                 return vspan
             if vspan == 128:
@@ -119,8 +130,9 @@ class FusedPCGSSweepMixin:
 
     def _fused_mode(self) -> str:
         """"resident" | "streamed". Where the JAX package falls back to its
-        XLA sweep (no streamed vspan fits, kpad beyond ~4096), the port
-        takes the streamed layout at vspan 128."""
+        XLA sweep (no streamed vspan fits: kpad beyond ~4096 for the PCGS
+        sweep, ~2000 for the MH sweep), the port takes the streamed layout
+        at vspan 128."""
         fits = fused_pcgs_vmem_bytes(self.corpus.num_docs,
                                      self.config.topics, _SEQ_DSPAN,
                                      vspan=self.config.vocab_span) \
@@ -204,31 +216,44 @@ class FusedPCGSSweepMixin:
             - alpha[None, :]).to(torch.int32)
         return ndk, nkw
 
-    def _sweep_call(self, z_blocks, table, word_vk, seed, u24=None):
+    def _sweep_call(self, z_blocks, table, word_vk, seed, u24=None,
+                    proposal_vk=None):
         """The sweep wrapper of this model's layout with its positional
-        operands and keywords: `fn(*args, **kw)` runs one sweep."""
+        operands and keywords: `fn(*args, **kw)` runs one sweep. With a
+        `proposal_vk` it is the LightLDA MH sweep (`word_vk` its target
+        table), else the PCGS sweep."""
         b = self._sblocks
         kw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=self._vspan,
-                  dspan=_SEQ_DSPAN, num_topics=self.config.topics,
-                  positive_support=self.fused_positive_support)
+                  dspan=_SEQ_DSPAN, num_topics=self.config.topics)
+        if proposal_vk is None:
+            kw["positive_support"] = self.fused_positive_support
+            words = (word_vk,)
+            resident, streamed = fused_pcgs_sweep, fused_pcgs_sweep_streamed
+        else:
+            words = (word_vk, proposal_vk)
+            resident, streamed = (fused_lightlda_sweep,
+                                  fused_lightlda_sweep_streamed)
         if self._mode == "streamed":
-            return (fused_pcgs_sweep_streamed,
-                    (self.swb, self.sdla, z_blocks, table, word_vk, seed,
+            return (streamed,
+                    (self.swb, self.sdla, z_blocks, table, *words, seed,
                      self.swwc, self.swindc, self.doc_slot_offsets,
                      self.doc_slots, u24), kw)
-        return (fused_pcgs_sweep,
-                (self.swb, self.sdla, z_blocks, table, word_vk, seed,
+        return (resident,
+                (self.swb, self.sdla, z_blocks, table, *words, seed,
                  self.swinb, self.sfirstb, self.swindc,
                  self.doc_slot_offsets, self.doc_slots, u24), kw)
 
-    def _fused_zsweep(self, z_blocks, ndk, alpha, word_vk, doc_mask):
+    def _fused_zsweep(self, z_blocks, ndk, alpha, word_vk, doc_mask,
+                      proposal_vk=None):
         """One sweep. Returns (z_blocks', ndk' int32 [D, K], nkw' int32
         [K, V]): n_dk rides the kernel's table and N_kw is counted in the
-        kernel, so no recount is needed. `word_vk` is phi as [V, K]."""
+        kernel, so no recount is needed. `word_vk` is phi as [V, K], or
+        with `proposal_vk` the MH sweep's word target (both [V, K])."""
         seed = torch.randint(0, 2 ** 62, (1,), generator=self.generator,
                              device=self.device, dtype=torch.int64)
         table = self._ndk_table(ndk, alpha, doc_mask)
-        fn, args, kw = self._sweep_call(z_blocks, table, word_vk, seed)
+        fn, args, kw = self._sweep_call(z_blocks, table, word_vk, seed,
+                                        proposal_vk=proposal_vk)
         z, nkw_vk, table_out = fn(*args, **kw)
         ndk_out, nkw = self._fused_extract(nkw_vk, table_out, alpha)
         return z, ndk_out, nkw

@@ -28,6 +28,11 @@ SCHEMES = {
                 "SpaliasUncollapsed Parallel LDA."),
     "polyaurn": ("polyaurn", "PolyaUrnSpaliasLDA",
                  "PolyaUrnSpaliasLDA Parallel LDA."),
+    "lightpclda": ("lightlda", "LightPCLDA", "Light PC LDA."),
+    "lightpcldaw2": ("lightlda", "LightPCLDAtypeTopicProposal",
+                     "Light PC LDA with proposal 2."),
+    "lightcollapsed": ("lightlda", "CollapsedLightLDA",
+                       "CollapsedLightLDA Parallel LDA."),
 }
 
 

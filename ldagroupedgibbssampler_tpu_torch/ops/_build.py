@@ -57,6 +57,10 @@ _SIGNATURES = {
     "lda_pcgs_sweep": [_c_ptr] * 11 + [_c_int, _c_i64, _c_int, _c_int,
                                        _c_int, _c_int, _c_int, _c_int,
                                        _c_ptr],
+    # lightlda.cu
+    "lda_lightlda_sweep": [_c_ptr] * 12 + [_c_int, _c_i64, _c_int, _c_int,
+                                           _c_int, _c_int, _c_int, _c_int,
+                                           _c_int, _c_ptr],
 }
 
 

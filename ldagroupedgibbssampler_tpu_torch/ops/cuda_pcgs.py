@@ -56,6 +56,32 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def cdf_draw(probs, u24, kpad, lastnz=None):
+    """The sweeps' inverse-CDF draw, rounded as the kernels round
+    (`pallas_pcgs.py::cdf_draw`): f32 prefix sums inside 128-topic tiles of
+    probs f32 [n, K] padded with zeros to kpad, running tile offsets,
+    u = float(u24) * 2^-24 * total, k = sum_t #{cdf <= u - off_t} clamped
+    to the last topic with probs > 0 (to `lastnz` when given). Returns
+    (k int64 [n], total f32 [n])."""
+    n, K = probs.shape
+    ntile = kpad // 128
+    padded = torch.zeros((n, kpad), dtype=torch.float32, device=probs.device)
+    padded[:, :K] = probs
+    cdf = padded.view(n, ntile, 128).cumsum(dim=2)       # tile-local cdfs
+    total = torch.zeros(n, dtype=torch.float32, device=probs.device)
+    offs = []
+    for tt in range(ntile):
+        offs.append(total)
+        total = total + cdf[:, tt, 127]
+    u = u24.to(torch.float32) * (2.0 ** -24) * total
+    cnt = sum((cdf[:, tt, :] <= (u - offs[tt])[:, None]).sum(dim=1)
+              for tt in range(ntile))
+    if lastnz is not None:
+        return cnt.clamp(max=lastnz), total
+    topics = torch.arange(K, device=probs.device)
+    return torch.minimum(cnt, (topics * (probs > 0)).max(dim=1).values), total
+
+
 def _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win_of_slot,
                      doc_slot_offsets, doc_slots, u24, *, nwin_w, vspan,
                      num_topics, positive_support):
@@ -64,7 +90,6 @@ def _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win_of_slot,
     dev = w3.device
     K = num_topics
     kpad = ndk_table.shape[0] - FLAG_ROWS
-    ntile = kpad // 128
     num_docs = doc_slot_offsets.numel() - 1
     off = doc_slot_offsets.to(torch.int64)
     slots = doc_slots.to(torch.int64)
@@ -79,7 +104,6 @@ def _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win_of_slot,
     lengths = off[1:] - off[:-1]
     lmax = int(lengths.max()) if num_docs else 0
     docs = torch.arange(num_docs, device=dev)
-    topics = torch.arange(K, device=dev)
     z_flat = zo_all.clone()
     for t in range(lmax):
         act = (lengths > t) & (flag > 0.5)
@@ -91,22 +115,9 @@ def _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win_of_slot,
         n = r.numel()
         nd = col[r]
         nd[torch.arange(n, device=dev), zo] -= flag[r]   # own token out
-        probs = torch.zeros((n, kpad), dtype=torch.float32, device=dev)
-        probs[:, :K] = _bf16(nd * ph_all[wrow_all[s]])
-        cdf = probs.view(n, ntile, 128).cumsum(dim=2)    # tile-local cdfs
-        total = torch.zeros(n, dtype=torch.float32, device=dev)
-        offs = []
-        for tt in range(ntile):
-            offs.append(total)
-            total = total + cdf[:, tt, 127]
-        u = u_all[s].to(torch.float32) * (2.0 ** -24) * total
-        cnt = sum((cdf[:, tt, :] <= (u - offs[tt])[:, None]).sum(dim=1)
-                  for tt in range(ntile))
-        if positive_support:
-            lastnz = torch.full_like(cnt, K - 1)
-        else:
-            lastnz = (topics * (probs[:, :K] > 0)).max(dim=1).values
-        z = torch.where(total > 0, torch.minimum(cnt, lastnz), zo)
+        k, total = cdf_draw(_bf16(nd * ph_all[wrow_all[s]]), u_all[s], kpad,
+                            K - 1 if positive_support else None)
+        z = torch.where(total > 0, k, zo)
         z_flat[s] = z.to(torch.int32)
         ch = z != zo
         rc = r[ch]
@@ -151,10 +162,10 @@ def fused_pcgs_sweep_streamed_reference(w3, d3, z_old, ndk_table, phi_vk,
                             positive_support=positive_support)
 
 
-def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
-            doc_slot_offsets, doc_slots, u24, *, nwin_w, vspan, num_topics,
-            positive_support):
-    """Check the operands, launch csrc/pcgs.cu, return its outputs."""
+def check_sweep_operands(w3, d3, z_old, ndk_table, seed, win, win_len,
+                         doc_slot_offsets, doc_slots, num_topics):
+    """Check the operands a document-sequential sweep kernel shares (this
+    module's and `cuda_lightlda`'s); returns (kpad, num_docs, dpad)."""
     dev = w3.device
     K = num_topics
     if not 0 < K <= MAX_TOPICS:
@@ -162,9 +173,8 @@ def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
                          f"(1..{MAX_TOPICS}: the per-warp n_dk column and "
                          "cdf must fit one block's shared memory)")
     kpad = kpad_of(K)
-    shape3 = tuple(w3.shape)
     for name, t in (("w3", w3), ("d3", d3), ("z_old", z_old)):
-        _build.check_tensor(name, t, shape3, device=dev)
+        _build.check_tensor(name, t, tuple(w3.shape), device=dev)
     num_docs = doc_slot_offsets.numel() - 1
     dpad = ndk_table.shape[1]
     if not 0 <= num_docs <= dpad:
@@ -172,16 +182,28 @@ def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
                          f"{dpad} columns")
     _build.check_tensor("ndk_table", ndk_table, (kpad + FLAG_ROWS, dpad),
                         torch.float32, dev)
-    _build.check_tensor("phi_vk", phi_vk, (phi_vk.shape[0], K),
-                        torch.float32, dev)
     _build.check_tensor("seed", seed, (1,), torch.int64, dev)
     _build.check_tensor("win", win, (win_len,), device=dev)
     _build.check_tensor("doc_slot_offsets", doc_slot_offsets,
                         (num_docs + 1,), device=dev)
     _build.check_tensor("doc_slots", doc_slots, (doc_slots.numel(),),
                         device=dev)
+    return kpad, num_docs, dpad
+
+
+def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
+            doc_slot_offsets, doc_slots, u24, *, nwin_w, vspan, num_topics,
+            positive_support):
+    """Check the operands, launch csrc/pcgs.cu, return its outputs."""
+    dev = w3.device
+    K = num_topics
+    kpad, num_docs, dpad = check_sweep_operands(
+        w3, d3, z_old, ndk_table, seed, win, win_len, doc_slot_offsets,
+        doc_slots, K)
+    _build.check_tensor("phi_vk", phi_vk, (phi_vk.shape[0], K),
+                        torch.float32, dev)
     if u24 is not None:
-        _build.check_tensor("u24", u24, shape3, device=dev)
+        _build.check_tensor("u24", u24, tuple(w3.shape), device=dev)
     z = z_old.clone()
     nkw = torch.zeros((nwin_w * vspan, K), dtype=torch.int32, device=dev)
     table = ndk_table.clone()

@@ -2,10 +2,12 @@
 the counter-based generator the CUDA kernels draw their uniforms from
 (`csrc/philox.cuh`).
 
-A kernel draws one 24-bit uniform per token slot: the top 24 bits of the
-first Philox word at counter = global slot index, key = a 64-bit seed. So
-the draws do not depend on the launch configuration, and `philox_u24`
-reproduces them word for word on any device.
+A kernel draws its 24-bit uniforms per token slot from the Philox block at
+counter = global slot index, key = a 64-bit seed: the top 24 bits of the
+first word (`philox_u24`: the z-draw and PCGS kernels), or of all four
+(`philox_u24x4`: the LightLDA MH kernel, four uniforms per token). So the
+draws do not depend on the launch configuration, and these functions
+reproduce them word for word on any device.
 """
 
 from __future__ import annotations
@@ -46,11 +48,20 @@ def philox4x32_10(counter_lo: torch.Tensor, counter_hi: torch.Tensor,
     return c0, c1, c2, c3
 
 
+def _slot_words(seed: torch.Tensor, num: int):
+    s = seed.reshape(1).to(torch.int64)
+    slot = torch.arange(num, dtype=torch.int64, device=seed.device)
+    return philox4x32_10(slot, slot >> 32, s & _MASK32, (s >> 32) & _MASK32)
+
+
 def philox_u24(seed: torch.Tensor, num: int) -> torch.Tensor:
     """The kernels' in-kernel uniforms: top 24 bits of the first Philox
     word at counter = slot index, key = the 64-bit seed. int32 [num]."""
-    s = seed.reshape(1).to(torch.int64)
-    slot = torch.arange(num, dtype=torch.int64, device=seed.device)
-    w0, _, _, _ = philox4x32_10(slot, slot >> 32, s & _MASK32,
-                                (s >> 32) & _MASK32)
-    return (w0 >> 8).to(torch.int32)
+    return (_slot_words(seed, num)[0] >> 8).to(torch.int32)
+
+
+def philox_u24x4(seed: torch.Tensor, num: int) -> torch.Tensor:
+    """Four uniforms per slot: the top 24 bits of each of the four Philox
+    words at counter = slot index. int32 [num, 4]; column 0 is
+    `philox_u24`."""
+    return (torch.stack(_slot_words(seed, num), dim=1) >> 8).to(torch.int32)

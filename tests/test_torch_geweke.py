@@ -1,6 +1,8 @@
 """Geweke "getting it right" checks (Geweke 2004) of the PyTorch port, on
 the CPU: the port's copies of tests/test_geweke.py's `test_geweke_ggs`,
-its `ggs_test` negative control and `test_geweke_pcgs`.
+its `ggs_test` negative control, `test_geweke_pcgs`,
+`test_geweke_lightpclda`, `test_geweke_lightpclda_w2_count_proposal` and
+`test_geweke_lightcollapsed`.
 
 A marginal-conditional simulator (ancestral draws of phi, theta, z, w) and
 a successive-conditional chain (the port's `sample(1)` alternated with a
@@ -127,3 +129,32 @@ def test_geweke_pcgs():
     mc = _mc_draws(4000, seed=105)
     sc = _sc_series("pcgs", steps=2600, burn=200, seed=206)
     _agree(mc, sc, [1, 2, 3], "pcgs")
+
+
+def test_geweke_lightpclda():
+    """LightLDA-style Metropolis-Hastings within Gibbs: the port's MH sweep
+    (word proposal from phi, doc proposal from bf16(n_dk^-i + alpha)) must
+    leave the target invariant, then phi | z, w. No theta in the MH
+    family's state."""
+    mc = _mc_draws(4000, seed=109)
+    sc = _sc_series("lightpclda", steps=2600, burn=200, seed=210)
+    _agree(mc, sc, [1, 2, 3], "lightpclda")
+
+
+def test_geweke_lightpclda_w2_count_proposal():
+    """Scheme `lightpcldaw2`: the word proposal comes from the sweep-entry
+    type-topic counts N_kw + beta instead of phi, a different proposal
+    whose acceptance ratio must still leave the target invariant."""
+    mc = _mc_draws(4000, seed=307)
+    sc = _sc_series("lightpcldaw2", steps=2000, burn=200, seed=308)
+    _agree(mc, sc, [1, 2, 3], "lightpcldaw2")
+
+
+def test_geweke_lightcollapsed():
+    """Scheme `lightcollapsed`: the collapsed target with sweep-entry
+    counts as word target and proposal. At this corpus size the sweep
+    staleness is negligible and the transition must reproduce the joint
+    (phi is its diagnostic Dir(N_kw + beta) draw)."""
+    mc = _mc_draws(4000, seed=307)
+    sc = _sc_series("lightcollapsed", steps=2000, burn=200, seed=310)
+    _agree(mc, sc, [1, 2, 3], "lightcollapsed")

@@ -202,7 +202,9 @@ def test_layout_wiring_cpu_runs_plain_version(corpus, layout):
 def test_layout_choice_follows_jax_rule():
     """The JAX package's layout rule, kept for the visit order: resident
     for 20NG at K=100, streamed at K=200 (the table is over 10 MiB),
-    streamed at vspan 128 where the JAX package has no fused sweep."""
+    streamed at vspan 128 where the JAX package has no fused sweep; with
+    the MH kernel's two word tables the same at K=100 and K=200, and at
+    K=4096 no JAX fused sweep and an uncapped block."""
     docs = 11269
     assert fused_sweep.fused_pcgs_vmem_bytes(docs, 100, 128) \
         <= fused_sweep._FUSED_PCGS_VMEM_BUDGET
@@ -221,3 +223,13 @@ def test_layout_choice_follows_jax_rule():
     assert wide._fused_mode() == "streamed"
     assert wide._streamed_vspan() == 0          # no JAX fused sweep here
     assert wide._streamed_block() == 1024
+
+    class MHProbe(Probe):
+        _streamed_word_tables = 2
+    assert MHProbe(100, docs)._fused_mode() == "resident"
+    assert MHProbe(200, docs)._fused_mode() == "streamed"
+    assert MHProbe(200, docs)._streamed_vspan() == 128
+    mh_wide = MHProbe(4096, docs)
+    assert mh_wide._fused_mode() == "streamed"
+    assert mh_wide._streamed_vspan() == 0
+    assert mh_wide._streamed_block() == 4096

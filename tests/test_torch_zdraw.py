@@ -15,7 +15,8 @@ from ldagroupedgibbssampler_tpu.ops.pallas_zdraw import (
     fused_zdraw_nkw as jax_fused_zdraw_nkw)
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_zdraw import (
     fused_zdraw_nkw, fused_zdraw_nkw_reference)
-from ldagroupedgibbssampler_tpu_torch.ops.philox import philox4x32_10
+from ldagroupedgibbssampler_tpu_torch.ops.philox import (
+    philox4x32_10, philox_u24x4)
 
 
 def _inputs(c, z_flat, seed):
@@ -145,10 +146,14 @@ def test_zdraw_philox_distribution(K, precise):
 
 def test_philox_known_answer():
     """Philox4x32-10 of counter 0 under key 0 (the Random123 known-answer
-    vector), the generator the CUDA kernel implements."""
+    vector), the generator the CUDA kernels implement, and the four
+    uniforms the MH kernel takes from it."""
     z = torch.zeros(1, dtype=torch.int64)
     out = [int(v) for v in philox4x32_10(z, z, z, z)]
     assert out == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    # the four uniforms of slot 0 under seed 0: words 0-3, top 24 bits
+    four = philox_u24x4(torch.zeros(1, dtype=torch.int64), 1)
+    assert four[0].tolist() == [w >> 8 for w in out]
 
 
 def test_zdraw_wrapper_takes_plain_version_on_cpu():
