@@ -1,0 +1,65 @@
+"""ADLDA, Approximate Distributed LDA (Newman et al. 2009): scheme `adlda`.
+
+The port's counterpart of `ldagroupedgibbssampler_tpu/models/adlda.py`.
+Reference: topics/ADLDA.java + topics/MyWorkerRunnable.java: the global
+typeTopicCounts / tokensPerTopic are copied into per-thread replicas
+(ADLDA.java:176-210), each worker runs a collapsed sweep over its document
+shard against its increasingly stale replica, and the replicas are merged
+and re-broadcast once per iteration (:302-332).
+
+One iteration here is the collapsed live-count mode of the PCGS sweep
+kernel (`models/fused_sweep.py`, `ops/cuda_pcgs.py`, csrc/pcgs.cu) on the
+JAX package's resident or streamed layout: the conditional
+(n_dk + alpha)(beta + N_kw - own)/(V beta + n_k - own) with the token's
+own assignment excluded exactly; the kernel's N_kw output is the merge.
+phi ~ Dir(N_kw + beta) is only a diagnostic draw of the collapsed chain.
+
+Staleness contract. The reference's workers are stale across workers by up
+to one whole sweep. The JAX package's TPU kernel keeps N_kw and n_k live
+from one 128-token chunk to the next of its in-order grid, so its counts
+are stale within a chunk. The port's kernel runs one warp per document in
+parallel and keeps N_kw and V beta + n_k live in global memory: each token
+reads them when it draws and each changed token updates them with atomics
+at once, so a draw is stale only by the updates of the other warps in
+flight. All three are members of the AD-LDA approximation family; the
+port's is not the TPU's chunk schedule, and chip_smoke.py measures its
+likelihood gap to the sequential chain (`_serial_sweep`, the one-warp
+launch). On a CPU device the sweep is the plain version, which is that
+sequential chain: there `adlda` is the exact collapsed Gibbs sampler over
+the layout's visit order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ldagroupedgibbssampler_tpu_torch.models.base import (LDAState,
+                                                          TorchLDASampler)
+from ldagroupedgibbssampler_tpu_torch.models.fused_sweep import (
+    FusedPCGSSweepMixin)
+from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
+from ldagroupedgibbssampler_tpu_torch.ops.counts import tokens_per_topic
+
+
+class ADLDA(FusedPCGSSweepMixin, TorchLDASampler):
+    nkw_layout = "kv"
+    smooth_phi = True
+    # the collapsed conditional is positive everywhere (alpha, beta > 0)
+    fused_positive_support = True
+    # the layout rule counts the live-count operands (JAX package's gate)
+    _streamed_collapsed = True
+
+    def _step(self, state: LDAState, doc_mask):
+        """One iteration, replacing the fields of `state` in place."""
+        beta32 = torch.tensor(state.beta, dtype=torch.float32,
+                              device=self.device)
+        nk_plus = beta32 * self.corpus.num_types + state.nk.to(torch.float32)
+        z, ndk, nkw = self._fused_zsweep(
+            state.z, state.ndk, state.alpha,
+            state.nkw.T.to(torch.float32).contiguous(), doc_mask,
+            nk_plus=nk_plus, beta=state.beta)
+        state.z, state.ndk, state.nkw = z, ndk, nkw
+        state.nk = tokens_per_topic(nkw)
+        state.phi = rnd.dirichlet(nkw.to(torch.float32) + state.beta,
+                                  self.generator)
+        state.iteration += 1

@@ -39,7 +39,8 @@ from ldagroupedgibbssampler_tpu_torch.evaluation.likelihood import (
     log_posterior, model_log_likelihood)
 from ldagroupedgibbssampler_tpu_torch.models import randomscan
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
-from ldagroupedgibbssampler_tpu_torch.ops.counts import tokens_per_topic
+from ldagroupedgibbssampler_tpu_torch.ops.counts import (
+    doc_topic_counts, tokens_per_topic, topic_word_counts)
 from ldagroupedgibbssampler_tpu_torch.utils.device import resolve_device
 
 
@@ -416,3 +417,26 @@ class TorchLDASampler:
             (self.config.effective_seed() * 1_000_003 + self.state.iteration)
             & 0x7FFF_FFFF_FFFF_FFFF)
         return self
+
+
+class FlatLayoutMixin:
+    """z in canonical token order, the JAX package's "flat" layout
+    (`models/base.py:177-183`), for the serial collapsed oracle: one slot
+    per token, every slot real. Mixed in before TorchLDASampler."""
+
+    def _prepare_device_data(self, corpus: Corpus):
+        n = corpus.num_tokens
+        self._flat_index = np.arange(n, dtype=np.int64)
+        self._slot_mask = torch.ones(n, dtype=torch.bool, device=self.device)
+        self._slot_w = torch.as_tensor(corpus.tokens.astype(np.int64),
+                                       device=self.device)
+        self._slot_d = torch.as_tensor(
+            corpus.token_doc_ids().astype(np.int64), device=self.device)
+
+    def _count_nkw(self, z):
+        return topic_word_counts(z, self._slot_w, self._slot_mask,
+                                 self.config.topics, self.corpus.num_types)
+
+    def _count_ndk(self, z):
+        return doc_topic_counts(z, self._slot_d, self._slot_mask,
+                                self.corpus.num_docs, self.config.topics)

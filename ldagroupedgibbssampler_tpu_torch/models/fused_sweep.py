@@ -1,8 +1,8 @@
 """Shared machinery of the samplers whose z-step is a document-sequential
 sweep with immediate n_dk updates: the PCGS conditional (n_dk + alpha_k) *
 phi[k][w] (UncollapsedParallelLDA.java:1509-1513; the PCGS family of
-models/pcgs.py, spalias, polyaurn) and the LightLDA MH steps
-(models/lightlda.py).
+models/pcgs.py, spalias, polyaurn), its collapsed live-count mode
+(models/adlda.py) and the LightLDA MH steps (models/lightlda.py).
 
 The port's counterpart of `ldagroupedgibbssampler_tpu/models/fused_sweep.py`.
 The sweep is the CUDA kernel of `ops/cuda_pcgs.py` or `ops/cuda_lightlda.py`
@@ -99,6 +99,12 @@ class FusedPCGSSweepMixin:
     # JAX package, 2 narrows the streamed vspan and lifts the K-tiled
     # block cap
     _streamed_word_tables = 1
+    # True for the collapsed (ADLDA) conditional: as in the JAX package,
+    # the gate then counts the live-count operands instead of a phi stream
+    _streamed_collapsed = False
+    # Oracle checks only: launch the sweep as one block of one warp, the
+    # sequential chain (the plain versions are sequential already)
+    _serial_sweep = False
 
     # -- layout choice (the JAX package's gate) ---------------------------
     def _kpad(self) -> int:
@@ -120,6 +126,7 @@ class FusedPCGSSweepMixin:
             need = fused_pcgs_streamed_vmem_bytes(
                 self.config.topics, vspan, _SEQ_DSPAN,
                 self._streamed_block(),
+                collapsed=self._streamed_collapsed,
                 num_word_tables=self._streamed_word_tables)
             if need <= _STREAMED_VMEM_BUDGET:
                 return vspan
@@ -135,6 +142,7 @@ class FusedPCGSSweepMixin:
         at vspan 128."""
         fits = fused_pcgs_vmem_bytes(self.corpus.num_docs,
                                      self.config.topics, _SEQ_DSPAN,
+                                     collapsed=self._streamed_collapsed,
                                      vspan=self.config.vocab_span) \
             <= _FUSED_PCGS_VMEM_BUDGET
         return "resident" if fits else "streamed"
@@ -217,16 +225,18 @@ class FusedPCGSSweepMixin:
         return ndk, nkw
 
     def _sweep_call(self, z_blocks, table, word_vk, seed, u24=None,
-                    proposal_vk=None):
+                    proposal_vk=None, nk_plus=None, beta=None):
         """The sweep wrapper of this model's layout with its positional
         operands and keywords: `fn(*args, **kw)` runs one sweep. With a
         `proposal_vk` it is the LightLDA MH sweep (`word_vk` its target
-        table), else the PCGS sweep."""
+        table), else the PCGS sweep, collapsed with `nk_plus` and
+        `beta`."""
         b = self._sblocks
         kw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=self._vspan,
                   dspan=_SEQ_DSPAN, num_topics=self.config.topics)
         if proposal_vk is None:
-            kw["positive_support"] = self.fused_positive_support
+            kw.update(nk_plus=nk_plus, beta=beta, serial=self._serial_sweep,
+                      positive_support=self.fused_positive_support)
             words = (word_vk,)
             resident, streamed = fused_pcgs_sweep, fused_pcgs_sweep_streamed
         else:
@@ -244,16 +254,19 @@ class FusedPCGSSweepMixin:
                  self.doc_slot_offsets, self.doc_slots, u24), kw)
 
     def _fused_zsweep(self, z_blocks, ndk, alpha, word_vk, doc_mask,
-                      proposal_vk=None):
+                      proposal_vk=None, nk_plus=None, beta=None):
         """One sweep. Returns (z_blocks', ndk' int32 [D, K], nkw' int32
-        [K, V]): n_dk rides the kernel's table and N_kw is counted in the
-        kernel, so no recount is needed. `word_vk` is phi as [V, K], or
-        with `proposal_vk` the MH sweep's word target (both [V, K])."""
+        [K, V]): n_dk rides the kernel's table and N_kw is counted (or kept
+        live) in the kernel, so no recount is needed. `word_vk` is phi as
+        [V, K], with `proposal_vk` the MH sweep's word target (both
+        [V, K]), or with `nk_plus` (f32 [K], V beta + n_k) and `beta` the
+        sweep-entry N_kw.T counts of the collapsed conditional."""
         seed = torch.randint(0, 2 ** 62, (1,), generator=self.generator,
                              device=self.device, dtype=torch.int64)
         table = self._ndk_table(ndk, alpha, doc_mask)
         fn, args, kw = self._sweep_call(z_blocks, table, word_vk, seed,
-                                        proposal_vk=proposal_vk)
+                                        proposal_vk=proposal_vk,
+                                        nk_plus=nk_plus, beta=beta)
         z, nkw_vk, table_out = fn(*args, **kw)
         ndk_out, nkw = self._fused_extract(nkw_vk, table_out, alpha)
         return z, ndk_out, nkw

@@ -28,6 +28,11 @@ SCHEMES = {
                 "SpaliasUncollapsed Parallel LDA."),
     "polyaurn": ("polyaurn", "PolyaUrnSpaliasLDA",
                  "PolyaUrnSpaliasLDA Parallel LDA."),
+    "adlda": ("adlda", "ADLDA",
+              "Approximate Distributed LDA. ADLDA by Newman et al. (2009)."),
+    "collapsed": ("cgs", "SerialCollapsedLDA",
+                  "Collapsed Serial LDA. CGS of Griffiths and Steyvers "
+                  "(2004)."),
     "lightpclda": ("lightlda", "LightPCLDA", "Light PC LDA."),
     "lightpcldaw2": ("lightlda", "LightPCLDAtypeTopicProposal",
                      "Light PC LDA with proposal 2."),

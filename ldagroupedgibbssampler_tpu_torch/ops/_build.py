@@ -56,7 +56,10 @@ _SIGNATURES = {
     # pcgs.cu
     "lda_pcgs_sweep": [_c_ptr] * 11 + [_c_int, _c_i64, _c_int, _c_int,
                                        _c_int, _c_int, _c_int, _c_int,
-                                       _c_ptr],
+                                       _c_int, _c_ptr],
+    "lda_pcgs_collapsed_sweep": [_c_ptr] * 11 + [
+        ctypes.c_float, _c_int, _c_i64, _c_int, _c_int, _c_int, _c_int,
+        _c_int, _c_int, _c_int, _c_ptr],
     # lightlda.cu
     "lda_lightlda_sweep": [_c_ptr] * 12 + [_c_int, _c_i64, _c_int, _c_int,
                                            _c_int, _c_int, _c_int, _c_int,

@@ -1,13 +1,13 @@
-"""PCGS sweep (phi fixed, n_dk updated in the sweep): the CUDA kernel and
-its plain versions.
+"""PCGS sweep (phi fixed, n_dk updated in the sweep) and its collapsed
+(ADLDA) mode: the CUDA kernel and its plain versions.
 
 Counterpart of `ldagroupedgibbssampler_tpu/ops/pallas_pcgs.py`:
 `fused_pcgs_sweep` (resident layout, Pallas kernel `_pcgs_kernel`) and
 `fused_pcgs_sweep_streamed` (streamed layout, `_pcgs_stream_kernel`), in
-their PCGS mode. Both launch the one kernel of `csrc/pcgs.cu` (one warp per
-document; its header says what it computes and what bounds it on the
-H100). The public functions keep the JAX signatures and shapes, with two
-changes:
+both modes. Both launch the kernel template of `csrc/pcgs.cu` (one warp per
+document; its header says what it computes, the collapsed mode's staleness
+contract and what bounds it on the H100). The public functions keep the
+JAX signatures and shapes, with these changes:
 
   - two extra operands, `doc_slot_offsets` int32 [D+1] and `doc_slots`
     int32 [N]: each document's real slots in the order the chunk-
@@ -16,19 +16,30 @@ changes:
   - `seed` is an int64 [1] tensor keying the in-kernel Philox4x32-10 (the
     kernel's uniforms are `ops/philox.py::philox_u24` words); `interpret`
     and the streamed kernel's `force_ktile` are TPU-only switches and are
-    gone.
+    gone;
+  - `serial=True` launches one block of one warp, which walks the
+    documents in index order (the sequential chain; the oracle checks use
+    it), and `nk_out`, an optional f32 [K] tensor, receives the collapsed
+    mode's live V beta + n_k at the end of the sweep.
 
-The collapsed (ADLDA) mode of the JAX functions (`nk_plus`, `beta`) keeps
-N_kw / n_k live from one chunk to the next, which couples documents through
-the chunk schedule; it is not ported here and raises NotImplementedError.
+With `nk_plus` (f32 [K], V beta + n_k) and `beta` the sweep is the
+collapsed conditional (n_dk + alpha)(beta + N_kw - own)/(V beta + n_k -
+own) with N_kw and n_k live: `phi_vk` then holds the sweep-entry N_kw
+counts, and the returned nkw is entry + hist(z) - hist(z_old). The kernel
+reads and updates the live counts in global memory, so a draw is stale
+only by the other warps in flight; the TPU kernel's chunk schedule is not
+replayed (csrc/pcgs.cu).
 
 For CUDA tensors the wrappers launch the kernel (or raise); for CPU tensors
 they run the plain versions `fused_pcgs_sweep_reference` /
-`fused_pcgs_sweep_streamed_reference`, which work on any device: a
-document-sequential sweep over the visit order, padded to [D, Lmax] and
-stepped position by position with all documents at once, rounding where
-the kernel rounds (the f32 table with +-1 updates, bf16 phi, a bf16
-product, a 128-topic tiled f32 cdf with running tile offsets).
+`fused_pcgs_sweep_streamed_reference`, which work on any device. PCGS
+mode: a document-sequential sweep over the visit order, padded to
+[D, Lmax] and stepped position by position with all documents at once,
+rounding where the kernel rounds (the f32 table with +-1 updates, bf16
+phi, a bf16 product, a 128-topic tiled f32 cdf with running tile offsets).
+Collapsed mode: the sequential schedule, token by token (`_collapsed_
+reference`), which the one-warp launch computes on any input and the TPU
+kernel whenever one document is selected.
 """
 
 from __future__ import annotations
@@ -42,10 +53,6 @@ FLAG_ROWS = 8  # extra table rows; row kpad = doc-mask flag, rest zero
 # largest K whose per-warp column + cdf rows (2 * kpad f32) fit one block's
 # shared memory
 MAX_TOPICS = (227 * 1024 // 8) // 128 * 128
-
-_COLLAPSED = ("the collapsed (ADLDA) mode of the PCGS sweep (nk_plus / "
-              "beta) is not ported yet: ROADMAP queue A, the ADLDA slice")
-
 
 def kpad_of(num_topics: int) -> int:
     """Rows of topic data in the n_dk table: K rounded up to 128."""
@@ -132,34 +139,115 @@ def _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win_of_slot,
     return z_flat.view(w3.shape), nkw, table
 
 
+def _collapsed_reference(w3, z_old, ndk_table, counts_vk, seed, win_of_slot,
+                         doc_slot_offsets, doc_slots, u24, nk_plus, beta, *,
+                         nwin_w, vspan, num_topics, positive_support,
+                         nk_out=None):
+    """The collapsed (ADLDA) sweep on the sequential schedule: documents in
+    index order, each document's slots in visit order, and the n_dk column,
+    N_kw and V beta + n_k updated after every token. Per token in the
+    kernel's arithmetic, c = flag at z_old:
+    p_k = bf16((n_dk + alpha - c) * (((f32(N_kw) + beta) - c)
+    / (nkp - c))), drawn with `cdf_draw`. One Python step per token: meant
+    for test sizes. It runs on the host and returns on the input's device.
+    Returns (z [like w3], nkw [nwin_w * vspan, K], table)."""
+    dev, host = w3.device, torch.device("cpu")
+    K = num_topics
+    kpad = ndk_table.shape[0] - FLAG_ROWS
+    num_docs = doc_slot_offsets.numel() - 1
+    off = doc_slot_offsets.tolist()
+    slots = doc_slots.to(host, torch.int64)
+    wrow_all = (win_of_slot.to(host) * vspan
+                + w3.reshape(-1).to(host, torch.int64))
+    zo_all = z_old.reshape(-1).to(host)
+    if u24 is None:
+        u24 = philox_u24(seed, w3.numel())
+    u_all = u24.reshape(-1).to(host)
+    col = ndk_table[:K, :num_docs].T.to(host).clone()  # [D, K] n_dk + alpha
+    flag = ndk_table[kpad, :num_docs].to(host)
+    # the live counts; N_kw in f32 (integers below 2^24, so exact)
+    nkw = torch.zeros((nwin_w * vspan, K), dtype=torch.float32)
+    nkw[: counts_vk.shape[0]] = counts_vk.to(host, torch.float32)
+    nkp = nk_plus.to(host, torch.float32).clone()
+    beta32 = torch.tensor(beta, dtype=torch.float32)
+    own = torch.eye(K, dtype=torch.float32)     # one-hot rows
+    lastnz = K - 1 if positive_support else None
+    z_flat = zo_all.clone()
+    for d in torch.nonzero(flag > 0.5).flatten().tolist():
+        c = float(flag[d])
+        nd_d = col[d]
+        sl = slots[off[d]:off[d + 1]]
+        for s, zo, wr in zip(sl.tolist(), zo_all[sl].tolist(),
+                             wrow_all[sl].tolist()):
+            e = own[zo] * c                            # own token out
+            p = _bf16((nd_d - e) * (((nkw[wr] + beta32) - e) / (nkp - e)))
+            k, total = cdf_draw(p[None], u_all[s:s + 1], kpad, lastnz)
+            z = int(k) if float(total) > 0 else zo
+            if z != zo:
+                z_flat[s] = z
+                move = own[z] - own[zo]
+                nd_d += move
+                nkw[wr] += move
+                nkp += move
+    if nk_out is not None:
+        nk_out.copy_(nkp)
+    table = ndk_table.clone()
+    table[:K, :num_docs] = col.T.to(dev)
+    return (z_flat.view(w3.shape).to(dev), nkw.to(dev, torch.int32),
+            table)
+
+
+def _plain(w3, z_old, ndk_table, phi_vk, seed, win, doc_slot_offsets,
+           doc_slots, u24, nk_plus, beta, *, nwin_w, vspan, num_topics,
+           positive_support, nk_out):
+    """The plain version of either mode for `win`, the w-window of every
+    slot."""
+    kw = dict(nwin_w=nwin_w, vspan=vspan, num_topics=num_topics,
+              positive_support=positive_support)
+    if _collapsed(nk_plus, beta):
+        return _collapsed_reference(w3, z_old, ndk_table, phi_vk, seed, win,
+                                    doc_slot_offsets, doc_slots, u24,
+                                    nk_plus, beta, nk_out=nk_out, **kw)
+    return _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win,
+                            doc_slot_offsets, doc_slots, u24, **kw)
+
+
+def _collapsed(nk_plus, beta) -> bool:
+    if (nk_plus is None) != (beta is None):
+        raise ValueError("the collapsed mode needs both nk_plus and beta")
+    return nk_plus is not None
+
+
 def fused_pcgs_sweep_reference(w3, d3, z_old, ndk_table, phi_vk, seed,
                                win_w, first_w, win_d_chunks,
-                               doc_slot_offsets, doc_slots, u24=None, *,
-                               nwin_w, nwin_d, vspan, dspan, num_topics,
-                               positive_support=False):
-    """Plain PyTorch version of `fused_pcgs_sweep` (resident layout)."""
+                               doc_slot_offsets, doc_slots, u24=None,
+                               nk_plus=None, beta=None, *, nwin_w, nwin_d,
+                               vspan, dspan, num_topics,
+                               positive_support=False, serial=False,
+                               nk_out=None):
+    """Plain PyTorch version of `fused_pcgs_sweep` (resident layout).
+    `serial` changes nothing: the plain versions are sequential already."""
     block = w3.shape[1] * w3.shape[2]
     win = win_w.to(torch.int64).repeat_interleave(block)
-    return _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win,
-                            doc_slot_offsets, doc_slots, u24,
-                            nwin_w=nwin_w, vspan=vspan,
-                            num_topics=num_topics,
-                            positive_support=positive_support)
+    return _plain(w3, z_old, ndk_table, phi_vk, seed, win, doc_slot_offsets,
+                  doc_slots, u24, nk_plus, beta, nwin_w=nwin_w, vspan=vspan,
+                  num_topics=num_topics, positive_support=positive_support,
+                  nk_out=nk_out)
 
 
 def fused_pcgs_sweep_streamed_reference(w3, d3, z_old, ndk_table, phi_vk,
                                         seed, ww_chunks, wd_chunks,
                                         doc_slot_offsets, doc_slots,
-                                        u24=None, *, nwin_w, nwin_d, vspan,
-                                        dspan, num_topics,
-                                        positive_support=False):
+                                        u24=None, nk_plus=None, beta=None,
+                                        *, nwin_w, nwin_d, vspan, dspan,
+                                        num_topics, positive_support=False,
+                                        serial=False, nk_out=None):
     """Plain PyTorch version of `fused_pcgs_sweep_streamed`."""
     win = ww_chunks.to(torch.int64).repeat_interleave(w3.shape[2])
-    return _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win,
-                            doc_slot_offsets, doc_slots, u24,
-                            nwin_w=nwin_w, vspan=vspan,
-                            num_topics=num_topics,
-                            positive_support=positive_support)
+    return _plain(w3, z_old, ndk_table, phi_vk, seed, win, doc_slot_offsets,
+                  doc_slots, u24, nk_plus, beta, nwin_w=nwin_w, vspan=vspan,
+                  num_topics=num_topics, positive_support=positive_support,
+                  nk_out=nk_out)
 
 
 def check_sweep_operands(w3, d3, z_old, ndk_table, seed, win, win_len,
@@ -192,36 +280,57 @@ def check_sweep_operands(w3, d3, z_old, ndk_table, seed, win, win_len,
 
 
 def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
-            doc_slot_offsets, doc_slots, u24, *, nwin_w, vspan, num_topics,
-            positive_support):
-    """Check the operands, launch csrc/pcgs.cu, return its outputs."""
+            doc_slot_offsets, doc_slots, u24, nk_plus, beta, *, nwin_w,
+            vspan, num_topics, positive_support, serial, nk_out):
+    """Check the operands, launch csrc/pcgs.cu in the mode the operands
+    ask for, return its outputs."""
     dev = w3.device
     K = num_topics
     kpad, num_docs, dpad = check_sweep_operands(
         w3, d3, z_old, ndk_table, seed, win, win_len, doc_slot_offsets,
         doc_slots, K)
+    vpad = nwin_w * vspan
+    if not phi_vk.shape[0] <= vpad:
+        raise ValueError(f"word table of {phi_vk.shape[0]} rows does not fit "
+                         f"{nwin_w} windows of {vspan}")
     _build.check_tensor("phi_vk", phi_vk, (phi_vk.shape[0], K),
                         torch.float32, dev)
     if u24 is not None:
         _build.check_tensor("u24", u24, tuple(w3.shape), device=dev)
     z = z_old.clone()
-    nkw = torch.zeros((nwin_w * vspan, K), dtype=torch.int32, device=dev)
+    nkw = torch.zeros((vpad, K), dtype=torch.int32, device=dev)
     table = ndk_table.clone()
-    err = _build.library().lda_pcgs_sweep(
-        w3.data_ptr(), z_old.data_ptr(), win.data_ptr(),
-        doc_slot_offsets.data_ptr(), doc_slots.data_ptr(), phi_vk.data_ptr(),
-        None if u24 is None else u24.data_ptr(), seed.data_ptr(),
-        table.data_ptr(), z.data_ptr(), nkw.data_ptr(), num_docs, dpad,
-        kpad, K, vspan, win_div, int(positive_support), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "lda_pcgs_sweep")
+    ptrs = (w3.data_ptr(), z_old.data_ptr(), win.data_ptr(),
+            doc_slot_offsets.data_ptr(), doc_slots.data_ptr())
+    u24_ptr = None if u24 is None else u24.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sizes = (num_docs, dpad, kpad, K, vspan, win_div, int(positive_support),
+             int(serial), dev.index, stream)
+    if not _collapsed(nk_plus, beta):
+        err = _build.library().lda_pcgs_sweep(
+            *ptrs, phi_vk.data_ptr(), u24_ptr, seed.data_ptr(),
+            table.data_ptr(), z.data_ptr(), nkw.data_ptr(), *sizes)
+        _build.check(err, "lda_pcgs_sweep")
+        return z, nkw, table
+    # the live counts: N_kw seeded with the entry counts (phi_vk), nkp with
+    # V beta + n_k; the kernel updates both in place
+    _build.check_tensor("nk_plus", nk_plus, (K,), torch.float32, dev)
+    nkw[: phi_vk.shape[0]] = phi_vk.to(torch.int32)
+    nkp = nk_plus.clone()
+    err = _build.library().lda_pcgs_collapsed_sweep(
+        *ptrs, u24_ptr, seed.data_ptr(), table.data_ptr(), z.data_ptr(),
+        nkw.data_ptr(), nkp.data_ptr(), float(beta), *sizes)
+    _build.check(err, "lda_pcgs_collapsed_sweep")
+    if nk_out is not None:
+        nk_out.copy_(nkp)
     return z, nkw, table
 
 
 def fused_pcgs_sweep(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
                      win_d_chunks, doc_slot_offsets, doc_slots, u24=None,
                      nk_plus=None, beta=None, *, nwin_w, nwin_d, vspan, dspan,
-                     num_topics, positive_support=False):
+                     num_topics, positive_support=False, serial=False,
+                     nk_out=None):
     """One PCGS Gibbs sweep over the resident (w-window-major,
     sequential-safe) layout: draw z for every token with immediate n_dk
     updates, count N_kw, and return the updated n_dk table.
@@ -231,34 +340,47 @@ def fused_pcgs_sweep(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
     ndk_table: f32 [kpad + FLAG_ROWS, Dpad], (n_dk + alpha_k).T padded; row
         kpad = doc-mask flag (1.0 selected / 0.0 not). Not modified: the
         updated table is returned.
-    phi_vk: f32 [V, K], fixed for the whole sweep.
+    phi_vk: f32 [V, K]: phi, fixed for the whole sweep, or in the collapsed
+        mode the sweep-entry N_kw counts (integers), which the sweep keeps
+        live.
     seed: int64 [1], the Philox key (ignored when u24 is given).
-    win_w / first_w: int32 [NB] (first_w unused: N_kw starts zeroed).
+    win_w / first_w: int32 [NB] (first_w unused: N_kw starts from zero or
+        from the entry counts).
     win_d_chunks: int32 [NB * chunks] (unused by the kernel: the slot
         lists carry the documents).
     doc_slot_offsets / doc_slots: int32 [D + 1] / [N], the visit order.
     u24: optional int32 [NB, chunks, chunk] of 24-bit uniforms in [0, 2^24)
         replacing the in-kernel Philox draw.
+    nk_plus / beta: f32 [K] of V beta + n_k at sweep entry (consistent with
+        the counts) and beta: the collapsed (ADLDA) conditional
+        (n_dk + alpha_k)(beta + N_kw - own)/(V beta + n_k - own), N_kw and
+        n_k live; the returned nkw is entry + hist(z) - hist(z_old).
     positive_support: the conditional is positive for every topic (floored
-        Dirichlet phi), so the draw clamps to K - 1 instead of the last
-        nonzero topic.
+        Dirichlet phi, or the collapsed conditional), so the draw clamps to
+        K - 1 instead of the last nonzero topic.
+    serial: launch one block of one warp, which walks the documents in
+        index order (in the collapsed mode, the sequential chain).
+    nk_out: optional f32 [K], set to the live V beta + n_k at sweep end.
 
     Returns (z int32 [NB, chunks, chunk], nkw int32 [nwin_w * vspan, K],
              table f32 [kpad + FLAG_ROWS, Dpad]).
     """
-    if nk_plus is not None or beta is not None:
-        raise NotImplementedError(_COLLAPSED)
     kw = dict(nwin_w=nwin_w, vspan=vspan, num_topics=num_topics,
-              positive_support=positive_support)
+              positive_support=positive_support, serial=serial,
+              nk_out=nk_out)
     if w3.device.type == "cpu":
         return fused_pcgs_sweep_reference(
             w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
-            win_d_chunks, doc_slot_offsets, doc_slots, u24, nwin_d=nwin_d,
-            dspan=dspan, **kw)
+            win_d_chunks, doc_slot_offsets, doc_slots, u24, nk_plus, beta,
+            nwin_d=nwin_d, dspan=dspan, **kw)
     nb, chunks, chunk = w3.shape
     out = _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, nb,
-                  chunks * chunk, doc_slot_offsets, doc_slots, u24, **kw)
-    fused_pcgs_sweep.launches += 1
+                  chunks * chunk, doc_slot_offsets, doc_slots, u24, nk_plus,
+                  beta, **kw)
+    if nk_plus is None:
+        fused_pcgs_sweep.launches += 1
+    else:
+        fused_pcgs_sweep.collapsed_launches += 1
     return out
 
 
@@ -266,29 +388,36 @@ def fused_pcgs_sweep_streamed(w3, d3, z_old, ndk_table, phi_vk, seed,
                               ww_chunks, wd_chunks, doc_slot_offsets,
                               doc_slots, u24=None, nk_plus=None, beta=None,
                               *, nwin_w, nwin_d, vspan, dspan, num_topics,
-                              positive_support=False):
+                              positive_support=False, serial=False,
+                              nk_out=None):
     """One PCGS Gibbs sweep over the streamed (d-window-major `StreamBlocks`)
     layout; `ww_chunks` / `wd_chunks` are int32 [NB * chunks], the w- and
-    d-window of every chunk. Operands and results otherwise as
+    d-window of every chunk. Operands, modes and results otherwise as
     `fused_pcgs_sweep`."""
-    if nk_plus is not None or beta is not None:
-        raise NotImplementedError(_COLLAPSED)
     kw = dict(nwin_w=nwin_w, vspan=vspan, num_topics=num_topics,
-              positive_support=positive_support)
+              positive_support=positive_support, serial=serial,
+              nk_out=nk_out)
     if w3.device.type == "cpu":
         return fused_pcgs_sweep_streamed_reference(
             w3, d3, z_old, ndk_table, phi_vk, seed, ww_chunks, wd_chunks,
-            doc_slot_offsets, doc_slots, u24, nwin_d=nwin_d, dspan=dspan,
-            **kw)
+            doc_slot_offsets, doc_slots, u24, nk_plus, beta, nwin_d=nwin_d,
+            dspan=dspan, **kw)
     nb, chunks, chunk = w3.shape
     out = _launch(w3, d3, z_old, ndk_table, phi_vk, seed, ww_chunks,
-                  nb * chunks, chunk, doc_slot_offsets, doc_slots, u24, **kw)
-    fused_pcgs_sweep_streamed.launches += 1
+                  nb * chunks, chunk, doc_slot_offsets, doc_slots, u24,
+                  nk_plus, beta, **kw)
+    if nk_plus is None:
+        fused_pcgs_sweep_streamed.launches += 1
+    else:
+        fused_pcgs_sweep_streamed.collapsed_launches += 1
     return out
 
 
-# launches of the kernel through each wrapper (added where it launches,
-# nowhere else); chip_smoke.py reads them to show that the main path ran
+# launches of the kernel through each wrapper, PCGS mode (`launches`) and
+# collapsed mode (`collapsed_launches`), added where it launches and
+# nowhere else; chip_smoke.py reads them to show that the main path ran
 # the kernel
 fused_pcgs_sweep.launches = 0
+fused_pcgs_sweep.collapsed_launches = 0
 fused_pcgs_sweep_streamed.launches = 0
+fused_pcgs_sweep_streamed.collapsed_launches = 0

@@ -85,7 +85,21 @@ def test_cli_runs_lightpclda_on_cpu(tmp_path):
     assert len(top) == 3 and top[0].startswith("Topic 0: ")
 
 
-def test_cli_rejects_unported_scheme(tmp_path):
+def test_cli_runs_adlda_on_cpu(tmp_path):
+    """Scheme `adlda` through the experiment CLI: the likelihood series
+    and each topic's top words from one theme."""
     cfg = _write_run(tmp_path, scheme="adlda", device="cpu")
+    parallel_lda.main([f"--run_cfg={cfg}"])
+    runs = glob.glob(str(tmp_path / "runs" / "RunSuite*" / "Runone-*"))
+    assert len(runs) == 1
+    lls = [float(ln.split("\t")[1])
+           for ln in open(os.path.join(runs[0], "likelihood.txt"))]
+    assert len(lls) == 2 and lls[1] > lls[0] - 50
+    top = open(os.path.join(runs[0], "TopWords.txt")).read().splitlines()
+    assert len(top) == 3 and top[0].startswith("Topic 0: ")
+
+
+def test_cli_rejects_unported_scheme(tmp_path):
+    cfg = _write_run(tmp_path, scheme="ppu_hdplda", device="cpu")
     with pytest.raises(ValueError, match="ggs"):
         parallel_lda.main([f"--run_cfg={cfg}"])

@@ -1,8 +1,8 @@
 """Geweke "getting it right" checks (Geweke 2004) of the PyTorch port, on
 the CPU: the port's copies of tests/test_geweke.py's `test_geweke_ggs`,
-its `ggs_test` negative control, `test_geweke_pcgs`,
-`test_geweke_lightpclda`, `test_geweke_lightpclda_w2_count_proposal` and
-`test_geweke_lightcollapsed`.
+its `ggs_test` negative control, `test_geweke_pcgs`, `test_geweke_cgs`,
+`test_geweke_lightpclda`, `test_geweke_lightpclda_w2_count_proposal`,
+`test_geweke_lightcollapsed` and `test_geweke_adlda_collapsed_interpret`.
 
 A marginal-conditional simulator (ancestral draws of phi, theta, z, w) and
 a successive-conditional chain (the port's `sample(1)` alternated with a
@@ -129,6 +129,28 @@ def test_geweke_pcgs():
     mc = _mc_draws(4000, seed=105)
     sc = _sc_series("pcgs", steps=2600, burn=200, seed=206)
     _agree(mc, sc, [1, 2, 3], "pcgs")
+
+
+def test_geweke_cgs():
+    """The serial collapsed oracle (scheme `collapsed`): the collapsed
+    z-sweep leaves p(z | w) invariant and the augmented phi / theta draws
+    are exact conditionals, so all four statistics agree."""
+    mc = _mc_draws(4000, seed=107)
+    sc = _sc_series("collapsed", steps=2600, burn=200, seed=208)
+    _agree(mc, sc, [0, 1, 2, 3], "collapsed")
+
+
+def test_geweke_adlda():
+    """Scheme `adlda` through the collapsed sweep's plain version. The
+    JAX package's test (`test_geweke_adlda_collapsed_interpret`) pins a
+    bounded bias, because its interpreted kernel draws each chunk against
+    counts stale within the chunk. The port's plain version is the
+    sequential chain, whose counts are never stale, so it is held to the
+    exact-chain bar: phi_00, topic-0 fraction and word-0 frequency
+    agree (phi is its diagnostic Dir(N_kw + beta) draw)."""
+    mc = _mc_draws(4000, seed=503)
+    sc = _sc_series("adlda", steps=2000, burn=200, seed=504)
+    _agree(mc, sc, [1, 2, 3], "adlda")
 
 
 def test_geweke_lightpclda():

@@ -17,12 +17,15 @@ _PROBE = """
 import sys
 sys.path.insert(0, sys.argv[1])
 import ldagroupedgibbssampler_tpu_torch
+import ldagroupedgibbssampler_tpu_torch.models.adlda
+import ldagroupedgibbssampler_tpu_torch.models.cgs
 import ldagroupedgibbssampler_tpu_torch.models.ggs
 import ldagroupedgibbssampler_tpu_torch.models.lightlda
 import ldagroupedgibbssampler_tpu_torch.models.pcgs
 import ldagroupedgibbssampler_tpu_torch.models.polyaurn
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_lightlda
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs
+import ldagroupedgibbssampler_tpu_torch.ops.kernels
 import ldagroupedgibbssampler_tpu_torch.tui.parallel_lda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -58,7 +61,7 @@ def test_unknown_scheme_names_ported_ones():
     from ldagroupedgibbssampler_tpu_torch import create_model
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
     with pytest.raises(ValueError, match="ggs_test.*pcgs"):
-        create_model(LDAConfig(scheme="adlda", device="cpu"))
+        create_model(LDAConfig(scheme="ppu_hdplda", device="cpu"))
 
 
 def test_kernel_inventory_matches_perf_table():

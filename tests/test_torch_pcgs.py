@@ -204,7 +204,9 @@ def test_layout_choice_follows_jax_rule():
     for 20NG at K=100, streamed at K=200 (the table is over 10 MiB),
     streamed at vspan 128 where the JAX package has no fused sweep; with
     the MH kernel's two word tables the same at K=100 and K=200, and at
-    K=4096 no JAX fused sweep and an uncapped block."""
+    K=4096 no JAX fused sweep and an uncapped block; with the collapsed
+    mode's live-count operands (ADLDA) still resident at K=100, streamed
+    at K=200, and at K=4096 streamed with the block capped at 1024."""
     docs = 11269
     assert fused_sweep.fused_pcgs_vmem_bytes(docs, 100, 128) \
         <= fused_sweep._FUSED_PCGS_VMEM_BUDGET
@@ -233,3 +235,15 @@ def test_layout_choice_follows_jax_rule():
     assert mh_wide._fused_mode() == "streamed"
     assert mh_wide._streamed_vspan() == 0
     assert mh_wide._streamed_block() == 4096
+
+    class CollapsedProbe(Probe):
+        _streamed_collapsed = True
+    assert fused_sweep.fused_pcgs_vmem_bytes(docs, 100, 128, True) \
+        == fused_sweep.fused_pcgs_vmem_bytes(docs, 100, 128) \
+        + 128 * 128 * 4 + 128 * 128 * 4
+    assert CollapsedProbe(100, docs)._fused_mode() == "resident"
+    assert CollapsedProbe(200, docs)._fused_mode() == "streamed"
+    wide = CollapsedProbe(4096, docs)
+    assert wide._fused_mode() == "streamed"
+    assert wide._streamed_vspan() > 0           # a JAX fused sweep exists
+    assert wide._streamed_block() == 1024

@@ -3,7 +3,13 @@ Pallas kernels run in interpret mode with the same injected uniforms, as
 tests/test_pallas_pcgs.py::_run_sweep runs them — the interpreted kernels
 run the true chunk schedule, so this checks the port's per-document order
 independently of the argument that documents are independent given phi —
-and the sweep's semantics on the plain version's Philox path."""
+and the sweep's semantics on the plain version's Philox path.
+
+The collapsed (ADLDA) mode's plain version is the sequential chain. The
+interpreted kernels replay it whenever one document is selected (each
+chunk then holds at most one drawing token), so that is where the two are
+held to each other; its bookkeeping, freshness and draw distribution are
+checked on their own."""
 
 import jax
 import jax.numpy as jnp
@@ -77,7 +83,8 @@ class Case:
         out[self.fi3[real]] = np.asarray(z3)[real]
         return out
 
-    def port(self, inject=True, positive_support=False, fn=None):
+    def port(self, inject=True, positive_support=False, fn=None,
+             nk_plus=None, beta=None, nk_out=None):
         t = torch.as_tensor
         b = self.b
         ops = (t(b.w_local.reshape(self.sh3)),
@@ -92,12 +99,16 @@ class Case:
             ops += (t(b.win_w), t(b.first_w), t(b.win_d_chunks))
         ops += (t(self.visit[0]), t(self.visit[1]),
                 t(self.u24) if inject else None)
+        if nk_plus is not None:
+            ops += (t(nk_plus), beta)
+        kw = {} if nk_out is None else {"nk_out": nk_out}
         z, nkw, table = fn(*ops, nwin_w=b.nwin_w, nwin_d=b.nwin_d,
                            vspan=128, dspan=128, num_topics=self.K,
-                           positive_support=positive_support)
+                           positive_support=positive_support, **kw)
         return z.numpy(), nkw.numpy(), table.numpy()
 
-    def jax(self, positive_support=False, force_ktile=False):
+    def jax(self, positive_support=False, force_ktile=False, nk_plus=None,
+            beta=None):
         b = self.b
         a = jnp.asarray
         common = (a(b.w_local.reshape(self.sh3)),
@@ -107,26 +118,29 @@ class Case:
         kw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=128, dspan=128,
                   num_topics=self.K, positive_support=positive_support,
                   interpret=jax.default_backend() != "tpu")
+        coll = (None if nk_plus is None else a(nk_plus, jnp.float32), beta)
         if self.streamed:
             z, nkw, table = jax_sweep_streamed(
                 *common, a(b.win_w_chunks), a(b.win_d_chunks),
-                a(self.u24), force_ktile=force_ktile, **kw)
+                a(self.u24), *coll, force_ktile=force_ktile, **kw)
         else:
             z, nkw, table = jax_sweep(
                 *common, a(b.win_w), a(b.first_w), a(b.win_d_chunks),
-                a(self.u24), **kw)
+                a(self.u24), *coll, **kw)
         return np.asarray(z), np.asarray(nkw), np.asarray(table)
 
     def check_counts(self, z3, nkw, table):
-        """N_kw is the histogram of z, the table a recount of z plus
-        alpha, the flag row survives, and padding slots and unselected
-        documents keep z."""
+        """N_kw is the histogram of z (unless nkw is None), the table a
+        recount of z plus alpha, the flag row survives, and padding slots
+        and unselected documents keep z."""
         c, K = self.c, self.K
         z = self.flat(z3)
-        ref_nkw = np.zeros((c.num_types, K), np.int64)
-        np.add.at(ref_nkw, (c.tokens, z), 1)
-        assert np.array_equal(nkw[:c.num_types].astype(np.int64), ref_nkw)
-        assert not nkw[c.num_types:].any()
+        if nkw is not None:
+            ref_nkw = np.zeros((c.num_types, K), np.int64)
+            np.add.at(ref_nkw, (c.tokens, z), 1)
+            assert np.array_equal(nkw[:c.num_types].astype(np.int64),
+                                  ref_nkw)
+            assert not nkw[c.num_types:].any()
         dall = c.token_doc_ids()
         ref_ndk = np.zeros((c.num_docs, K), np.int64)
         np.add.at(ref_ndk, (dall, z), 1)
@@ -286,8 +300,223 @@ def test_wrapper_takes_plain_version_on_cpu(streamed):
     assert cuda_pcgs.fused_pcgs_sweep_streamed.launches == 0
 
 
-def test_collapsed_mode_raises():
-    case = _case(6, False, True, seed=2)
-    with pytest.raises(NotImplementedError, match="ADLDA"):
-        case.port(fn=lambda *a, **kw: cuda_pcgs.fused_pcgs_sweep(
-            *a, nk_plus=torch.ones(6), beta=0.1, **kw))
+# ---------------------------------------------------------------------------
+# The collapsed (ADLDA) mode: nk_plus / beta, N_kw and n_k live
+# ---------------------------------------------------------------------------
+
+def _collapsed_case(K, streamed, selected=None, seed=0, beta=0.01):
+    """A multi-document random corpus with an entry N_kw that is NOT the
+    z_old histogram (hist + a sparse random offset, nk_plus consistent
+    with it). The counts stay small (V beta = 3, n_k of tens at K >= 100),
+    so leaving the token's own count in the numerator or the denominator
+    moves the conditional by percents. `selected`: the one selected
+    document ("longest" or an index), or None for every 4th document
+    unselected. Returns (case, entry [V, K], nk_plus [K], beta)."""
+    rng = np.random.default_rng(2000 + K + 7 * streamed + seed)
+    c = _rand_corpus(seed)
+    V = c.num_types
+    z_flat = rng.integers(0, K, c.num_tokens).astype(np.int32)
+    hist = np.zeros((V, K), np.int64)
+    np.add.at(hist, (c.tokens, z_flat), 1)
+    entry = hist + rng.integers(0, 4, (V, K)) * (rng.random((V, K)) < 0.05)
+    nk_plus = (np.float32(beta) * np.float32(V)
+               + entry.sum(0).astype(np.float32)).astype(np.float32)
+    doc_mask = np.ones(c.num_docs, np.float32)
+    if selected is None:
+        doc_mask[::4] = 0.0
+    else:
+        if selected == "longest":
+            selected = int(np.argmax(c.doc_lengths()))
+        doc_mask[:] = 0.0
+        doc_mask[selected] = 1.0
+    alpha = (rng.gamma(1.0, 1.0, K) * 0.5 + 0.05).astype(np.float32)
+    case = Case(c, K, z_flat, doc_mask, entry.astype(np.float32), alpha,
+                streamed, seed=31 + seed)
+    return case, entry, nk_plus, beta
+
+
+def _check_live_counts(case, entry, z3, nkw):
+    """N_kw out = entry + hist(z) - hist(z_old), exactly."""
+    c, K = case.c, case.K
+    z = case.flat(z3)
+    d_new = np.zeros((c.num_types, K), np.int64)
+    np.add.at(d_new, (c.tokens, z), 1)
+    d_old = np.zeros((c.num_types, K), np.int64)
+    np.add.at(d_old, (c.tokens, case.z_flat), 1)
+    assert np.array_equal(nkw[:c.num_types].astype(np.int64),
+                          entry + d_new - d_old)
+    assert not nkw[c.num_types:].any()
+    return z
+
+
+@pytest.mark.parametrize("K", [5, 100, 130])
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("selected", ["longest", 3])
+def test_collapsed_single_document_matches_interpreted_kernel(K, streamed,
+                                                              selected):
+    """With one selected document every chunk of the interpreted kernel
+    holds at most one drawing token, so its chunk schedule is the
+    sequential chain the plain version runs: z equal on at least 99.9% of
+    the document's tokens (only a cdf summed in another order crossing u
+    may differ), N_kw exact, the table's n_dk a recount."""
+    case, entry, nk_plus, beta = _collapsed_case(K, streamed, selected)
+    z_p, nkw_p, table_p = case.port(positive_support=True, nk_plus=nk_plus,
+                                    beta=beta)
+    z_j, nkw_j, table_j = case.jax(positive_support=True, nk_plus=nk_plus,
+                                   beta=beta)
+    zp = _check_live_counts(case, entry, z_p, nkw_p)
+    zj = _check_live_counts(case, entry, z_j, nkw_j)
+    doc = case.doc_mask[case.c.token_doc_ids()] > 0
+    disagree = int((zp != zj)[doc].sum())
+    print(f"K={K} streamed={streamed} doc={selected}: {disagree} of "
+          f"{int(doc.sum())} tokens disagree")
+    assert disagree <= MAX_DISAGREE * doc.sum()
+    assert (zp[doc] != case.z_flat[doc]).any()
+    assert np.array_equal(zp[~doc], case.z_flat[~doc])
+    if disagree == 0:
+        assert np.array_equal(nkw_p, nkw_j)
+        assert np.array_equal(table_p, table_j)
+
+
+def test_collapsed_single_document_matches_ktiled_streamed_kernel():
+    """The same against the JAX streamed kernel's K-tiled body
+    (force_ktile) at K=130, two topic tiles: it takes its total from a sum
+    of the probs tiles and its offsets from the tile cdfs."""
+    case, entry, nk_plus, beta = _collapsed_case(130, True, "longest",
+                                                 seed=4)
+    z_p, nkw_p, _ = case.port(positive_support=True, nk_plus=nk_plus,
+                              beta=beta)
+    z_j, nkw_j, _ = case.jax(positive_support=True, force_ktile=True,
+                             nk_plus=nk_plus, beta=beta)
+    zp = _check_live_counts(case, entry, z_p, nkw_p)
+    zj = _check_live_counts(case, entry, z_j, nkw_j)
+    doc = case.doc_mask[case.c.token_doc_ids()] > 0
+    assert int((zp != zj)[doc].sum()) <= MAX_DISAGREE * doc.sum()
+
+
+def _freshness_case(streamed):
+    """tests/test_pallas_pcgs.py::_freshness_case on the plain version:
+    two selected one-token documents of the same word (documents 0 and
+    128, d-windows 0 and 1), all z_old = 0. Document 0's uniform 0.8
+    sends it to topic 1; with live counts document 128 then sees
+    p(topic 0) = 3/7 and its uniform 0.5 draws topic 1, where sweep-stale
+    counts (p(topic 0) = 4/7) would draw topic 0."""
+    c = Corpus.from_token_lists([[0]] + [[]] * 127 + [[0]], ["w0", "w1"])
+    K, beta = 2, 1.0
+    case = Case(c, K, np.zeros(2, np.int32), np.ones(c.num_docs, np.float32),
+                np.array([[2.0, 0.0], [0.0, 0.0]], np.float32),
+                np.ones(K, np.float32), streamed)
+    for tok, u in ((0, 0.8), (1, 0.5)):
+        case.u24[case.fi3 == tok] = int(u * 2 ** 24)
+    nk_plus = np.array([2.0 * beta + 2.0, 2.0 * beta], np.float32)
+    return case, nk_plus, beta
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_collapsed_live_freshness(streamed):
+    """Ports of test_fused_sweep_collapsed_live_freshness and
+    test_streamed_sweep_collapsed_live_freshness: the second token draws
+    against the counts the first one left."""
+    case, nk_plus, beta = _freshness_case(streamed)
+    nk_out = torch.zeros(2)
+    z3, nkw, _ = case.port(nk_plus=nk_plus, beta=beta, nk_out=nk_out)
+    assert case.flat(z3).tolist() == [1, 1]
+    assert nkw[0, :2].tolist() == [0, 2]
+    assert nk_out.tolist() == [2.0, 4.0]
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_collapsed_own_count_excluded_at_the_boundary(streamed):
+    """One token of word 0 on topic 0 with tiny counts, so the token's own
+    assignment is a large share of every count it appears in: entry N_kw
+    = [[1, 0], [0, 3]], V beta + n_k = [2, 4] (beta 0.5, V 2), n_dk +
+    alpha = [1.7, 0.3]. The conditional (n_dk + alpha - own)(beta + N_kw
+    - own)/(V beta + n_k - own) puts 0.35 / 0.3875 on topic 0; leaving own
+    in the numerator, the denominator or n_dk would move that to 0.966,
+    0.824 or 0.958. With u 1% below and above it the plain version and
+    the interpreted kernel both keep topic 0 and then move to topic 1."""
+    c = Corpus.from_token_lists([[0]], ["w0", "w1"])
+    counts = np.array([[1.0, 0.0], [0.0, 3.0]], np.float32)
+    nk_plus = np.array([2.0, 4.0], np.float32)
+    alpha = np.array([0.7, 0.3], np.float32)
+    case = Case(c, 2, np.zeros(1, np.int32), np.ones(1, np.float32), counts,
+                alpha, streamed)
+    bf = torch.tensor([0.35, 0.0375]).to(torch.bfloat16).double().numpy()
+    p0 = bf[0] / bf.sum()
+    for u, want in ((0.99 * p0, 0), (1.01 * p0, 1)):
+        case.u24[case.fi3 == 0] = int(u * 2 ** 24)
+        z_p, nkw_p, _ = case.port(positive_support=True, nk_plus=nk_plus,
+                                  beta=0.5)
+        z_j, nkw_j, _ = case.jax(positive_support=True, nk_plus=nk_plus,
+                                 beta=0.5)
+        assert case.flat(z_p).tolist() == case.flat(z_j).tolist() == [want]
+        assert np.array_equal(nkw_p, nkw_j)
+        assert nkw_p[0, :2].tolist() == [1 - want, want]
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_collapsed_live_bookkeeping(streamed):
+    """Port of test_collapsed_live_bookkeeping_resident_and_streamed: with
+    an entry N_kw that is not the z_old histogram, N_kw out = entry +
+    hist(z) - hist(z_old); unselected documents and padding keep z; the
+    table is a recount plus alpha; nk_out = V beta + n_k of N_kw out."""
+    case, entry, nk_plus, beta = _collapsed_case(6, streamed, seed=7)
+    nk_out = torch.zeros(6)
+    z3, nkw, table = case.port(positive_support=True, nk_plus=nk_plus,
+                               beta=beta, nk_out=nk_out)
+    z = _check_live_counts(case, entry, z3, nkw)
+    case.check_counts(z3, None, table)
+    delta = nkw[:case.c.num_types].sum(0) - entry.sum(0)
+    assert np.array_equal(nk_out.numpy(),
+                          (nk_plus.astype(np.float64) + delta)
+                          .astype(np.float32))
+    sel = case.doc_mask[case.c.token_doc_ids()] > 0
+    assert (z[sel] != case.z_flat[sel]).any()
+
+
+def test_collapsed_draw_distribution():
+    """test_fused_sweep_collapsed_distribution (tests/test_pallas_pcgs.py
+    :186) on the plain version's Philox path: chi-square of 2000
+    single-token documents of word 0 against the exact conditional
+    alpha_k (beta + N_k0 - own) / (V beta + n_k - own). The entry counts
+    are large (about 1e6 per topic), so the live drift of at most 2000
+    moves is invisible at this sample size."""
+    D, K, V = 2000, 5, 2
+    c = Corpus.from_token_lists([[0]] * D, ["w0", "w1"])
+    alpha = np.array([0.5, 1.0, 2.0, 0.25, 1.25], np.float32)
+    beta = 0.3
+    base = np.array([1.0e6, 1.1e6, 0.9e6, 1.2e6, 0.8e6])
+    counts = np.zeros((V, K), np.float32)
+    counts[0] = base
+    nk_plus = (beta * V + base).astype(np.float32)
+    case = Case(c, K, np.zeros(D, np.int32), np.ones(D, np.float32), counts,
+                alpha, False, seed=21)
+    z3, nkw, _ = case.port(inject=False, positive_support=True,
+                           nk_plus=nk_plus, beta=beta)
+    own = np.eye(K)[0]
+    p = alpha * (beta + base - own) / (beta * V + base - own)
+    p = p / p.sum()
+    obs = np.bincount(case.flat(z3), minlength=K).astype(np.float64)
+    chi2 = float(((obs - p * D) ** 2 / (p * D)).sum())
+    assert sps.chi2.sf(chi2, K - 1) > 1e-4, (obs, p * D)
+    assert nkw[0].sum() == base.sum()
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_collapsed_mode_cpu_runs_plain_version(streamed):
+    """On CPU tensors the wrappers run the plain collapsed version, the
+    sequential chain, with every launch counter at 0; nk_plus without
+    beta raises."""
+    case, entry, nk_plus, beta = _collapsed_case(6, streamed, seed=2)
+    ref = (cuda_pcgs.fused_pcgs_sweep_streamed_reference if streamed
+           else cuda_pcgs.fused_pcgs_sweep_reference)
+    got = case.port(positive_support=True, nk_plus=nk_plus, beta=beta)
+    want = case.port(positive_support=True, nk_plus=nk_plus, beta=beta,
+                     fn=ref)
+    for a, r in zip(got, want):
+        assert np.array_equal(a, r)
+    for fn in (cuda_pcgs.fused_pcgs_sweep,
+               cuda_pcgs.fused_pcgs_sweep_streamed):
+        assert fn.launches == fn.collapsed_launches == 0
+    with pytest.raises(ValueError, match="nk_plus and beta"):
+        case.port(nk_plus=nk_plus, beta=None)
