@@ -23,7 +23,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (`[3 adlda sweep]`): bookkeeping against an entry N_kw that is not
      the z_old histogram, one selected document against the plain
      version (the sequential chain), the one-warp launch on the first 200
-     documents, and a chi-square of 200,704 one-token documents;
+     documents, and a chi-square of 200,704 one-token documents, with the
+     launch shape (warps per block, shared memory per warp);
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
@@ -33,8 +34,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      adlda at K=200 (streamed), 10 iterations each; then `[4 adlda
      oracle]`, adlda on the first 2,000 documents with the parallel and
      the one-warp launch from one seed (likelihood gap under 0.5% at
-     iteration 30), and `[4 collapsed]`, the serial oracle on the first
-     100 documents;
+     iteration 30), beside the spread of three parallel chains' gaps and
+     of three one-warp chains from three seeds, and `[4 collapsed]`, the
+     serial oracle on the first 100 documents;
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
      cuda, with a ggs, a pcgs, a lightpclda and an adlda section.
 Then one JSON line describing every kernel, the nvidia-smi line, and as the
@@ -988,9 +990,12 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
         # per token and topic: beta add, division, product, prefix sum,
         # compare
         bound_ms, bound_by = bound(nbytes, 5.0 * n * k)
+        warps, smem = cuda_pcgs.launch_shape(k, collapsed=True)
         print(f"[3 adlda sweep] K={k} {layout} layout (vspan "
               f"{model._vspan}, {slots} slots for {n} tokens, model set up "
-              f"in {setup_s:.1f} s): (a) full corpus, every 5th document "
+              f"in {setup_s:.1f} s; launched with {warps} warps a block, "
+              f"{smem // warps} B of shared memory a warp): (a) full "
+              f"corpus, every 5th document "
               f"unselected, entry N_kw = hist + offset: N_kw = entry + "
               f"moves, n_dk, flags, kept z and V beta + n_k exact "
               f"({moved_a} tokens moved); (b) one selected document "
@@ -1097,13 +1102,15 @@ def adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model,
     parallel launch, then from the same seed with the one-warp launch (the
     sequential collapsed chain); their LL at iteration ITERS must agree
     within 0.5%. Beside it, for the spread: two more parallel chains from
-    the same seed (the atomics' order differs from run to run) and a
-    one-warp chain from another seed. Returns the relative gap."""
+    the same seed (the atomics' order differs from run to run) and
+    one-warp chains from two more seeds; it prints the mean and range of
+    the three parallel chains' gaps beside the range of the three one-warp
+    chains' LLs at iteration ITERS. Returns the relative gap."""
     import dataclasses
     sub = first_docs(Corpus, corpus, num_docs)
     runs = []
     for serial, seed in ((False, 2019), (True, 2019), (True, 2020),
-                         (False, 2019), (False, 2019)):
+                         (False, 2019), (False, 2019), (True, 2021)):
         cfg = pcgs_config(LDAConfig, "adlda", 100)
         model = create_model(dataclasses.replace(cfg, seed=seed))
         model._serial_sweep = serial
@@ -1125,6 +1132,9 @@ def adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model,
     gap = rel(par)
     check(abs(gap) < 0.005, f"adlda oracle: LL gap {gap:.5f} at iteration "
           f"{ITERS} (parallel {par}, one warp {ser})")
+    gaps = [rel(r[0]) for r in (runs[0], runs[3], runs[4])]
+    ser_ll = [r[0][-1] for r in (runs[1], runs[2], runs[5])]
+    ser_range = (max(ser_ll) - min(ser_ll)) / abs(ser[-1])
 
     def traj(lls):
         return json.dumps([round(x, 1) for x in lls])
@@ -1133,9 +1143,12 @@ def adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model,
           f"{traj(par)} ({par_ms:.1f} ms/iteration), one-warp launch "
           f"{traj(ser)} ({ser_ms:.1f} ms/iteration); relative gap at "
           f"{ITERS} {gap:+.6f}; two more parallel chains "
-          f"{', '.join(f'{rel(r[0]):+.6f}' for r in runs[3:])}; one-warp "
-          f"launch from seed 2020 {traj(other)}, {rel(other):+.6f}",
-          flush=True)
+          f"{', '.join(f'{g:+.6f}' for g in gaps[1:])}; one-warp "
+          f"launch from seed 2020 {traj(other)}, {rel(other):+.6f}; "
+          f"parallel gaps at {ITERS}: mean {np.mean(gaps):+.6f}, range "
+          f"[{min(gaps):+.6f}, {max(gaps):+.6f}]; one-warp LLs at {ITERS} "
+          f"(seeds 2019, 2020, 2021) {traj(ser_ll)}, range "
+          f"{ser_range:.6f} of |LL|", flush=True)
     return gap
 
 

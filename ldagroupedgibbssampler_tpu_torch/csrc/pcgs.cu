@@ -28,11 +28,12 @@
 //   z_old is kept when flag_d == 0 (document not selected) or total == 0;
 //   when z changes, table[z_old, d] -= 1 and table[z, d] += 1 before the
 //   document's next token. PCGS: N_kw[w, z] += 1 for every real slot.
-//   Collapsed: N_kw[w, z_old] -= 1, N_kw[w, z] += 1, nkp[z_old] -= 1 and
-//   nkp[z] += 1 (atomics, lane 0) before the warp's next token; the
-//   wrapper seeds N_kw with the sweep-entry counts and nkp with
-//   V beta + n_k, so N_kw ends as entry + hist(z) - hist(z_old), which is
-//   what the TPU kernel returns (pallas_pcgs.py:296-299).
+//   Collapsed: N_kw[w, z_old] -= 1 and N_kw[w, z] += 1 (atomics, lane 0)
+//   before the warp's next token, nkp[z_old] -= 1 and nkp[z] += 1 in the
+//   warp's view and its unflushed moves (below); the wrapper seeds N_kw
+//   with the sweep-entry counts and nkp with V beta + n_k, so N_kw ends as
+//   entry + hist(z) - hist(z_old), which is what the TPU kernel returns
+//   (pallas_pcgs.py:296-299), and nkp as V beta + n_k of that.
 // table rows hold n_dk + alpha_k in f32 and row kpad holds the doc-mask
 // flag, exactly as the TPU kernel keeps them, so the +-1 updates round the
 // same way (pallas_pcgs.py:208-263, cdf_draw :70-132).
@@ -55,20 +56,31 @@
 // chunk of at most 128 tokens against the N_kw / n_k left by the chunk
 // before it, because its grid runs in order on one core. Blocks here run
 // in parallel and in no order, so that schedule cannot be replayed draw
-// for draw. Instead N_kw and V beta + n_k live in global memory: every
-// token reads them at draw time and every changed token updates them with
-// atomics, so a draw is stale only by the updates of the other warps in
-// flight. That is a member of the AD-LDA family (Newman et al. 2009),
-// fresher than the reference's whole-sweep replicas (ADLDA.java:176-332)
-// and not the TPU's chunk schedule. The one-warp launch is the sequential
-// collapsed chain (documents in index order) with this kernel's rounding.
+// for draw. Instead:
+// - N_kw lives in global memory: every token reads its word's row at draw
+//   time and every changed token updates it with atomics at once, so the
+//   word term is stale only by the other warps' moves in flight.
+// - V beta + n_k is warp-local. Each warp keeps its view `nk` and its
+//   unflushed net moves `dn` (K rows each) in shared memory. At the start
+//   of every batch of at most 32 slots of a document it flushes `dn` into
+//   the global nkp (one reduction per topic that moved), zeroes it, and
+//   reloads `nk` from nkp; at the end of the document it flushes again.
+//   Its own moves update `nk` and `dn` at once. So a draw's n_k misses
+//   only the other warps' moves since its batch began; its own are in.
+// That is a member of the AD-LDA family (Newman et al. 2009), fresher than
+// the reference's whole-sweep replicas (ADLDA.java:176-332) and not the
+// TPU's chunk schedule. The one-warp launch is the sequential collapsed
+// chain (documents in index order) with this kernel's rounding: every
+// reload reads back exactly the warp's own flushes, because lane k % 32
+// both flushes and reloads topic k, in program order.
 // The reads of N_kw and nkp bypass L1 (relaxed GPU-scope loads, which L2
 // serves): L1 is not coherent with the L2 atomics, not even the warp's
 // own, so an L1 hit could return a count from before the warp's last
 // update and keep it for a whole sweep.
-// nkp's f32 +-1 updates are exact while its values stay below 2^24 with
-// fractional parts on their ulp grid (Vbeta + n_k with an integer Vbeta,
-// as at beta = 0.01, V = 20000).
+// nkp's f32 updates (+-1 in the view, integer deltas in the flush) are
+// exact while its values stay below 2^24 with fractional parts on their
+// ulp grid (Vbeta + n_k with an integer Vbeta, as at beta = 0.01,
+// V = 20000), so the view and the flushed sums agree bit for bit.
 //
 // What bounds it on the H100: neither bytes nor operations. The bound is
 // the input and output bytes (about 16 bytes per slot plus the tables),
@@ -76,10 +88,16 @@
 // per-token steps (word row gather from L2, a shuffle scan per 32 topics,
 // a ballot count, the column update) inside each warp, so it is bound by
 // that chain's latency, hidden only by the other resident warps. The
-// collapsed mode adds one division per topic, an L2 row read of N_kw and
-// of nkp per token, and up to four atomics per changed token, two of them
-// on the K hot addresses of nkp. One warp per document also waits on the
-// longest document.
+// collapsed mode adds one division per topic, an L2 row read of N_kw per
+// token and two N_kw atomics per changed token. Its V beta + n_k was read
+// by every token and updated by two atomics per move on the same K
+// addresses (4 cache lines at K=100) by all resident warps at once; that
+// queue, not the chain, set its pace (PERF.md: 7.3 ms with it, 1.8 ms
+// without), hence the warp-local view: per batch of up to 32 tokens, one
+// coalesced read and at most one reduction per topic. What remains above
+// the chain is the same queue, smaller, on the N_kw rows of the Zipf head
+// words, which stay live. At kpad == 128 the cdf stays in registers. One
+// warp per document also waits on the longest document.
 //
 // Padding slots are not in any slot list, so they keep z_old (the wrapper
 // copies z_old into z_out) and are never counted: their sentinels
@@ -109,7 +127,50 @@ __device__ __forceinline__ float load_live(const float* p) {
   return v;
 }
 
+// f32 rows per warp in shared memory: the n_dk + alpha column and the cdf
+// (unused at kpad == 128); the collapsed mode adds its view of
+// V beta + n_k and its unflushed moves
 template <bool kCollapsed>
+constexpr int kWarpRows = kCollapsed ? 4 : 2;
+
+// Collapsed mode: publish the warp's net moves (one reduction for each
+// topic whose delta is nonzero) and zero them. Lane k % 32 owns topic k.
+__device__ __forceinline__ void flush_moves(float* nkp, int* dn, int K,
+                                            int lane) {
+  for (int k = lane; k < K; k += 32) {
+    const int m = dn[k];
+    if (m != 0) {
+      atomicAdd(nkp + k, static_cast<float>(m));
+      dn[k] = 0;
+    }
+  }
+}
+
+// Collapsed mode: reload the warp's view of V beta + n_k, a 128-topic
+// group's loads issued together. The same lane that flushed topic k reads
+// it, after its reduction in program order, so the warp's own moves are
+// always in; the barrier orders the view before lane 0's next update.
+__device__ __forceinline__ void reload_view(const float* nkp, float* nk,
+                                            int K, int lane) {
+  for (int k0 = 0; k0 < K; k0 += 128) {
+    float v[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int k = k0 + g * 32 + lane;
+      v[g] = k < K ? load_live(nkp + k) : 0.f;
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int k = k0 + g * 32 + lane;
+      if (k < K) nk[k] = v[g];
+    }
+  }
+  __syncwarp();
+}
+
+// kOneTile: kpad == 128, so the token's cdf stays in registers (4 values
+// a lane) and never goes through shared memory.
+template <bool kCollapsed, bool kOneTile>
 __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
                                   const int* __restrict__ z_old,
                                   const int* __restrict__ win_w,
@@ -129,9 +190,15 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
-  float* col = smem + static_cast<long long>(warp) * 2 * kpad;
+  float* col = smem + static_cast<long long>(warp) * kWarpRows<kCollapsed>
+                          * kpad;
   float* cdf = col + kpad;
-  const int ntile = kpad / 128;
+  float* nk = cdf + kpad;                        // collapsed: the view
+  int* dn = reinterpret_cast<int*>(nk + kpad);   // collapsed: net moves
+  const int ntile = kOneTile ? 1 : kpad / 128;
+  if (kCollapsed) {
+    for (int k = lane; k < K; k += 32) dn[k] = 0;
+  }
 
   // d is uniform across the warp
   for (int d = blockIdx.x * warps + warp; d < num_docs;
@@ -148,6 +215,10 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
     __syncwarp();
 
     for (int base = beg; base < end; base += 32) {
+      if (kCollapsed) {
+        flush_moves(nkp, dn, K, lane);
+        reload_view(nkp, nk, K, lane);
+      }
       // each lane fetches one of the next 32 slots; the warp walks them
       const int i = base + lane;
       const bool valid = i < end;
@@ -170,16 +241,18 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
         // pass 1: tile-local cdfs, tile totals, last nonzero topic
         float total = 0.f;
         int last = -1;
+        float cdf1[4];                       // kOneTile: the cdf
         for (int t = 0; t < ntile; ++t) {
           float carry = 0.f;
-          // collapsed: the tile's live counts, all loads issued first
+          // collapsed: the tile's live N_kw, all loads issued first, and
+          // the warp's view of V beta + n_k
           int nwk[4];
           float nkk[4];
 #pragma unroll
           for (int g = 0; g < 4; ++g) {
             const int k = t * 128 + g * 32 + lane;
             nwk[g] = kCollapsed && k < K ? load_live(nw + k) : 0;
-            nkk[g] = kCollapsed && k < K ? load_live(nkp + k) : 1.f;
+            nkk[g] = kCollapsed && k < K ? nk[k] : 1.f;
           }
 #pragma unroll
           for (int g = 0; g < 4; ++g) {
@@ -205,7 +278,11 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
               if (lane >= off) s = __fadd_rn(s, v);
             }
             s = __fadd_rn(s, carry);
-            cdf[k] = s;
+            if (kOneTile) {
+              cdf1[g] = s;
+            } else {
+              cdf[k] = s;
+            }
             carry = __shfl_sync(kFull, s, 31);
           }
           total = __fadd_rn(total, carry);
@@ -217,18 +294,25 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
           const float u = __fmul_rn(
               __fmul_rn(static_cast<float>(bits), 5.9604644775390625e-8f),
               total);                              // u24 * 2^-24 * total
-          __syncwarp();
           // pass 2: count cdf_k <= u - off_t over every tile
           int cnt = 0;
-          float off = 0.f;
-          for (int t = 0; t < ntile; ++t) {
-            const float thr = __fsub_rn(u, off);
+          if (kOneTile) {
 #pragma unroll
             for (int g = 0; g < 4; ++g) {
-              cnt += __popc(__ballot_sync(
-                  kFull, cdf[t * 128 + g * 32 + lane] <= thr));
+              cnt += __popc(__ballot_sync(kFull, cdf1[g] <= u));
             }
-            off = __fadd_rn(off, cdf[t * 128 + 127]);
+          } else {
+            __syncwarp();
+            float off = 0.f;
+            for (int t = 0; t < ntile; ++t) {
+              const float thr = __fsub_rn(u, off);
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                cnt += __popc(__ballot_sync(
+                    kFull, cdf[t * 128 + g * 32 + lane] <= thr));
+              }
+              off = __fadd_rn(off, cdf[t * 128 + 127]);
+            }
           }
           z = min(cnt, lastnz);
         }
@@ -239,8 +323,10 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
           if (kCollapsed) {
             atomicAdd(nw + zo, -1);
             atomicAdd(nw + z, 1);
-            atomicAdd(nkp + zo, -1.f);
-            atomicAdd(nkp + z, 1.f);
+            nk[zo] = __fsub_rn(nk[zo], 1.f);
+            nk[z] = __fadd_rn(nk[z], 1.f);
+            dn[zo] -= 1;
+            dn[z] += 1;
           }
         }
         // orders lane 0's updates before every lane's next reads
@@ -255,13 +341,27 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
     if (selected) {
       __syncwarp();
       for (int k = lane; k < K; k += 32) table[k * dpad + d] = col[k];
+      if (kCollapsed) flush_moves(nkp, dn, K, lane);
     }
     __syncwarp();
   }
 }
 
-// Launch one instance: `warps` warps per block, one document per warp, or
-// (serial) one block of one warp walking every document.
+// One instance's launch: `warps` warps per block, one document per warp,
+// or (serial) one block of one warp walking every document, with `smem`
+// bytes of dynamic shared memory per block.
+template <bool kCollapsed>
+void launch_shape(int kpad, int serial, int* warps, long long* smem) {
+  // warps per block: 8, fewer when the per-warp rows are large
+  const long long warp_bytes =
+      static_cast<long long>(kWarpRows<kCollapsed>) * kpad * sizeof(float);
+  int w = 8;
+  while (w > 1 && w * warp_bytes > 48 * 1024) w >>= 1;
+  if (serial) w = 1;
+  *warps = w;
+  *smem = w * warp_bytes;
+}
+
 template <bool kCollapsed>
 int launch(const void* w_local, const void* z_old, const void* win_w,
            const void* doc_offsets, const void* doc_slots, const void* phi,
@@ -271,22 +371,19 @@ int launch(const void* w_local, const void* z_old, const void* win_w,
            int serial, int device, void* stream) {
   cudaSetDevice(device);
   if (num_docs <= 0) return static_cast<int>(cudaGetLastError());
-  // warps per block: 8, fewer when the per-warp column + cdf rows are large
-  const long long warp_bytes = 2LL * kpad * sizeof(float);
-  int warps = 8;
-  while (warps > 1 && warps * warp_bytes > 48 * 1024) warps >>= 1;
-  if (serial) warps = 1;
-  const long long smem = warps * warp_bytes;
+  int warps;
+  long long smem;
+  launch_shape<kCollapsed>(kpad, serial, &warps, &smem);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = kpad == 128 ? pcgs_sweep_kernel<kCollapsed, true>
+                                  : pcgs_sweep_kernel<kCollapsed, false>;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(pcgs_sweep_kernel<kCollapsed>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
   const int blocks = serial ? 1 : (num_docs + warps - 1) / warps;
-  pcgs_sweep_kernel<kCollapsed><<<blocks, warps * 32,
-                                  static_cast<size_t>(smem),
-                                  static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, warps * 32, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(w_local), static_cast<const int*>(z_old),
       static_cast<const int*>(win_w), static_cast<const int*>(doc_offsets),
       static_cast<const int*>(doc_slots), static_cast<const float*>(phi),
@@ -336,4 +433,20 @@ extern "C" int lda_pcgs_collapsed_sweep(
                       u24, seed, table, z_out, nkw, nkp, beta, num_docs,
                       dpad, kpad, K, vspan, win_div, positive_support, serial,
                       device, stream);
+}
+
+// The launch shape of either mode for a table of kpad topic rows:
+// out int64 [2] = (warps per block, dynamic shared memory bytes per block).
+extern "C" int lda_pcgs_launch_shape(int kpad, int collapsed, int serial,
+                                     void* out) {
+  int warps;
+  long long smem;
+  if (collapsed) {
+    launch_shape<true>(kpad, serial, &warps, &smem);
+  } else {
+    launch_shape<false>(kpad, serial, &warps, &smem);
+  }
+  static_cast<long long*>(out)[0] = warps;
+  static_cast<long long*>(out)[1] = smem;
+  return 0;
 }

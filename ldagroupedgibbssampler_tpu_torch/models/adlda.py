@@ -18,15 +18,19 @@ Staleness contract. The reference's workers are stale across workers by up
 to one whole sweep. The JAX package's TPU kernel keeps N_kw and n_k live
 from one 128-token chunk to the next of its in-order grid, so its counts
 are stale within a chunk. The port's kernel runs one warp per document in
-parallel and keeps N_kw and V beta + n_k live in global memory: each token
-reads them when it draws and each changed token updates them with atomics
-at once, so a draw is stale only by the updates of the other warps in
-flight. All three are members of the AD-LDA approximation family; the
-port's is not the TPU's chunk schedule, and chip_smoke.py measures its
-likelihood gap to the sequential chain (`_serial_sweep`, the one-warp
-launch). On a CPU device the sweep is the plain version, which is that
-sequential chain: there `adlda` is the exact collapsed Gibbs sampler over
-the layout's visit order.
+parallel. It keeps N_kw live in global memory (each token reads its word's
+row when it draws, each changed token updates it with atomics at once) and
+V beta + n_k warp-local: each warp flushes its net moves into the global
+V beta + n_k and reloads its own view at the start of every batch of at
+most 32 of a document's tokens. So a draw's N_kw misses only the other
+warps' moves in flight, and its n_k only the other warps' moves since its
+batch began; its own moves are always in. All three are members of the
+AD-LDA approximation family; the port's is not the TPU's chunk schedule,
+and chip_smoke.py measures its likelihood gap to the sequential chain
+(`_serial_sweep`, the one-warp launch, which is that chain bit for bit).
+On a CPU device the sweep is the plain version, which is that sequential
+chain: there `adlda` is the exact collapsed Gibbs sampler over the
+layout's visit order.
 """
 
 from __future__ import annotations

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "lda_pcgs_collapsed_sweep": [_c_ptr] * 11 + [
         ctypes.c_float, _c_int, _c_i64, _c_int, _c_int, _c_int, _c_int,
         _c_int, _c_int, _c_int, _c_ptr],
+    "lda_pcgs_launch_shape": [_c_int, _c_int, _c_int, _c_ptr],
     # lightlda.cu
     "lda_lightlda_sweep": [_c_ptr] * 12 + [_c_int, _c_i64, _c_int, _c_int,
                                            _c_int, _c_int, _c_int, _c_int,

@@ -24,11 +24,14 @@ JAX signatures and shapes, with these changes:
 
 With `nk_plus` (f32 [K], V beta + n_k) and `beta` the sweep is the
 collapsed conditional (n_dk + alpha)(beta + N_kw - own)/(V beta + n_k -
-own) with N_kw and n_k live: `phi_vk` then holds the sweep-entry N_kw
-counts, and the returned nkw is entry + hist(z) - hist(z_old). The kernel
-reads and updates the live counts in global memory, so a draw is stale
-only by the other warps in flight; the TPU kernel's chunk schedule is not
-replayed (csrc/pcgs.cu).
+own): `phi_vk` then holds the sweep-entry N_kw counts, and the returned
+nkw is entry + hist(z) - hist(z_old). The kernel keeps N_kw live in global
+memory (read at draw time, updated by atomics at once) and V beta + n_k
+warp-local: each warp flushes its net moves and reloads its view at the
+start of every batch of at most 32 of a document's tokens, so a draw's n_k
+misses only the other warps' moves since its batch began, never its own.
+The TPU kernel's chunk schedule is not replayed (csrc/pcgs.cu). The
+one-warp launch is the sequential chain.
 
 For CUDA tensors the wrappers launch the kernel (or raise); for CPU tensors
 they run the plain versions `fused_pcgs_sweep_reference` /
@@ -50,9 +53,11 @@ from ldagroupedgibbssampler_tpu_torch.ops import _build
 from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
 
 FLAG_ROWS = 8  # extra table rows; row kpad = doc-mask flag, rest zero
-# largest K whose per-warp column + cdf rows (2 * kpad f32) fit one block's
-# shared memory
+# largest K whose per-warp rows fit one block's shared memory (227 KB): the
+# n_dk column and cdf (8 bytes a topic), and in the collapsed mode also the
+# view of V beta + n_k and the unflushed moves (16 bytes a topic)
 MAX_TOPICS = (227 * 1024 // 8) // 128 * 128
+MAX_TOPICS_COLLAPSED = (227 * 1024 // 16) // 128 * 128
 
 def kpad_of(num_topics: int) -> int:
     """Rows of topic data in the n_dk table: K rounded up to 128."""
@@ -251,15 +256,19 @@ def fused_pcgs_sweep_streamed_reference(w3, d3, z_old, ndk_table, phi_vk,
 
 
 def check_sweep_operands(w3, d3, z_old, ndk_table, seed, win, win_len,
-                         doc_slot_offsets, doc_slots, num_topics):
+                         doc_slot_offsets, doc_slots, num_topics,
+                         collapsed=False):
     """Check the operands a document-sequential sweep kernel shares (this
-    module's and `cuda_lightlda`'s); returns (kpad, num_docs, dpad)."""
+    module's and `cuda_lightlda`'s), the topic count first (against the
+    collapsed mode's smaller limit when `collapsed`); returns (kpad,
+    num_docs, dpad)."""
     dev = w3.device
     K = num_topics
-    if not 0 < K <= MAX_TOPICS:
+    limit = MAX_TOPICS_COLLAPSED if collapsed else MAX_TOPICS
+    if not 0 < K <= limit:
         raise ValueError(f"num_topics={K} outside the kernel's range "
-                         f"(1..{MAX_TOPICS}: the per-warp n_dk column and "
-                         "cdf must fit one block's shared memory)")
+                         f"(1..{limit}: the per-warp rows must fit one "
+                         "block's shared memory)")
     kpad = kpad_of(K)
     for name, t in (("w3", w3), ("d3", d3), ("z_old", z_old)):
         _build.check_tensor(name, t, tuple(w3.shape), device=dev)
@@ -279,6 +288,17 @@ def check_sweep_operands(w3, d3, z_old, ndk_table, seed, win, win_len,
     return kpad, num_docs, dpad
 
 
+def launch_shape(num_topics, collapsed, serial=False):
+    """(warps per block, dynamic shared memory bytes per block) with which
+    csrc/pcgs.cu launches either mode at `num_topics`, from its own rule
+    (needs the built library)."""
+    out = torch.zeros(2, dtype=torch.int64)
+    _build.check(_build.library().lda_pcgs_launch_shape(
+        kpad_of(num_topics), int(collapsed), int(serial), out.data_ptr()),
+        "lda_pcgs_launch_shape")
+    return int(out[0]), int(out[1])
+
+
 def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
             doc_slot_offsets, doc_slots, u24, nk_plus, beta, *, nwin_w,
             vspan, num_topics, positive_support, serial, nk_out):
@@ -286,9 +306,10 @@ def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
     ask for, return its outputs."""
     dev = w3.device
     K = num_topics
+    collapsed = _collapsed(nk_plus, beta)
     kpad, num_docs, dpad = check_sweep_operands(
         w3, d3, z_old, ndk_table, seed, win, win_len, doc_slot_offsets,
-        doc_slots, K)
+        doc_slots, K, collapsed)
     vpad = nwin_w * vspan
     if not phi_vk.shape[0] <= vpad:
         raise ValueError(f"word table of {phi_vk.shape[0]} rows does not fit "
@@ -306,7 +327,7 @@ def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
     stream = torch.cuda.current_stream(dev).cuda_stream
     sizes = (num_docs, dpad, kpad, K, vspan, win_div, int(positive_support),
              int(serial), dev.index, stream)
-    if not _collapsed(nk_plus, beta):
+    if not collapsed:
         err = _build.library().lda_pcgs_sweep(
             *ptrs, phi_vk.data_ptr(), u24_ptr, seed.data_ptr(),
             table.data_ptr(), z.data_ptr(), nkw.data_ptr(), *sizes)

@@ -520,3 +520,41 @@ def test_collapsed_mode_cpu_runs_plain_version(streamed):
         assert fn.launches == fn.collapsed_launches == 0
     with pytest.raises(ValueError, match="nk_plus and beta"):
         case.port(nk_plus=nk_plus, beta=None)
+
+
+def _operands_of_k(num_topics):
+    """Minimal CPU operands of `check_sweep_operands` for a K-topic table."""
+    i32 = torch.int32
+    z3 = torch.zeros((1, 1, 128), dtype=i32)
+    table = torch.zeros((kpad_of(num_topics) + FLAG_ROWS, 128))
+    return (z3, z3, z3, table, torch.zeros(1, dtype=torch.int64),
+            torch.zeros(1, dtype=i32), 1, torch.arange(2, dtype=i32),
+            torch.zeros(1, dtype=i32), num_topics)
+
+
+@pytest.mark.parametrize("collapsed,limit", [
+    (True, cuda_pcgs.MAX_TOPICS_COLLAPSED), (False, cuda_pcgs.MAX_TOPICS)])
+def test_sweep_topic_limit_per_mode(collapsed, limit):
+    """The collapsed mode keeps four K-rows a warp in shared memory (16
+    bytes a topic: n_dk column, cdf, the view of V beta + n_k and the
+    unflushed moves), the PCGS mode two (8 bytes): each mode's limit is the
+    largest 128-topic multiple that fits 227 KB in one warp. At the limit
+    the topic check passes and the next check (the tensors' device: these
+    lie on the CPU) raises; one 128-topic step above, the topic check
+    raises."""
+    assert limit == (227 * 1024 // (16 if collapsed else 8)) // 128 * 128
+    assert cuda_pcgs.MAX_TOPICS_COLLAPSED == 14464
+    assert cuda_pcgs.MAX_TOPICS == 29056
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        cuda_pcgs.check_sweep_operands(*_operands_of_k(limit),
+                                       collapsed=collapsed)
+    with pytest.raises(ValueError, match=f"num_topics={limit + 128} "
+                       f"outside the kernel's range \\(1..{limit}"):
+        cuda_pcgs.check_sweep_operands(*_operands_of_k(limit + 128),
+                                       collapsed=collapsed)
+    # the PCGS mode's limit is unchanged by the collapsed mode's
+    above = cuda_pcgs.MAX_TOPICS_COLLAPSED + 128
+    with pytest.raises(ValueError, match=("outside" if collapsed
+                                          else "expected a tensor on")):
+        cuda_pcgs.check_sweep_operands(*_operands_of_k(above),
+                                       collapsed=collapsed)
