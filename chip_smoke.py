@@ -13,12 +13,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      shapes of the synthetic 20NG corpus (D=11,269, V=20,000, K=100, mean
      doc length 120, Zipf 1.1 types, default_rng(0) — the same recipe as
      bench.py), with each kernel's time, its plain version's time, the
-     library yardstick where one exists, and its bound;
-     The PCGS sweep kernel is held against its plain version on the
-     resident layout at K=100 and the streamed layout at K=200, with
+     library yardstick where one exists, and its bound; the z-draw also
+     with its launch shape, its precise-mode time, and a K=514 check on
+     the first 1,000 documents (the instance that loads one topic at a
+     time). The PCGS sweep kernel is held against its plain version on
+     the resident layout at K=100 and the streamed layout at K=200, with
      injected and Philox uniforms, exact zeros in phi, and a chi-square.
      The LightLDA MH sweep kernel likewise (resident K=100, streamed
-     K=200), with a chi-square against the enumerated MH transition;
+     K=200), with a chi-square against the enumerated MH transition, its
+     word-cdf pre-pass against its plain version and timed alone, and its
+     launch shape;
      The collapsed (ADLDA) mode of the PCGS sweep kernel likewise
      (`[3 adlda sweep]`): bookkeeping against an entry N_kw that is not
      the z_old histogram, one selected document against the plain
@@ -256,6 +260,65 @@ def pcgs_chi_square(torch, cuda_pcgs, gen, seed, k=100, n=200_704,
     return chi2, float(sps.chi2.sf(chi2, k - 1))
 
 
+def zdraw_large_k(torch, corpus, Corpus, cfg, cuda_zdraw, cuda_counts, gen,
+                  k=514, num_docs=1000):
+    """The z-draw at a large K that is no multiple of 4 (the instance
+    that loads one topic at a time): K=514 on the first `num_docs`
+    documents, u24 and Philox, both precision modes. z agrees with the
+    plain version on >= 99.9% of tokens, N_kw is the histogram of z,
+    padding keeps z. Returns a summary for the [3 zdraw] line."""
+    from ldagroupedgibbssampler_tpu_torch.corpus.ragged import real_slot_list
+    dev = torch.device("cuda", 0)
+    sub = first_docs(Corpus, corpus, num_docs)
+    b = sub.cell_blocks(block=cfg.token_block, vspan=cfg.vocab_span,
+                        dspan=cfg.doc_span)
+    nb, block = b.w_local.shape
+    sh3 = (nb, block // b.chunk, b.chunk)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    w3, d3 = t(b.w_local).view(sh3), t(b.d_local_a).view(sh3)
+    z_old = torch.randint(0, k, sh3, generator=gen, device=dev,
+                          dtype=torch.int32)
+    theta = torch.rand((sub.num_docs, k), generator=gen, device=dev)
+    phi = torch.rand((sub.num_types, k), generator=gen, device=dev)
+    u24 = torch.randint(0, 2 ** 24, sh3, generator=gen, device=dev,
+                        dtype=torch.int32)
+    seed = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64,
+                        device=dev)
+    args = (w3, d3, z_old, theta, phi, seed, t(b.win_w), t(b.first_w),
+            t(b.win_d_chunks))
+    kw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=cfg.vocab_span,
+              dspan=cfg.doc_span, num_topics=k)
+    real_slots = t(real_slot_list(b.mask))
+    pad = w3 == cfg.vocab_span
+    agree = {}
+    for precise in (False, True):
+        for label, u in (("u24", u24), ("philox", None)):
+            zk, nk_k = cuda_zdraw.fused_zdraw_nkw(*args, u, precise=precise,
+                                                  real_slots=real_slots, **kw)
+            zr, _ = cuda_zdraw.fused_zdraw_nkw_reference(
+                *args, u, precise=precise, **kw)
+            torch.cuda.synchronize()
+            name = f"{label} {'precise' if precise else 'bf16'}"
+            agree[name] = float((zk == zr)[~pad].float().mean())
+            check(agree[name] >= 0.999, f"z-draw K={k} ({name}): only "
+                  f"{agree[name]:.6f} of tokens agree with the plain version")
+            hist = cuda_counts.blocked_label_counts_reference(
+                w3.reshape(nb, block), zk.view(nb, block), t(b.win_w),
+                t(b.first_w), nwin=b.nwin_w, vspan=cfg.vocab_span,
+                num_labels=k)
+            check(torch.equal(nk_k, hist), f"z-draw K={k} ({name}): N_kw "
+                  "is not the histogram of the kernel's z")
+            check(torch.equal(zk[pad], z_old[pad]),
+                  f"z-draw K={k} ({name}): a padding slot changed z")
+    return (f"K={k} on the first {num_docs} documents ({sub.num_tokens} "
+            f"tokens), {cuda_zdraw.launch_shape(theta, phi)[2]} topic a row "
+            f"load: "
+            f"z agreement "
+            f"{json.dumps(agree)}, N_kw and kept z exact")
+
+
 def pcgs_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
     """[3 pcgs]: the sweep kernel against its plain version at the 20NG
     shapes, on the resident layout at K=100 and the streamed one at K=200,
@@ -489,7 +552,15 @@ def one_token_sweep_operands(torch, cuda_lightlda, fn, alpha, tw, qw, seed,
             torch.arange(n + 1, dtype=torch.int32, device=dev),
             torch.arange(n, dtype=torch.int32, device=dev))
     return args, dict(nwin_w=1, nwin_d=1, vspan=128, dspan=128,
-                      num_topics=k)
+                      num_topics=k,
+                      doc_order=torch.arange(n, dtype=torch.int32,
+                                             device=dev))
+
+
+def without_order(kw):
+    """An MH sweep wrapper's keywords for its plain version, which takes
+    no document order (no draw depends on it)."""
+    return {key: v for key, v in kw.items() if key != "doc_order"}
 
 
 def lightlda_chi_square(torch, cuda_lightlda, fn, gen, seed, k, n=200_704,
@@ -563,7 +634,7 @@ def lightlda_boundaries(torch, cuda_lightlda, fn, plain, seed, block=4096,
     args, kw = one_token_sweep_operands(torch, cuda_lightlda, fn, alpha, tw,
                                         qw, seed, n, block, chunk)
     z = fn(*args, u24, **kw)[0].reshape(-1)
-    zr = plain(*args, u24, **kw)[0].reshape(-1)
+    zr = plain(*args, u24, **without_order(kw))[0].reshape(-1)
     torch.cuda.synchronize()
     check(torch.equal(z, zr), f"acceptance boundaries: kernel and plain "
           f"version differ on {int((z != zr).sum())} tokens")
@@ -613,7 +684,7 @@ def lightlda_kernel_phase(torch, corpus, LDAConfig, create_model,
             fn, args, kw = model._sweep_call(st.z, table, tw, seed, u,
                                              proposal_vk=qw)
             zk, nkw_k, tb_k = fn(*args, **kw)
-            zr, nkw_r, _ = plain_of[fn](*args, **kw)
+            zr, nkw_r, _ = plain_of[fn](*args, **without_order(kw))
             torch.cuda.synchronize()
             agree = float((zk == zr)[real].float().mean())
             agreement[label] = agree
@@ -623,6 +694,29 @@ def lightlda_kernel_phase(torch, corpus, LDAConfig, create_model,
                                 st.z, zk, nkw_k, tb_k, doc_sel)
             if label == "philox":
                 err = int((nkw_k - nkw_r).abs().max())
+                # warps taking the documents in index order draw the same
+                # as longest first, bit for bit
+                index = torch.arange(D, dtype=torch.int32, device=dev)
+                check(all(torch.equal(a, b) for a, b in zip(
+                    fn(*args, **{**kw, "doc_order": index}),
+                    (zk, nkw_k, tb_k))), f"lightlda K={k}: results depend "
+                      "on the document order")
+        # the pre-pass against its plain version: last nonzero topics
+        # exact, totals and cdf rows to f32 rounding (another association)
+        kpad = table.shape[0] - 8
+        qw16 = qw.to(torch.bfloat16)
+        cdf_k, tot_k, last_k = cuda_lightlda.word_cdf_table(qw16, kpad)
+        cdf_r, tot_r, last_r = cuda_lightlda.word_cdf_table_reference(
+            qw16.float(), kpad)
+        torch.cuda.synchronize()
+        check(torch.equal(last_k, last_r), f"lightlda K={k}: pre-pass last "
+              "nonzero topics differ from the plain version")
+        pre_err = float(((cdf_k - cdf_r).abs().max(dim=1).values
+                         / tot_r.clamp_min(1e-30)).max())
+        tot_err = float(((tot_k - tot_r).abs() / tot_r.clamp_min(1e-30))
+                        .max())
+        check(pre_err < 1e-5 and tot_err < 1e-5, f"lightlda K={k}: pre-pass "
+              f"cdf / total relative error {pre_err:.3g} / {tot_err:.3g}")
         chi2, pval = lightlda_chi_square(torch, cuda_lightlda, fn, gen,
                                          seed, k)
         check(pval > 1e-4, f"lightlda K={k} chi-square p={pval:.2e}")
@@ -631,8 +725,11 @@ def lightlda_kernel_phase(torch, corpus, LDAConfig, create_model,
         fn, args, kw = model._sweep_call(st.z, table, tw, seed,
                                          proposal_vk=qw)
         ms = time_ms(torch, lambda: fn(*args, **kw))
-        plain_ms = time_ms(torch, lambda: plain_of[fn](*args, **kw),
-                           reps=3, calls=1)
+        pre_ms = time_ms(torch, lambda: cuda_lightlda.word_cdf_table(
+            qw16, kpad))
+        plain_ms = time_ms(torch, lambda: plain_of[fn](
+            *args, **without_order(kw)), reps=3, calls=1)
+        warps, smem = cuda_lightlda.launch_shape(k)
         slots, n = st.z.numel(), corpus.num_tokens
         b = model._sblocks
         # w, z_old and z per slot, the slot lists, two bf16 [V, K] tables,
@@ -645,21 +742,27 @@ def lightlda_kernel_phase(torch, corpus, LDAConfig, create_model,
         print(f"[3 lightlda] K={k} {layout} layout (vspan {model._vspan}, "
               f"{slots} slots for {n} tokens, model set up in "
               f"{setup_s:.1f} s): z agreement {json.dumps(agreement)}; "
-              f"N_kw, n_dk, flags and kept z exact; chi2={chi2:.1f} "
+              f"N_kw, n_dk, flags and kept z exact; index document order "
+              f"bit-equal to longest first; chi2={chi2:.1f} "
               f"(df {k - 1}, p={pval:.3g}, 200,704 one-token documents, "
               f"non-bf16-exact alpha); acceptance boundaries exact on "
-              f"{n_a} + {n_b} tokens; {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound_ms:.4f} ms ({bound_by}); max |N_kw - "
-              f"plain| {err}", flush=True)
+              f"{n_a} + {n_b} tokens; pre-pass against its plain version: "
+              f"last nonzero topics exact, cdf / total relative error "
+              f"{pre_err:.2g} / {tot_err:.2g}; launched with {warps} warps "
+              f"a block, {smem // warps} B of shared memory a warp; "
+              f"{ms:.4f} ms (pre-pass alone {pre_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"max |N_kw - plain| {err}", flush=True)
         entries.append(
             {"name": fn.__name__, "route": "cuda",
              "source": "ldagroupedgibbssampler_tpu_torch/csrc/lightlda.cu",
              "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_lightlda.py:"
                          + ("67" if layout == "resident" else "275"),
              "launches": 0, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None})
-        del model, st, table, tw, qw, u24, zk, zr, tb_k, nkw_k
+             "prepass_ms": pre_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        del model, st, table, tw, qw, qw16, u24, zk, zr, tb_k, nkw_k
+        del cdf_k, cdf_r
         torch.cuda.empty_cache()
     return entries
 
@@ -1193,7 +1296,8 @@ def main() -> int:
         return fail(f"the port's package is not importable ({e}); run "
                     "from the repository root")
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
-    from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
+    from ldagroupedgibbssampler_tpu_torch.corpus.ragged import (
+        Corpus, real_slot_list)
     from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
     from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts,
                                                       cuda_lightlda,
@@ -1315,6 +1419,7 @@ def main() -> int:
     zargs = (w3, d3, z_old, theta_m, phi, seed, winb, firstb, windc)
     zkw = dict(nwin_w=blocks.nwin_w, nwin_d=blocks.nwin_d, vspan=vspan,
                dspan=dspan, num_topics=K)
+    real_slots = t(real_slot_list(blocks.mask))
     pad = (w3 == vspan)
     doc_of_slot = torch.as_tensor(blocks.doc_ids.reshape(shape3),
                                   device=dev)
@@ -1324,7 +1429,7 @@ def main() -> int:
                               ("u24 precise", u24, True),
                               ("philox bf16", None, False)):
         zk, nk_k = cuda_zdraw.fused_zdraw_nkw(*zargs, u, precise=precise,
-                                              **zkw)
+                                              real_slots=real_slots, **zkw)
         zr, nk_r = cuda_zdraw.fused_zdraw_nkw_reference(
             *zargs, u, precise=precise, **zkw)
         torch.cuda.synchronize()
@@ -1347,7 +1452,8 @@ def main() -> int:
     onehot = torch.nn.functional.one_hot(doc_topic, K).to(torch.float32)
     onehot = torch.where(doc_sel[:, None], onehot, 0.0).contiguous()
     zk, _ = cuda_zdraw.fused_zdraw_nkw(w3, d3, z_old, onehot, phi, seed,
-                                       winb, firstb, windc, **zkw)
+                                       winb, firstb, windc,
+                                       real_slots=real_slots, **zkw)
     sel = (~pad) & ~unsel
     check(torch.equal(zk[sel], doc_topic[doc_of_slot[sel]].to(torch.int32)),
           "planted topics not drawn")
@@ -1364,7 +1470,9 @@ def main() -> int:
         torch.zeros(nb1, dtype=torch.int32, device=dev),
         torch.ones(nb1, dtype=torch.int32, device=dev),
         torch.zeros(nb1 * chunks, dtype=torch.int32, device=dev),
-        nwin_w=1, nwin_d=1, vspan=vspan, dspan=dspan, num_topics=K)
+        nwin_w=1, nwin_d=1, vspan=vspan, dspan=dspan, num_topics=K,
+        real_slots=torch.arange(zero3.numel(), dtype=torch.int32,
+                                device=dev))
     p = (th1 * ph1).double().cpu().numpy()[0]
     p /= p.sum()
     obs = np.bincount(zk1.cpu().numpy().reshape(-1), minlength=K)
@@ -1374,7 +1482,14 @@ def main() -> int:
     check(pval > 1e-4, f"z-draw chi-square p={pval:.2e}")
 
     zdraw_ms = time_ms(torch, lambda: cuda_zdraw.fused_zdraw_nkw(
-        *zargs, **zkw))
+        *zargs, real_slots=real_slots, **zkw))
+    zdraw_precise_ms = time_ms(torch, lambda: cuda_zdraw.fused_zdraw_nkw(
+        *zargs, precise=True, real_slots=real_slots, **zkw))
+    thr, smem, step = cuda_zdraw.launch_shape(theta_m, phi)
+    zshape = (f"one real slot a thread, {thr} threads and {smem} B of "
+              f"shared memory a block, {step} topics a row load")
+    big = zdraw_large_k(torch, corpus, Corpus, cfg, cuda_zdraw, cuda_counts,
+                        gen)
     zdraw_plain_ms = time_ms(torch, lambda: cuda_zdraw.
                              fused_zdraw_nkw_reference(*zargs, **zkw),
                              reps=5, calls=2)
@@ -1383,10 +1498,11 @@ def main() -> int:
     zdraw_ops = 3.0 * n_tok * K         # product, prefix sum, compare
     zdraw_bound, zdraw_by = bound(zdraw_bytes, zdraw_ops)
     print(f"[3 zdraw] z agreement {json.dumps(agreement)}; planted topics "
-          f"exact; chi2={chi2:.1f} (df {K - 1}, p={pval:.3g}); "
-          f"{zdraw_ms:.4f} ms, plain {zdraw_plain_ms:.4f} ms, bound "
-          f"{zdraw_bound:.4f} ms ({zdraw_by}); max |N_kw - plain| "
-          f"{zdraw_err}", flush=True)
+          f"exact; chi2={chi2:.1f} (df {K - 1}, p={pval:.3g}); launch: "
+          f"{zshape}; {zdraw_ms:.4f} ms (precise mode {zdraw_precise_ms:.4f} "
+          f"ms), plain {zdraw_plain_ms:.4f} ms, bound {zdraw_bound:.4f} ms "
+          f"({zdraw_by}); max |N_kw - plain| {zdraw_err}; {big}",
+          flush=True)
     del theta, phi, theta_m, onehot, u24, z, z_b, key_b, lib
     torch.cuda.empty_cache()
     pcgs_entries = pcgs_kernel_phase(torch, corpus, LDAConfig, create_model,
@@ -1523,9 +1639,9 @@ def main() -> int:
          "source": "ldagroupedgibbssampler_tpu_torch/csrc/zdraw.cu",
          "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_zdraw.py:59",
          "launches": launches["fused_zdraw_nkw"], "max_abs_err": zdraw_err,
-         "ms": zdraw_ms, "plain_ms": zdraw_plain_ms,
-         "bound_ms": zdraw_bound, "bound_by": zdraw_by,
-         "library_ms": None},
+         "ms": zdraw_ms, "precise_ms": zdraw_precise_ms,
+         "plain_ms": zdraw_plain_ms, "bound_ms": zdraw_bound,
+         "bound_by": zdraw_by, "library_ms": None},
         *pcgs_entries,
         *lightlda_entries,
         *adlda_entries,

@@ -640,3 +640,20 @@ def doc_visit_order(d_local, win_d_chunks, *, dspan: int, chunk: int,
     counts = np.bincount(doc, minlength=num_docs)
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return offsets, real[order].astype(np.int32)
+
+
+def longest_first(offsets):
+    """The documents of CSR `offsets` [D+1], longest first (ties in index
+    order): int32 [D]. A sweep kernel whose warps take documents in this
+    order does not end on a long document started in its last wave."""
+    lengths = np.diff(np.asarray(offsets, np.int64))
+    return np.argsort(-lengths, kind="stable").astype(np.int32)
+
+
+def real_slot_list(mask):
+    """The real slots of a block layout, for a kernel launched over tokens
+    only: the flat indices of `mask` (validity, any shape) in slot order,
+    int32 [N]."""
+    mask = np.asarray(mask)
+    assert mask.size < 2 ** 31, "slot indices must fit int32"
+    return np.flatnonzero(mask.reshape(-1)).astype(np.int32)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ldagroupedgibbssampler_tpu_torch.corpus.ragged import (
-    build_stream_blocks, doc_visit_order)
+    build_stream_blocks, doc_visit_order, longest_first)
 from ldagroupedgibbssampler_tpu_torch.ops.counts import (
     doc_topic_counts, topic_word_counts)
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_lightlda import (
@@ -182,6 +182,7 @@ class FusedPCGSSweepMixin:
             self.swwc = dev(b.win_w_chunks)
         self.swindc = dev(b.win_d_chunks)
         self.doc_slot_offsets, self.doc_slots = dev(offsets), dev(slots)
+        self.doc_order = dev(longest_first(offsets))
         # global type and doc of every slot, for the recounts
         mask = b.mask.reshape(self._sshape3)
         w_glob = (win_of_chunk.astype(np.int64)[:, None] * vspan
@@ -240,6 +241,7 @@ class FusedPCGSSweepMixin:
             words = (word_vk,)
             resident, streamed = fused_pcgs_sweep, fused_pcgs_sweep_streamed
         else:
+            kw.update(doc_order=self.doc_order)
             words = (word_vk, proposal_vk)
             resident, streamed = (fused_lightlda_sweep,
                                   fused_lightlda_sweep_streamed)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ldagroupedgibbssampler_tpu_torch.corpus.ragged import real_slot_list
 from ldagroupedgibbssampler_tpu_torch.models.base import (LDAState,
                                                           TorchLDASampler)
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
@@ -61,6 +62,8 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
         # z stays flat over the layout-A slots
         self._slot_mask = self.mf
         self._flat_index = blocks.flat_index.reshape(-1)
+        # the z-draw kernel walks the real slots only
+        self._real_slots = dev(real_slot_list(blocks.mask))
         self.winb = dev(blocks.win_w)
         self.firstb = dev(blocks.first_w)
         self.windc = dev(blocks.win_d_chunks)
@@ -125,7 +128,8 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
             self.winb, self.firstb, self.windc,
             nwin_w=blocks.nwin_w, nwin_d=blocks.nwin_d,
             vspan=cfg.vocab_span, dspan=blocks.dspan,
-            num_topics=cfg.topics, precise=cfg.zdraw_precise)
+            num_topics=cfg.topics, precise=cfg.zdraw_precise,
+            real_slots=self._real_slots)
         z = z3.view(-1)
         nkw = nkw[: self.corpus.num_types]
         # (3b) n_dk rebuild on the d-window-major layout.

@@ -49,10 +49,8 @@ _SIGNATURES = {
     "lda_label_counts": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int, _c_int,
                          _c_int, _c_ptr, _c_int, _c_ptr],
     # zdraw.cu
-    "lda_zdraw_nkw": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                      _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                      _c_i64, _c_int, _c_int, _c_int, _c_int, _c_int,
-                      _c_int, _c_int, _c_int, _c_int, _c_ptr],
+    "lda_zdraw_nkw": [_c_ptr] * 11 + [_c_i64] + [_c_int] * 9 + [_c_ptr],
+    "lda_zdraw_launch_shape": [_c_int, _c_ptr, _c_ptr, _c_ptr],
     # pcgs.cu
     "lda_pcgs_sweep": [_c_ptr] * 11 + [_c_int, _c_i64, _c_int, _c_int,
                                        _c_int, _c_int, _c_int, _c_int,
@@ -62,9 +60,11 @@ _SIGNATURES = {
         _c_int, _c_int, _c_int, _c_ptr],
     "lda_pcgs_launch_shape": [_c_int, _c_int, _c_int, _c_ptr],
     # lightlda.cu
-    "lda_lightlda_sweep": [_c_ptr] * 12 + [_c_int, _c_i64, _c_int, _c_int,
+    "lda_lightlda_word_cdf": [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr],
+    "lda_lightlda_sweep": [_c_ptr] * 16 + [_c_int, _c_i64, _c_int, _c_int,
                                            _c_int, _c_int, _c_int, _c_int,
                                            _c_int, _c_ptr],
+    "lda_lightlda_launch_shape": [_c_int, _c_ptr],
 }
 
 

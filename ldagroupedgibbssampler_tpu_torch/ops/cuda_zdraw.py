@@ -2,12 +2,15 @@
 
 Counterpart of `ldagroupedgibbssampler_tpu/ops/pallas_zdraw.py`
 (`fused_zdraw_nkw`, Pallas kernel `_zdraw_kernel`). The kernel is
-`csrc/zdraw.cu` (one warp per slot, direct row gathers, warp scan and
-ballot count; its header says what bounds it on the H100). The public
-function keeps the JAX function's signature and layout-A block shapes;
-the TPU-only `stream_theta` and `interpret` switches are gone, and `seed`
-is an int64 [1] tensor on the device (drawn from the sampler's
-`torch.Generator`) that keys the in-kernel Philox4x32-10.
+`csrc/zdraw.cu`: one thread per real slot, launched over the real slots
+only (its header says what bounds it on the H100 and which designs were
+timed). The public function keeps the JAX function's signature and
+layout-A block shapes, with one keyword operand more, `real_slots` (the
+compact list of real slots of `corpus/ragged.py::real_slot_list`, which
+the model builds once; the plain version takes none); the TPU-only `stream_theta` and `interpret`
+switches are gone, and `seed` is an int64 [1] tensor on the device (drawn
+from the sampler's `torch.Generator`) that keys the in-kernel
+Philox4x32-10.
 
 Per slot: p_k = theta[d, k] * phi[w, k]; z = min(#{k : cdf_k <= u}, K-1)
 with u = u24 * 2^-24 * total; z_old is kept when total == 0 (padding
@@ -28,7 +31,8 @@ import torch
 from ldagroupedgibbssampler_tpu_torch.ops import _build
 from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
 
-# largest K whose per-warp cdf row fits the kernel's shared memory
+# the topic range of the parent kernel (a per-warp cdf row in shared
+# memory), kept: the one-token-per-thread kernel has no limit of its own
 MAX_TOPICS = 227 * 1024 // 4
 
 
@@ -49,8 +53,9 @@ def fused_zdraw_nkw_reference(w3, d3, z_old, theta_dk, phi_vk, seed, win_w,
                               nwin_d, vspan, dspan, num_topics,
                               precise=False):
     """Plain PyTorch version of the kernel on any device: gathers the
-    [slots, K] score rows, cumsum, and counts cdf <= u. Memory is
-    O(slots * K); it is the reference, not a fast path."""
+    [slots, K] score rows, cumsum, and counts cdf <= u over every slot
+    (padding slots have total 0). Memory is O(slots * K); it is the
+    reference, not a fast path."""
     nb, chunks, chunk = w3.shape
     dev = w3.device
     num_docs, num_types = theta_dk.shape[0], phi_vk.shape[0]
@@ -85,9 +90,21 @@ def fused_zdraw_nkw_reference(w3, d3, z_old, theta_dk, phi_vk, seed, win_w,
     return z.reshape(nb, chunks, chunk), nkw
 
 
+def launch_shape(theta_dk, phi_vk):
+    """(threads per block, dynamic shared memory bytes per block, topics
+    per row load) of csrc/zdraw.cu's launch on the tables theta_dk [D, K]
+    and phi_vk [V, K], from the rule the launch itself applies (needs the
+    built library)."""
+    out = torch.zeros(3, dtype=torch.int64)
+    _build.check(_build.library().lda_zdraw_launch_shape(
+        theta_dk.shape[1], theta_dk.data_ptr(), phi_vk.data_ptr(),
+        out.data_ptr()), "lda_zdraw_launch_shape")
+    return tuple(int(v) for v in out)
+
+
 def fused_zdraw_nkw(w3, d3, z_old, theta_dk, phi_vk, seed, win_w, first_w,
                     win_d_chunks, u24=None, *, nwin_w, nwin_d, vspan, dspan,
-                    num_topics, precise=False):
+                    num_topics, precise=False, real_slots):
     """Draw z for every token slot and count N_kw in one pass.
 
     w3 / d3 / z_old: int32 [NB, chunks, chunk] layout-A token rows
@@ -99,6 +116,9 @@ def fused_zdraw_nkw(w3, d3, z_old, theta_dk, phi_vk, seed, win_w, first_w,
     win_d_chunks: int32 [NB * chunks].
     u24: optional int32 [NB, chunks, chunk] of 24-bit uniforms in
         [0, 2^24) replacing the in-kernel Philox draw (the tests' path).
+    real_slots: int32 [N], the real slots of the layout
+        (`corpus/ragged.py::real_slot_list`); the kernel walks only these.
+        The CPU path ignores it.
 
     Returns (z int32 [NB, chunks, chunk], nkw int32 [nwin_w * vspan, K]).
     """
@@ -126,16 +146,18 @@ def fused_zdraw_nkw(w3, d3, z_old, theta_dk, phi_vk, seed, win_w, first_w,
                         device=dev)
     if u24 is not None:
         _build.check_tensor("u24", u24, shape3, device=dev)
-    z = torch.empty(shape3, dtype=torch.int32, device=dev)
+    _build.check_tensor("real_slots", real_slots, (real_slots.numel(),),
+                        device=dev)
+    z = z_old.clone()                  # padding slots keep z_old
     nkw = torch.zeros((nwin_w * vspan, num_topics), dtype=torch.int32,
                       device=dev)
     err = _build.library().lda_zdraw_nkw(
-        w3.data_ptr(), d3.data_ptr(), z_old.data_ptr(), theta_dk.data_ptr(),
+        w3.data_ptr(), d3.data_ptr(), theta_dk.data_ptr(),
         phi_vk.data_ptr(), win_w.data_ptr(), win_d_chunks.data_ptr(),
-        None if u24 is None else u24.data_ptr(), seed.data_ptr(),
-        z.data_ptr(), nkw.data_ptr(), nb * chunks * chunk, chunks * chunk,
-        chunk, vspan, dspan, num_topics, num_docs, num_types, int(precise),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        real_slots.data_ptr(), None if u24 is None else u24.data_ptr(),
+        seed.data_ptr(), z.data_ptr(), nkw.data_ptr(), real_slots.numel(),
+        chunks * chunk, chunk, vspan, dspan, num_topics, num_docs, num_types,
+        int(precise), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lda_zdraw_nkw")
     fused_zdraw_nkw.launches += 1
     return z, nkw

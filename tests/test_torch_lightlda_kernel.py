@@ -3,7 +3,8 @@ JAX Pallas kernels run in interpret mode with the same injected uniforms,
 as tests/test_pallas_lightlda.py::_run_mh runs them (the interpreted
 kernels run the true chunk schedule), and the sweep's semantics on the
 plain version's Philox path: count semantics, the exact two-step MH
-transition distribution and in-sweep n_dk visibility."""
+transition distribution and in-sweep n_dk visibility; the pre-pass's plain
+version and the word proposal drawn from its table; the document order."""
 
 import jax
 import jax.numpy as jnp
@@ -16,9 +17,10 @@ from ldagroupedgibbssampler_tpu.ops.pallas_lightlda import (
     fused_lightlda_sweep as jax_sweep,
     fused_lightlda_sweep_streamed as jax_sweep_streamed)
 from ldagroupedgibbssampler_tpu_torch.corpus.ragged import (
-    Corpus, build_stream_blocks_seq, doc_visit_order)
+    Corpus, build_stream_blocks_seq, doc_visit_order, longest_first)
 from ldagroupedgibbssampler_tpu_torch.ops import cuda_lightlda
-from ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs import FLAG_ROWS, kpad_of
+from ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs import (
+    FLAG_ROWS, cdf_draw, kpad_of)
 from ldagroupedgibbssampler_tpu_torch.ops.philox import (
     philox_u24, philox_u24x4)
 
@@ -96,8 +98,12 @@ class Case:
             ops += (t(b.win_w), t(b.first_w), t(b.win_d_chunks))
         ops += (t(self.visit[0]), t(self.visit[1]),
                 t(self.u24) if inject else None)
-        z, nkw, table = fn(*ops, nwin_w=b.nwin_w, nwin_d=b.nwin_d,
-                           vspan=128, dspan=128, num_topics=self.K)
+        kw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=128, dspan=128,
+                  num_topics=self.K)
+        if fn in (cuda_lightlda.fused_lightlda_sweep,
+                  cuda_lightlda.fused_lightlda_sweep_streamed):
+            kw["doc_order"] = t(longest_first(self.visit[0]))
+        z, nkw, table = fn(*ops, **kw)
         return z.numpy(), nkw.numpy(), table.numpy()
 
     def jax(self):
@@ -379,3 +385,90 @@ def test_wrapper_takes_plain_version_on_cpu(streamed):
         assert np.array_equal(a, r)
     assert cuda_lightlda.fused_lightlda_sweep.launches == 0
     assert cuda_lightlda.fused_lightlda_sweep_streamed.launches == 0
+
+
+def _qw_rows(K, seed=5):
+    """bf16-rounded proposal rows with exact zeros: row 0 all zero, row 1
+    zero over its last topics, the rest with scattered zeros."""
+    rng = np.random.default_rng(seed + K)
+    qw = rng.gamma(0.5, 1.0, (12, K)).astype(np.float32)
+    qw[rng.random((12, K)) < 0.3] = 0.0
+    qw[0] = 0.0
+    qw[1, K // 2:] = 0.0
+    qw[1, 0] = max(qw[1, 0], 0.5)
+    return _bf16_np(qw).astype(np.float32)
+
+
+@pytest.mark.parametrize("K", [5, 100, 130, 200])
+def test_word_cdf_table_reference(K):
+    """The MH pre-pass's plain version: per row the f32 prefix sums inside
+    128-topic tiles padded with zeros to kpad, the total as the tile
+    totals summed in tile order, and the last topic with qw > 0 (-1 for an
+    all-zero row), against a float64 recount."""
+    qw = _qw_rows(K)
+    kpad = kpad_of(K)
+    cdf, total, lastnz = cuda_lightlda.word_cdf_table_reference(
+        torch.as_tensor(qw), kpad)
+    assert cdf.shape == (12, kpad) and cdf.dtype == torch.float32
+    padded = np.zeros((12, kpad))
+    padded[:, :K] = qw
+    ref = padded.reshape(12, kpad // 128, 128).cumsum(axis=2)
+    np.testing.assert_allclose(cdf.numpy().reshape(ref.shape), ref,
+                               rtol=1e-6, atol=0)
+    np.testing.assert_allclose(total.numpy(), qw.sum(axis=1, dtype=np.float64),
+                               rtol=1e-6, atol=0)
+    want = [max(np.flatnonzero(r), default=-1) for r in qw]
+    assert lastnz.tolist() == want
+    assert want[0] == -1 and want[1] < K // 2
+    assert float(total[0]) == 0.0
+    # the cdf does not decrease inside a tile, as the kernel's search needs
+    assert (np.diff(cdf.numpy().reshape(ref.shape), axis=2) >= 0).all()
+
+
+@pytest.mark.parametrize("K", [5, 100, 130, 200])
+def test_tabled_draw_equals_cdf_draw(K):
+    """The word proposal drawn from the pre-pass's table (an upper-bound
+    search per tile, clamped to the last nonzero topic; 0 for an all-zero
+    row) equals `cuda_pcgs.cdf_draw` over the same rows and uniforms for
+    every token, uniforms at both ends of [0, 2^24) included."""
+    qw = torch.as_tensor(_qw_rows(K))
+    kpad = kpad_of(K)
+    rng = np.random.default_rng(K)
+    rows = torch.as_tensor(rng.integers(0, 12, 4000))
+    u24 = torch.as_tensor(np.concatenate([
+        rng.integers(0, 2 ** 24, 3998), [0, 2 ** 24 - 1]]).astype(np.int32))
+    table = cuda_lightlda.word_cdf_table_reference(qw, kpad)
+    k, tot = cuda_lightlda.tabled_draw_reference(*table, rows, u24)
+    k_ref, tot_ref = cdf_draw(qw[rows], u24, kpad)
+    assert torch.equal(tot, tot_ref)
+    assert torch.equal(k, k_ref)
+    assert (k[rows == 0] == 0).all()
+    assert (k[rows == 1] < K // 2).all()
+    live = tot > 0
+    assert (qw[rows[live], k[live]] > 0).all()
+
+
+def test_word_cdf_table_wrapper_takes_plain_version_on_cpu():
+    qw = torch.as_tensor(_qw_rows(100))
+    got = cuda_lightlda.word_cdf_table(qw.to(torch.bfloat16), 128)
+    ref = cuda_lightlda.word_cdf_table_reference(qw, 128)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_longest_first(streamed):
+    """The document order the model hands the MH kernel: int32, a
+    permutation of the documents, lengths not increasing, ties in index
+    order. (That no draw depends on it is checked on the card, where the
+    kernel runs it: chip_smoke.py `[3 lightlda]`.)"""
+    case = _case(7, streamed, seed=4)
+    offsets = case.visit[0]
+    order = longest_first(offsets)
+    lengths = np.diff(offsets)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(case.c.num_docs))
+    assert (np.diff(lengths[order]) <= 0).all()
+    tie = lengths[order][1:] == lengths[order][:-1]
+    assert (order[1:][tie] > order[:-1][tie]).all()
+    assert lengths[order[0]] == lengths.max()

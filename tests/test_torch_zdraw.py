@@ -1,7 +1,8 @@
 """The z-draw kernel's plain version against the JAX Pallas kernel run in
 interpret mode with the same injected uniforms, as
 tests/test_pallas_zdraw.py::_run_zdraw runs it; semantics (planted topics,
-kept z) and the distribution of the Philox path."""
+kept z) and the distribution of the Philox path; the compact real-slot
+list the kernel is launched over."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ from scipy import stats as sps
 from ldagroupedgibbssampler_tpu.corpus.ragged import Corpus
 from ldagroupedgibbssampler_tpu.ops.pallas_zdraw import (
     fused_zdraw_nkw as jax_fused_zdraw_nkw)
+from ldagroupedgibbssampler_tpu_torch.corpus.ragged import real_slot_list
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_zdraw import (
     fused_zdraw_nkw, fused_zdraw_nkw_reference)
 from ldagroupedgibbssampler_tpu_torch.ops.philox import (
@@ -46,7 +48,8 @@ def _run_port(c, K, z_flat, theta, phi, seed=11, precise=False,
         t(theta), t(phi), torch.tensor([seed], dtype=torch.int64),
         t(b.win_w), t(b.first_w), t(b.win_d_chunks),
         t(u24) if inject else None, nwin_w=b.nwin_w, nwin_d=b.nwin_d,
-        vspan=128, dspan=128, num_topics=K, precise=precise)
+        vspan=128, dspan=128, num_topics=K, precise=precise,
+        real_slots=t(real_slot_list(b.mask)))
     return _to_flat(c, fi3, z.numpy()), nkw.numpy()
 
 
@@ -168,6 +171,62 @@ def test_zdraw_wrapper_takes_plain_version_on_cpu():
             t(b.win_w), t(b.first_w), t(b.win_d_chunks))
     kw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=128, dspan=128,
               num_topics=6)
-    for a, r in zip(fused_zdraw_nkw(*args, **kw),
+    for a, r in zip(fused_zdraw_nkw(*args, **kw,
+                                    real_slots=t(real_slot_list(b.mask))),
                     fused_zdraw_nkw_reference(*args, **kw)):
         assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("seed,block", [(0, 512), (1, 512), (2, 4096)])
+def test_real_slot_list(seed, block):
+    """The z-draw's compact real-slot list lists every real slot of
+    `blocks.mask` exactly once, in slot order, and no padding slot: it is
+    exactly the slots whose w_local is below the sentinel vspan."""
+    rng = np.random.default_rng(seed)
+    c = _corpus(rng, 120 + 40 * seed, 400, 60)
+    b = c.cell_blocks(block=block, vspan=128, dspan=128, chunk=128)
+    slots = real_slot_list(b.mask)
+    flat = b.mask.reshape(-1)
+    assert slots.dtype == np.int32
+    assert len(slots) == c.num_tokens == int(flat.sum())
+    assert len(np.unique(slots)) == len(slots)
+    assert (np.diff(slots) > 0).all()
+    assert flat[slots].all()
+    assert (b.w_local.reshape(-1)[slots] < 128).all()
+    assert not flat[np.setdiff1d(np.arange(flat.size), slots)].any()
+    assert np.array_equal(np.flatnonzero(b.w_local.reshape(-1) < 128),
+                          slots)
+    assert (b.w_local.reshape(-1)[~flat] == 128).all()
+
+
+@pytest.mark.parametrize("K", [13, 200])
+@pytest.mark.parametrize("precise", [False, True])
+def test_zdraw_with_real_slots_matches_jax_kernel(K, precise):
+    """The wrapper given the model's real-slot list (the main path's call)
+    returns on the CPU what the plain version returns over every slot, and
+    agrees with the interpreted JAX kernel on
+    test_zdraw_reference_matches_jax_kernel's inputs."""
+    rng = np.random.default_rng(K + precise)
+    D, V = 150, 300
+    c = _corpus(rng, D, V, 50)
+    theta = rng.dirichlet(np.full(K, 0.3), D).astype(np.float32)
+    theta[::6] = 0.0
+    phi = rng.dirichlet(np.full(V, 0.1), K).T.astype(np.float32)
+    z_flat = rng.integers(0, K, c.num_tokens).astype(np.int32)
+    b, sh3, fi3, z_old, u24 = _inputs(c, z_flat, 11)
+    t = torch.as_tensor
+    args = (t(b.w_local.reshape(sh3)), t(b.d_local_a.reshape(sh3)),
+            t(z_old), t(theta), t(phi), torch.tensor([11], dtype=torch.int64),
+            t(b.win_w), t(b.first_w), t(b.win_d_chunks), t(u24))
+    kw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=128, dspan=128,
+              num_topics=K, precise=precise)
+    z_rs, nkw_rs = fused_zdraw_nkw(
+        *args, real_slots=t(real_slot_list(b.mask)), **kw)
+    z_no, nkw_no = fused_zdraw_nkw_reference(*args, **kw)
+    assert torch.equal(z_rs, z_no) and torch.equal(nkw_rs, nkw_no)
+    z_j, nkw_j = _run_jax(c, K, z_flat, theta, phi, precise=precise)
+    z_p = _to_flat(c, fi3, z_rs.numpy())
+    agree = z_p == z_j
+    assert agree.mean() >= 0.999, agree.mean()
+    rows = np.setdiff1d(np.arange(V), np.unique(c.tokens[~agree]))
+    assert np.array_equal(nkw_rs.numpy()[rows], nkw_j[rows])
