@@ -18,7 +18,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the first 1,000 documents (the instance that loads one topic at a
      time). The PCGS sweep kernel is held against its plain version on
      the resident layout at K=100 and the streamed layout at K=200, with
-     injected and Philox uniforms, exact zeros in phi, and a chi-square.
+     injected and Philox uniforms, exact zeros in phi, a chi-square, the
+     documents in index order bit-equal to longest first, its bf16
+     word-table pre-pass bit-equal to its plain version and timed alone,
+     its launch shape and registers, and a K=514 check on the first 1,000
+     documents (the shared-memory instance above kpad 256).
      The LightLDA MH sweep kernel likewise (resident K=100, streamed
      K=200), with a chi-square against the enumerated MH transition, its
      word-cdf pre-pass against its plain version and timed alone, and its
@@ -248,7 +252,8 @@ def pcgs_chi_square(torch, cuda_pcgs, gen, seed, k=100, n=200_704,
         torch.arange(n + 1, dtype=torch.int32, device=dev),
         torch.arange(n, dtype=torch.int32, device=dev),
         nwin_w=1, nwin_d=1, vspan=128, dspan=128, num_topics=k,
-        positive_support=True)
+        positive_support=True,
+        doc_order=torch.arange(n, dtype=torch.int32, device=dev))
     nd = table[:k, 0].clone()
     nd[0] -= 1.0
     bf = torch.bfloat16
@@ -319,15 +324,121 @@ def zdraw_large_k(torch, corpus, Corpus, cfg, cuda_zdraw, cuda_counts, gen,
             f"{json.dumps(agree)}, N_kw and kept z exact")
 
 
-def pcgs_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
+def ptxas_registers(_build, name):
+    """Registers and spill stores of each instance of the kernel `name`,
+    from ptxas's lines in the built library's log: {"template arguments":
+    "R registers, S B spilled"}."""
+    import re
+    log = _build.library_path().with_suffix(".log")
+    out, key, spill = {}, None, "0"
+    for line in (log.read_text().splitlines() if log.exists() else ()):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            args = re.search(name + r"I(.*?)EEv", m.group(1))
+            key = (",".join(re.findall(r"L[ib](\d+)E", args.group(1) + "E"))
+                   if args else None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if key and m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if key and m:
+            out[key] = f"{m.group(1)} registers, {spill} B spilled"
+            key, spill = None, "0"
+    return out
+
+
+def pcgs_sweep_checks(torch, model, gen, seed, plain_of, label, doc_sel):
+    """The PCGS-mode checks of one model's layout, shared by [3 pcgs] and
+    its K=514 check: z agreement with the plain version (>= 0.999) for
+    injected uniforms, Philox and phi with exact zeros (about half the
+    entries, positive_support off), N_kw, n_dk, flags and kept z exact, no
+    draw on a zero-probability topic, and the kernel with the documents in
+    index order bit-equal to longest first. Returns (agreement, max |N_kw
+    - plain| of the Philox run)."""
+    st, dev = model.state, model.device
+    real = model._slot_mask
+    table = model._ndk_table(st.ndk, st.alpha, doc_sel)
+    phi_vk = st.phi.T.contiguous()
+    u24 = torch.randint(0, 2 ** 24, tuple(st.z.shape), generator=gen,
+                        device=dev, dtype=torch.int32)
+    agreement = {}
+    for name, u in (("u24", u24), ("philox", None)):
+        fn, args, kw = model._sweep_call(st.z, table, phi_vk, seed, u)
+        zk, nkw_k, tb_k = fn(*args, **kw)
+        zr, nkw_r, _ = plain_of[fn](*args, **without_order(kw))
+        torch.cuda.synchronize()
+        agreement[name] = float((zk == zr)[real].float().mean())
+        check(agreement[name] >= 0.999, f"{label} ({name}): only "
+              f"{agreement[name]:.6f} of tokens agree with the plain version")
+        check_sweep_outputs(torch, model, f"{label} ({name})", st.z, zk,
+                            nkw_k, tb_k, doc_sel)
+        if name == "philox":
+            err = int((nkw_k - nkw_r).abs().max())
+            # warps taking the documents in index order draw the same as
+            # longest first, bit for bit
+            index = torch.arange(model.corpus.num_docs, dtype=torch.int32,
+                                 device=dev)
+            check(all(torch.equal(a, b) for a, b in zip(
+                fn(*args, **{**kw, "doc_order": index}),
+                (zk, nkw_k, tb_k))), f"{label}: results depend on the "
+                  "document order")
+    keep = torch.rand(phi_vk.shape, generator=gen, device=dev) < 0.5
+    phi_zero = torch.where(keep, phi_vk, 0.0).contiguous()
+    fn, args, kw = model._sweep_call(st.z, table, phi_zero, seed)
+    kw = {**kw, "positive_support": False}
+    zk, nkw_k, tb_k = fn(*args, **kw)
+    zr, _, _ = plain_of[fn](*args, **without_order(kw))
+    torch.cuda.synchronize()
+    agreement["philox zero-phi"] = float((zk == zr)[real].float().mean())
+    check(agreement["philox zero-phi"] >= 0.999,
+          f"{label} zero-phi: z agreement {agreement}")
+    check_sweep_outputs(torch, model, f"{label} (zero-phi)", st.z, zk,
+                        nkw_k, tb_k, doc_sel)
+    sel = real & doc_sel[model._slot_d]
+    check(bool((phi_zero[model._slot_w[sel], zk[sel].long()] > 0).all()),
+          f"{label}: a draw landed on a zero-probability topic")
+    return agreement, err
+
+
+def pcgs_large_k(torch, corpus, Corpus, LDAConfig, create_model, plain_of,
+                 k=514, num_docs=1000):
+    """The PCGS mode above kpad 256 (the shared-memory instance, which the
+    main path does not reach): K=514 (kpad 640) on the first `num_docs`
+    documents, with pcgs_sweep_checks. Returns a summary for the [3 pcgs]
+    line."""
+    sub = first_docs(Corpus, corpus, num_docs)
+    model = create_model(pcgs_config(LDAConfig, "pcgs", k))
+    model.add_instances(sub)
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k)
+    seed = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64,
+                        device=dev)
+    doc_sel = (torch.arange(sub.num_docs, device=dev) % 5) != 0
+    agreement, err = pcgs_sweep_checks(torch, model, gen, seed, plain_of,
+                                       f"pcgs K={k}", doc_sel)
+    return (f"K={k} ({model._mode} layout) on the first {num_docs} "
+            f"documents ({sub.num_tokens} tokens): z agreement "
+            f"{json.dumps(agreement)}, N_kw, n_dk, flags and kept z exact, "
+            f"no draw on a zero-probability topic, index document order "
+            f"bit-equal to longest first, max |N_kw - plain| {err}")
+
+
+def pcgs_kernel_phase(torch, corpus, Corpus, LDAConfig, create_model,
+                      cuda_pcgs, _build):
     """[3 pcgs]: the sweep kernel against its plain version at the 20NG
     shapes, on the resident layout at K=100 and the streamed one at K=200,
-    with operands built by the model as its main path builds them.
-    Returns one `kernels` entry per layout (launches filled in later)."""
+    with operands built by the model as its main path builds them
+    (pcgs_sweep_checks), a chi-square, the pre-pass bit-equal to its plain
+    version and timed alone, the launch shape and the registers; the
+    K=100 line adds the K=514 check. Returns one `kernels` entry per
+    layout (launches filled in later)."""
     plain_of = {
         cuda_pcgs.fused_pcgs_sweep: cuda_pcgs.fused_pcgs_sweep_reference,
         cuda_pcgs.fused_pcgs_sweep_streamed:
             cuda_pcgs.fused_pcgs_sweep_streamed_reference}
+    regs = ptxas_registers(_build, "pcgs_lane_kernel")
     entries = []
     for k, layout in PCGS_LAYOUTS:
         t0 = time.perf_counter()
@@ -339,76 +450,62 @@ def pcgs_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
         dev, st = model.device, model.state
         gen = torch.Generator(device=dev)
         gen.manual_seed(k)
-        real = model._slot_mask
         doc_sel = (torch.arange(D, device=dev) % 5) != 0
-        table = model._ndk_table(st.ndk, st.alpha, doc_sel)
-        phi_vk = st.phi.T.contiguous()
         seed = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64,
                             device=dev)
-        u24 = torch.randint(0, 2 ** 24, tuple(st.z.shape), generator=gen,
-                            device=dev, dtype=torch.int32)
-        agreement = {}
-        for label, u in (("u24", u24), ("philox", None)):
-            fn, args, kw = model._sweep_call(st.z, table, phi_vk, seed, u)
-            zk, nkw_k, tb_k = fn(*args, **kw)
-            zr, nkw_r, _ = plain_of[fn](*args, **kw)
-            torch.cuda.synchronize()
-            agree = float((zk == zr)[real].float().mean())
-            agreement[label] = agree
-            check(agree >= 0.999, f"pcgs K={k} ({label}): only "
-                  f"{agree:.6f} of tokens agree with the plain version")
-            check_sweep_outputs(torch, model, f"pcgs K={k} ({label})",
-                                st.z, zk, nkw_k, tb_k, doc_sel)
-            if label == "philox":
-                err = int((nkw_k - nkw_r).abs().max())
-        # exact zeros in phi (about half the entries) and no positive
-        # support: no token may land on a zero-probability topic
-        keep = torch.rand(phi_vk.shape, generator=gen, device=dev) < 0.5
-        phi_zero = torch.where(keep, phi_vk, 0.0).contiguous()
-        fn, args, kw = model._sweep_call(st.z, table, phi_zero, seed)
-        kw = {**kw, "positive_support": False}
-        zk, nkw_k, tb_k = fn(*args, **kw)
-        zr, _, _ = plain_of[fn](*args, **kw)
-        torch.cuda.synchronize()
-        agreement["philox zero-phi"] = float((zk == zr)[real].float().mean())
-        check(agreement["philox zero-phi"] >= 0.999,
-              f"pcgs K={k} zero-phi: z agreement {agreement}")
-        check_sweep_outputs(torch, model, f"pcgs K={k} (zero-phi)", st.z,
-                            zk, nkw_k, tb_k, doc_sel)
-        sel = real & doc_sel[model._slot_d]
-        check(bool((phi_zero[model._slot_w[sel], zk[sel].long()] > 0).all()),
-              f"pcgs K={k}: a draw landed on a zero-probability topic")
+        agreement, err = pcgs_sweep_checks(torch, model, gen, seed, plain_of,
+                                           f"pcgs K={k}", doc_sel)
         chi = ""
         if k == 100:
             chi2, pval = pcgs_chi_square(torch, cuda_pcgs, gen, seed)
             check(pval > 1e-4, f"pcgs chi-square p={pval:.2e}")
             chi = f"; chi2={chi2:.1f} (df {k - 1}, p={pval:.3g})"
+        # the pre-pass against its plain version, bit for bit
+        phi_vk = st.phi.T.contiguous()
+        kpad = cuda_pcgs.kpad_of(k)
+        check(torch.equal(cuda_pcgs.phi_bf16_table(phi_vk, kpad),
+                          cuda_pcgs.phi_bf16_table_reference(phi_vk, kpad)),
+              f"pcgs K={k}: the pre-pass differs from its plain version")
+        table = model._ndk_table(st.ndk, st.alpha, doc_sel)
         fn, args, kw = model._sweep_call(st.z, table, phi_vk, seed)
         ms = time_ms(torch, lambda: fn(*args, **kw))
-        plain_ms = time_ms(torch, lambda: plain_of[fn](*args, **kw),
-                           reps=3, calls=1)
+        pre_ms = time_ms(torch, lambda: cuda_pcgs.phi_bf16_table(phi_vk,
+                                                                 kpad))
+        plain_ms = time_ms(torch, lambda: plain_of[fn](
+            *args, **without_order(kw)), reps=3, calls=1)
+        warps, smem, per, docs = cuda_pcgs.launch_shape(k, collapsed=False)
         slots, n = st.z.numel(), corpus.num_tokens
         b = model._sblocks
         nbytes = (4 * 3 * slots + 4 * args[6].numel() + 4 * (D + 1)
                   + 4 * n + 4 * V * k + 8 + 2 * 4 * table.numel()
                   + 4 * b.nwin_w * model._vspan * k)
         bound_ms, bound_by = bound(nbytes, 3.0 * n * k)
+        big = ""
+        if k == 100:
+            big = "; " + pcgs_large_k(torch, corpus, Corpus, LDAConfig,
+                                      create_model, plain_of)
         print(f"[3 pcgs] K={k} {layout} layout (vspan {model._vspan}, "
               f"{slots} slots for {n} tokens, model set up in "
               f"{setup_s:.1f} s): z agreement {json.dumps(agreement)}; "
               f"N_kw, n_dk, flags and kept z exact; no draw on a "
-              f"zero-probability topic{chi}; {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-              f"max |N_kw - plain| {err}", flush=True)
+              f"zero-probability topic; index document order bit-equal to "
+              f"longest first{chi}; pre-pass bit-equal to its plain "
+              f"version; launched with {warps} warps a block, {smem} B of "
+              f"shared memory, {per} topics a lane, {docs} document(s) a "
+              f"warp; ptxas by (pair, last nonzero) {json.dumps(regs)}; "
+              f"{ms:.4f} ms (pre-pass "
+              f"alone {pre_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); max |N_kw - plain| "
+              f"{err}{big}", flush=True)
         entries.append(
             {"name": fn.__name__, "mode": "pcgs", "route": "cuda",
              "source": "ldagroupedgibbssampler_tpu_torch/csrc/pcgs.cu",
              "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_pcgs.py:"
                          + ("135" if layout == "resident" else "653"),
              "launches": 0, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None})
-        del model, st, table, phi_vk, phi_zero, u24, zk, zr, tb_k, nkw_k
+             "prepass_ms": pre_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        del model, st, table, phi_vk
         torch.cuda.empty_cache()
     return entries
 
@@ -1093,7 +1190,7 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
         # per token and topic: beta add, division, product, prefix sum,
         # compare
         bound_ms, bound_by = bound(nbytes, 5.0 * n * k)
-        warps, smem = cuda_pcgs.launch_shape(k, collapsed=True)
+        warps, smem, _, _ = cuda_pcgs.launch_shape(k, collapsed=True)
         print(f"[3 adlda sweep] K={k} {layout} layout (vspan "
               f"{model._vspan}, {slots} slots for {n} tokens, model set up "
               f"in {setup_s:.1f} s; launched with {warps} warps a block, "
@@ -1505,8 +1602,8 @@ def main() -> int:
           flush=True)
     del theta, phi, theta_m, onehot, u24, z, z_b, key_b, lib
     torch.cuda.empty_cache()
-    pcgs_entries = pcgs_kernel_phase(torch, corpus, LDAConfig, create_model,
-                                     cuda_pcgs)
+    pcgs_entries = pcgs_kernel_phase(torch, corpus, Corpus, LDAConfig,
+                                     create_model, cuda_pcgs, _build)
     lightlda_entries = lightlda_kernel_phase(torch, corpus, LDAConfig,
                                              create_model, cuda_lightlda)
     adlda_entries = adlda_kernel_phase(torch, corpus, LDAConfig,

@@ -4,12 +4,14 @@
 // Replaces both Pallas TPU kernels of ldagroupedgibbssampler_tpu/ops/
 // pallas_pcgs.py in both their modes: _pcgs_kernel (fused_pcgs_sweep,
 // resident layout) and _pcgs_stream_kernel (fused_pcgs_sweep_streamed,
-// streamed layout, untiled and K-tiled bodies). One kernel template serves
-// all of them: only the layout and the per-document slot list differ, and
-// kCollapsed selects the word term. The collapsed instance replaces the
-// `collapsed` branches of those kernels (pallas_pcgs.py:142-149, 164-178,
-// 215-229, 249-263 and 659-669, 684-689, 752-761, 800-807, 825-836,
-// 853-858).
+// streamed layout, untiled and K-tiled bodies). Only the layout and the
+// per-document slot list differ between the two (win_div selects how a
+// slot finds its w-window). The PCGS mode has its own kernel at kpad <= 256
+// (pcgs_lane_kernel, below); the collapsed mode, and the PCGS mode above
+// kpad 256, run the kernel template pcgs_sweep_kernel, whose kCollapsed
+// instance replaces the `collapsed` branches of the TPU kernels
+// (pallas_pcgs.py:142-149, 164-178, 215-229, 249-263 and 659-669,
+// 684-689, 752-761, 800-807, 825-836, 853-858).
 //
 // Per token, in the order the sweep visits it (the document's slot list),
 // with c_k = (k == z_old ? flag_d : 0):
@@ -36,21 +38,72 @@
 //   (pallas_pcgs.py:296-299), and nkp as V beta + n_k of that.
 // table rows hold n_dk + alpha_k in f32 and row kpad holds the doc-mask
 // flag, exactly as the TPU kernel keeps them, so the +-1 updates round the
-// same way (pallas_pcgs.py:208-263, cdf_draw :70-132).
+// same way (pallas_pcgs.py:208-263, cdf_draw :70-132). The prefix sums may
+// associate differently from the TPU kernel's and the plain version's;
+// a token can then differ only where a sum crosses u (a rounding tie).
 //
 // Design. The TPU kernels got the per-document order from a
 // chunk-sequential grid over sequential-safe blocks (no chunk holds two
 // tokens of one document) and built every per-token gather as a one-hot
-// matrix product against VMEM-resident or DMA-streamed windows. Here one
-// warp owns one document: it holds the document's n_dk + alpha column in
-// shared memory, walks the document's slots in slot order (CSR lists
-// doc_offsets / doc_slots, built on the host), gathers one word row per
-// token, scans with shuffles, counts with ballots, and writes the column
-// back once. The document loop is grid-stride in index order, so a launch
-// of one block of one warp (`serial`) walks every document in turn. In
-// PCGS mode phi is fixed for the sweep, documents are independent given
-// phi, and the draws equal the chunk schedule's except where a cdf summed
-// in another order crosses u.
+// matrix product against VMEM-resident or DMA-streamed windows. Here a
+// warp owns a document and walks its slots in slot order (CSR lists
+// doc_offsets / doc_slots, built on the host). Phi is fixed for the sweep
+// and documents are independent given phi, so in the PCGS mode the draws
+// do not depend on which warp takes which document, nor when.
+//
+// The PCGS mode at kpad <= 256 (pcgs_lane_kernel). Its parent kept the
+// n_dk column in shared memory with lane l on topics l, l+32, ...: per
+// token it gathered an f32 phi row and rounded it to bf16, ran one 5-step
+// shuffle scan per 32 topics and one ballot count per 32 topics, and
+// updated the column from lane 0 between two __syncwarp()s. Timed in
+// turns with one source of cost removed at a time (PERF.md §6), the
+// scans cost 0.12 of its 0.45 ms at K=100 (0.31 of 0.93 at K=200), the
+// row gather and rounding 0.05 (0.13), index document order 0.02 (0.05),
+// the N_kw atomics under 0.01, and ptxas's 72 registers at kpad 128 0.06.
+// So:
+//  - a lane owns 8 contiguous topics of a 128-topic tile, and keeps their
+//    n_dk + alpha in registers for the whole document: loaded at its
+//    start, stored at its end. 16 lanes hold a tile: at kpad 256 the
+//    warp's document (lanes 0-15 on tile 0, 16-31 on tile 1); at kpad 128
+//    two documents a warp, one a half, which take consecutive entries of
+//    the longest-first order (nearly equal lengths): the warp walks the
+//    longer one, and the shorter one's half idles at the end. The
+//    own-token subtraction and the +-1 updates are predicated adds in the
+//    lanes that own z_old and z, unrolled over the lane's topics (no
+//    dynamically indexed register array, which would spill to local
+//    memory), so there is no shared memory and no __syncwarp();
+//  - per token each lane sums its topics' products in order, one 4-step
+//    scan of the lane totals follows inside each 16-lane half, each lane
+//    adds its exclusive offset and counts its own entries <= u - off_t,
+//    and one __reduce_add_sync sums the counts (the two documents' counts
+//    in the two 16-bit halves of one word). The last nonzero topic is a
+//    per-lane maximum and a __reduce_max_sync, left out of the
+//    positive-support instances;
+//  - a pre-pass (phi_bf16_kernel, one thread per entry, once a sweep)
+//    writes bf16(phi) as [V, kpad], zero-padded: 5.1 MB at K=100 and 10.2
+//    MB at K=200, resident in the 50 MB L2. Each lane then reads its
+//    topics of the token's row with one aligned 16-byte load, and nothing
+//    is rounded per token;
+//  - warp wi takes documents doc_order[wi] (kpad 256) or doc_order[2 wi]
+//    and doc_order[2 wi + 1] (kpad 128), longest first (built on the
+//    host), so the last wave is not held by a long document;
+//  - the register count is pinned per instance (kPairRegs, kTileRegs).
+// Timed in turns against lane-owned variants: 4 topics a lane with one
+// document a warp at kpad 128 took 0.285 ms against 0.264 for two
+// documents a warp; loading the next token's row a step ahead gained
+// nothing once the pair instance no longer spilled (0.265, and 0.287 at
+// the 88 registers it then needs unpinned) and cost 1% at kpad 256.
+// What bounds it on the H100: neither bytes nor operations (the bound is
+// the input and output bytes, tens of microseconds at 20NG) but each
+// warp's chain of dependent per-token steps, word row load then scan then
+// count, hidden only by the other resident warps.
+//
+// The collapsed mode and the PCGS mode above kpad 256 (pcgs_sweep_kernel):
+// one warp owns one document and holds its n_dk + alpha column in shared
+// memory (lane k % 32 on topic k), gathers one word row per token, scans
+// with shuffles, counts with ballots, and writes the column back once. The
+// document loop is grid-stride in index order, so a launch of one block of
+// one warp (`serial`) walks every document in turn.
 //
 // Staleness contract of the collapsed mode. The TPU kernel draws each
 // chunk of at most 128 tokens against the N_kw / n_k left by the chunk
@@ -82,22 +135,17 @@
 // ulp grid (Vbeta + n_k with an integer Vbeta, as at beta = 0.01,
 // V = 20000), so the view and the flushed sums agree bit for bit.
 //
-// What bounds it on the H100: neither bytes nor operations. The bound is
-// the input and output bytes (about 16 bytes per slot plus the tables),
-// tens of microseconds at 20NG; the kernel is a chain of dependent
-// per-token steps (word row gather from L2, a shuffle scan per 32 topics,
-// a ballot count, the column update) inside each warp, so it is bound by
-// that chain's latency, hidden only by the other resident warps. The
-// collapsed mode adds one division per topic, an L2 row read of N_kw per
-// token and two N_kw atomics per changed token. Its V beta + n_k was read
-// by every token and updated by two atomics per move on the same K
-// addresses (4 cache lines at K=100) by all resident warps at once; that
-// queue, not the chain, set its pace (PERF.md: 7.3 ms with it, 1.8 ms
-// without), hence the warp-local view: per batch of up to 32 tokens, one
-// coalesced read and at most one reduction per topic. What remains above
-// the chain is the same queue, smaller, on the N_kw rows of the Zipf head
-// words, which stay live. At kpad == 128 the cdf stays in registers. One
-// warp per document also waits on the longest document.
+// What bounds the collapsed mode on the H100: the same chain, plus one
+// division per topic, an L2 row read of N_kw per token and two N_kw
+// atomics per changed token. Its V beta + n_k was read by every token and
+// updated by two atomics per move on the same K addresses (4 cache lines
+// at K=100) by all resident warps at once; that queue, not the chain, set
+// its pace (PERF.md: 7.3 ms with it, 1.8 ms without), hence the
+// warp-local view: per batch of up to 32 tokens, one coalesced read and
+// at most one reduction per topic. What remains above the chain is the
+// same queue, smaller, on the N_kw rows of the Zipf head words, which stay
+// live. At kpad == 128 the cdf stays in registers. One warp per document
+// also waits on the longest document.
 //
 // Padding slots are not in any slot list, so they keep z_old (the wrapper
 // copies z_old into z_out) and are never counted: their sentinels
@@ -347,6 +395,221 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The PCGS mode at kpad <= 256: lane-owned topics (header, "The PCGS mode at
+// kpad <= 256").
+// ---------------------------------------------------------------------------
+
+constexpr float kInv24 = 5.9604644775390625e-8f;  // 2^-24
+constexpr int kLaneKpad = 256;   // largest kpad of the lane-owned instances
+constexpr int kLaneWarps = 8;    // warps a block
+constexpr int kPer = 8;          // topics a lane owns
+// Registers a thread, pinned per instance (PERF.md §6, in turns on
+// 20NG shapes): the two-document instance (kpad 128) needs 80 to spill
+// nothing, and at 80 takes 0.264 ms where a cap of 64 (4 blocks an SM,
+// 32 bytes spilled) took 0.275; the two-tile instance (kpad 256) takes
+// 0.396 ms at 64 (24-32 bytes spilled, 4 blocks an SM) where 72, 80 or
+// its own 80-86 (3 or 2 blocks) took 0.414-0.426.
+constexpr int kPairRegs = 80;
+constexpr int kTileRegs = 64;
+
+// Pre-pass: out[v, k] = bf16(phi[v, k]) for k < K, 0 up to kpad.
+__global__ void phi_bf16_kernel(const float* __restrict__ phi,
+                                __nv_bfloat16* __restrict__ out, long long n,
+                                int K, int kpad) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long v = i / kpad;
+  const int k = static_cast<int>(i - v * kpad);
+  out[i] = __float2bfloat16_rn(k < K ? phi[v * K + k] : 0.f);
+}
+
+// The lane's kPer consecutive bf16 values of a word row: one aligned
+// 16-byte load, two values a word (the lower topic in the low half).
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
+                                         unsigned (&w)[kPer / 2]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+
+// bf16 value i of the words w, as f32 (exact)
+__device__ __forceinline__ float row_value(const unsigned (&w)[kPer / 2],
+                                           int i) {
+  const unsigned x = w[i >> 1];
+  return __uint_as_float((i & 1) ? (x & 0xffff0000u) : (x << 16));
+}
+
+// A segment of 16 lanes covers 128 topics: with kPair (kpad 128), one of
+// the warp's two documents; else (kpad 256) one 128-topic tile of the
+// warp's document. kLastNz: clamp to the last topic with p > 0 (else to
+// K - 1).
+template <bool kPair, bool kLastNz>
+__global__ void __maxnreg__(kPair ? kPairRegs : kTileRegs) pcgs_lane_kernel(
+    const int* __restrict__ w_local, const int* __restrict__ z_old,
+    const int* __restrict__ win_w, const int* __restrict__ doc_offsets,
+    const int* __restrict__ doc_slots, const int* __restrict__ doc_order,
+    const __nv_bfloat16* __restrict__ phi16, const int* __restrict__ u24,
+    const long long* __restrict__ seed, float* __restrict__ table,
+    int* __restrict__ z_out, int* __restrict__ nkw, int num_docs,
+    long long dpad, int kpad, int K, int vspan, int win_div) {
+  constexpr int kSeg = 128 / kPer;               // lanes a segment
+  constexpr int kDocs = kPair ? 2 : 1;           // documents a warp
+  constexpr int kTiles = kPair ? 1 : 32 / kSeg;  // 128-topic tiles a document
+  constexpr int kBatch = 32 / kDocs;             // slots a document fetches
+  const int lane = threadIdx.x & 31;
+  const int seg = lane / kSeg;
+  const int sl = lane % kSeg;                    // lane in its segment
+  const int h = kPair ? seg : 0;                 // the lane's document
+  const int first = (kPair ? sl : lane) * kPer;  // the lane's first topic
+  const int fetch = lane % kBatch;               // its slot in a batch
+  const int warps = blockDim.x >> 5;
+  const int groups = (num_docs + kDocs - 1) / kDocs;
+
+  for (int wi = blockIdx.x * warps + (threadIdx.x >> 5); wi < groups;
+       wi += gridDim.x * warps) {
+    const int oi = wi * kDocs + h;
+    const bool has = oi < num_docs;
+    const int d = has ? doc_order[oi] : 0;
+    const int beg = has ? doc_offsets[d] : 0;
+    const int len = has ? doc_offsets[d + 1] - beg : 0;
+    const float flag = has ? table[kpad * dpad + d] : 0.f;
+    const bool selected = flag > 0.5f;
+    // the lane's topics of the n_dk + alpha column
+    float col[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = first + i;
+      col[i] = selected && k < K ? table[k * dpad + d] : 0.f;
+    }
+    // the warp walks its longer document
+    int steps = len;
+    bool draws = selected;
+    if (kPair) {
+      steps = max(len, __shfl_xor_sync(kFull, len, 16));
+      draws = __any_sync(kFull, selected);
+    }
+
+    for (int b = 0; b < steps; b += kBatch) {
+      // each lane fetches one of its document's next kBatch slots
+      const bool valid = b + fetch < len;
+      const int slot = valid ? doc_slots[beg + b + fetch] : 0;
+      const int my_zo = valid ? z_old[slot] : 0;
+      const long long my_wrow =
+          valid ? static_cast<long long>(win_w[slot / win_div]) * vspan
+                      + w_local[slot]
+                : 0;
+      const unsigned my_bits =
+          (valid && selected) ? slot_u24(u24, seed, slot) : 0u;
+      int my_z = my_zo;
+      const int n = min(kBatch, steps - b);
+      for (int j = 0; draws && j < n; ++j) {
+        const int src = h * kBatch + j;          // the lane that fetched it
+        const int zo = __shfl_sync(kFull, my_zo, src);
+        const long long wrow = __shfl_sync(kFull, my_wrow, src);
+        const unsigned bits = __shfl_sync(kFull, my_bits, src);
+        const bool act = selected && b + j < len;
+        unsigned w[kPer / 2];
+        load_row(phi16 + wrow * kpad + first, w);
+        // the lane's products, summed in order
+        float pre[kPer];
+        float s = 0.f;
+        int last = -1;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int k = first + i;
+          const float nd = k == zo ? __fsub_rn(col[i], flag) : col[i];
+          const float p = bf16_round(__fmul_rn(nd, row_value(w, i)));
+          if (kLastNz && p > 0.f) last = k;
+          s = i == 0 ? p : __fadd_rn(s, p);
+          pre[i] = s;
+        }
+        // inclusive scan of the lane totals inside the segment, then each
+        // lane's exclusive offset
+        float incl = s;
+#pragma unroll
+        for (int off = 1; off < kSeg; off <<= 1) {
+          const float v = __shfl_up_sync(kFull, incl, off);
+          if (sl >= off) incl = __fadd_rn(incl, v);
+        }
+        float excl = __shfl_up_sync(kFull, incl, 1);
+        if (sl == 0) excl = 0.f;
+        float total;
+        float tile_off = 0.f;         // the totals of the tiles before
+        if (kTiles == 2) {
+          const float t0 = __shfl_sync(kFull, incl, kSeg - 1);
+          total = __fadd_rn(t0, __shfl_sync(kFull, incl, 31));
+          if (seg == 1) tile_off = t0;
+        } else {
+          total = __shfl_sync(kFull, incl, seg * kSeg + kSeg - 1);
+        }
+        const float u = __fmul_rn(
+            __fmul_rn(static_cast<float>(bits), kInv24), total);
+        const float thr = __fsub_rn(u, tile_off);
+        unsigned cnt = 0;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) cnt += __fadd_rn(excl, pre[i]) <= thr;
+        int lastnz = K - 1;
+        if (kPair) {
+          // each half's count in its own 16 bits (at most 128 each)
+          cnt = (__reduce_add_sync(kFull, cnt << (16 * seg)) >> (16 * seg))
+                & 0xffffu;
+          if (kLastNz) {
+            const int l0 = __reduce_max_sync(kFull, seg == 0 ? last : -1);
+            const int l1 = __reduce_max_sync(kFull, seg == 1 ? last : -1);
+            lastnz = seg == 0 ? l0 : l1;
+          }
+        } else {
+          cnt = __reduce_add_sync(kFull, cnt);
+          if (kLastNz) lastnz = __reduce_max_sync(kFull, last);
+        }
+        int z = zo;
+        if (act && total > 0.f) z = min(static_cast<int>(cnt), lastnz);
+        // the lanes that own z_old and z update the column
+        if (z != zo) {
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) {
+            const int k = first + i;
+            if (k == zo) col[i] = __fsub_rn(col[i], 1.f);
+            if (k == z) col[i] = __fadd_rn(col[i], 1.f);
+          }
+        }
+        if (lane == src) my_z = z;
+      }
+      if (valid) {
+        z_out[slot] = my_z;
+        atomicAdd(nkw + my_wrow * K + my_z, 1);
+      }
+    }
+    if (selected) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = first + i;
+        if (k < K) table[k * dpad + d] = col[i];
+      }
+    }
+  }
+}
+
+using LaneKernel = decltype(&pcgs_lane_kernel<true, true>);
+
+// The lane-owned instance for kpad (128 or 256): topics a lane, documents
+// a warp, and the kernel.
+LaneKernel lane_instance(int kpad, int positive_support, int* per,
+                         int* docs) {
+  *per = kPer;
+  *docs = kpad == 128 ? 2 : 1;
+  if (kpad == 128) {
+    return positive_support ? pcgs_lane_kernel<true, false>
+                            : pcgs_lane_kernel<true, true>;
+  }
+  return positive_support ? pcgs_lane_kernel<false, false>
+                          : pcgs_lane_kernel<false, true>;
+}
+
 // One instance's launch: `warps` warps per block, one document per warp,
 // or (serial) one block of one warp walking every document, with `smem`
 // bytes of dynamic shared memory per block.
@@ -362,6 +625,8 @@ void launch_shape(int kpad, int serial, int* warps, long long* smem) {
   *smem = w * warp_bytes;
 }
 
+// pcgs_sweep_kernel: the collapsed mode, and the PCGS mode above kpad 256
+// (doc_order is not read: documents go in index order).
 template <bool kCollapsed>
 int launch(const void* w_local, const void* z_old, const void* win_w,
            const void* doc_offsets, const void* doc_slots, const void* phi,
@@ -375,8 +640,10 @@ int launch(const void* w_local, const void* z_old, const void* win_w,
   long long smem;
   launch_shape<kCollapsed>(kpad, serial, &warps, &smem);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = kpad == 128 ? pcgs_sweep_kernel<kCollapsed, true>
-                                  : pcgs_sweep_kernel<kCollapsed, false>;
+  auto kernel = pcgs_sweep_kernel<kCollapsed, false>;
+  if constexpr (kCollapsed) {
+    if (kpad == 128) kernel = pcgs_sweep_kernel<true, true>;
+  }
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
@@ -396,32 +663,70 @@ int launch(const void* w_local, const void* z_old, const void* win_w,
 
 }  // namespace
 
+// phi: f32 [V, K]; out: bf16 [V, kpad], bf16(phi) zero-padded.
+extern "C" int lda_pcgs_phi_bf16(const void* phi, void* out, int V, int K,
+                                 int kpad, int device, void* stream) {
+  cudaSetDevice(device);
+  const long long n = static_cast<long long>(V) * kpad;
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kThreads = 256;
+  phi_bf16_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                    kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(phi), static_cast<__nv_bfloat16*>(out), n, K,
+      kpad);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // w_local, z_old, u24 (nullable): int32 [n] slots of the layout;
 // win_w: int32, the w-window of slot s is win_w[s / win_div] (win_div is
 // the block size for the resident layout, the chunk for the streamed one);
 // doc_offsets int32 [num_docs + 1] and doc_slots int32 [N]: each
-// document's real slots in visit order; phi: f32 [V, K]; seed: int64 [1];
-// table: f32 [kpad + 8, dpad], updated in place; z_out: int32 [n], holding
-// z_old on entry; nkw: int32 [nwin_w * vspan, K], zeroed by the caller;
-// serial != 0 launches one block of one warp.
+// document's real slots in visit order; doc_order: int32 [num_docs], a
+// permutation of the documents, the order in which warps take them (read
+// at kpad <= 256); phi: f32 [V, K] (read above kpad 256); phi16: bf16
+// [V, kpad], lda_pcgs_phi_bf16's output (read at kpad <= 256); seed: int64
+// [1]; table: f32 [kpad + 8, dpad], updated in place; z_out: int32 [n],
+// holding z_old on entry; nkw: int32 [nwin_w * vspan, K], zeroed by the
+// caller; serial != 0 launches one block of one warp.
 extern "C" int lda_pcgs_sweep(const void* w_local, const void* z_old,
                               const void* win_w, const void* doc_offsets,
-                              const void* doc_slots, const void* phi,
+                              const void* doc_slots, const void* doc_order,
+                              const void* phi, const void* phi16,
                               const void* u24, const void* seed, void* table,
                               void* z_out, void* nkw, int num_docs,
                               long long dpad, int kpad, int K, int vspan,
                               int win_div, int positive_support,
                               int serial, int device, void* stream) {
-  return launch<false>(w_local, z_old, win_w, doc_offsets, doc_slots, phi,
-                       u24, seed, table, z_out, nkw, nullptr, 0.f, num_docs,
-                       dpad, kpad, K, vspan, win_div, positive_support,
-                       serial, device, stream);
+  if (kpad > kLaneKpad) {
+    return launch<false>(w_local, z_old, win_w, doc_offsets, doc_slots, phi,
+                         u24, seed, table, z_out, nkw, nullptr, 0.f,
+                         num_docs, dpad, kpad, K, vspan, win_div,
+                         positive_support, serial, device, stream);
+  }
+  cudaSetDevice(device);
+  if (num_docs <= 0) return static_cast<int>(cudaGetLastError());
+  int per, docs;
+  const LaneKernel kernel = lane_instance(kpad, positive_support, &per,
+                                          &docs);
+  const int groups = (num_docs + docs - 1) / docs;
+  const int warps = serial ? 1 : kLaneWarps;
+  const int blocks = serial ? 1 : (groups + warps - 1) / warps;
+  kernel<<<blocks, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(w_local), static_cast<const int*>(z_old),
+      static_cast<const int*>(win_w), static_cast<const int*>(doc_offsets),
+      static_cast<const int*>(doc_slots), static_cast<const int*>(doc_order),
+      static_cast<const __nv_bfloat16*>(phi16), static_cast<const int*>(u24),
+      static_cast<const long long*>(seed), static_cast<float*>(table),
+      static_cast<int*>(z_out), static_cast<int*>(nkw), num_docs, dpad, kpad,
+      K, vspan, win_div);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The collapsed (ADLDA) mode. Operands as lda_pcgs_sweep, without phi,
-// plus: nkw int32 [nwin_w * vspan, K] seeded with the sweep-entry counts
-// and nkp f32 [K] seeded with V beta + n_k, both updated in place (the
-// live counts); beta; serial != 0 launches one block of one warp.
+// The collapsed (ADLDA) mode. Operands as lda_pcgs_sweep, without
+// doc_order, phi and phi16, plus: nkw int32 [nwin_w * vspan, K] seeded with
+// the sweep-entry counts and nkp f32 [K] seeded with V beta + n_k, both
+// updated in place (the live counts); beta; serial != 0 launches one block
+// of one warp.
 extern "C" int lda_pcgs_collapsed_sweep(
     const void* w_local, const void* z_old, const void* win_w,
     const void* doc_offsets, const void* doc_slots, const void* u24,
@@ -435,18 +740,25 @@ extern "C" int lda_pcgs_collapsed_sweep(
                       device, stream);
 }
 
-// The launch shape of either mode for a table of kpad topic rows:
-// out int64 [2] = (warps per block, dynamic shared memory bytes per block).
+// The launch shape of either mode for a table of kpad topic rows: out
+// int64 [4] = (warps per block, dynamic shared memory bytes per block,
+// topics a lane, documents a warp).
 extern "C" int lda_pcgs_launch_shape(int kpad, int collapsed, int serial,
                                      void* out) {
-  int warps;
-  long long smem;
+  int warps, per = kpad / 32, docs = 1;
+  long long smem = 0;
   if (collapsed) {
     launch_shape<true>(kpad, serial, &warps, &smem);
-  } else {
+  } else if (kpad > kLaneKpad) {
     launch_shape<false>(kpad, serial, &warps, &smem);
+  } else {
+    lane_instance(kpad, 0, &per, &docs);
+    warps = serial ? 1 : kLaneWarps;
   }
-  static_cast<long long*>(out)[0] = warps;
-  static_cast<long long*>(out)[1] = smem;
+  long long* o = static_cast<long long*>(out);
+  o[0] = warps;
+  o[1] = smem;
+  o[2] = per;
+  o[3] = docs;
   return 0;
 }

@@ -238,6 +238,8 @@ class FusedPCGSSweepMixin:
         if proposal_vk is None:
             kw.update(nk_plus=nk_plus, beta=beta, serial=self._serial_sweep,
                       positive_support=self.fused_positive_support)
+            if nk_plus is None:      # the collapsed mode walks index order
+                kw.update(doc_order=self.doc_order)
             words = (word_vk,)
             resident, streamed = fused_pcgs_sweep, fused_pcgs_sweep_streamed
         else:

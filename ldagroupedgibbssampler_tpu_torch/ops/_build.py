@@ -52,7 +52,8 @@ _SIGNATURES = {
     "lda_zdraw_nkw": [_c_ptr] * 11 + [_c_i64] + [_c_int] * 9 + [_c_ptr],
     "lda_zdraw_launch_shape": [_c_int, _c_ptr, _c_ptr, _c_ptr],
     # pcgs.cu
-    "lda_pcgs_sweep": [_c_ptr] * 11 + [_c_int, _c_i64, _c_int, _c_int,
+    "lda_pcgs_phi_bf16": [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr],
+    "lda_pcgs_sweep": [_c_ptr] * 13 + [_c_int, _c_i64, _c_int, _c_int,
                                        _c_int, _c_int, _c_int, _c_int,
                                        _c_int, _c_ptr],
     "lda_pcgs_collapsed_sweep": [_c_ptr] * 11 + [

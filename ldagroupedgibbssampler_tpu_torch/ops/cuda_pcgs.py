@@ -4,10 +4,17 @@
 Counterpart of `ldagroupedgibbssampler_tpu/ops/pallas_pcgs.py`:
 `fused_pcgs_sweep` (resident layout, Pallas kernel `_pcgs_kernel`) and
 `fused_pcgs_sweep_streamed` (streamed layout, `_pcgs_stream_kernel`), in
-both modes. Both launch the kernel template of `csrc/pcgs.cu` (one warp per
-document; its header says what it computes, the collapsed mode's staleness
-contract and what bounds it on the H100). The public functions keep the
-JAX signatures and shapes, with these changes:
+both modes. Both launch the kernels of `csrc/pcgs.cu`, whose header says
+what they compute, the collapsed mode's staleness contract and what bounds
+each on the H100. The PCGS mode at K <= 256 runs two kernels: a pre-pass
+that writes bf16(phi) as [V, kpad] once a sweep (`phi_bf16_table`), then
+the sweep, in which warps take the documents longest first (two documents
+a warp, one a half, at K <= 128), each lane owns 8 contiguous topics of a
+128-topic tile and keeps their n_dk + alpha in registers, and each token
+costs one 16-byte row load a lane, one scan of the lane totals and one
+count reduction. The collapsed mode, and the PCGS mode above K = 256, run
+one warp per document over a shared-memory column in index order. The
+public functions keep the JAX signatures and shapes, with these changes:
 
   - two extra operands, `doc_slot_offsets` int32 [D+1] and `doc_slots`
     int32 [N]: each document's real slots in the order the chunk-
@@ -18,9 +25,15 @@ JAX signatures and shapes, with these changes:
     and the streamed kernel's `force_ktile` are TPU-only switches and are
     gone;
   - `serial=True` launches one block of one warp, which walks the
-    documents in index order (the sequential chain; the oracle checks use
-    it), and `nk_out`, an optional f32 [K] tensor, receives the collapsed
-    mode's live V beta + n_k at the end of the sweep.
+    documents in turn (in the collapsed mode in index order: the
+    sequential chain, which the oracle checks use), and `nk_out`, an
+    optional f32 [K] tensor, receives the collapsed mode's live
+    V beta + n_k at the end of the sweep;
+  - the keyword `doc_order` int32 [D], required in the PCGS mode and
+    refused in the collapsed mode: the order in which the PCGS kernel's
+    warps take the documents (longest first, from `corpus/ragged.py::
+    longest_first`). No draw depends on it, so the plain versions take
+    none.
 
 With `nk_plus` (f32 [K], V beta + n_k) and `beta` the sweep is the
 collapsed conditional (n_dk + alpha)(beta + N_kw - own)/(V beta + n_k -
@@ -58,6 +71,11 @@ FLAG_ROWS = 8  # extra table rows; row kpad = doc-mask flag, rest zero
 # view of V beta + n_k and the unflushed moves (16 bytes a topic)
 MAX_TOPICS = (227 * 1024 // 8) // 128 * 128
 MAX_TOPICS_COLLAPSED = (227 * 1024 // 16) // 128 * 128
+# largest kpad of the PCGS mode's lane-owned kernel (registers, no shared
+# memory), which reads the bf16 word table; above it the PCGS mode runs the
+# shared-memory kernel on phi in f32
+LANE_KPAD = 256
+
 
 def kpad_of(num_topics: int) -> int:
     """Rows of topic data in the n_dk table: K rounded up to 128."""
@@ -92,6 +110,32 @@ def cdf_draw(probs, u24, kpad, lastnz=None):
         return cnt.clamp(max=lastnz), total
     topics = torch.arange(K, device=probs.device)
     return torch.minimum(cnt, (topics * (probs > 0)).max(dim=1).values), total
+
+
+def phi_bf16_table_reference(phi_vk, kpad):
+    """Plain version of the PCGS sweep's pre-pass (`phi_bf16_table`):
+    bf16(phi_vk) [V, K] zero-padded to bf16 [V, kpad]."""
+    num_types, K = phi_vk.shape
+    out = torch.zeros((num_types, kpad), dtype=torch.bfloat16,
+                      device=phi_vk.device)
+    out[:, :K] = phi_vk.to(torch.bfloat16)
+    return out
+
+
+def phi_bf16_table(phi_vk, kpad):
+    """The PCGS sweep's pre-pass on f32 phi_vk [V, K]: csrc/pcgs.cu
+    `phi_bf16_kernel` for a CUDA tensor (one thread per entry),
+    `phi_bf16_table_reference` for a CPU one. Returns bf16 [V, kpad]."""
+    if phi_vk.device.type == "cpu":
+        return phi_bf16_table_reference(phi_vk, kpad)
+    dev = phi_vk.device
+    num_types, K = phi_vk.shape
+    _build.check_tensor("phi_vk", phi_vk, (num_types, K), torch.float32, dev)
+    out = torch.empty((num_types, kpad), dtype=torch.bfloat16, device=dev)
+    _build.check(_build.library().lda_pcgs_phi_bf16(
+        phi_vk.data_ptr(), out.data_ptr(), num_types, K, kpad, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream), "lda_pcgs_phi_bf16")
+    return out
 
 
 def _sweep_reference(w3, z_old, ndk_table, phi_vk, seed, win_of_slot,
@@ -223,6 +267,28 @@ def _collapsed(nk_plus, beta) -> bool:
     return nk_plus is not None
 
 
+def _check_order(doc_order, collapsed, doc_slot_offsets, device):
+    """The PCGS mode needs `doc_order`, an int32 [D] tensor on the sweep's
+    device; the collapsed mode walks the documents in index order and
+    takes none."""
+    if collapsed:
+        if doc_order is not None:
+            raise ValueError("the collapsed mode walks the documents in "
+                             "index order and takes no doc_order")
+        return
+    if doc_order is None:
+        raise ValueError("the PCGS mode needs doc_order, the order in which "
+                         "the kernel's warps take the documents "
+                         "(corpus/ragged.py::longest_first)")
+    num_docs = doc_slot_offsets.numel() - 1
+    if (not isinstance(doc_order, torch.Tensor)
+            or doc_order.dtype != torch.int32
+            or tuple(doc_order.shape) != (num_docs,)
+            or doc_order.device != device or not doc_order.is_contiguous()):
+        raise ValueError(f"doc_order: expected an int32 [{num_docs}] "
+                         f"contiguous tensor on {device}")
+
+
 def fused_pcgs_sweep_reference(w3, d3, z_old, ndk_table, phi_vk, seed,
                                win_w, first_w, win_d_chunks,
                                doc_slot_offsets, doc_slots, u24=None,
@@ -289,21 +355,22 @@ def check_sweep_operands(w3, d3, z_old, ndk_table, seed, win, win_len,
 
 
 def launch_shape(num_topics, collapsed, serial=False):
-    """(warps per block, dynamic shared memory bytes per block) with which
-    csrc/pcgs.cu launches either mode at `num_topics`, from its own rule
-    (needs the built library)."""
-    out = torch.zeros(2, dtype=torch.int64)
+    """(warps per block, dynamic shared memory bytes per block, topics a
+    lane, documents a warp) with which csrc/pcgs.cu launches either mode
+    at `num_topics`, from its own rule (needs the built library)."""
+    out = torch.zeros(4, dtype=torch.int64)
     _build.check(_build.library().lda_pcgs_launch_shape(
         kpad_of(num_topics), int(collapsed), int(serial), out.data_ptr()),
         "lda_pcgs_launch_shape")
-    return int(out[0]), int(out[1])
+    return tuple(int(x) for x in out)
 
 
 def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
             doc_slot_offsets, doc_slots, u24, nk_plus, beta, *, nwin_w,
-            vspan, num_topics, positive_support, serial, nk_out):
+            vspan, num_topics, positive_support, serial, nk_out, doc_order):
     """Check the operands, launch csrc/pcgs.cu in the mode the operands
-    ask for, return its outputs."""
+    ask for (the PCGS mode at kpad <= LANE_KPAD: the pre-pass, then the
+    sweep), return its outputs."""
     dev = w3.device
     K = num_topics
     collapsed = _collapsed(nk_plus, beta)
@@ -328,9 +395,12 @@ def _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win, win_len, win_div,
     sizes = (num_docs, dpad, kpad, K, vspan, win_div, int(positive_support),
              int(serial), dev.index, stream)
     if not collapsed:
+        phi16 = phi_bf16_table(phi_vk, kpad) if kpad <= LANE_KPAD else None
         err = _build.library().lda_pcgs_sweep(
-            *ptrs, phi_vk.data_ptr(), u24_ptr, seed.data_ptr(),
-            table.data_ptr(), z.data_ptr(), nkw.data_ptr(), *sizes)
+            *ptrs, doc_order.data_ptr(), phi_vk.data_ptr(),
+            None if phi16 is None else phi16.data_ptr(), u24_ptr,
+            seed.data_ptr(), table.data_ptr(), z.data_ptr(), nkw.data_ptr(),
+            *sizes)
         _build.check(err, "lda_pcgs_sweep")
         return z, nkw, table
     # the live counts: N_kw seeded with the entry counts (phi_vk), nkp with
@@ -351,7 +421,7 @@ def fused_pcgs_sweep(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
                      win_d_chunks, doc_slot_offsets, doc_slots, u24=None,
                      nk_plus=None, beta=None, *, nwin_w, nwin_d, vspan, dspan,
                      num_topics, positive_support=False, serial=False,
-                     nk_out=None):
+                     nk_out=None, doc_order=None):
     """One PCGS Gibbs sweep over the resident (w-window-major,
     sequential-safe) layout: draw z for every token with immediate n_dk
     updates, count N_kw, and return the updated n_dk table.
@@ -380,8 +450,13 @@ def fused_pcgs_sweep(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
         Dirichlet phi, or the collapsed conditional), so the draw clamps to
         K - 1 instead of the last nonzero topic.
     serial: launch one block of one warp, which walks the documents in
-        index order (in the collapsed mode, the sequential chain).
+        turn (in the collapsed mode in index order: the sequential chain).
     nk_out: optional f32 [K], set to the live V beta + n_k at sweep end.
+    doc_order: int32 [D], a permutation of the documents, the order in
+        which the PCGS kernel's warps take them (`corpus/ragged.py::
+        longest_first`): required in the PCGS mode, refused in the
+        collapsed mode. No draw depends on it; the CPU path checks it and
+        does not read it.
 
     Returns (z int32 [NB, chunks, chunk], nkw int32 [nwin_w * vspan, K],
              table f32 [kpad + FLAG_ROWS, Dpad]).
@@ -389,6 +464,8 @@ def fused_pcgs_sweep(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
     kw = dict(nwin_w=nwin_w, vspan=vspan, num_topics=num_topics,
               positive_support=positive_support, serial=serial,
               nk_out=nk_out)
+    _check_order(doc_order, _collapsed(nk_plus, beta), doc_slot_offsets,
+                 w3.device)
     if w3.device.type == "cpu":
         return fused_pcgs_sweep_reference(
             w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
@@ -397,7 +474,7 @@ def fused_pcgs_sweep(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, first_w,
     nb, chunks, chunk = w3.shape
     out = _launch(w3, d3, z_old, ndk_table, phi_vk, seed, win_w, nb,
                   chunks * chunk, doc_slot_offsets, doc_slots, u24, nk_plus,
-                  beta, **kw)
+                  beta, doc_order=doc_order, **kw)
     if nk_plus is None:
         fused_pcgs_sweep.launches += 1
     else:
@@ -410,7 +487,7 @@ def fused_pcgs_sweep_streamed(w3, d3, z_old, ndk_table, phi_vk, seed,
                               doc_slots, u24=None, nk_plus=None, beta=None,
                               *, nwin_w, nwin_d, vspan, dspan, num_topics,
                               positive_support=False, serial=False,
-                              nk_out=None):
+                              nk_out=None, doc_order=None):
     """One PCGS Gibbs sweep over the streamed (d-window-major `StreamBlocks`)
     layout; `ww_chunks` / `wd_chunks` are int32 [NB * chunks], the w- and
     d-window of every chunk. Operands, modes and results otherwise as
@@ -418,6 +495,8 @@ def fused_pcgs_sweep_streamed(w3, d3, z_old, ndk_table, phi_vk, seed,
     kw = dict(nwin_w=nwin_w, vspan=vspan, num_topics=num_topics,
               positive_support=positive_support, serial=serial,
               nk_out=nk_out)
+    _check_order(doc_order, _collapsed(nk_plus, beta), doc_slot_offsets,
+                 w3.device)
     if w3.device.type == "cpu":
         return fused_pcgs_sweep_streamed_reference(
             w3, d3, z_old, ndk_table, phi_vk, seed, ww_chunks, wd_chunks,
@@ -426,7 +505,7 @@ def fused_pcgs_sweep_streamed(w3, d3, z_old, ndk_table, phi_vk, seed,
     nb, chunks, chunk = w3.shape
     out = _launch(w3, d3, z_old, ndk_table, phi_vk, seed, ww_chunks,
                   nb * chunks, chunk, doc_slot_offsets, doc_slots, u24,
-                  nk_plus, beta, **kw)
+                  nk_plus, beta, doc_order=doc_order, **kw)
     if nk_plus is None:
         fused_pcgs_sweep_streamed.launches += 1
     else:

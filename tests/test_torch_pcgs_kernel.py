@@ -22,7 +22,7 @@ from ldagroupedgibbssampler_tpu.ops.pallas_pcgs import (
     fused_pcgs_sweep as jax_sweep,
     fused_pcgs_sweep_streamed as jax_sweep_streamed)
 from ldagroupedgibbssampler_tpu_torch.corpus.ragged import (
-    Corpus, build_stream_blocks_seq, doc_visit_order)
+    Corpus, build_stream_blocks_seq, doc_visit_order, longest_first)
 from ldagroupedgibbssampler_tpu_torch.ops import cuda_pcgs
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs import FLAG_ROWS, kpad_of
 from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
@@ -84,7 +84,7 @@ class Case:
         return out
 
     def port(self, inject=True, positive_support=False, fn=None,
-             nk_plus=None, beta=None, nk_out=None):
+             nk_plus=None, beta=None, nk_out=None, doc_order="longest"):
         t = torch.as_tensor
         b = self.b
         ops = (t(b.w_local.reshape(self.sh3)),
@@ -102,6 +102,13 @@ class Case:
         if nk_plus is not None:
             ops += (t(nk_plus), beta)
         kw = {} if nk_out is None else {"nk_out": nk_out}
+        if fn in (cuda_pcgs.fused_pcgs_sweep,
+                  cuda_pcgs.fused_pcgs_sweep_streamed):
+            # the PCGS mode's document order: longest first unless given
+            if not isinstance(doc_order, str):
+                kw["doc_order"] = doc_order
+            elif nk_plus is None:
+                kw["doc_order"] = t(longest_first(self.visit[0]))
         z, nkw, table = fn(*ops, nwin_w=b.nwin_w, nwin_d=b.nwin_d,
                            vspan=128, dspan=128, num_topics=self.K,
                            positive_support=positive_support, **kw)
@@ -298,6 +305,140 @@ def test_wrapper_takes_plain_version_on_cpu(streamed):
         assert np.array_equal(a, r)
     assert cuda_pcgs.fused_pcgs_sweep.launches == 0
     assert cuda_pcgs.fused_pcgs_sweep_streamed.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The PCGS mode's kernel at kpad <= 256: its bf16 word table, the
+# association of its prefix sums, its document order
+# ---------------------------------------------------------------------------
+
+# topics a lane owns in csrc/pcgs.cu's lane-owned kernel (a document's
+# 128-topic tile on 16 lanes: at kpad 128 a warp holds two documents)
+LANE_TOPICS = 8
+
+
+@pytest.mark.parametrize("K", [5, 100, 130, 200])
+def test_phi_bf16_table_is_rounded_phi_zero_padded(K):
+    """The pre-pass's plain version (and the CPU path of the wrapper) is
+    bf16(phi) zero-padded to [V, kpad], as the plain sweep rounds phi."""
+    rng = np.random.default_rng(K)
+    phi = torch.as_tensor(rng.dirichlet(np.full(57, 0.1), K).T
+                          .astype(np.float32))
+    kpad = kpad_of(K)
+    ref = cuda_pcgs.phi_bf16_table_reference(phi, kpad)
+    assert ref.dtype == torch.bfloat16 and tuple(ref.shape) == (57, kpad)
+    assert torch.equal(ref[:, :K].float(), cuda_pcgs._bf16(phi))
+    assert not ref[:, K:].float().any()
+    assert torch.equal(cuda_pcgs.phi_bf16_table(phi, kpad), ref)
+
+
+def _lane_model_draw(p, u24, kpad, per, lastnz):
+    """The kernel's draw in its own association, on the host: each of
+    kpad / per lanes sums its `per` contiguous topics in order, a
+    Hillis-Steele scan of the lane totals runs inside each 128-topic
+    segment (128 / per lanes), each lane adds its exclusive offset to its
+    prefix sums, the tile totals are summed in tile order, and the count of
+    entries <= u - off_t is clamped to `lastnz` (int64 [n]). Returns (k,
+    total)."""
+    n, K = p.shape
+    lanes, seg, tiles = kpad // per, 128 // per, kpad // 128
+    x = torch.zeros((n, kpad), dtype=torch.float32)
+    x[:, :K] = p
+    pre = x.view(n, lanes, per).clone()
+    for i in range(1, per):
+        pre[:, :, i] = pre[:, :, i - 1] + pre[:, :, i]
+    incl = pre[:, :, -1].reshape(n, tiles, seg).clone()
+    off = 1
+    while off < seg:
+        prev = incl.clone()
+        incl[:, :, off:] = prev[:, :, off:] + prev[:, :, :-off]
+        off *= 2
+    excl = torch.zeros_like(incl)
+    excl[:, :, 1:] = incl[:, :, :-1]
+    cdf = (excl.reshape(n, lanes, 1) + pre).view(n, tiles, 128)
+    total = incl[:, 0, -1]
+    for t in range(1, tiles):
+        total = total + incl[:, t, -1]
+    u = u24.to(torch.float32) * (2.0 ** -24) * total
+    cnt = torch.zeros(n, dtype=torch.int64)
+    tile_off = torch.zeros(n, dtype=torch.float32)
+    for t in range(tiles):
+        cnt += (cdf[:, t] <= (u - tile_off)[:, None]).sum(dim=1)
+        tile_off = incl[:, t, -1] if t == 0 else tile_off + incl[:, t, -1]
+    return torch.minimum(cnt, lastnz), total
+
+
+@pytest.mark.parametrize("K", [5, 100, 130, 200])
+@pytest.mark.parametrize("positive_support", [True, False])
+def test_lane_association_draws_as_cdf_draw(K, positive_support):
+    """The kernel's association of the prefix sums (per-lane sums in
+    order, a scan of the lane totals, 128-topic segments) draws the topic
+    `cdf_draw` draws on 100,000 seeded rows of bf16 products with exact
+    zeros; a row may differ only at a rounding tie (u within f32 rounding
+    of an exact boundary), on at most 1e-4 of the rows."""
+    rng = np.random.default_rng(7 * K + positive_support)
+    kpad = kpad_of(K)
+    n = 100_000
+    bf = cuda_pcgs._bf16
+    nd = torch.as_tensor(rng.poisson(2.0, (n, K)) + 0.5, dtype=torch.float32)
+    ph = torch.as_tensor(rng.gamma(0.3, 1.0, (n, K)), dtype=torch.float32)
+    zero = torch.as_tensor(rng.random((n, K)) < 0.3)
+    if positive_support:
+        zero[:] = False
+    p = bf(nd * bf(torch.where(zero, 0.0, ph)))
+    p[0] = 0.0                                   # a row with total 0
+    u24 = torch.as_tensor(rng.integers(0, 2 ** 24, n), dtype=torch.int32)
+    topics = torch.arange(K)
+    last = (K - 1 if positive_support
+            else (topics * (p > 0)).max(dim=1).values)
+    z_ref, tot_ref = cuda_pcgs.cdf_draw(p, u24, kpad,
+                                        K - 1 if positive_support else None)
+    z, tot = _lane_model_draw(p, u24, kpad, LANE_TOPICS,
+                              torch.as_tensor(last).expand(n))
+    assert torch.equal(tot > 0, tot_ref > 0)
+    live = tot_ref > 0
+    diff = torch.nonzero(live & (z != z_ref)).flatten()
+    print(f"K={K}: {diff.numel()} of {n} rows differ")
+    assert diff.numel() <= 1e-4 * n
+    cdf64 = p[diff].double().cumsum(dim=1)
+    u64 = u24[diff].double() * 2.0 ** -24 * cdf64[:, -1]
+    lo = torch.minimum(z[diff], z_ref[diff])
+    gap = (cdf64[torch.arange(diff.numel()), lo] - u64).abs()
+    assert (gap <= 1e-5 * cdf64[:, -1]).all()
+    if not positive_support:                 # never a zero-probability topic
+        assert (p[live, z[live]] > 0).all()
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_pcgs_mode_requires_a_document_order(streamed):
+    """The PCGS-mode wrappers raise without `doc_order` (or with one of the
+    wrong size), and the collapsed mode, which walks the documents in
+    index order, refuses one."""
+    case = _case(6, streamed, True, seed=3)
+    with pytest.raises(ValueError, match="needs doc_order"):
+        case.port(doc_order=None)
+    with pytest.raises(ValueError, match="doc_order: expected an int32"):
+        case.port(doc_order=torch.arange(case.c.num_docs - 1,
+                                         dtype=torch.int32))
+    ccase, _, nk_plus, beta = _collapsed_case(6, streamed, seed=3)
+    fn = (cuda_pcgs.fused_pcgs_sweep_streamed if streamed
+          else cuda_pcgs.fused_pcgs_sweep)
+    with pytest.raises(ValueError, match="takes no doc_order"):
+        ccase.port(fn=fn, positive_support=True, nk_plus=nk_plus,
+                   beta=beta, doc_order=torch.arange(ccase.c.num_docs,
+                                                     dtype=torch.int32))
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_results_do_not_depend_on_the_document_order(streamed):
+    """z, N_kw and the table come out identical under a random permutation
+    of the documents given as `doc_order` (the draws are keyed by slot and
+    documents are independent given phi)."""
+    case = _case(100, streamed, False, seed=5)
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(
+        case.c.num_docs).astype(np.int32))
+    for a, b in zip(case.port(), case.port(doc_order=perm)):
+        assert np.array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

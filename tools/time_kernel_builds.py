@@ -27,7 +27,9 @@ timings in that checkout's `chip_smoke.py`: the synthetic 20NG corpus,
 and
   - pcgs: the collapsed mode (`[3 adlda sweep]`) and the PCGS mode
     (`[3 pcgs]`), each at K=100 on the resident layout and K=200 on the
-    streamed one;
+    streamed one, with the keywords the model's `_sweep_call` gives (in
+    the PCGS mode its longest-first `doc_order`, where the checkout has
+    one);
   - lightlda: `[3 lightlda]`, K=100 resident and K=200 streamed;
   - zdraw: `[3 zdraw]` at K=100 in bf16 and in precise mode.
 The workers start together, so builds and set-up run in parallel; then
