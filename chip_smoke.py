@@ -13,7 +13,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      shapes of the synthetic 20NG corpus (D=11,269, V=20,000, K=100, mean
      doc length 120, Zipf 1.1 types, default_rng(0) — the same recipe as
      bench.py), with each kernel's time, its plain version's time, the
-     library yardstick where one exists, and its bound; the z-draw also
+     library yardstick where one exists, and its bound; the count kernel
+     on layouts A and B at K=100 with uniform and concentrated z (each
+     word's tokens mostly on one topic) and on layout A at K=4096 (its
+     global instance), each with its launch shape; the z-draw also
      with its launch shape, its precise-mode time, and a K=514 check on
      the first 1,000 documents (the instance that loads one topic at a
      time). The PCGS sweep kernel is held against its plain version on
@@ -43,10 +46,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      oracle]`, adlda on the first 2,000 documents with the parallel and
      the one-warp launch from one seed (likelihood gap under 0.5% at
      iteration 30), beside the spread of three parallel chains' gaps and
-     of three one-warp chains from three seeds, and `[4 collapsed]`, the
-     serial oracle on the first 100 documents;
+     of three one-warp chains from three seeds; `[4 ggs_aliasmh main
+     path]`, scheme ggs_aliasmh at K=100 for 30 iterations (the count
+     kernel on both layouts every iteration) with a profile, and
+     `[4 ggs_aliasmh K=4096]`, ggs_aliasmh beside dense ggs at K=4096, 10
+     iterations each; and `[4 collapsed]`, the serial oracle on the first
+     100 documents;
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
-     cuda, with a ggs, a pcgs, a lightpclda and an adlda section.
+     cuda, with a ggs, a pcgs, a lightpclda, an adlda and a ggs_aliasmh
+     section.
 Then one JSON line describing every kernel, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -336,16 +344,141 @@ def ptxas_registers(_build, name):
         if m:
             args = re.search(name + r"I(.*?)EEv", m.group(1))
             key = (",".join(re.findall(r"L[ib](\d+)E", args.group(1) + "E"))
-                   if args else None)
+                   if args else "" if name + "E" in m.group(1) else None)
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
-        if key and m:
+        if key is not None and m:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if key and m:
+        if key is not None and m:
             out[key] = f"{m.group(1)} registers, {spill} B spilled"
             key, spill = None, "0"
     return out
+
+
+COUNT_CASES = (("A", 100, "uniform"), ("A", 100, "concentrated"),
+               ("B", 100, "uniform"), ("B", 100, "concentrated"),
+               ("A", 4096, "uniform"), ("A", 4096, "concentrated"))
+
+
+def count_cases(torch, blocks, dev, cases=COUNT_CASES):
+    """The count kernel's operands on the layouts of `blocks`: {"A K=100
+    uniform": (args, kw), ...} for each (layout, K, z shape) of `cases`.
+    z is uniform over K, or concentrated: each word's tokens sit on topic
+    w mod K with probability 0.9 and on a uniform topic otherwise (the
+    shape a chain past burn-in gives the Zipf head rows). Layout B gets z
+    by the models' regroup. Drawn from a generator of its own (seed 8)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    wb, winb, firstb, mask = (t(blocks.w_local), t(blocks.win_w),
+                              t(blocks.first_w), t(blocks.mask))
+    srcb = t(blocks.src_chunks.astype(np.int64))
+    dlb, windb, firstdb = t(blocks.d_local), t(blocks.win_d), \
+        t(blocks.first_d)
+    word = winb.to(torch.int64)[:, None] * blocks.vspan + wb
+    out = {}
+    for layout, k, shape in cases:
+        z = torch.randint(0, k, wb.shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        if shape == "concentrated":
+            hot = torch.rand(wb.shape, generator=gen, device=dev) < 0.9
+            z = torch.where(hot, (word % k).to(torch.int32), z)
+        z = torch.where(mask, z, 0)
+        if layout == "A":
+            args = (wb, z, winb, firstb)
+            kw = dict(nwin=blocks.nwin_w, vspan=blocks.vspan, num_labels=k)
+        else:
+            z_b = z.view(-1, blocks.chunk)[srcb].view(dlb.shape).contiguous()
+            args = (dlb, z_b, windb, firstdb)
+            kw = dict(nwin=blocks.nwin_d, vspan=blocks.dspan, num_labels=k)
+        out[f"{layout} K={k} {shape}"] = (args, kw)
+    return out
+
+
+def counts_phase(torch, blocks, n_tok, cuda_counts, _build):
+    """[3 counts]: the count kernel against its plain version on layouts A
+    and B at K=100 with uniform and concentrated z, and on layout A at
+    K=4096 (the global instance), and on blocks cut to 4094 slots (the
+    shared instance's path without 16-byte loads): exact, summing to N
+    (but the cut blocks), each timed beside
+    its bound, its plain version and torch.bincount on the same keys, with
+    each instance's launch shape and registers. Returns the kernel's entry
+    of the kernels JSON line (its main fields: layout B, K=100, uniform z,
+    the ggs path's per-iteration call)."""
+    dev = torch.device("cuda", 0)
+    fn, plain = (cuda_counts.blocked_label_counts,
+                 cuda_counts.blocked_label_counts_reference)
+    block = blocks.w_local.shape[1]
+    cases = {}
+    for name, (args, kw) in count_cases(torch, blocks, dev).items():
+        got = fn(*args, **kw)
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"label counts {name} differ from the "
+              "plain version")
+        check(int(got.sum()) == n_tok, f"label counts {name}: sum != N")
+        ids, labels, win, _ = args
+        k, vspan = kw["num_labels"], kw["vspan"]
+        valid = ids < vspan
+        key = ((win.to(torch.int64)[:, None] * vspan + ids)[valid] * k
+               + labels[valid])
+        nrows = kw["nwin"] * vspan
+        lib = torch.bincount(key, minlength=nrows * k).view(nrows, k)
+        check(torch.equal(lib.to(torch.int32), got),
+              f"torch.bincount disagrees with the count kernel ({name})")
+        del lib, got, ref
+        if name == "A K=100 concentrated":
+            # blocks of 4094 slots: the shared instance's 4-byte-load path
+            cut = [a[:, :4094].contiguous() for a in args[:2]] + list(
+                args[2:])
+            check(torch.equal(fn(*cut, **kw), plain(*cut, **kw)),
+                  f"label counts {name}, blocks of 4094: differ from the "
+                  "plain version")
+        # the bytes the function needs: every slot's id, the labels of the
+        # real slots only, the window ids once, the table written once
+        nbytes = 4 * (ids.numel() + int(valid.sum()) + win.numel()
+                      + nrows * k)
+        b_ms, b_by = bound(nbytes, 0)
+        inst, threads, smem, per_sm = cuda_counts.launch_shape(vspan, k,
+                                                               block)
+        run = cuda_counts.count_instance(vspan, k, block).run_blocks
+        cases[name] = {
+            "ms": time_ms(torch, lambda: fn(*args, **kw)),
+            "plain_ms": time_ms(torch, lambda: plain(*args, **kw), reps=3,
+                                calls=2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, lambda: torch.bincount(
+                key, minlength=nrows * k)),
+            "instance": inst,
+            "launch": (f"{threads} threads, {smem} B shared a CTA, {run} "
+                       f"blocks a CTA, {per_sm} CTAs an SM")}
+        del key
+    regs = {name: ptxas_registers(_build, name).get("", "not in the log")
+            for name in ("label_counts_shared_kernel",
+                         "label_counts_global_kernel")}
+    print("[3 counts] exact and summing to N in every case, and exact on "
+          "blocks of 4094 slots; " + "; ".join(
+        f"{name}: {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+        f"({c['bound_by']}), torch.bincount {c['library_ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.4f} ms, {c['instance']} instance ({c['launch']})"
+        for name, c in cases.items()) + f"; ptxas {json.dumps(regs)}",
+        flush=True)
+    main = cases["B K=100 uniform"]
+    a = cases["A K=100 uniform"]
+    return {"name": "blocked_label_counts", "route": "cuda",
+            "source": "ldagroupedgibbssampler_tpu_torch/csrc/label_counts.cu",
+            "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_counts.py:33",
+            "max_abs_err": 0,
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            **{f"{key}_a": a[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+            "cases": {name: {key: c[key] for key in (
+                "ms", "bound_ms", "library_ms", "plain_ms", "instance")}
+                for name, c in cases.items()}}
 
 
 def pcgs_sweep_checks(torch, model, gen, seed, plain_of, label, doc_sel):
@@ -1287,6 +1420,84 @@ def adlda_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
     return launches
 
 
+def aliasmh_main_path(torch, corpus, LDAConfig, create_model, cuda_counts,
+                      cuda_zdraw, smi):
+    """[4 ggs_aliasmh main path]: scheme ggs_aliasmh K=100 for ITERS
+    iterations with a profile, the launch counts set to 0 just before it
+    and read just after: the count kernel twice an iteration (N_kw on
+    layout A, n_dk on layout B) and twice at set-up, the z-draw never.
+    Then [4 ggs_aliasmh K=4096]: ggs_aliasmh and dense ggs at K=4096 in
+    one call, 10 iterations each, the card's first crossover reading,
+    each with a profile of 3 more.
+    Returns the count kernel's launches in the K=100 run."""
+    n = corpus.num_tokens
+    counts = cuda_counts.blocked_label_counts
+    zdraw = cuda_zdraw.fused_zdraw_nkw
+    counts.launches = zdraw.launches = 0
+    cfg = pcgs_config(LDAConfig, "ggs_aliasmh", K)
+    model = create_model(cfg)
+    model.add_instances(corpus)
+    check(model._mh_packed(), "ggs_aliasmh K=100: tables not packed")
+    ll0 = model.model_log_likelihood()
+    model.sample(10)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    model.sample(ITERS - 10)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    launches = counts.launches
+    check(launches == 2 * ITERS + 2 and zdraw.launches == 0,
+          f"ggs_aliasmh: count kernel launched {launches} times (expected "
+          f"{2 * ITERS + 2}), z-draw {zdraw.launches}")
+    check_counts_exact(model, corpus, "ggs_aliasmh")
+    lls = dict(model.get_log_likelihoods())
+    check(lls[30] > lls[10] > ll0, f"ggs_aliasmh: LL did not rise: init "
+          f"{ll0}, {lls}")
+    print(f"[4 ggs_aliasmh main path] ggs_aliasmh K={K} on "
+          f"{torch.cuda.get_device_name(0)} ({smi}): count kernel launches "
+          f"{launches} (2 an iteration + 2 at set-up), z-draw 0; counts "
+          f"exact; LL init {ll0:.1f} -> it10 {lls[10]:.1f} -> it30 "
+          f"{lls[30]:.1f}; {n * (ITERS - 10) / (t_b - t_a):.0f} tokens/s "
+          f"over iterations 11-30 ({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} "
+          "ms/iteration, host clock, LL at 20 and 30 included)", flush=True)
+    print(f"[4 ggs_aliasmh profile] {profile_iterations(torch, model, 5)}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    k_big, res = 4096, {}
+    for scheme in ("ggs_aliasmh", "ggs"):
+        cfg = LDAConfig(scheme=scheme, topics=k_big, alpha=0.5, beta=0.01,
+                        seed=2019, exec_time=-1, topic_interval=5,
+                        device="cuda")
+        model = create_model(cfg)
+        model.add_instances(corpus)
+        ll0 = model.model_log_likelihood()
+        model.sample(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample(8)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 8 * 1e3
+        check_counts_exact(model, corpus, f"{scheme} K={k_big}")
+        lls = dict(model.get_log_likelihoods())
+        check(lls[10] > lls[5] > ll0, f"{scheme} K={k_big}: LL did not rise:"
+              f" init {ll0}, {lls}")
+        res[scheme] = (ms, ll0, lls)
+        print(f"[4 ggs_aliasmh K={k_big} profile] {scheme}: "
+              f"{profile_iterations(torch, model, 3)}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    mh, dense = res["ggs_aliasmh"], res["ggs"]
+    print(f"[4 ggs_aliasmh K={k_big}] counts exact and LL rising in both; "
+          f"ggs_aliasmh {mh[0]:.3f} ms/iteration (LL init {mh[1]:.1f} -> it5 "
+          f"{mh[2][5]:.1f} -> it10 {mh[2][10]:.1f}), dense ggs {dense[0]:.3f} "
+          f"ms/iteration (LL init {dense[1]:.1f} -> it5 {dense[2][5]:.1f} -> "
+          f"it10 {dense[2][10]:.1f}), dense / alias-MH time "
+          f"{dense[0] / mh[0]:.3f} (host clock over iterations 3-10, LL at "
+          "5 and 10 included)", flush=True)
+    return launches
+
+
 def first_docs(Corpus, corpus, num_docs):
     """The corpus cut to its first `num_docs` documents (same vocabulary)."""
     end = int(corpus.doc_offsets[num_docs])
@@ -1447,57 +1658,17 @@ def main() -> int:
     mask = t(blocks.mask)
     winb, firstb, windc = t(blocks.win_w), t(blocks.first_w), \
         t(blocks.win_d_chunks)
-    srcb = t(blocks.src_chunks.astype(np.int64))
-    dlb, windb, firstdb = t(blocks.d_local), t(blocks.win_d), \
-        t(blocks.first_d)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     z = torch.randint(0, K, (nb, block), generator=gen, device=dev,
                       dtype=torch.int32)
     z = torch.where(mask, z, 0)
-    z_b = z.view(-1, chunk)[srcb].view(dlb.shape).contiguous()
     print(f"[3 layout] N={n_tok} tokens, {nb} blocks x {block} = {slots} "
-          f"slots, layout B {dlb.shape[0]} blocks, built in "
+          f"slots, layout B {blocks.d_local.shape[0]} blocks, built in "
           f"{build_blocks_s:.1f} s", flush=True)
 
     kc = dict(nwin=blocks.nwin_w, vspan=vspan, num_labels=K)
-    kd = dict(nwin=blocks.nwin_d, vspan=dspan, num_labels=K)
-    count_ok = {}
-    for name, args, kw in (("A", (wb, z, winb, firstb), kc),
-                           ("B", (dlb, z_b, windb, firstdb), kd)):
-        got = cuda_counts.blocked_label_counts(*args, **kw)
-        ref = cuda_counts.blocked_label_counts_reference(*args, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"label counts layout {name} differ "
-              "from the plain version")
-        check(int(got.sum()) == n_tok, f"layout {name} counts != N")
-        count_ok[name] = (args, kw)
-    # time on layout B: the per-iteration call of the main path
-    args_b, kw_b = count_ok["B"]
-    counts_ms = time_ms(torch, lambda: cuda_counts.blocked_label_counts(
-        *args_b, **kw_b))
-    counts_a_ms = time_ms(torch, lambda: cuda_counts.blocked_label_counts(
-        *count_ok["A"][0], **count_ok["A"][1]))
-    counts_plain_ms = time_ms(
-        torch, lambda: cuda_counts.blocked_label_counts_reference(
-            *args_b, **kw_b), reps=5, calls=2)
-    valid_b = dlb < dspan
-    key_b = ((windb.to(torch.int64)[:, None] * dspan + dlb)[valid_b] * K
-             + z_b[valid_b])
-    nrows_b = blocks.nwin_d * dspan
-    lib = torch.bincount(key_b, minlength=nrows_b * K).view(nrows_b, K)
-    check(torch.equal(lib.to(torch.int32),
-                      cuda_counts.blocked_label_counts(*args_b, **kw_b)),
-          "bincount yardstick disagrees with the count kernel")
-    counts_lib_ms = time_ms(torch, lambda: torch.bincount(
-        key_b, minlength=nrows_b * K))
-    counts_bytes = 4 * (2 * dlb.numel() + 2 * windb.numel()
-                        + nrows_b * K)
-    counts_bound, counts_by = bound(counts_bytes, 0)
-    print(f"[3 counts] layouts A and B exact; layout B "
-          f"{counts_ms:.4f} ms (layout A {counts_a_ms:.4f} ms), plain "
-          f"{counts_plain_ms:.4f} ms, torch.bincount {counts_lib_ms:.4f} ms, "
-          f"bound {counts_bound:.4f} ms ({counts_by})", flush=True)
+    counts_entry = counts_phase(torch, blocks, n_tok, cuda_counts, _build)
 
     # z-draw: realistic tables, every 5th document's theta row zeroed
     theta = rnd.dirichlet(torch.rand((D, K), generator=gen, device=dev)
@@ -1600,7 +1771,7 @@ def main() -> int:
           f"ms), plain {zdraw_plain_ms:.4f} ms, bound {zdraw_bound:.4f} ms "
           f"({zdraw_by}); max |N_kw - plain| {zdraw_err}; {big}",
           flush=True)
-    del theta, phi, theta_m, onehot, u24, z, z_b, key_b, lib
+    del theta, phi, theta_m, onehot, u24, z
     torch.cuda.empty_cache()
     pcgs_entries = pcgs_kernel_phase(torch, corpus, Corpus, LDAConfig,
                                      create_model, cuda_pcgs, _build)
@@ -1654,6 +1825,9 @@ def main() -> int:
     for entry in adlda_entries:
         entry["launches"] = adlda_launches[entry["name"]]
     adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model)
+    aliasmh_launches = aliasmh_main_path(torch, corpus, LDAConfig,
+                                         create_model, cuda_counts,
+                                         cuda_zdraw, smi)
     # every launch counter of the port's wrappers
     counters = [(fn, "launches") for fn in (
         cuda_counts.blocked_label_counts, cuda_zdraw.fused_zdraw_nkw,
@@ -1679,7 +1853,8 @@ def main() -> int:
                       for _ in range(4)]
             f.write(f"docno:{d}\tL{d % 3}\t{' '.join(words)}\n")
     with open(os.path.join(work, "run.cfg"), "w") as f:
-        f.write(f"configs = ggs, pcgs, lightpclda, adlda\nno_runs = 1\n"
+        f.write(f"configs = ggs, pcgs, lightpclda, adlda, ggs_aliasmh\n"
+                f"no_runs = 1\n"
                 f"experiment_out_dir = {work}/runs\nexec_time = 300\n"
                 f"iterations = {ITERS}\ntopics = 3\nalpha = 1\n"
                 f"beta = 0.01\ndataset = {work}/docs.txt\n"
@@ -1688,7 +1863,8 @@ def main() -> int:
                 f"[ggs]\nscheme = ggs\n\n"
                 f"[pcgs]\nscheme = pcgs\nsave_phi = true\n\n"
                 f"[lightpclda]\nscheme = lightpclda\n\n"
-                f"[adlda]\nscheme = adlda\n")
+                f"[adlda]\nscheme = adlda\n\n"
+                f"[ggs_aliasmh]\nscheme = ggs_aliasmh\n")
     for fn, attr in counters:
         setattr(fn, attr, 0)
     parallel_lda.main([f"--run_cfg={work}/run.cfg"])
@@ -1697,14 +1873,16 @@ def main() -> int:
                     cuda_pcgs.fused_pcgs_sweep.launches,
                     cuda_lightlda.fused_lightlda_sweep.launches,
                     cuda_pcgs.fused_pcgs_sweep.collapsed_launches)
-    check(cli_launches[0] == ITERS and cli_launches[1] >= ITERS
+    # counts: ggs once an iteration, ggs_aliasmh twice
+    check(cli_launches[0] == ITERS and cli_launches[1] >= 3 * ITERS
           and cli_launches[2] == ITERS and cli_launches[3] == ITERS
           and cli_launches[4] == ITERS,
           f"CLI run launches (zdraw, counts, pcgs, lightlda, collapsed) = "
           f"{cli_launches}")
     ll_cli = {}
     for name, files in (("ggs", ()), ("pcgs", ("phi.csv",)),
-                        ("lightpclda", ()), ("adlda", ())):
+                        ("lightpclda", ()), ("adlda", ()),
+                        ("ggs_aliasmh", ())):
         run_dir = glob.glob(os.path.join(work, "runs", "RunSuite*",
                                          f"Run{name}-*"))
         check(len(run_dir) == 1, f"CLI run directories: {run_dir}")
@@ -1720,18 +1898,13 @@ def main() -> int:
                 else lls[-1] > lls[0] - 1e-3 * abs(lls[0]))
         check(len(lls) == 3 and rose, f"CLI {name} LL did not rise: {lls}")
         ll_cli[name] = lls
-    print(f"[5 cli] parallel_lda on cuda, sections ggs, pcgs, lightpclda "
-          f"and adlda: launches (zdraw, counts, pcgs, lightlda, collapsed) "
-          f"{cli_launches}; LL {json.dumps(ll_cli)}", flush=True)
+    print(f"[5 cli] parallel_lda on cuda, sections ggs, pcgs, lightpclda, "
+          f"adlda and ggs_aliasmh: launches (zdraw, counts, pcgs, lightlda, "
+          f"collapsed) {cli_launches}; LL {json.dumps(ll_cli)}", flush=True)
 
     kernels = [
-        {"name": "blocked_label_counts", "route": "cuda",
-         "source": "ldagroupedgibbssampler_tpu_torch/csrc/label_counts.cu",
-         "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_counts.py:33",
-         "launches": launches["blocked_label_counts"], "max_abs_err": 0,
-         "ms": counts_ms, "plain_ms": counts_plain_ms,
-         "bound_ms": counts_bound, "bound_by": counts_by,
-         "library_ms": counts_lib_ms},
+        {**counts_entry, "launches": aliasmh_launches,
+         "launches_ggs": launches["blocked_label_counts"]},
         {"name": "fused_zdraw_nkw", "route": "cuda",
          "source": "ldagroupedgibbssampler_tpu_torch/csrc/zdraw.cu",
          "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_zdraw.py:59",

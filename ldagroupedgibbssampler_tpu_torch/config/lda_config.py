@@ -153,7 +153,7 @@ class LDAConfig:
     #     interpreter on any backend; in-kernel PRNG lowers to zeros)
     zdraw_precise: bool = False    # fused kernel: bf16x2 tables + f32 cdf
     aliasmh_rounds: int = 2        # ggs_aliasmh: word+doc MH round pairs per sweep (large-K O(1)-per-token z-step; more rounds = better mixing, linear cost)
-    aliasmh_packed: str = "auto"   # ggs_aliasmh table layout: "packed" [.,2] f32 rows (1 gather/eval, +8*(VK+DK) bytes) | "unpacked" (2 gathers/eval, zero extra memory) | "auto" = packed while the extra stays under ~2 GiB
+    aliasmh_packed: str = "auto"   # ggs_aliasmh table layout: "packed" [.,2] f32 rows (1 gather/eval, +8*(VK+DK) bytes) | "unpacked" (2 gathers/eval, zero extra memory) | "auto" = packed while the extra stays within 4 GiB
 
     def replace(self, **kw) -> "LDAConfig":
         return dataclasses.replace(self, **kw)

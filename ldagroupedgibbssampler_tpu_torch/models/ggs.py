@@ -41,6 +41,9 @@ from ldagroupedgibbssampler_tpu_torch.ops.cuda_zdraw import fused_zdraw_nkw
 
 class LDAGroupedGibbsSampler(TorchLDASampler):
     nkw_layout = "vk"
+    # the z-draw kernel draws z and N_kw; a subclass that draws z another
+    # way sets this False and uploads none of the z-draw's own arrays
+    _use_fused_zdraw = True
 
     # ------------------------------------------------------------------
     def _prepare_device_data(self, corpus):
@@ -57,16 +60,17 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
 
         # layout A (w-window-major): the z-draw and the N_kw count
         self.wb = dev(blocks.w_local)          # sentinel vspan on pads
-        self.dla = dev(blocks.d_local_a)       # sentinel dspan on pads
         self.mf = dev(blocks.mask.reshape(-1))
         # z stays flat over the layout-A slots
         self._slot_mask = self.mf
         self._flat_index = blocks.flat_index.reshape(-1)
-        # the z-draw kernel walks the real slots only
-        self._real_slots = dev(real_slot_list(blocks.mask))
         self.winb = dev(blocks.win_w)
         self.firstb = dev(blocks.first_w)
-        self.windc = dev(blocks.win_d_chunks)
+        if self._use_fused_zdraw:
+            self.dla = dev(blocks.d_local_a)   # sentinel dspan on pads
+            # the z-draw kernel walks the real slots only
+            self._real_slots = dev(real_slot_list(blocks.mask))
+            self.windc = dev(blocks.win_d_chunks)
         # layout B (d-window-major): the n_dk count after the regroup
         self.srcb = dev(blocks.src_chunks.astype(np.int64))
         self.dlb = dev(blocks.d_local)         # sentinel dspan on pads

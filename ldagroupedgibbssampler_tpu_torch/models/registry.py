@@ -15,6 +15,10 @@ SCHEMES = {
             "LDA Grouped Gibbs Sampler. GGS by George and Doss (2025)."),
     "ggs_test": ("ggs", "LDAGroupedGibbsSamplerTest",
                  "Invalid GGS comparison variant (stale theta)."),
+    "ggs_aliasmh": ("ggs_aliasmh", "LDAGroupedGibbsSamplerAliasMH",
+                    "GGS with O(1)-per-token alias-MH z-draws — the "
+                    "sublinear large-K mode (LightLDA-style count "
+                    "proposals on the grouped target)."),
     "pcgs": ("pcgs", "LDAPartiallyCollapsedGibbsSampler",
              "Partially Collapsed Gibbs Sampler. PCGS by Magnusson et al. "
              "(2018)."),

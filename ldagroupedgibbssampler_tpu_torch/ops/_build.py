@@ -47,7 +47,8 @@ _c_i64 = ctypes.c_longlong
 _SIGNATURES = {
     # label_counts.cu
     "lda_label_counts": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int, _c_int,
-                         _c_int, _c_ptr, _c_int, _c_ptr],
+                         _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr],
+    "lda_label_counts_launch_shape": [_c_int, _c_int, _c_ptr],
     # zdraw.cu
     "lda_zdraw_nkw": [_c_ptr] * 11 + [_c_i64] + [_c_int] * 9 + [_c_ptr],
     "lda_zdraw_launch_shape": [_c_int, _c_ptr, _c_ptr, _c_ptr],

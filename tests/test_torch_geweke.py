@@ -2,7 +2,9 @@
 the CPU: the port's copies of tests/test_geweke.py's `test_geweke_ggs`,
 its `ggs_test` negative control, `test_geweke_pcgs`, `test_geweke_cgs`,
 `test_geweke_lightpclda`, `test_geweke_lightpclda_w2_count_proposal`,
-`test_geweke_lightcollapsed` and `test_geweke_adlda_collapsed_interpret`.
+`test_geweke_lightcollapsed`, `test_geweke_adlda_collapsed_interpret`,
+`test_geweke_ggs_aliasmh`, and `test_geweke_ggs_aliasmh_asym_alpha` with
+its negative control.
 
 A marginal-conditional simulator (ancestral draws of phi, theta, z, w) and
 a successive-conditional chain (the port's `sample(1)` alternated with a
@@ -180,3 +182,102 @@ def test_geweke_lightcollapsed():
     mc = _mc_draws(4000, seed=307)
     sc = _sc_series("lightcollapsed", steps=2000, burn=200, seed=310)
     _agree(mc, sc, [1, 2, 3], "lightcollapsed")
+
+
+def test_geweke_ggs_aliasmh():
+    """Scheme `ggs_aliasmh`: theta exact, z by count-proposal MH rounds
+    from the sweep-entry z, phi exact. A valid MH-within-Gibbs kernel
+    leaves the same joint invariant as exact GGS: all four statistics
+    agree."""
+    mc = _mc_draws(4000, seed=601)
+    sc = _sc_series("ggs_aliasmh", steps=2600, burn=200, seed=602)
+    _agree(mc, sc, [0, 1, 2, 3], "ggs_aliasmh")
+
+
+# The symmetric-alpha run above cannot tell the uniform fallback's true
+# density per topic (alpha_sum / K) from alpha_k: under a symmetric alpha
+# they coincide. These runs use alpha = [0.3, 1.5], as tests/test_geweke.py.
+ALPHA_VEC = np.array([0.3, 1.5])
+
+
+def _mc_draws_asym(n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        phi = rng.dirichlet(np.full(V, BETA), K)
+        theta = rng.dirichlet(ALPHA_VEC, D)
+        z = np.array([rng.choice(K, p=theta[d]) for d in range(D)
+                      for _ in range(L)])
+        w = np.array([rng.choice(V, p=phi[k]) for k in z])
+        out.append(_stats(theta[0, 0], phi[0, 0], z, w))
+    return np.array(out)
+
+
+def _sc_series_asym(steps, burn, seed, buggy=False):
+    """SC chain of the port's ggs_aliasmh with state.alpha = ALPHA_VEC.
+    `buggy=True` patches the doc proposal's density to n_dk + alpha_k (the
+    proposal itself still falls back uniformly), on the test side only:
+    the negative control."""
+    import torch
+
+    from ldagroupedgibbssampler_tpu_torch.models import ggs_aliasmh as gam
+
+    rng = np.random.default_rng(seed)
+    phi0 = rng.dirichlet(np.full(V, BETA), K)
+    theta0 = rng.dirichlet(ALPHA_VEC, D)
+    z = np.array([rng.choice(K, p=theta0[d]) for d in range(D)
+                  for _ in range(L)]).astype(np.int32)
+    w = np.array([rng.choice(V, p=phi0[k]) for k in z], np.int32)
+    m = create_model(LDAConfig(scheme="ggs_aliasmh", topics=K,
+                               alpha=float(ALPHA_VEC.mean()), beta=BETA,
+                               seed=seed, exec_time=-1, device="cpu"))
+    m.add_instances(_corpus(w))
+    m.set_z_indicators(z)
+    m.state.alpha = torch.as_tensor(ALPHA_VEC, dtype=torch.float32)
+
+    orig = gam.alias_mh_rounds
+    if buggy:
+        a_corr = torch.as_tensor(ALPHA_VEC - ALPHA_VEC.sum() / K,
+                                 dtype=torch.float32)
+
+        def patched(zz, gw, gd, *rest, **kw):
+            def gd2(k):
+                t, q = gd(k)
+                return t, q + a_corr[k]
+            return orig(zz, gw, gd2, *rest, **kw)
+        gam.alias_mh_rounds = patched
+    try:
+        out = []
+        for s in range(steps):
+            m.sample(1)
+            z = m.get_z_indicators()
+            phi = m.get_phi()[:K]
+            theta00 = float(m.state.theta[0, 0])
+            if s >= burn:
+                out.append(_stats(theta00, phi[0, 0], z, w))
+            w = _resample_w(rng, phi, z)
+            m.swap_corpus_tokens(_corpus(w))
+    finally:
+        gam.alias_mh_rounds = orig
+    return np.array(out)
+
+
+def test_geweke_ggs_aliasmh_asym_alpha():
+    """ggs_aliasmh under an asymmetric alpha = [0.3, 1.5]: the acceptance
+    ratio's doc-proposal density must be the uniform fallback's true mass
+    per topic, alpha_sum / K, for the chain to stay exact."""
+    mc = _mc_draws_asym(4000, seed=811)
+    sc = _sc_series_asym(steps=2600, burn=200, seed=812)
+    _agree(mc, sc, [0, 1, 2, 3], "ggs_aliasmh_asym")
+
+
+def test_geweke_ggs_aliasmh_asym_alpha_negative_control():
+    """Power check: the density n_dk + alpha_k against the uniform
+    fallback must fail the same check (the JAX test's bars: z below -8 on
+    the topic-0 fraction and below -3.5 on theta_00)."""
+    mc = _mc_draws_asym(4000, seed=811)
+    sc = _sc_series_asym(steps=2600, burn=200, seed=813, buggy=True)
+    z_frac = _geweke_z(mc[:, 2], sc[:, 2])
+    z_th = _geweke_z(mc[:, 0], sc[:, 0])
+    assert z_frac < -8.0, z_frac
+    assert z_th < -3.5, z_th

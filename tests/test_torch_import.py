@@ -20,6 +20,7 @@ import ldagroupedgibbssampler_tpu_torch
 import ldagroupedgibbssampler_tpu_torch.models.adlda
 import ldagroupedgibbssampler_tpu_torch.models.cgs
 import ldagroupedgibbssampler_tpu_torch.models.ggs
+import ldagroupedgibbssampler_tpu_torch.models.ggs_aliasmh
 import ldagroupedgibbssampler_tpu_torch.models.lightlda
 import ldagroupedgibbssampler_tpu_torch.models.pcgs
 import ldagroupedgibbssampler_tpu_torch.models.polyaurn

@@ -4,15 +4,16 @@ card, in turns.
 
 Run from the repository root on a machine with one card and nvcc:
 
-    python3 tools/time_kernel_builds.py --kernel pcgs|lightlda|zdraw \
+    python3 tools/time_kernel_builds.py --kernel pcgs|lightlda|zdraw|counts \
         NAME=PATH [NAME=PATH ...] [--root DIR] [--cases CASE,...] \
         [--rounds 2] [--json out.json]
 
 Each PATH is either
   - a source of the kernel (`csrc/pcgs.cu`, `csrc/lightlda.cu`,
-    `csrc/zdraw.cu`, or a copy of one beside the `philox.cuh` it
-    includes), timed under the wrappers of the checkout `--root` (default:
-    this one), so it must keep that checkout's C interface; or
+    `csrc/zdraw.cu`, `csrc/label_counts.cu`, or a copy of one beside the
+    `philox.cuh` it includes), timed under the wrappers of the checkout
+    `--root` (default: this one), so it must keep that checkout's C
+    interface; or
   - a directory holding a checkout of the repository (the parent commit
     unpacked there with `git archive`, say), timed with that checkout's own
     wrappers and its own source of the kernel, so builds whose C
@@ -31,7 +32,10 @@ and
     the PCGS mode its longest-first `doc_order`, where the checkout has
     one);
   - lightlda: `[3 lightlda]`, K=100 resident and K=200 streamed;
-  - zdraw: `[3 zdraw]` at K=100 in bf16 and in precise mode.
+  - zdraw: `[3 zdraw]` at K=100 in bf16 and in precise mode;
+  - counts: `[3 counts]`, layouts A and B at K=100 with uniform and
+    concentrated z and layout A at K=4096 (`chip_smoke.py::count_cases` of
+    this checkout, whichever checkout the wrappers come from).
 The workers start together, so builds and set-up run in parallel; then
 each case is timed with `chip_smoke.time_ms`, one worker at a time, the
 names first to last and back, `--rounds` times, so each has as many early
@@ -60,7 +64,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCES = {"pcgs": "pcgs.cu", "lightlda": "lightlda.cu",
-                  "zdraw": "zdraw.cu"}
+                  "zdraw": "zdraw.cu", "counts": "label_counts.cu"}
 TAG = "@@ "                       # prefix of the worker's protocol lines
 
 
@@ -89,7 +93,8 @@ def build_source(src: str, out_dir: str) -> tuple[ctypes.CDLL, list[str]]:
 
 class Overlay:
     """The entry points of the timed source's library, and the checkout's
-    other kernels (the models' set-up launches them) from its own."""
+    other kernels (the models' set-up launches them) from its own, built
+    when one is first asked for."""
 
     def __init__(self, lib, full):
         self._lib, self._full = lib, full
@@ -98,7 +103,7 @@ class Overlay:
         try:
             return getattr(self._lib, name)
         except AttributeError:
-            return getattr(self._full, name)
+            return getattr(self._full(), name)
 
 
 def pcgs_cases(torch, cs, corpus, LDAConfig, create_model):
@@ -186,8 +191,25 @@ def zdraw_cases(torch, cs, corpus, LDAConfig, create_model):
             for mode in ("bf16", "precise")}
 
 
+def counts_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 counts]'s timed calls, with the operands of this checkout's
+    `chip_smoke.py::count_cases` on the default cell blocks."""
+    import importlib.util
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_counts
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_cases", os.path.join(ROOT, "chip_smoke.py"))
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    cfg = LDAConfig(device="cuda")
+    blocks = corpus.cell_blocks(block=cfg.token_block, vspan=cfg.vocab_span,
+                                dspan=cfg.doc_span)
+    fn = cuda_counts.blocked_label_counts
+    return {name: (fn, args, kw) for name, (args, kw) in own.count_cases(
+        torch, blocks, torch.device("cuda", 0)).items()}
+
+
 CASES = {"pcgs": pcgs_cases, "lightlda": lightlda_cases,
-         "zdraw": zdraw_cases}
+         "zdraw": zdraw_cases, "counts": counts_cases}
 
 
 def worker(kernel: str, root: str, source: str, out_dir: str) -> int:
@@ -208,11 +230,11 @@ def worker(kernel: str, root: str, source: str, out_dir: str) -> int:
 
     try:
         lib, regs = build_source(source, out_dir)
-        full = _build.library()          # the checkout's own build of all
     except Exception as e:                       # noqa: BLE001
         say({"error": str(e)})
         return 1
-    overlay = Overlay(lib, full)
+    # the checkout's own build of all its kernels, made when first needed
+    overlay = Overlay(lib, _build.library)
     _build.library = lambda: overlay
     torch.backends.cuda.matmul.allow_tf32 = False
     corpus = cs.synth_corpus(Corpus)
