@@ -24,8 +24,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      injected and Philox uniforms, exact zeros in phi, a chi-square, the
      documents in index order bit-equal to longest first, its bf16
      word-table pre-pass bit-equal to its plain version and timed alone,
-     its launch shape and registers, and a K=514 check on the first 1,000
-     documents (the shared-memory instance above kpad 256).
+     its launch shape and registers, a K=514 check on the first 1,000
+     documents (the shared-memory instance above kpad 256), and the HDP
+     family's operands (alpha exactly 0 on 60% of the topics, whose phi
+     rows are 0 and which hold no token), equal to the plain version on
+     every token but documents whose first difference is a proven
+     rounding tie.
      The LightLDA MH sweep kernel likewise (resident K=100, streamed
      K=200), with a chi-square against the enumerated MH transition, its
      word-cdf pre-pass against its plain version and timed alone, and its
@@ -50,11 +54,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
      path]`, scheme ggs_aliasmh at K=100 for 30 iterations (the count
      kernel on both layouts every iteration) with a profile, and
      `[4 ggs_aliasmh K=4096]`, ggs_aliasmh beside dense ggs at K=4096, 10
-     iterations each; and `[4 collapsed]`, the serial oracle on the first
-     100 documents;
+     iterations each; `[4 ppu_hdplda main path]`, scheme ppu_hdplda at
+     K_max=100 (the JAX package's 20NG HDP configuration) for 30
+     iterations with a profile (a finite likelihood, which falls while
+     topics are born as in the JAX package's chain; the active topics at
+     10, 20 and 30; inactive topics with alpha 0, zero phi rows and no
+     token), then ppu_hlda at K=100 (10 iterations),
+     ppu_hdplda_all_topics at K=100 (30, the likelihood rising from 10 to
+     30), spalias_priors (10 topics anchoring 5 of the most frequent
+     words each: phi exactly 0 and no token on a masked pair) and
+     nzvsspalias at K=100, and nzvsspalias at K=200 (streamed), 10
+     iterations each; and
+     `[4 collapsed]`, the serial oracle on the first 100 documents;
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
-     cuda, with a ggs, a pcgs, a lightpclda, an adlda and a ggs_aliasmh
-     section.
+     cuda, with a ggs, a pcgs, a lightpclda, an adlda, a ggs_aliasmh, a
+     spalias_priors (with its prior file) and a ppu_hdplda section.
 Then one JSON line describing every kernel, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -203,14 +217,15 @@ def slot_hist(torch, model, z, rows):
 
 
 def check_sweep_outputs(torch, model, label, z_old, z, nkw, table, doc_sel,
-                        entry=None):
+                        entry=None, alpha=None):
     """One PCGS sweep's outputs against recounts: N_kw is the histogram of
     z (with the collapsed mode's entry counts `entry` [rows, K]: entry +
-    hist(z) - hist(z_old)), the table's n_dk (minus alpha) a recount of z
-    and its flag row intact, and padding slots and unselected documents
-    keep z."""
+    hist(z) - hist(z_old)), the table's n_dk (minus alpha, the model's
+    unless given) a recount of z and its flag row intact, and padding
+    slots and unselected documents keep z."""
     real = model._slot_mask
     k, d = model.config.topics, model.corpus.num_docs
+    alpha = model.state.alpha if alpha is None else alpha
     hist = slot_hist(torch, model, z, nkw.shape[0])
     what = "histogram"
     if entry is not None:
@@ -218,7 +233,7 @@ def check_sweep_outputs(torch, model, label, z_old, z, nkw, table, doc_sel,
         what = "entry count plus the moves"
     check(torch.equal(hist, nkw), f"{label}: N_kw is not the {what} of the "
           "kernel's z")
-    ndk = torch.round(table[:k, :d].T - model.state.alpha[None, :])
+    ndk = torch.round(table[:k, :d].T - alpha[None, :])
     check(torch.equal(ndk.to(torch.int32), model._count_ndk(z)),
           f"{label}: the table's n_dk differs from a recount of z")
     kpad = table.shape[0] - 8
@@ -534,6 +549,118 @@ def pcgs_sweep_checks(torch, model, gen, seed, plain_of, label, doc_sel):
     return agreement, err
 
 
+def ties_at_first_disagreement(torch, model, label, z_old, zk, zr, table,
+                               phi_vk, u24):
+    """Where the kernel's z differs from the plain version's, the
+    documents' first differing tokens must be rounding ties: the two
+    association orders of the f32 prefix sums (csrc/pcgs.cu's header) may
+    put u on either side of a boundary only when u lies within 1e-5 of
+    the total of the exact (f64) cdf at every boundary between the two
+    draws, recomputed on the host from the n_dk both had at that token.
+    Returns (tokens that differ, documents)."""
+    real = model._slot_mask
+    diff = (zk != zr) & real
+    n_tok = int(diff.sum())
+    if n_tok == 0:
+        return 0, 0
+    docs = torch.unique(model._slot_d[diff]).tolist()
+    check(len(docs) <= 64, f"{label}: {len(docs)} documents differ from the "
+          "plain version")
+    k = model.config.topics
+    kpad = table.shape[0] - 8
+    off = model.doc_slot_offsets.cpu().tolist()
+    slots = model.doc_slots.cpu().tolist()
+    zo, zk_, zr_, w_of = (t.reshape(-1).cpu() for t in
+                          (z_old, zk, zr, model._slot_w))
+    u_all = u24.reshape(-1).cpu()
+    tab = table.cpu()
+    phi = phi_vk.cpu()
+    for d in docs:
+        col = tab[:k, d].clone()                 # f32 n_dk + alpha
+        flag = float(tab[kpad, d])
+        for s in slots[off[d]:off[d + 1]]:
+            a, b = int(zk_[s]), int(zr_[s])
+            if a != b:
+                break
+            if a != int(zo[s]):
+                col[int(zo[s])] -= 1.0
+                col[a] += 1.0
+        nd = col.clone()
+        nd[int(zo[s])] -= flag
+        bf = phi[int(w_of[s])].to(torch.bfloat16).to(torch.float32)
+        p = (nd * bf).to(torch.bfloat16).double()
+        cdf = p.cumsum(0)
+        total = float(cdf[-1])
+        u = float(u_all[s]) * 2.0 ** -24 * total
+        lo, hi = min(a, b), max(a, b)
+        gap = float((cdf[lo:hi] - u).abs().max())
+        check(gap <= 1e-5 * total, f"{label}: document {d} first differs "
+              f"at slot {s} ({a} vs {b}) {gap / total:.2e} of its total from "
+              "an exact cdf boundary: not a rounding tie")
+    return n_tok, len(docs)
+
+
+def pcgs_zero_alpha_check(torch, model, gen, seed, plain_of, label, doc_sel):
+    """The operands of the HDP family on the model's layout: alpha exactly
+    0 on 60% of the topics, whose phi rows are all 0 and which hold no
+    token (inactive HDP topics), and 30% exact zeros in the live rows
+    (Polya-Urn atoms), `positive_support` off, with injected and Philox
+    uniforms. The kernel must equal the plain version on every token but
+    those of documents whose first differing token is a proven rounding
+    tie (ties_at_first_disagreement); no token may land on a dead topic or
+    a zero phi; N_kw, n_dk, flags and kept z exact. Returns (a summary,
+    the kernel's ms on these operands with Philox uniforms)."""
+    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
+    st, dev = model.state, model.device
+    k = model.config.topics
+    real = model._slot_mask
+    dead = torch.randperm(k, generator=gen, device=dev)[: (6 * k) // 10]
+    alive = torch.ones(k, dtype=torch.bool, device=dev)
+    alive[dead] = False
+    live = torch.nonzero(alive).flatten().to(torch.int32)
+    z_old = torch.where(real, live[st.z.long() % live.numel()], 0)
+    ndk = model._count_ndk(z_old)
+    psi = torch.rand(k, generator=gen, device=dev) + 0.05
+    alpha = (0.5 * psi / psi.sum() * alive).contiguous()
+    atoms = torch.rand(st.phi.T.shape, generator=gen, device=dev) < 0.3
+    phi_vk = torch.where(atoms | ~alive[None, :], 0.0,
+                         st.phi.T).contiguous()
+    table = model._ndk_table(ndk, alpha, doc_sel)
+    u24 = torch.randint(0, 2 ** 24, tuple(z_old.shape), generator=gen,
+                        device=dev, dtype=torch.int32)
+    sel = real & doc_sel[model._slot_d]
+    out = {}
+    for name, u in (("u24", u24), ("philox", None)):
+        fn, args, kw = model._sweep_call(z_old, table, phi_vk, seed, u)
+        kw = {**kw, "positive_support": False}
+        zk, nkw_k, tb_k = fn(*args, **kw)
+        zr, _, _ = plain_of[fn](*args, **without_order(kw))
+        torch.cuda.synchronize()
+        words = u if u is not None else philox_u24(seed, z_old.numel())
+        n_tok, n_doc = ties_at_first_disagreement(
+            torch, model, f"{label} zero-alpha ({name})", z_old, zk, zr,
+            table, phi_vk, words)
+        check(n_tok <= 0.001 * int(real.sum()), f"{label} zero-alpha "
+              f"({name}): {n_tok} tokens differ from the plain version")
+        check_sweep_outputs(torch, model, f"{label} zero-alpha ({name})",
+                            z_old, zk, nkw_k, tb_k, doc_sel, alpha=alpha)
+        zs = zk[sel].long()
+        check(bool(alive[zs].all()), f"{label} zero-alpha ({name}): a token "
+              "landed on a zero-alpha, zero-phi topic")
+        check(bool((phi_vk[model._slot_w[sel], zs] > 0).all()),
+              f"{label} zero-alpha ({name}): a draw landed on a zero phi")
+        out[name] = (n_tok, n_doc)
+    ms = time_ms(torch, lambda: fn(*args, **kw))
+    summary = (f"zero-alpha operands ({k - live.numel()} of {k} topics "
+               f"alpha 0 with zero phi rows, 30% zero atoms in the live "
+               f"rows): z equal to the plain version on every token but "
+               + ", ".join(f"{n} tokens in {m} documents ({name})"
+                           for name, (n, m) in out.items())
+               + ", each document's first a proven rounding tie; no token "
+               f"on a dead topic or a zero phi; counts exact; {ms:.4f} ms")
+    return summary, ms
+
+
 def pcgs_large_k(torch, corpus, Corpus, LDAConfig, create_model, plain_of,
                  k=514, num_docs=1000):
     """The PCGS mode above kpad 256 (the shared-memory instance, which the
@@ -588,6 +715,8 @@ def pcgs_kernel_phase(torch, corpus, Corpus, LDAConfig, create_model,
                             device=dev)
         agreement, err = pcgs_sweep_checks(torch, model, gen, seed, plain_of,
                                            f"pcgs K={k}", doc_sel)
+        zero_alpha, zero_alpha_ms = pcgs_zero_alpha_check(
+            torch, model, gen, seed, plain_of, f"pcgs K={k}", doc_sel)
         chi = ""
         if k == 100:
             chi2, pval = pcgs_chi_square(torch, cuda_pcgs, gen, seed)
@@ -629,18 +758,43 @@ def pcgs_kernel_phase(torch, corpus, Corpus, LDAConfig, create_model,
               f"{ms:.4f} ms (pre-pass "
               f"alone {pre_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}); max |N_kw - plain| "
-              f"{err}{big}", flush=True)
+              f"{err}; {zero_alpha}{big}", flush=True)
         entries.append(
             {"name": fn.__name__, "mode": "pcgs", "route": "cuda",
              "source": "ldagroupedgibbssampler_tpu_torch/csrc/pcgs.cu",
              "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_pcgs.py:"
                          + ("135" if layout == "resident" else "653"),
              "launches": 0, "max_abs_err": err, "ms": ms,
-             "prepass_ms": pre_ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+             "prepass_ms": pre_ms, "zero_alpha_ms": zero_alpha_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None})
         del model, st, table, phi_vk
         torch.cuda.empty_cache()
     return entries
+
+
+def check_hdp_state(model, label: str):
+    """Inactive topics have alpha exactly 0 and zero phi rows, and hold no
+    token. Returns the active-topic count."""
+    active = model.get_active_mask()
+    check(bool((model.get_alpha()[~active] == 0).all()),
+          f"{label}: an inactive topic has alpha > 0")
+    check(bool((model.get_phi()[~active] == 0).all()),
+          f"{label}: an inactive topic has a nonzero phi row")
+    check(bool((model.get_tokens_per_topic()[~active] == 0).all()),
+          f"{label}: a token sits on an inactive topic")
+    return int(active.sum())
+
+
+def no_token_on_zero_phi(model, corpus, phi_prev, label: str) -> int:
+    """No token drawn onto a zero phi[k][w] of the sweep that drew it
+    (`phi_prev`; phi is redrawn after the sweep); a type whose phi column
+    is all zero keeps its z. Returns the tokens of such columns."""
+    z = model.get_z_indicators()
+    live = phi_prev.sum(axis=0)[corpus.tokens] > 0
+    check(bool((phi_prev[z, corpus.tokens][live] > 0).all()),
+          f"{label}: a token sits on a zero-probability topic")
+    return int((~live).sum())
 
 
 def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
@@ -710,20 +864,171 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
               f"{ll0}, {lls}")
         extra = ""
         if scheme == "polyaurn":
-            # no token drawn onto a zero phi[k][w] of the sweep that drew
-            # it; a type whose phi column is all zero keeps its z
-            z = model.get_z_indicators()
-            live = phi_prev.sum(axis=0)[corpus.tokens] > 0
-            check(bool((phi_prev[z, corpus.tokens][live] > 0).all()),
-                  "polyaurn: a token sits on a zero-probability topic")
+            kept = no_token_on_zero_phi(model, corpus, phi_prev, scheme)
             extra = (f"; phi density {model.get_phi_density():.4f}; "
-                     f"{int((~live).sum())} tokens of all-zero phi columns "
-                     "kept z; no draw on a zero phi")
+                     f"{kept} tokens of all-zero phi columns kept z; no "
+                     "draw on a zero phi")
         print(f"[4 {scheme} K={k}] {layout} layout: launches "
               f"{wrapper.launches}; counts exact; LL init {ll0:.1f} -> "
               f"it10 {lls[10]:.1f}; {(t1 - t0) / 10 * 1e3:.3f} "
               f"ms/iteration (host clock, LL at 10 included){extra}",
               flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def prior_spec_file(corpus, path: str, topics=10, words=5) -> np.ndarray:
+    """Writes a prior spec in which each of `topics` topics anchors
+    `words` of the most frequent words; returns those words' ids [topics,
+    words]."""
+    top = np.argsort(-corpus.type_frequencies(), kind="stable")
+    ids = top[: topics * words].reshape(topics, words)
+    with open(path, "w") as f:
+        for k in range(topics):
+            f.write(f"{k}, " + ", ".join(corpus.vocab[i] for i in ids[k])
+                    + "\n")
+    return ids
+
+
+def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
+                          smi):
+    """The five schemes of the last single-device slice, each with the
+    sweep's launch counts set to 0 just before it and read just after:
+    [4 ppu_hdplda main path] (K_max=100, alpha 0.5, ITERS iterations, the
+    likelihood every 10, with a profile), ppu_hlda at K=100 for 10
+    iterations, ppu_hdplda_all_topics at K=100 for ITERS, then 10
+    iterations each of spalias_priors at K=100 with a prior file of 10
+    topics' anchors, and nzvsspalias at K=100 (resident) and K=200
+    (streamed). Returns {wrapper: {path: launches}}."""
+    res, stm = cuda_pcgs.fused_pcgs_sweep, cuda_pcgs.fused_pcgs_sweep_streamed
+    launches = {res.__name__: {}, stm.__name__: {}}
+    n = corpus.num_tokens
+
+    def run(scheme, k, iters, **kw):
+        res.launches = stm.launches = 0
+        cfg = pcgs_config(LDAConfig, scheme, k).replace(**kw)
+        t0 = time.perf_counter()
+        model = create_model(cfg)
+        model.add_instances(corpus)
+        return model, time.perf_counter() - t0
+
+    def read(model, scheme, k, iters):
+        layout = "streamed" if k > 100 else "resident"
+        check(model._mode == layout, f"{scheme} K={k}: layout "
+              f"{model._mode}")
+        wrapper, other = (stm, res) if layout == "streamed" else (res, stm)
+        check(wrapper.launches == iters and other.launches == 0,
+              f"{scheme} K={k}: sweep launches {wrapper.launches}, other "
+              f"layout {other.launches}")
+        launches[wrapper.__name__][f"{scheme} K={k}"] = wrapper.launches
+        check_counts_exact(model, corpus, f"{scheme} K={k}")
+        return layout, wrapper.launches
+
+    # ppu_hdplda, the JAX package's 20NG HDP configuration
+    model, setup_s = run("ppu_hdplda", 100, ITERS)
+    ll0 = model.model_log_likelihood()
+    model.sample(10)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    model.sample(ITERS - 10)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    _, nl = read(model, "ppu_hdplda", 100, ITERS)
+    lls = dict(model.get_log_likelihoods())
+    # the likelihood falls while topics are born (each costs about
+    # log alpha_k a document, alpha_k ~ 1e-3), as in the JAX package's
+    # chain (tests/test_torch_hdp.py::test_hdplda_ll_falls_while_topics_
+    # are_born_as_in_the_jax_kernel_chain): finite, not rising, is the bar
+    check(all(np.isfinite(lls[i]) for i in (10, 20, 30)),
+          f"ppu_hdplda LL not finite: {lls}")
+    hist = model.get_active_topic_history()
+    check(hist[-1] >= 2, f"ppu_hdplda: no topic born and kept: {hist}")
+    n_active = check_hdp_state(model, "ppu_hdplda")
+    print(f"[4 ppu_hdplda main path] ppu_hdplda K_max=100 resident on "
+          f"{torch.cuda.get_device_name(0)} ({smi}): launches {nl}; counts "
+          f"exact; LL init {ll0:.1f} -> it10 {lls[10]:.1f} -> it20 "
+          f"{lls[20]:.1f} -> it30 {lls[30]:.1f}; active topics at 10 / 20 "
+          f"/ 30: {hist[9]} / {hist[19]} / {hist[29]} ({n_active} now); "
+          f"inactive topics with alpha 0, zero phi rows and no token; "
+          f"{n * (ITERS - 10) / (t_b - t_a):.0f} tokens/s over iterations "
+          f"11-30 ({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} ms/iteration, "
+          f"host clock, LL at 20 and 30 included); set up in {setup_s:.1f} "
+          "s", flush=True)
+    print(f"[4 ppu_hdplda profile] {profile_iterations(torch, model, 5)}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    prior_path = os.path.join(ROOT, "build", "chip_smoke_priors.txt")
+    os.makedirs(os.path.dirname(prior_path), exist_ok=True)
+    anchors = prior_spec_file(corpus, prior_path)
+    for scheme, k, iters, kw in (("ppu_hlda", 100, 10, {}),
+                                 ("ppu_hdplda_all_topics", 100, ITERS, {}),
+                                 ("spalias_priors", 100, 10,
+                                  {"topic_prior_filename": prior_path}),
+                                 ("nzvsspalias", 100, 10, {}),
+                                 ("nzvsspalias", 200, 10, {})):
+        model, setup_s = run(scheme, k, iters, **kw)
+        ll0 = model.model_log_likelihood()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample(iters - 1)
+        phi_prev = model.get_phi()
+        model.sample(1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        layout, nl = read(model, scheme, k, iters)
+        lls = dict(model.get_log_likelihoods())
+        trail = " -> ".join(f"it{i} {v:.1f}" for i, v in lls.items())
+        if scheme == "ppu_hlda":
+            # topics are born a few a iteration and the LL falls (as for
+            # ppu_hdplda); under the Poisson psi an active topic with
+            # tokens can draw psi_k = 0, a true -inf
+            a, nk = model.get_alpha(), model.get_tokens_per_topic()
+            check(np.isfinite(lls[10]) or bool(((a == 0) & (nk > 0)).any()),
+                  f"{scheme}: LL not finite without a topic of alpha 0 "
+                  f"that holds tokens: {lls}")
+        elif scheme == "ppu_hdplda_all_topics":
+            # the first iterations spread the start topic's tokens over
+            # all K_max sticks (the LL drops); then it climbs
+            check(all(np.isfinite(v) for v in lls.values())
+                  and lls[30] > lls[10], f"{scheme}: LL not finite or not "
+                  f"rising from 10 to 30: {lls}")
+        else:
+            check(np.isfinite(lls[10]) and lls[10] > ll0, f"{scheme} K={k}: "
+                  f"LL not finite or not rising from init: {ll0}, {lls}")
+        if scheme.startswith("ppu"):
+            n_active = check_hdp_state(model, scheme)
+            extra = (f"; {n_active} active topics at {iters}, inactive "
+                     "ones with alpha 0, zero phi rows and no token")
+        elif scheme == "spalias_priors":
+            mask = model.get_topic_priors()
+            check(mask.shape == (k, corpus.num_types)
+                  and int((mask == 0).sum()) == (k - 1) * anchors.size,
+                  "spalias_priors: the prior mask is not the spec's")
+            phi = model.get_phi()
+            check(bool((phi[mask == 0] == 0).all()),
+                  "spalias_priors: phi is not 0 where the prior is 0")
+            z = model.get_z_indicators()
+            check(bool((mask[z, corpus.tokens] > 0).all()),
+                  "spalias_priors: a token sits on a masked (topic, word)")
+            extra = (f"; {anchors.shape[0]} topics anchor "
+                     f"{anchors.shape[1]} of the most frequent words each "
+                     f"({int((mask == 0).sum())} masked coordinates): phi "
+                     "exactly 0 on every one, no token on one")
+        else:
+            kept = no_token_on_zero_phi(model, corpus, phi_prev, scheme)
+            extra = (f"; phi density {model.get_phi_density():.4f}; no "
+                     f"draw on a zero phi; {kept} tokens of all-zero phi "
+                     "columns kept z")
+        print(f"[4 {scheme} K={k}] {layout} layout (vspan {model._vspan}): "
+              f"launches {nl}; counts exact; LL init {ll0:.1f} -> {trail}; "
+              f"{(t1 - t0) / iters * 1e3:.3f} ms/iteration over {iters} "
+              f"iterations (host clock, the LL every 10 included); set up "
+              f"in {setup_s:.1f} s{extra}", flush=True)
+        print(f"[4 {scheme} K={k} profile] "
+              f"{profile_iterations(torch, model, 5)}", flush=True)
         del model
         torch.cuda.empty_cache()
     return launches
@@ -1814,8 +2119,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     pcgs_launches = pcgs_main_path(torch, corpus, LDAConfig, create_model,
                                    cuda_pcgs, smi)
+    new_launches = new_schemes_main_path(torch, corpus, LDAConfig,
+                                         create_model, cuda_pcgs, smi)
     for entry in pcgs_entries:
         entry["launches"] = pcgs_launches[entry["name"]]
+        entry["launches_new_schemes"] = new_launches[entry["name"]]
     lightlda_launches = lightlda_main_path(torch, corpus, LDAConfig,
                                            create_model, cuda_lightlda, smi)
     for entry in lightlda_entries:
@@ -1852,8 +2160,12 @@ def main() -> int:
             words += [themes[rng.integers(0, 3)][rng.integers(0, 7)]
                       for _ in range(4)]
             f.write(f"docno:{d}\tL{d % 3}\t{' '.join(words)}\n")
+    with open(os.path.join(work, "priors.txt"), "w") as f:
+        f.write("".join(f"{k}, {', '.join(t[:2])}\n"
+                        for k, t in enumerate(themes)))
     with open(os.path.join(work, "run.cfg"), "w") as f:
-        f.write(f"configs = ggs, pcgs, lightpclda, adlda, ggs_aliasmh\n"
+        f.write(f"configs = ggs, pcgs, lightpclda, adlda, ggs_aliasmh, "
+                f"spalias_priors, ppu_hdplda\n"
                 f"no_runs = 1\n"
                 f"experiment_out_dir = {work}/runs\nexec_time = 300\n"
                 f"iterations = {ITERS}\ntopics = 3\nalpha = 1\n"
@@ -1864,7 +2176,10 @@ def main() -> int:
                 f"[pcgs]\nscheme = pcgs\nsave_phi = true\n\n"
                 f"[lightpclda]\nscheme = lightpclda\n\n"
                 f"[adlda]\nscheme = adlda\n\n"
-                f"[ggs_aliasmh]\nscheme = ggs_aliasmh\n")
+                f"[ggs_aliasmh]\nscheme = ggs_aliasmh\n\n"
+                f"[spalias_priors]\nscheme = spalias_priors\n"
+                f"topic_prior_filename = {work}/priors.txt\n\n"
+                f"[ppu_hdplda]\nscheme = ppu_hdplda\ntopics = 6\n")
     for fn, attr in counters:
         setattr(fn, attr, 0)
     parallel_lda.main([f"--run_cfg={work}/run.cfg"])
@@ -1873,16 +2188,18 @@ def main() -> int:
                     cuda_pcgs.fused_pcgs_sweep.launches,
                     cuda_lightlda.fused_lightlda_sweep.launches,
                     cuda_pcgs.fused_pcgs_sweep.collapsed_launches)
-    # counts: ggs once an iteration, ggs_aliasmh twice
+    # counts: ggs once an iteration, ggs_aliasmh twice; the PCGS mode:
+    # pcgs, spalias_priors and ppu_hdplda
     check(cli_launches[0] == ITERS and cli_launches[1] >= 3 * ITERS
-          and cli_launches[2] == ITERS and cli_launches[3] == ITERS
+          and cli_launches[2] == 3 * ITERS and cli_launches[3] == ITERS
           and cli_launches[4] == ITERS,
           f"CLI run launches (zdraw, counts, pcgs, lightlda, collapsed) = "
           f"{cli_launches}")
     ll_cli = {}
     for name, files in (("ggs", ()), ("pcgs", ("phi.csv",)),
                         ("lightpclda", ()), ("adlda", ()),
-                        ("ggs_aliasmh", ())):
+                        ("ggs_aliasmh", ()), ("spalias_priors", ()),
+                        ("ppu_hdplda", ())):
         run_dir = glob.glob(os.path.join(work, "runs", "RunSuite*",
                                          f"Run{name}-*"))
         check(len(run_dir) == 1, f"CLI run directories: {run_dir}")
@@ -1893,14 +2210,17 @@ def main() -> int:
         lls = [float(ln.split("\t")[1]) for ln in
                open(os.path.join(run_dir[0], "likelihood.txt"))]
         # the collapsed chain reaches its plateau by iteration 10 on this
-        # small corpus, so adlda may only not fall
-        rose = (lls[-1] > lls[0] if name != "adlda"
-                else lls[-1] > lls[0] - 1e-3 * abs(lls[0]))
+        # small corpus, so adlda may only not fall; the HDP chain's
+        # topics are born and die, so its series need only be finite
+        rose = (lls[-1] > lls[0] - 1e-3 * abs(lls[0]) if name == "adlda"
+                else bool(np.isfinite(lls).all()) if name == "ppu_hdplda"
+                else lls[-1] > lls[0])
         check(len(lls) == 3 and rose, f"CLI {name} LL did not rise: {lls}")
         ll_cli[name] = lls
     print(f"[5 cli] parallel_lda on cuda, sections ggs, pcgs, lightpclda, "
-          f"adlda and ggs_aliasmh: launches (zdraw, counts, pcgs, lightlda, "
-          f"collapsed) {cli_launches}; LL {json.dumps(ll_cli)}", flush=True)
+          f"adlda, ggs_aliasmh, spalias_priors (with its prior file) and "
+          f"ppu_hdplda: launches (zdraw, counts, pcgs, lightlda, collapsed) "
+          f"{cli_launches}; LL {json.dumps(ll_cli)}", flush=True)
 
     kernels = [
         {**counts_entry, "launches": aliasmh_launches,

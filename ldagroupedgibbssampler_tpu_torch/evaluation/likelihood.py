@@ -39,6 +39,16 @@ def model_log_likelihood(ndk, nkw, alpha, beta: float) -> torch.Tensor:
       + D [ lgamma(alphaSum) - sum_k lgamma(alpha_k) ]
       + sum_k [ sum_w lgamma(beta + n_kw) - lgamma(V beta + n_k) ]
       + K [ lgamma(V beta) - V lgamma(beta) ]
+
+    The sums run over the topics with alpha_k > 0 or n_k > 0. A topic with
+    alpha_k = 0 and n_k = 0 (an inactive HDP topic) adds lgamma(0) -
+    lgamma(0) = 0 to every document in the limit, and nothing to the topic
+    part; the formula as written would give inf - inf = NaN, which is what
+    the JAX package returns for such a state. Every LDA state has
+    alpha_k > 0 on all topics and is unchanged. A topic with alpha_k = 0
+    and n_k > 0 (an active HDP topic whose Poisson psi draw came out 0) is
+    left as the formula gives it: its true term is -inf (lgamma(alpha_k)
+    -> inf with some n_dk > 0), which the float sums give as NaN.
     """
     ndk = _f32(ndk)
     nkw = _f32(nkw).to(ndk.device)
@@ -46,16 +56,21 @@ def model_log_likelihood(ndk, nkw, alpha, beta: float) -> torch.Tensor:
     num_types = nkw.shape[1]
     alpha = _f32(alpha).to(ndk.device).expand(num_topics)
     beta = float(beta)
+    nk = nkw.sum(dim=1)
+    keep = (alpha > 0) | (nk > 0)
     alpha_sum = alpha.sum()
     doc_lengths = ndk.sum(dim=1)
-    nk = nkw.sum(dim=1)
-    doc_part = (torch.lgamma(alpha[None, :] + ndk).sum()
+    doc_part = (torch.where(keep, torch.lgamma(alpha[None, :] + ndk),
+                            0.0).sum()
                 - torch.lgamma(alpha_sum + doc_lengths).sum()
                 + num_docs * (torch.lgamma(alpha_sum)
-                              - torch.lgamma(alpha).sum()))
-    topic_part = (torch.lgamma(beta + nkw).sum()
-                  - torch.lgamma(num_types * beta + nk).sum()
-                  + num_topics * (torch.lgamma(_f32(num_types * beta))
+                              - torch.where(keep, torch.lgamma(alpha),
+                                            0.0).sum()))
+    topic_part = (torch.where(keep[:, None], torch.lgamma(beta + nkw),
+                              0.0).sum()
+                  - torch.where(keep, torch.lgamma(num_types * beta + nk),
+                                0.0).sum()
+                  + keep.sum() * (torch.lgamma(_f32(num_types * beta))
                                   - num_types * torch.lgamma(_f32(beta))))
     return doc_part + topic_part
 

@@ -4,8 +4,9 @@ The port's counterpart of `ldagroupedgibbssampler_tpu/models/base.py`
 (the subset that schemes `ggs` and the PCGS family need). The reference
 defines `LDAGibbsSampler` (topics/LDAGibbsSampler.java:10-46) with
 `addInstances / sample(iterations) / getters / lifecycle hooks`;
-`TorchLDASampler` provides that surface without the hooks and iteration
-listeners, which nothing here uses.
+`TorchLDASampler` provides that surface with one lifecycle hook,
+`post_iteration` (the HDP family's per-iteration statistics), and without
+iteration listeners, which nothing here uses.
 
 State is a mutable `LDAState` dataclass of tensors on the sampler's device.
 Each scheme's `_step(state, doc_mask)` replaces its fields in place with
@@ -197,6 +198,7 @@ class TorchLDASampler:
                         else torch.as_tensor(mask, device=self.device))
             self._step(self.state, doc_mask)
             self._periodic_logging(it)
+            self.post_iteration()
             # cooperative abort: flag or an `abort` file in the working
             # directory (UncollapsedParallelLDA.java:131,908-910)
             if self._abort or os.path.exists("abort"):
@@ -206,6 +208,10 @@ class TorchLDASampler:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
+
+    def post_iteration(self):
+        """Lifecycle hook after every iteration's logging
+        (LDAGibbsSampler.java:10-46); a no-op here."""
 
     # ------------------------------------------------------------------
     # periodic work inside the loop
@@ -353,19 +359,24 @@ class TorchLDASampler:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str):
         """z in canonical token order plus the state tensors, as the JAX
-        package writes them. Its `key` field, which the port has no use
-        for, holds seed and iteration so that package can load the file."""
+        package writes them."""
+        np.savez(path, **self._checkpoint_arrays())
+
+    def _checkpoint_arrays(self) -> dict:
+        """The checkpoint's arrays. Its `key` field, which the port has no
+        use for, holds seed and iteration so that the JAX package can load
+        the file."""
         st = self.state
         nwords = 4 if self.config.prng_impl == "rbg" else 2
         key = np.zeros(nwords, np.uint32)
         key[0] = self.config.effective_seed() & 0xFFFFFFFF
         key[1] = st.iteration
-        np.savez(path, z=self.get_z_indicators(), ndk=_np(st.ndk),
-                 nkw=_np(st.nkw), nk=_np(st.nk), phi=_np(st.phi),
-                 theta=(_np(st.theta) if st.theta is not None
-                        else np.zeros(0)),
-                 alpha=_np(st.alpha), beta=np.float32(st.beta),
-                 iteration=np.int32(st.iteration), key=key)
+        return dict(z=self.get_z_indicators(), ndk=_np(st.ndk),
+                    nkw=_np(st.nkw), nk=_np(st.nk), phi=_np(st.phi),
+                    theta=(_np(st.theta) if st.theta is not None
+                           else np.zeros(0)),
+                    alpha=_np(st.alpha), beta=np.float32(st.beta),
+                    iteration=np.int32(st.iteration), key=key)
 
     def state_from_numpy(self, arrays: dict) -> LDAState:
         """An LDAState on this sampler's device from numpy arrays in the

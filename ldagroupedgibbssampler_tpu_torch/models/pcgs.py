@@ -41,7 +41,9 @@ class UncollapsedParallelLDA(FusedPCGSSweepMixin, TorchLDASampler):
     # conditional is positive for every topic
     fused_positive_support = True
 
-    def _sample_phi(self, nkw, beta):
+    def _sample_phi(self, nkw, beta, prev_phi=None):
+        """phi | z, w. `prev_phi` is the phi the sweep just used, for the
+        schemes whose draw depends on it (nzvsspalias)."""
         conc = nkw.to(torch.float32) + (beta if self.smooth_phi else 1e-7)
         return rnd.dirichlet(conc, self.generator)
 
@@ -51,7 +53,7 @@ class UncollapsedParallelLDA(FusedPCGSSweepMixin, TorchLDASampler):
                                          state.phi.T.contiguous(), doc_mask)
         state.z, state.ndk, state.nkw = z, ndk, nkw
         state.nk = self._nk(nkw)
-        state.phi = self._sample_phi(nkw, state.beta)
+        state.phi = self._sample_phi(nkw, state.beta, state.phi)
         state.iteration += 1
 
 

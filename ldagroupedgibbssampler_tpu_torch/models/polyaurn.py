@@ -26,7 +26,7 @@ class PolyaUrnSpaliasLDA(UncollapsedParallelLDA):
     # computed, not assumed
     fused_positive_support = False
 
-    def _sample_phi(self, nkw, beta):
+    def _sample_phi(self, nkw, beta, prev_phi=None):
         phi, _zero = rnd.polya_urn_dirichlet(nkw, float(self.config.beta),
                                              self.generator)
         return phi

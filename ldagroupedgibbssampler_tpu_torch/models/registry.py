@@ -1,6 +1,7 @@
 """Scheme registry — mirrors ParallelLDA.createModel
-(topics/tui/ParallelLDA.java:401-490) for the schemes the port has so far.
-Any other scheme name raises `ValueError` naming the ported ones.
+(topics/tui/ParallelLDA.java:401-490): the 18 single-device schemes of the
+JAX package's registry. The JAX package's sharded schemes are not ported;
+any other scheme name raises `ValueError` naming the ported ones.
 """
 
 from __future__ import annotations
@@ -42,6 +43,17 @@ SCHEMES = {
                      "Light PC LDA with proposal 2."),
     "lightcollapsed": ("lightlda", "CollapsedLightLDA",
                        "CollapsedLightLDA Parallel LDA."),
+    "ppu_hlda": ("hdp", "PoissonPolyaUrnHLDA",
+                 "PoissonPolyaUrnHLDA Parallel HDP."),
+    "ppu_hdplda": ("hdp", "PoissonPolyaUrnHDPLDA",
+                   "PoissonPolyaUrnHDPLDA Parallel HDP."),
+    "ppu_hdplda_all_topics": ("hdp", "PoissonPolyaUrnHDPLDAInfiniteTopics",
+                              "PoissonPolyaUrnHDPLDAInfiniteTopics Parallel "
+                              "HDP."),
+    "spalias_priors": ("priors", "SpaliasUncollapsedParallelWithPriors",
+                       "SpaliasUncollapsed Parallel LDA with Priors."),
+    "nzvsspalias": ("nzvs", "NZVSSpaliasUncollapsedParallelLDA",
+                    "NZVSSpaliasUncollapsedParallelLDA Parallel LDA."),
 }
 
 

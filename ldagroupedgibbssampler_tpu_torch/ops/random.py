@@ -1,8 +1,11 @@
-"""Gamma, Dirichlet and Polya-Urn draws for the theta/phi steps.
+"""Gamma, Dirichlet, Polya-Urn and variable-selection draws for the
+theta/phi steps, and the Poisson / Binomial / Beta helpers of the HDP
+family.
 
 The port's copy of `ldagroupedgibbssampler_tpu/ops/random.py`
 (`_gamma_marsaglia`, `gamma`, `dirichlet`, `DIRICHLET_FLOOR`,
-`polya_urn_dirichlet`) in plain
+`polya_urn_dirichlet`, `_lgamma_ratio`, `vs_inclusion_prob`,
+`vs_dirichlet`, `poisson`, `binomial`, `beta`) in plain
 PyTorch: a fixed-round vectorised Marsaglia-Tsang sampler, elementwise over
 the whole [D, K] or [V, K] concentration matrix, on whatever device the
 concentration lives on. The reference draws each coordinate with a scalar
@@ -14,6 +17,8 @@ in distribution.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -91,3 +96,123 @@ def polya_urn_dirichlet(counts, beta: float, generator: torch.Generator):
     safe = torch.where(total > 0, c / total.clamp_min(1.0),
                        1.0 / c.shape[-1])
     return safe, c == 0
+
+
+def _lgamma_ratio(x, b):
+    """lgamma(x + b) - lgamma(x), stable in float32 for large x.
+
+    Differencing float32 lgamma loses all precision once x is large
+    (lgamma(1e6) ~ 1.3e7, whose ulp eats the O(b log x) difference), so
+    for x >= 8 the ratio comes from Stirling's series with log1p, every
+    term O(b log x):
+
+        (x - 1/2) log1p(b/x) + b log(x+b) - b
+        + [1/(12(x+b)) - 1/(12x)] - [1/(360(x+b)^3) - 1/(360 x^3)]
+
+    (truncation error < 3e-8 at x = 8). Below x = 8 the direct difference
+    is accurate; x <= 0 keeps lgamma's +inf (MALLET's
+    logGammaStirling(0) = +inf).
+    """
+    x = torch.as_tensor(x, dtype=torch.float32)
+    small = torch.lgamma(x + b) - torch.lgamma(x)
+    xs = x.clamp_min(1.0)     # guards the asymptotic branch's 1/x at x < 8
+    xb = xs + b
+    asym = ((xs - 0.5) * torch.log1p(b / xs) + b * torch.log(xb) - b
+            + (1.0 / (12.0 * xb) - 1.0 / (12.0 * xs))
+            - (1.0 / (360.0 * xb ** 3) - 1.0 / (360.0 * xs ** 3)))
+    return torch.where(x < 8.0, small, asym)
+
+
+def vs_inclusion_prob(zero_phi, n_k, beta: float, vs_prior: float):
+    """Posterior inclusion probability p(I_kv = 1) of the VS Dirichlet
+    (VSDirichlet.calculateIndicatorProbIsOne, types/VSDirichlet.java:
+    96-120): with a = zero_phi * beta, the prior mass on the row's
+    currently-zero coordinates,
+
+        r = G(a+b) G(a+n) / (G(a+b+n) G(a)) * pi / (1 - pi),  p = r / (1+r)
+
+    for b = beta, n = n_k. zero_phi = 0 with n_k > 0 gives p = 0 exactly
+    (logGammaStirling(0) = +inf); n_k = 0 gives vs_prior, the limit the
+    formula takes for every zero_phi > 0 (the reference's NaN corner
+    zero_phi = n_k = 0 included)."""
+    zero_phi = torch.as_tensor(zero_phi, dtype=torch.float32)
+    n_k = torch.as_tensor(n_k, dtype=torch.float32).to(zero_phi.device)
+    a = zero_phi * beta
+    log_odds = math.log(vs_prior) - math.log1p(-vs_prior)
+    log_r = _lgamma_ratio(a, beta) - _lgamma_ratio(a + n_k, beta) + log_odds
+    log_r = torch.where((zero_phi <= 0) & (n_k > 0), -math.inf, log_r)
+    return torch.where(n_k <= 0, vs_prior, torch.sigmoid(log_r))
+
+
+def vs_dirichlet(counts, beta: float, vs_prior: float,
+                 generator: torch.Generator, previous_phi=None,
+                 sequential: bool = False):
+    """Variable-selection (spike-and-slab) Dirichlet rows
+    (VSDirichlet.nextDistribution, types/VSDirichlet.java:35-93):
+    coordinates with positive counts draw Gamma(count + beta); zero-count
+    ones are included with probability `vs_inclusion_prob`, driven by the
+    row's number of zero coordinates in `previous_phi` (zeroPhi; None
+    means a dense previous draw, zeroPhi = 0) and its total n_k; excluded
+    coordinates are exact zeros.
+
+    The default holds zeroPhi fixed over the row, so every indicator draws
+    at once. `sequential=True` is the reference's chain, which updates
+    zeroPhi after every coordinate: a Python loop over the columns,
+    vectorised over the rows, for the parity tests only.
+
+    Returns (row probabilities, zero mask)."""
+    counts = torch.as_tensor(counts).to(torch.float32)
+    dev = counts.device
+    n_k = counts.sum(dim=-1, keepdim=True)
+    if previous_phi is None:
+        prev_zero = torch.zeros(counts.shape, dtype=torch.bool, device=dev)
+    else:
+        prev_zero = torch.as_tensor(previous_phi).to(dev) == 0.0
+    zero_phi = prev_zero.sum(dim=-1, keepdim=True).to(torch.float32)
+    g = _gamma_marsaglia(counts + beta, generator)
+    u = torch.rand(counts.shape, generator=generator, device=dev)
+    if sequential:
+        include = torch.empty(counts.shape, dtype=torch.bool, device=dev)
+        zp = zero_phi[..., 0]
+        for i in range(counts.shape[-1]):
+            c_i, pz_i = counts[..., i], prev_zero[..., i]
+            inc_zero = u[..., i] <= vs_inclusion_prob(zp, n_k[..., 0], beta,
+                                                      vs_prior)
+            include[..., i] = (c_i > 0) | inc_zero
+            # zeroPhi + 1 when a nonzero coordinate draws I = 0, - 1 when
+            # a zero one draws I = 1
+            zp = (zp + ((c_i == 0) & ~inc_zero & ~pz_i).to(torch.float32)
+                  - ((c_i == 0) & inc_zero & pz_i).to(torch.float32))
+    else:
+        p = vs_inclusion_prob(zero_phi, n_k, beta, vs_prior)
+        include = (counts > 0) | (u <= p)
+    g = torch.where(include, g.clamp_min(DIRICHLET_FLOOR), 0.0)
+    probs = g / g.sum(dim=-1, keepdim=True).clamp_min(DIRICHLET_FLOOR)
+    return probs, ~include
+
+
+def poisson(lam, generator: torch.Generator) -> torch.Tensor:
+    """Poisson(lam) draws, elementwise, float32 (types/PolyaUrnDirichlet.
+    java:96-, types/PoissonFixedCoeffSampler.java)."""
+    return torch.poisson(torch.as_tensor(lam).to(torch.float32),
+                         generator=generator)
+
+
+def binomial(n, p, generator: torch.Generator) -> torch.Tensor:
+    """Binomial(n, p) draws, elementwise, float32 (types/BinomialSampler.
+    java)."""
+    n = torch.as_tensor(n).to(torch.float32)
+    p = torch.as_tensor(p).to(torch.float32).to(n.device)
+    return torch.binomial(n, p.expand_as(n).contiguous(),
+                          generator=generator)
+
+
+def beta(a, b, generator: torch.Generator) -> torch.Tensor:
+    """Beta(a, b) draws (util/ParallelRandoms.java:46-50) as the ratio of
+    two Marsaglia gammas, broadcasting a against b."""
+    a = torch.as_tensor(a).to(torch.float32)
+    b = torch.as_tensor(b).to(torch.float32).to(a.device)
+    a, b = torch.broadcast_tensors(a, b)
+    g1 = _gamma_marsaglia(a, generator)
+    g2 = _gamma_marsaglia(b, generator)
+    return g1 / (g1 + g2).clamp_min(DIRICHLET_FLOOR)

@@ -100,6 +100,49 @@ def test_cli_runs_adlda_on_cpu(tmp_path):
 
 
 def test_cli_rejects_unported_scheme(tmp_path):
-    cfg = _write_run(tmp_path, scheme="ppu_hdplda", device="cpu")
+    cfg = _write_run(tmp_path, scheme="sharded_ggs", device="cpu")
     with pytest.raises(ValueError, match="ggs"):
         parallel_lda.main([f"--run_cfg={cfg}"])
+
+
+def test_cli_runs_spalias_priors_and_ppu_hdplda_on_cpu(tmp_path):
+    """Two sections of one run file reach the registry's new schemes: a
+    spalias_priors section with its topic_prior_filename (each topic's
+    top words come from its anchors' theme, and phi.csv is exactly 0 on
+    the other topics' anchors) and a ppu_hdplda section (K_max 6, a
+    finite likelihood series)."""
+    cfg = _write_run(tmp_path, scheme="spalias_priors", device="cpu")
+    prior = tmp_path / "priors.txt"
+    anchors = [["cat", "lynx"], ["car", "engine"], ["tree", "leaf"]]
+    prior.write_text("".join(f"{k}, {', '.join(a)}\n"
+                             for k, a in enumerate(anchors)))
+    text = open(cfg).read().replace("configs = one", "configs = one, hdp")
+    text = text.replace("scheme = spalias_priors",
+                        f"scheme = spalias_priors\n"
+                        f"topic_prior_filename = {prior}\nsave_phi = true\n"
+                        f"save_vocabulary = true")
+    with open(cfg, "w") as f:
+        f.write(text + "\n[hdp]\nscheme = ppu_hdplda\ntopics = 6\n")
+    parallel_lda.main([f"--run_cfg={cfg}"])
+    run = glob.glob(str(tmp_path / "runs" / "RunSuite*" / "Runone-*"))
+    assert len(run) == 1
+    themes = [{"cat", "lynx", "leopard", "tiger", "kitten", "paw"},
+              {"car", "engine", "wheel", "road", "drive", "fuel"},
+              {"tree", "leaf", "forest", "branch", "root", "pine"}]
+    top = open(os.path.join(run[0], "TopWords.txt")).read().splitlines()
+    for k, line in enumerate(top):
+        assert set(line.split(": ", 1)[1].split()[:4]) <= themes[k], line
+    vocab = open(os.path.join(run[0], "lda_vocab.txt")).read().split()
+    phi = np.loadtxt(os.path.join(run[0], "phi.csv"), delimiter=",")
+    assert phi.shape == (3, 18)
+    for k in range(3):
+        for j, words in enumerate(anchors):
+            cols = [vocab.index(w) for w in words]
+            assert (phi[k, cols] == 0).all() == (j != k), (k, words)
+    hdp = glob.glob(str(tmp_path / "runs" / "RunSuite*" / "Runhdp-*"))
+    assert len(hdp) == 1
+    lls = [float(ln.split("\t")[1])
+           for ln in open(os.path.join(hdp[0], "likelihood.txt"))]
+    assert len(lls) == 2 and np.isfinite(lls).all()
+    top = open(os.path.join(hdp[0], "TopWords.txt")).read().splitlines()
+    assert len(top) == 6

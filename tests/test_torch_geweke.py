@@ -3,8 +3,13 @@ the CPU: the port's copies of tests/test_geweke.py's `test_geweke_ggs`,
 its `ggs_test` negative control, `test_geweke_pcgs`, `test_geweke_cgs`,
 `test_geweke_lightpclda`, `test_geweke_lightpclda_w2_count_proposal`,
 `test_geweke_lightcollapsed`, `test_geweke_adlda_collapsed_interpret`,
-`test_geweke_ggs_aliasmh`, and `test_geweke_ggs_aliasmh_asym_alpha` with
-its negative control.
+`test_geweke_ggs_aliasmh`, `test_geweke_ggs_aliasmh_asym_alpha` with
+its negative control, `test_geweke_uncollapsed_unsmoothed_phi_deviates`,
+`test_geweke_nzvsspalias_sequential`, `test_geweke_polyaurn_phi_atoms`,
+`test_geweke_hdp_all_topics`, `test_geweke_hdp_dynamic_birth_death` and
+`test_geweke_hlda_dynamic_contiguous_growth`, each with the JAX test's
+bars (the measured deviations of the reference's approximations pinned in
+direction and size, as there).
 
 A marginal-conditional simulator (ancestral draws of phi, theta, z, w) and
 a successive-conditional chain (the port's `sample(1)` alternated with a
@@ -281,3 +286,240 @@ def test_geweke_ggs_aliasmh_asym_alpha_negative_control():
     z_th = _geweke_z(mc[:, 0], sc[:, 0])
     assert z_frac < -8.0, z_frac
     assert z_th < -3.5, z_th
+
+
+def test_geweke_uncollapsed_unsmoothed_phi_deviates():
+    """Negative control from the reference's own code comment: scheme
+    `uncollapsed` draws phi ~ Dir(n_k) without beta smoothing
+    (UncollapsedParallelLDA.java:1313-1315), so against the
+    beta-smoothed joint its phi marginal must deviate."""
+    mc = _mc_draws(4000, seed=111)
+    sc = _sc_series("uncollapsed", steps=1200, burn=200, seed=212)
+    zs = [abs(_geweke_z(mc[:, i], sc[:, i])) for i in [1, 2, 3]]
+    assert max(zs) > 10.0, zs
+
+
+def _sc_series_ex(scheme, steps, burn, seed, stat_fn, k_eff=K,
+                  cfg_kw=None, model_patch=None):
+    """tests/test_geweke.py::_sc_series_ex on the port: a custom topic
+    count, config keys, a per-step statistic `stat_fn(model, phi, z, w)`
+    and a hook that patches the model before add_instances."""
+    rng = np.random.default_rng(seed)
+    phi0 = rng.dirichlet(np.full(V, BETA), k_eff)
+    theta0 = rng.dirichlet(np.full(k_eff, 1.0), D)
+    z = np.array([rng.choice(k_eff, p=theta0[d]) for d in range(D)
+                  for _ in range(L)]).astype(np.int32)
+    w = np.array([rng.choice(V, p=phi0[k]) for k in z], np.int32)
+    kw = dict(alpha=ALPHA, beta=BETA)
+    kw.update(cfg_kw or {})
+    m = create_model(LDAConfig(scheme=scheme, topics=k_eff, seed=seed,
+                               exec_time=-1, device="cpu", **kw))
+    if model_patch:
+        model_patch(m)
+    m.add_instances(_corpus(w))
+    m.set_z_indicators(z)
+    out = []
+    for s in range(steps):
+        m.sample(1)
+        z = m.get_z_indicators()
+        phi = m.get_phi()[:k_eff]
+        if s >= burn:
+            out.append(stat_fn(m, phi, z, w))
+        w = _resample_w(rng, phi, z)
+        m.swap_corpus_tokens(_corpus(w))
+    return np.array(out)
+
+
+def _stats4(m, phi, z, w):
+    return (phi[0, 0], float(np.mean(z == 0)), float(np.mean(w == 0)),
+            float(np.mean(phi == 0.0)))
+
+
+def test_geweke_nzvsspalias_sequential():
+    """VS (spike-and-slab) phi with the reference's sequential zeroPhi
+    chain (`vs_sequential = True`) against the spike-and-slab joint
+    (I_kv ~ Bern(pi), rows conditioned nonempty, phi_k ~ Dir(beta) on the
+    support). phi_00, topic-0 fraction and word-0 frequency agree; the
+    phi zero fraction carries the JAX test's bounded bias (the reference
+    counts currently-zero coordinates where the exact conditional would
+    count included ones)."""
+    pi = 0.5
+    rng = np.random.default_rng(301)
+    out = []
+    for _ in range(4000):
+        inc = rng.random((K, V)) < pi
+        while not (inc.sum(axis=1) > 0).all():
+            inc = rng.random((K, V)) < pi
+        phi = np.zeros((K, V))
+        for k in range(K):
+            s = np.flatnonzero(inc[k])
+            phi[k, s] = rng.dirichlet(np.full(len(s), BETA))
+        theta = rng.dirichlet(np.full(K, ALPHA), D)
+        z = np.array([rng.choice(K, p=theta[d]) for d in range(D)
+                      for _ in range(L)])
+        w = np.array([rng.choice(V, p=phi[k]) for k in z])
+        out.append(_stats4(None, phi, z, w))
+    mc = np.array(out)
+
+    def patch(m):
+        m.vs_sequential = True
+    sc = _sc_series_ex("nzvsspalias", steps=2000, burn=200, seed=302,
+                       stat_fn=_stats4, model_patch=patch)
+    for i in (0, 1, 2):
+        z = _geweke_z(mc[:, i], sc[:, i])
+        assert abs(z) < 5.0, (i, z)
+        assert sps.ks_2samp(mc[:, i], sc[::20, i]).pvalue > 1e-4, i
+    z3 = _geweke_z(mc[:, 3], sc[:, 3])
+    assert 0.0 < abs(z3) < 9.0, z3
+    assert abs(mc[:, 3].mean() - sc[:, 3].mean()) < 0.05, (
+        mc[:, 3].mean(), sc[:, 3].mean())
+
+
+def test_geweke_polyaurn_phi_atoms():
+    """Polya-Urn phi (normalised Poisson counts): every mean agrees with
+    the plain-LDA joint (phi00, frac_z0, frac_w0), the z and word shapes
+    agree, and phi00's shape deviates by its atom at exactly 0 (a phi zero
+    fraction above 0.1, KS rejects), as the JAX test pins."""
+    mc = _mc_draws(4000, seed=303)[:, [1, 2, 3]]
+    sc = _sc_series_ex("polyaurn", steps=2000, burn=200, seed=304,
+                       stat_fn=_stats4)
+    for i in (0, 1, 2):
+        z = _geweke_z(mc[:, i], sc[:, i])
+        assert abs(z) < 5.0, (i, z)
+    for i in (1, 2):
+        assert sps.ks_2samp(mc[:, i], sc[::20, i]).pvalue > 1e-4, i
+    assert sc[:, 3].mean() > 0.1, sc[:, 3].mean()
+    assert sps.ks_2samp(mc[:, 0], sc[::20, 0]).pvalue < 1e-3
+
+
+def test_geweke_hdp_all_topics():
+    """`ppu_hdplda_all_topics`: truncated-GEM psi, the PCGS sweep with
+    alpha0 psi as its alpha, Antoniak table counts, psi ~ GEM posterior,
+    Polya-Urn phi, against psi from the truncated stick prior, phi ~
+    Dir(beta), theta ~ Dir(alpha0 psi). psi_0, topic-0 fraction, word-0
+    frequency and the phi00 mean agree; phi00's shape carries the
+    Polya-Urn atom at zero."""
+    kmax, alpha0, gamma = 4, 2.0, 1.0
+    rng = np.random.default_rng(305)
+    out = []
+    for _ in range(4000):
+        b = np.clip(rng.beta(1.0, gamma, kmax), 1e-7, 1 - 1e-7)
+        psi = b * np.concatenate([[1.0], np.cumprod(1 - b)[:-1]])
+        psi = psi / psi.sum()
+        phi = rng.dirichlet(np.full(V, BETA), kmax)
+        sh = rng.gamma(np.maximum(alpha0 * psi, 1e-8), 1.0, (D, kmax))
+        theta = sh / np.maximum(sh.sum(axis=1, keepdims=True), 1e-300)
+        z = np.array([rng.choice(kmax, p=theta[d]) for d in range(D)
+                      for _ in range(L)])
+        w = np.array([rng.choice(V, p=phi[k]) for k in z])
+        out.append((phi[0, 0], float(np.mean(z == 0)),
+                    float(np.mean(w == 0)), float(psi[0])))
+    mc = np.array(out)
+
+    def hdp_stats(m, phi, z, w):
+        return (phi[0, 0], float(np.mean(z == 0)), float(np.mean(w == 0)),
+                float(m.state.psi[0]))
+    sc = _sc_series_ex("ppu_hdplda_all_topics", steps=2000, burn=200,
+                       seed=306, stat_fn=hdp_stats, k_eff=kmax,
+                       cfg_kw=dict(alpha=alpha0, hdp_gamma=gamma,
+                                   hdp_start_topics=kmax))
+    for i in range(4):
+        z = _geweke_z(mc[:, i], sc[:, i])
+        assert abs(z) < 5.0, (i, z)
+    for i in (1, 2, 3):
+        assert sps.ks_2samp(mc[:, i], sc[::20, i]).pvalue > 1e-4, i
+    assert sps.ks_2samp(mc[:, 0], sc[::20, 0]).pvalue < 1e-3
+
+
+HDP_KMAX, HDP_ALPHA0, HDP_GAMMA = 4, 2.0, 1.0
+
+
+def _hdp_mc_draws(n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = np.clip(rng.beta(1.0, HDP_GAMMA, HDP_KMAX), 1e-7, 1 - 1e-7)
+        psi = b * np.concatenate([[1.0], np.cumprod(1 - b)[:-1]])
+        psi = psi / psi.sum()
+        phi = rng.dirichlet(np.full(V, BETA), HDP_KMAX)
+        sh = rng.gamma(np.maximum(HDP_ALPHA0 * psi, 1e-8), 1.0,
+                       (D, HDP_KMAX))
+        theta = sh / np.maximum(sh.sum(axis=1, keepdims=True), 1e-300)
+        z = np.array([rng.choice(HDP_KMAX, p=theta[d]) for d in range(D)
+                      for _ in range(L)])
+        w = np.array([rng.choice(V, p=phi[k]) for k in z])
+        out.append((phi[0, 0], float(np.mean(z == 0)),
+                    float(np.mean(w == 0)), float(psi[0]),
+                    float(len(np.unique(z)))))
+    return np.array(out)
+
+
+def _hdp_sc_series(scheme, steps, burn, seed):
+    """The dynamic HDP chains from a truncated-GEM ancestral start, all
+    K_max topics active; statistics (phi00, frac_z0, frac_w0, psi0,
+    occupied topics)."""
+    rng = np.random.default_rng(seed)
+    b = np.clip(rng.beta(1.0, HDP_GAMMA, HDP_KMAX), 1e-7, 1 - 1e-7)
+    psi0 = b * np.concatenate([[1.0], np.cumprod(1 - b)[:-1]])
+    psi0 = psi0 / psi0.sum()
+    phi0 = rng.dirichlet(np.full(V, BETA), HDP_KMAX)
+    sh = rng.gamma(np.maximum(HDP_ALPHA0 * psi0, 1e-8), 1.0, (D, HDP_KMAX))
+    theta0 = sh / sh.sum(axis=1, keepdims=True)
+    z = np.array([rng.choice(HDP_KMAX, p=theta0[d]) for d in range(D)
+                  for _ in range(L)]).astype(np.int32)
+    w = np.array([rng.choice(V, p=phi0[k]) for k in z], np.int32)
+    m = create_model(LDAConfig(scheme=scheme, topics=HDP_KMAX,
+                               alpha=HDP_ALPHA0, beta=BETA, seed=seed,
+                               exec_time=-1, hdp_gamma=HDP_GAMMA,
+                               hdp_start_topics=HDP_KMAX, device="cpu"))
+    m.add_instances(_corpus(w))
+    m.set_z_indicators(z)
+    out = []
+    for s in range(steps):
+        m.sample(1)
+        z = m.get_z_indicators()
+        phi = m.get_phi()[:HDP_KMAX]
+        if s >= burn:
+            out.append((phi[0, 0], float(np.mean(z == 0)),
+                        float(np.mean(w == 0)), float(m.state.psi[0]),
+                        float(len(np.unique(z)))))
+        # after a sweep no token sits on a dead (phi-zeroed) topic, so
+        # the data-replication draw is well defined
+        w = _resample_w(rng, phi, z)
+        m.swap_corpus_tokens(_corpus(w))
+    return np.array(out)
+
+
+def test_geweke_hdp_dynamic_birth_death():
+    """`ppu_hdplda`: phi00 and frac_w0 agree with the truncated-GEM joint;
+    the birth and death policy concentrates topic mass (fewer occupied
+    topics, psi_0 and frac_z0 above the ancestral draw), pinned in
+    direction and size as the JAX test pins it."""
+    mc = _hdp_mc_draws(4000, 601)
+    sc = _hdp_sc_series("ppu_hdplda", steps=2000, burn=200, seed=602)
+    for i in (0, 2):
+        z = _geweke_z(mc[:, i], sc[:, i])
+        assert abs(z) < 5.0, (i, z)
+    z_occ = _geweke_z(mc[:, 4], sc[:, 4])
+    assert z_occ > 8.0, z_occ
+    assert 1.0 <= sc[:, 4].mean() < mc[:, 4].mean(), sc[:, 4].mean()
+    assert sc[:, 3].mean() > mc[:, 3].mean()
+    assert sc[:, 1].mean() > mc[:, 1].mean()
+
+
+def test_geweke_hlda_dynamic_contiguous_growth():
+    """`ppu_hlda`: frac_w0 agrees; the Poisson psi with contiguous
+    rebirth spreads topic mass (psi_0 and frac_z0 below the size-ordered
+    GEM draw, occupancy close), pinned as the JAX test pins it."""
+    mc = _hdp_mc_draws(4000, 601)
+    sc = _hdp_sc_series("ppu_hlda", steps=2000, burn=200, seed=602)
+    z_w0 = _geweke_z(mc[:, 2], sc[:, 2])
+    assert abs(z_w0) < 5.0, z_w0
+    z_psi = _geweke_z(mc[:, 3], sc[:, 3])
+    assert z_psi > 5.0, z_psi
+    assert sc[:, 3].mean() < mc[:, 3].mean()
+    z_z0 = _geweke_z(mc[:, 1], sc[:, 1])
+    assert z_z0 > 5.0, z_z0
+    z_occ = _geweke_z(mc[:, 4], sc[:, 4])
+    assert abs(z_occ) < 8.0, z_occ
+    assert sc[:, 4].mean() >= mc[:, 4].mean() - 0.5

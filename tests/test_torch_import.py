@@ -21,9 +21,12 @@ import ldagroupedgibbssampler_tpu_torch.models.adlda
 import ldagroupedgibbssampler_tpu_torch.models.cgs
 import ldagroupedgibbssampler_tpu_torch.models.ggs
 import ldagroupedgibbssampler_tpu_torch.models.ggs_aliasmh
+import ldagroupedgibbssampler_tpu_torch.models.hdp
 import ldagroupedgibbssampler_tpu_torch.models.lightlda
+import ldagroupedgibbssampler_tpu_torch.models.nzvs
 import ldagroupedgibbssampler_tpu_torch.models.pcgs
 import ldagroupedgibbssampler_tpu_torch.models.polyaurn
+import ldagroupedgibbssampler_tpu_torch.models.priors
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_lightlda
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs
 import ldagroupedgibbssampler_tpu_torch.ops.kernels
@@ -62,7 +65,26 @@ def test_unknown_scheme_names_ported_ones():
     from ldagroupedgibbssampler_tpu_torch import create_model
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
     with pytest.raises(ValueError, match="ggs_test.*pcgs"):
-        create_model(LDAConfig(scheme="ppu_hdplda", device="cpu"))
+        create_model(LDAConfig(scheme="sharded_ggs", device="cpu"))
+
+
+def test_port_has_every_scheme_of_the_jax_registry():
+    """The port's SCHEMES keys are the JAX registry's SCHEMES keys, read
+    from the JAX file as text (importing it would load JAX), and each
+    names a class of the port."""
+    import importlib
+
+    from ldagroupedgibbssampler_tpu_torch.models.registry import SCHEMES
+    with open(os.path.join(ROOT, "ldagroupedgibbssampler_tpu", "models",
+                           "registry.py"), encoding="utf-8") as f:
+        text = f.read()
+    block = re.search(r"^SCHEMES = \{(.*?)^\}", text, re.M | re.S).group(1)
+    jax_keys = re.findall(r'^    "(\w+)":', block, re.M)
+    assert len(jax_keys) == 18
+    assert sorted(SCHEMES) == sorted(jax_keys)
+    for module, cls, _ in SCHEMES.values():
+        assert hasattr(importlib.import_module(
+            f"ldagroupedgibbssampler_tpu_torch.models.{module}"), cls)
 
 
 def test_kernel_inventory_matches_perf_table():
