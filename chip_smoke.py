@@ -65,10 +65,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      words each: phi exactly 0 and no token on a masked pair) and
      nzvsspalias at K=100, and nzvsspalias at K=200 (streamed), 10
      iterations each; and
+     `[4 held-out]`, ggs K=100 on the 90% split of a 10%
+     build_perplexity_split, 30 iterations with the held-out LL every 10
+     (the training series equal to the same seed's without a test set;
+     one evaluation timed and profiled against a ggs iteration; the
+     estimator on cuda against cpu given the same noise; the count phi
+     against a uniform phi), then the test documents' first halves folded
+     in on the z-draw (precise mode) and count kernels; `[4 held-out
+     K=4096]`, ggs_aliasmh beside dense ggs at K=4096 on the same split,
+     the held-out LL at 10 and 20; `[4 base options]`, ggs K=100 plain,
+     with each base option alone and with all of them (hyperopt, the
+     mixed Mandelbrot/delta-N topic index builder, topic batches of 0.5,
+     paranoid checks, phi means, doc-topic distances, measure_timing),
+     then pcgs with a delta-N builder and paranoid checks, 10 iterations
+     each, ms/iteration against plain;
      `[4 collapsed]`, the serial oracle on the first 100 documents;
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
      cuda, with a ggs, a pcgs, a lightpclda, an adlda, a ggs_aliasmh, a
-     spalias_priors (with its prior file) and a ppu_hdplda section.
+     spalias_priors (with its prior file) and a ppu_hdplda section; then
+     (`[5 cli held-out]`) with a test_dataset and every base option in a
+     ggs and a pcgs section, each artifact checked.
 Then one JSON line describing every kernel, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -170,12 +186,18 @@ def check_counts_exact(model, corpus, label: str):
 def profile_iterations(torch, model, n: int) -> str:
     """Device time by kernel over `n` more iterations (torch.profiler),
     against their host wall time."""
+    return profile_calls(torch, lambda: model.sample(n), n, "iteration")
+
+
+def profile_calls(torch, fn, n: int, unit: str) -> str:
+    """Device time by kernel of `fn()`, which does `n` `unit`s of work
+    (torch.profiler), against its host wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.sample(n)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     rows = []
@@ -187,12 +209,12 @@ def profile_iterations(torch, model, n: int) -> str:
             rows.append((us / 1e3 / n, e.key))
     busy = sum(ms for ms, _ in rows)
     if busy == 0:
-        return (f"{n} iterations, {wall:.3f} ms/iteration; the profiler saw "
+        return (f"{n} {unit}s, {wall:.3f} ms/{unit}; the profiler saw "
                 "no device time")
     rows.sort(reverse=True)
     top = "; ".join(f"{ms:.3f} ms {name[:70]}" for ms, name in rows[:8])
-    return (f"{n} iterations: {wall:.3f} ms/iteration host wall, device "
-            f"busy {busy:.3f} ms/iteration ({100 * busy / wall:.1f}%), "
+    return (f"{n} {unit}s: {wall:.3f} ms/{unit} host wall, device "
+            f"busy {busy:.3f} ms/{unit} ({100 * busy / wall:.1f}%), "
             f"{len(rows)} kernels; top: {top}")
 
 
@@ -1899,6 +1921,334 @@ def collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model,
 
 
 
+def recount(corpus, z, num_topics):
+    """(N_kw [V, K], n_dk [D, K]) of canonical-order z, on the host."""
+    nkw = np.bincount(corpus.tokens.astype(np.int64) * num_topics + z,
+                      minlength=corpus.num_types * num_topics)
+    ndk = np.bincount(corpus.token_doc_ids().astype(np.int64) * num_topics
+                      + z, minlength=corpus.num_docs * num_topics)
+    return (nkw.reshape(corpus.num_types, num_topics),
+            ndk.reshape(corpus.num_docs, num_topics))
+
+
+def host_gumbel(torch, shape):
+    """Position t's Gumbel noise, drawn on the host from a generator seeded
+    by t: the same draws for the estimator on either device."""
+    def noise(t):
+        gen = torch.Generator().manual_seed(1000 + t)
+        u = torch.rand(shape, generator=gen).clamp_min(1e-38)
+        return -torch.log(-torch.log(u))
+    return noise
+
+
+def held_out_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
+                   cuda_zdraw, smi, fold_iters=20):
+    """[4 held-out]: ggs K=100 on the 90% training split of a 10%
+    build_perplexity_split for ITERS iterations, the held-out LL of the
+    test documents' second halves every 10 (100 particles); the training
+    LL series equal to the same seed's without a test set; the estimator
+    on cuda against the same call on cpu given the same injected noise (20
+    particles); the count phi against a uniform phi; then the test
+    documents' first halves folded in under the trained phi (fold_iters
+    iterations, the z-draw in precise mode and the count kernel, their
+    counters set to 0 just before and read just after). Returns the
+    fold-in's launches of the two kernels."""
+    from ldagroupedgibbssampler_tpu_torch.corpus.perplexity import (
+        build_perplexity_split)
+    from ldagroupedgibbssampler_tpu_torch.evaluation import marginal
+    from ldagroupedgibbssampler_tpu_torch.evaluation.foldin import fold_in
+    train, est, evl = build_perplexity_split(corpus, 0.1, seed=2019)
+    cfg = pcgs_config(LDAConfig, "ggs", K)
+    ref = create_model(cfg)
+    ref.add_instances(train)
+    ref.sample(ITERS)
+    lls_ref = ref.get_log_likelihoods()
+    del ref
+    model = create_model(cfg)
+    model.add_instances(train)
+    model.add_test_instances(evl)
+    model.sample(ITERS)
+    check(model.get_log_likelihoods() == lls_ref, "held-out evaluation "
+          f"changed the chain: {model.get_log_likelihoods()} against "
+          f"{lls_ref}")
+    held = model.get_held_out_log_likelihoods()
+    check([it for it, _ in held] == [10, 20, 30]
+          and all(np.isfinite(v) and v < 0 for _, v in held),
+          f"held-out LL series {held}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model._held_out_log_likelihood()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    model.sample(5)                 # iterations 31-35: no evaluation
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) / 5 * 1e3
+    eval_profile = profile_calls(torch, model._held_out_log_likelihood, 1,
+                                 "evaluation")
+    # the estimator on both devices, given the same noise
+    w_pad, mask_pad = evl.to_padded()
+    r = 20
+    noise = host_gumbel(torch, (r, evl.num_docs, K))
+    st = model.state
+    nkw_kv, nk = model._nkw_kv(), st.nk
+    ll_dev = float(marginal.left_to_right_from_counts(
+        w_pad, mask_pad, nkw_kv, nk, st.alpha, st.beta, r, gumbel=noise))
+    ll_cpu = float(marginal.left_to_right_from_counts(
+        w_pad, mask_pad, nkw_kv.cpu(), nk.cpu(), st.alpha.cpu(), st.beta, r,
+        gumbel=noise))
+    check(abs(ll_dev - ll_cpu) <= 1e-4 * abs(ll_cpu),
+          f"estimator cuda {ll_dev} against cpu {ll_cpu}")
+    gen = torch.Generator(device=model.device).manual_seed(5)
+    ll_unif = float(marginal.left_to_right_from_word_prob(
+        w_pad, mask_pad, torch.full((K, V), 1.0 / V, device=model.device),
+        st.alpha, 100, generator=gen))
+    ll_count = held[-1][1]
+    check(ll_count > ll_unif, f"count phi {ll_count} does not beat uniform "
+          f"phi {ll_unif}")
+    # fold-in of the first halves on rows 2 and 1
+    counts, zdraw = cuda_counts.blocked_label_counts, cuda_zdraw.fused_zdraw_nkw
+    counts.launches = zdraw.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fold_in(model._phi_kv(), est, st.alpha, gen, fold_iters,
+                  token_block=cfg.token_block, vocab_span=cfg.vocab_span,
+                  doc_span=cfg.doc_span)
+    torch.cuda.synchronize()
+    fold_ms = (time.perf_counter() - t0) / fold_iters * 1e3
+    launches = {"fused_zdraw_nkw": zdraw.launches,
+                "blocked_label_counts": counts.launches}
+    check(launches == {"fused_zdraw_nkw": fold_iters,
+                       "blocked_label_counts": fold_iters + 1},
+          f"fold-in launches {launches}")
+    nkw_ref, ndk_ref = recount(est, res.flat_z(), K)
+    check(np.array_equal(res.nkw_vk.cpu().numpy(), nkw_ref)
+          and np.array_equal(res.ndk.cpu().numpy(), ndk_ref),
+          "fold-in: counts differ from a recount of its z")
+    sums = res.theta_mean.sum(dim=1)
+    check(bool(((sums - 1.0).abs() < 1e-4).all()),
+          "fold-in: theta rows do not sum to 1")
+    print(f"[4 held-out] ggs K={K} on {torch.cuda.get_device_name(0)} "
+          f"({smi}), 10% split ({train.num_docs} training documents, "
+          f"{evl.num_docs} test documents, {evl.num_tokens} scored tokens, "
+          f"{w_pad.shape[1]} positions): held-out LL (100 particles) "
+          f"{json.dumps(held)}; training LL series equal to the chain "
+          f"without a test set; one evaluation {eval_ms:.3f} ms against "
+          f"{iter_ms:.3f} ms a ggs iteration (host clock, synchronised); "
+          f"estimator cuda {ll_dev:.3f} = cpu {ll_cpu:.3f} given the same "
+          f"noise ({r} particles); count phi {ll_count:.1f} > uniform phi "
+          f"{ll_unif:.1f}; fold-in of the first halves ({est.num_tokens} "
+          f"tokens), {fold_iters} iterations: launches "
+          f"{json.dumps(launches)}, {fold_ms:.3f} ms/iteration, counts "
+          f"exact, theta rows sum to 1", flush=True)
+    print(f"[4 held-out profile] {eval_profile}", flush=True)
+    del model, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def held_out_large_k(torch, corpus, LDAConfig, create_model, smi,
+                     k_big=4096, iters=20):
+    """[4 held-out K=4096]: ggs_aliasmh and dense ggs at K=4096 on the
+    same 90% training split, `iters` iterations each, the held-out LL at
+    10 and 20 (100 particles): the card's reading of PERF.md §7's
+    large-K quality question. The estimator's [100, D_test, K] tensors
+    (1.85 GB each) are freed before the next phase."""
+    from ldagroupedgibbssampler_tpu_torch.corpus.perplexity import (
+        build_perplexity_split)
+    train, _est, evl = build_perplexity_split(corpus, 0.1, seed=2019)
+    res = {}
+    for scheme in ("ggs_aliasmh", "ggs"):
+        cfg = LDAConfig(scheme=scheme, topics=k_big, alpha=0.5, beta=0.01,
+                        seed=2019, exec_time=-1, topic_interval=10,
+                        device="cuda")
+        model = create_model(cfg)
+        model.add_instances(train)
+        model.add_test_instances(evl)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample(iters)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        held = model.get_held_out_log_likelihoods()
+        check(len(held) == iters // 10
+              and all(np.isfinite(v) for _, v in held),
+              f"{scheme} K={k_big}: held-out LL {held}")
+        check_counts_exact(model, train, f"{scheme} K={k_big} held-out")
+        t1 = time.perf_counter()
+        model._held_out_log_likelihood()
+        torch.cuda.synchronize()
+        res[scheme] = (held, (time.perf_counter() - t1) * 1e3, secs,
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model
+        torch.cuda.empty_cache()
+    mh, dense = res["ggs_aliasmh"], res["ggs"]
+    print(f"[4 held-out K={k_big}] on {torch.cuda.get_device_name(0)} "
+          f"({smi}), {iters} iterations each on the 90% split: held-out LL "
+          f"ggs_aliasmh {json.dumps(mh[0])}, dense ggs "
+          f"{json.dumps(dense[0])}; dense - alias-MH at {iters} "
+          f"{dense[0][-1][1] - mh[0][-1][1]:.1f} nats; one evaluation "
+          f"{mh[1]:.1f} / {dense[1]:.1f} ms; run {mh[2]:.2f} / "
+          f"{dense[2]:.2f} s with two evaluations; peak device memory "
+          f"{mh[3]:.2f} / {dense[3]:.2f} GiB", flush=True)
+
+
+BASE_OPTIONS = (
+    ("hyperopt", dict(hyperparam_optim_interval=10)),
+    ("topic index", dict(topic_index_building_scheme=
+                         "mixed_mandelbrot_delta_n")),
+    ("topic batch", dict(topic_batch_building_scheme="percentage",
+                         percentage_split_size_topic=0.5)),
+    ("paranoid", dict(paranoid=True)),
+    ("phi means", dict(save_phi_means=True)),
+    ("distances", dict(compute_doc_topic_distances=True,
+                       start_diagnostic=1)),
+    ("timing", dict(measure_timing=True)),
+)
+
+
+def base_options_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
+                       cuda_zdraw, cuda_pcgs, smi, iters=10):
+    """[4 base options]: ggs K=100 for `iters` iterations with a run
+    logger, plain, with each base option alone, and with all of them on
+    (the last with its launch counters set to 0 just before and read just
+    after), then plain again (the turns of one call); then pcgs K=100 with
+    a delta-N topic index builder and paranoid checks. Each: LL finite and
+    rising, counts exact, every phi entry positive (positive support).
+    Prints ms/iteration (host clock, synchronised, LL at 5 and 10
+    included) of each against plain."""
+    from ldagroupedgibbssampler_tpu_torch.utils.logging_utils import (
+        RunLogger)
+    work = os.path.join(ROOT, "build", "chip_smoke_options")
+    shutil.rmtree(work, ignore_errors=True)
+    all_on = {k: v for _, kw in BASE_OPTIONS for k, v in kw.items()}
+    runs = [("plain", {}), *BASE_OPTIONS, ("all", all_on), ("plain", {}),
+            ("pcgs delta-N paranoid", dict(
+                scheme="pcgs", topic_index_building_scheme="delta_n",
+                paranoid=True))]
+    ms, launches = {}, None
+    for i, (name, kw) in enumerate(runs):
+        logger = RunLogger(os.path.join(work, f"run{i}"))
+        cfg = pcgs_config(LDAConfig, "ggs", K).replace(topic_interval=5,
+                                                        **kw)
+        model = create_model(cfg, logger=logger)
+        model.add_instances(corpus)
+        ll0 = model.model_log_likelihood()
+        if name == "all":
+            for fn in (cuda_counts.blocked_label_counts,
+                       cuda_zdraw.fused_zdraw_nkw):
+                fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample(iters)
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append(
+            (time.perf_counter() - t0) / iters * 1e3)
+        if name == "all":
+            launches = {"fused_zdraw_nkw": cuda_zdraw.fused_zdraw_nkw.launches,
+                        "blocked_label_counts":
+                            cuda_counts.blocked_label_counts.launches}
+            check(launches["fused_zdraw_nkw"] == iters
+                  and launches["blocked_label_counts"] >= iters,
+                  f"base options: launches {launches}")
+            run = logger.run_dir
+            rows = open(os.path.join(run, "timings.txt")).read().split("\n")
+            check(len([r for r in rows if r]) == iters
+                  and os.path.getsize(os.path.join(run, "timing_data",
+                                                   "trace.json")) > 0,
+                  "base options: timings or trace missing")
+            check(len(open(os.path.join(run, "min_doc_distances.csv"))
+                      .read().split("\n")) == 3,
+                  "base options: min_doc_distances.csv rows")
+            check(model.get_phi_means().shape == (K, V),
+                  "base options: phi means")
+        lls = dict(model.get_log_likelihoods())
+        check(np.isfinite(lls[iters]) and lls[iters] > lls[5] > ll0,
+              f"base options {name}: LL did not rise: {ll0}, {lls}")
+        check_counts_exact(model, corpus, f"base options {name}")
+        check(bool((model.state.phi > 0).all()),
+              f"base options {name}: a phi entry is 0")
+        logger.close()
+        del model
+        torch.cuda.empty_cache()
+    plain = float(np.mean(ms["plain"]))
+    parts = "; ".join(
+        f"{name} {float(np.mean(v)):.3f} ({float(np.mean(v)) - plain:+.3f})"
+        for name, v in ms.items() if name != "plain")
+    print(f"[4 base options] ggs K={K} on {torch.cuda.get_device_name(0)} "
+          f"({smi}), {iters} iterations each, LL rising, counts exact, phi "
+          f"positive in every run; all-on launches {json.dumps(launches)}; "
+          f"ms/iteration (host clock, LL at 5 and 10 included) plain "
+          f"{ms['plain'][0]:.3f} then {ms['plain'][1]:.3f}; each option, "
+          f"its difference to plain's mean: {parts}", flush=True)
+
+
+def cli_held_out(torch, work, themes, rng, counters, cuda_zdraw):
+    """[5 cli held-out]: the experiment CLI on cuda with a test_dataset
+    (a held-out text file beside the small corpus) and every base option:
+    a ggs section and a pcgs section with a delta-N builder. Checks that
+    each artifact exists."""
+    from ldagroupedgibbssampler_tpu_torch.tui import parallel_lda
+    with open(os.path.join(work, "test.txt"), "w") as f:
+        for d in range(60):
+            words = [themes[d % 3][i] for i in rng.integers(0, 7, 40)]
+            f.write(f"docno:t{d}\tL{d % 3}\t{' '.join(words)}\n")
+    with open(os.path.join(work, "heldout.cfg"), "w") as f:
+        f.write(f"configs = ggs_options, pcgs_delta\nno_runs = 1\n"
+                f"experiment_out_dir = {work}/runs_heldout\n"
+                f"exec_time = 300\niterations = {ITERS}\ntopics = 3\n"
+                f"alpha = 1\nbeta = 0.01\ndataset = {work}/docs.txt\n"
+                f"test_dataset = {work}/test.txt\nrare_threshold = 0\n"
+                f"seed = 2019\ntopic_interval = 10\nstart_diagnostic = 1\n"
+                f"stoplist =\ndevice = cuda\nparanoid = true\n"
+                f"log_type_topic_density = true\n"
+                f"log_document_density = true\nlog_phi_density = true\n\n"
+                f"[ggs_options]\nscheme = ggs\n"
+                f"hyperparam_optim_interval = 10\n"
+                f"topic_index_building_scheme = mixed_mandelbrot_delta_n\n"
+                f"topic_batch_building_scheme = percentage\n"
+                f"percentage_split_size_topic = 0.5\n"
+                f"save_phi_means = true\n"
+                f"compute_doc_topic_distances = true\n"
+                f"measure_timing = true\ndiagnostic_interval = 10, 11\n"
+                f"dn_diagnostic_interval = 10, 12\n\n"
+                f"[pcgs_delta]\nscheme = pcgs\n"
+                f"topic_index_building_scheme = delta_n\n")
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    parallel_lda.main([f"--run_cfg={work}/heldout.cfg"])
+    check(cuda_zdraw.fused_zdraw_nkw.launches == ITERS,
+          f"CLI held-out: z-draw launches {cuda_zdraw.fused_zdraw_nkw.launches}")
+    found = {}
+    for name, files in (
+            ("ggs_options", (
+                "test_held_out_log_likelihood.txt", "stats.txt",
+                "timings.txt", "timing_data/trace.json",
+                "min_doc_distances.csv", "min_topic_distances.csv",
+                "phi_means.csv", "topic_diagnostics.csv", "delta_n.txt",
+                "phi_3_*_00010.BINARY", "N_3_*_00011.BINARY",
+                "M_300_3_00011.BINARY", "z_10.csv")),
+            ("pcgs_delta", ("test_held_out_log_likelihood.txt", "stats.txt",
+                            "topic_diagnostics.csv"))):
+        run_dir = glob.glob(os.path.join(work, "runs_heldout", "RunSuite*",
+                                         f"Run{name}-*"))
+        check(len(run_dir) == 1, f"CLI held-out run directories: {run_dir}")
+        for fn in files:
+            check(len(glob.glob(os.path.join(run_dir[0], fn))) == 1,
+                  f"CLI held-out {name}: no {fn}")
+        held = [float(ln.split("\t")[1]) for ln in open(os.path.join(
+            run_dir[0], "test_held_out_log_likelihood.txt"))]
+        check(len(held) == 3 and np.isfinite(held).all(),
+              f"CLI held-out {name}: {held}")
+        found[name] = held
+    print(f"[5 cli held-out] parallel_lda on cuda with test_dataset and "
+          f"paranoid checks, densities, hyperopt, the mixed Mandelbrot/"
+          f"delta-N builder, topic batches of 0.5, phi means, distances, "
+          f"timings and dumps (ggs) and a delta-N builder (pcgs): every "
+          f"artifact written; held-out LL {json.dumps(found)}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2136,6 +2486,11 @@ def main() -> int:
     aliasmh_launches = aliasmh_main_path(torch, corpus, LDAConfig,
                                          create_model, cuda_counts,
                                          cuda_zdraw, smi)
+    foldin_launches = held_out_phase(torch, corpus, LDAConfig, create_model,
+                                     cuda_counts, cuda_zdraw, smi)
+    held_out_large_k(torch, corpus, LDAConfig, create_model, smi)
+    base_options_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
+                       cuda_zdraw, cuda_pcgs, smi)
     # every launch counter of the port's wrappers
     counters = [(fn, "launches") for fn in (
         cuda_counts.blocked_label_counts, cuda_zdraw.fused_zdraw_nkw,
@@ -2222,13 +2577,18 @@ def main() -> int:
           f"ppu_hdplda: launches (zdraw, counts, pcgs, lightlda, collapsed) "
           f"{cli_launches}; LL {json.dumps(ll_cli)}", flush=True)
 
+    cli_held_out(torch, work, themes, rng, counters, cuda_zdraw)
+
     kernels = [
         {**counts_entry, "launches": aliasmh_launches,
-         "launches_ggs": launches["blocked_label_counts"]},
+         "launches_ggs": launches["blocked_label_counts"],
+         "launches_foldin": foldin_launches["blocked_label_counts"]},
         {"name": "fused_zdraw_nkw", "route": "cuda",
          "source": "ldagroupedgibbssampler_tpu_torch/csrc/zdraw.cu",
          "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_zdraw.py:59",
-         "launches": launches["fused_zdraw_nkw"], "max_abs_err": zdraw_err,
+         "launches": launches["fused_zdraw_nkw"],
+         "launches_foldin": foldin_launches["fused_zdraw_nkw"],
+         "max_abs_err": zdraw_err,
          "ms": zdraw_ms, "precise_ms": zdraw_precise_ms,
          "plain_ms": zdraw_plain_ms, "bound_ms": zdraw_bound,
          "bound_by": zdraw_by, "library_ms": None},

@@ -98,10 +98,53 @@ class Corpus:
         return np.repeat(np.arange(self.num_docs, dtype=np.int32),
                          self.doc_lengths())
 
+    def flat_padded(self, block: int = 1):
+        """(tokens, doc_ids, mask) padded to a multiple of `block`."""
+        n = self.num_tokens
+        n_pad = ((n + block - 1) // block) * block if block > 1 else n
+        tokens = np.zeros(n_pad, np.int32)
+        doc_ids = np.zeros(n_pad, np.int32)
+        mask = np.zeros(n_pad, bool)
+        tokens[:n] = self.tokens
+        doc_ids[:n] = self.token_doc_ids()
+        mask[:n] = True
+        return tokens, doc_ids, mask
+
+    def to_padded(self, length_multiple: int = 8):
+        """Doc-major padded layout: (w[D, L], mask[D, L]) with L, the
+        longest document, rounded up to `length_multiple`."""
+        lengths = self.doc_lengths()
+        lmax = int(lengths.max()) if len(lengths) else 1
+        lmax = ((lmax + length_multiple - 1) // length_multiple
+                ) * length_multiple
+        w = np.zeros((self.num_docs, lmax), np.int32)
+        mask = np.zeros((self.num_docs, lmax), bool)
+        for d in range(self.num_docs):
+            s, e = self.doc_offsets[d], self.doc_offsets[d + 1]
+            w[d, : e - s] = self.tokens[s:e]
+            mask[d, : e - s] = True
+        return w, mask
+
     def type_frequencies(self) -> np.ndarray:
         """Corpus frequency of each type."""
         return np.bincount(self.tokens, minlength=self.num_types
                            ).astype(np.int64)
+
+    def subset(self, doc_indices) -> "Corpus":
+        """New Corpus restricted to the given documents (same vocabulary)."""
+        doc_indices = np.asarray(doc_indices)
+        parts = [self.tokens[self.doc_offsets[d]:self.doc_offsets[d + 1]]
+                 for d in doc_indices]
+        lengths = [len(p) for p in parts]
+        offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+        return Corpus(
+            tokens=np.concatenate(parts) if parts else np.zeros(0, np.int32),
+            doc_offsets=offsets,
+            vocab=self.vocab,
+            labels=[self.labels[d] for d in doc_indices] if self.labels else [],
+            doc_ids=[self.doc_ids[d] for d in doc_indices]
+            if self.doc_ids else [],
+        )
 
     def cell_blocks(self, block: int = 4096, vspan: int = 512,
                     dspan: int = 512, chunk: int = 128) -> "CellBlocks":

@@ -93,8 +93,12 @@ def log_posterior(ndk, nkw, theta, phi, alpha, beta: float) -> torch.Tensor:
 
 
 def matrix_density(mat) -> torch.Tensor:
-    """Fraction of non-zero entries (LDAUtils.java:1734-1770)."""
-    return (torch.as_tensor(mat) != 0).to(torch.float32).mean()
+    """Fraction of non-zero entries (LDAUtils.java:1734-1770): the float32
+    count times the float32 reciprocal of the size, as jnp.mean computes
+    it, so the stats rows of the two packages agree digit for digit."""
+    nonzero = (torch.as_tensor(mat) != 0).to(torch.float32)
+    return nonzero.sum() * torch.tensor(1.0 / max(nonzero.numel(), 1),
+                                        dtype=torch.float32)
 
 
 def perplexity(held_out_ll: float, num_tokens: int) -> float:

@@ -53,8 +53,10 @@ class ADLDA(FusedPCGSSweepMixin, TorchLDASampler):
     # the layout rule counts the live-count operands (JAX package's gate)
     _streamed_collapsed = True
 
-    def _step(self, state: LDAState, doc_mask):
-        """One iteration, replacing the fields of `state` in place."""
+    def _step(self, state: LDAState, doc_mask, type_mask=None):
+        """One iteration, replacing the fields of `state` in place. The
+        phi draw is only diagnostic and ignores a type mask, as the JAX
+        package's does."""
         beta32 = torch.tensor(state.beta, dtype=torch.float32,
                               device=self.device)
         nk_plus = beta32 * self.corpus.num_types + state.nk.to(torch.float32)

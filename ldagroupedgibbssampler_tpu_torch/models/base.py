@@ -1,27 +1,28 @@
 """Sampler base: chain state + the reference's run-lifecycle API.
 
-The port's counterpart of `ldagroupedgibbssampler_tpu/models/base.py`
-(the subset that schemes `ggs` and the PCGS family need). The reference
-defines `LDAGibbsSampler` (topics/LDAGibbsSampler.java:10-46) with
+The port's counterpart of `ldagroupedgibbssampler_tpu/models/base.py`. The
+reference defines `LDAGibbsSampler` (topics/LDAGibbsSampler.java:10-46) with
 `addInstances / sample(iterations) / getters / lifecycle hooks`;
 `TorchLDASampler` provides that surface with one lifecycle hook,
 `post_iteration` (the HDP family's per-iteration statistics), and without
 iteration listeners, which nothing here uses.
 
 State is a mutable `LDAState` dataclass of tensors on the sampler's device.
-Each scheme's `_step(state, doc_mask)` replaces its fields in place with
-the next iteration's tensors. z lives in the scheme's block layout; the
-layout's `flat_index` (corpus token index of each slot, -1 on padding)
-translates it to and from the canonical token order. Random bits come from
-one `torch.Generator` on the device, seeded from the config. The `sample()` loop mirrors
+Each scheme's `_step(state, doc_mask, type_mask)` replaces its fields in
+place with the next iteration's tensors. z lives in the scheme's block
+layout; the layout's `flat_index` (corpus token index of each slot, -1 on
+padding) translates it to and from the canonical token order. Random bits
+come from one `torch.Generator` on the device, seeded from the config;
+held-out evaluation draws from a generator of its own, so a chain with a
+test set is the same chain as without one. The `sample()` loop mirrors
 `UncollapsedParallelLDA.sample` (topics/UncollapsedParallelLDA.java:
-552-943): wall-clock budget, abort flag / abort file, and the likelihood /
-log-posterior series every `topic_interval` iterations.
-
-Not ported yet (a config that asks for them raises in `add_instances`):
-hyperparameter optimisation, topic index / topic batch random scan,
-paranoid checks, timing traces, phi means, diagnostic dumps. Iteration
-fusion (`scan_chunk`) is ignored: it never changed results.
+552-943): random scan over documents, types and topic rows, wall-clock
+budget, abort flag / abort file, paranoid checks, per-iteration timings
+with a profiler trace, the likelihood / log-posterior / held-out / stats
+series every `topic_interval` iterations, windowed dumps, phi-mean
+accumulation with burn-in + thinning, and hyperparameter optimisation.
+Every feature costs nothing while its key is off. Iteration fusion
+(`scan_chunk`) is ignored: it never changed results.
 """
 
 from __future__ import annotations
@@ -36,13 +37,27 @@ import torch
 
 from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
 from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
+from ldagroupedgibbssampler_tpu_torch.evaluation.foldin import fold_in
+from ldagroupedgibbssampler_tpu_torch.evaluation.hyperopt import (
+    learn_dirichlet_parameters, learn_symmetric_concentration)
 from ldagroupedgibbssampler_tpu_torch.evaluation.likelihood import (
-    log_posterior, model_log_likelihood)
+    log_posterior, matrix_density, model_log_likelihood)
+from ldagroupedgibbssampler_tpu_torch.evaluation.marginal import (
+    left_to_right_from_counts)
+from ldagroupedgibbssampler_tpu_torch.evaluation.topwords import top_words
 from ldagroupedgibbssampler_tpu_torch.models import randomscan
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
 from ldagroupedgibbssampler_tpu_torch.ops.counts import (
-    doc_topic_counts, tokens_per_topic, topic_word_counts)
+    check_count_consistency, doc_topic_counts, tokens_per_topic,
+    topic_word_counts)
+from ldagroupedgibbssampler_tpu_torch.utils import matrix_io
 from ldagroupedgibbssampler_tpu_torch.utils.device import resolve_device
+from ldagroupedgibbssampler_tpu_torch.utils.logging_utils import (
+    device_memory_stats)
+from ldagroupedgibbssampler_tpu_torch.utils.timing import IterationStats
+
+# rows of the pairwise-distance matrix computed at a time (2,048 x D float32)
+_DISTANCE_ROWS = 2048
 
 
 @dataclass
@@ -69,31 +84,25 @@ class LDAState:
     iteration: int
 
 
-def unported_options(cfg: LDAConfig) -> list[str]:
-    """Config keys set to a value the port does not implement yet."""
-    batch = cfg.topic_batch_building_scheme
-    checks = {
-        "hyperparam_optim_interval": cfg.hyperparam_optim_interval > 0,
-        "topic_index_building_scheme":
-            cfg.topic_index_building_scheme != "all",
-        "topic_batch_building_scheme":
-            batch not in ("even", "percentage") or (
-                batch == "percentage"
-                and float(cfg.percentage_split_size_topic) < 1.0),
-        "paranoid": cfg.paranoid,
-        "measure_timing": cfg.measure_timing,
-        "save_phi_means": cfg.save_phi_means,
-        "compute_doc_topic_distances": cfg.compute_doc_topic_distances,
-        "diagnostic_interval": bool(cfg.diagnostic_interval),
-        "dn_diagnostic_interval": bool(cfg.dn_diagnostic_interval),
-        "print_ndocs_interval": bool(cfg.print_ndocs_interval),
-        "print_ntopwords_interval": bool(cfg.print_ntopwords_interval),
-    }
-    return [k for k, on in checks.items() if on]
-
-
 def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def min_pairwise_distances(x: torch.Tensor) -> torch.Tensor:
+    """Per-row min Euclidean distance to any OTHER row (the diagnostics of
+    UncollapsedParallelLDA.java:723-806) through a Gram matmul, on x's
+    device, `_DISTANCE_ROWS` rows of the [rows, rows] matrix at a time."""
+    x = x.to(torch.float32)
+    rows = x.shape[0]
+    sq = (x * x).sum(dim=1)
+    out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    for s in range(0, rows, _DISTANCE_ROWS):
+        e = min(rows, s + _DISTANCE_ROWS)
+        g = (sq[s:e, None] + sq[None, :] - 2.0 * (x[s:e] @ x.T)).clamp_min_(0)
+        i = torch.arange(e - s, device=x.device)
+        g[i, i + s] = torch.inf
+        out[s:e] = g.min(dim=1).values
+    return out.sqrt()
 
 
 class TorchLDASampler:
@@ -116,22 +125,26 @@ class TorchLDASampler:
         self.device = resolve_device(config.device)
         self.generator: Optional[torch.Generator] = None
         self.corpus: Optional[Corpus] = None
+        self.test_corpus: Optional[Corpus] = None
         self.state: Optional[LDAState] = None
         self._abort = False
         self._ll_history: list = []          # (iteration, ll)
+        self._held_out_history: list = []
+        self._phi_mean: Optional[torch.Tensor] = None   # [K, V] sum
+        self._phi_mean_count = 0
+        self._fold_in_theta: Optional[np.ndarray] = None
+        self._last_delta_types: Optional[np.ndarray] = None
         self.doc_batch_builder = None
+        self.topic_index_builder = None
+        self.topic_batch_builder = None
 
     # ------------------------------------------------------------------
-    # data loading (LDAGibbsSampler.addInstances)
+    # data loading (LDAGibbsSampler.addInstances / addTestInstances)
     # ------------------------------------------------------------------
     def add_instances(self, corpus: Corpus):
         """Random z init + count build (ModifiedSimpleLDA.addInstances
         :939-969 draws each token's initial topic uniformly)."""
         cfg = self.config
-        unported = unported_options(cfg)
-        if unported:
-            raise ValueError("not ported to ldagroupedgibbssampler_tpu_torch "
-                             f"yet: config keys {unported}")
         self.corpus = corpus
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.effective_seed())
@@ -139,6 +152,18 @@ class TorchLDASampler:
         self.state = self._init_state()
         self.doc_batch_builder = randomscan.make_document_batch_builder(
             cfg, corpus.num_docs)
+        self.topic_index_builder = randomscan.make_topic_index_builder(
+            cfg, corpus)
+        self.topic_batch_builder = randomscan.make_topic_batch_builder(cfg)
+        return self
+
+    def add_test_instances(self, corpus: Corpus):
+        """The held-out documents (same vocabulary), scored every
+        `topic_interval` iterations by the left-to-right estimator."""
+        self.test_corpus = corpus
+        w_pad, mask_pad = corpus.to_padded()
+        self._test_pad = (torch.as_tensor(w_pad, device=self.device),
+                          torch.as_tensor(mask_pad, device=self.device))
         return self
 
     def _prepare_device_data(self, corpus: Corpus):
@@ -177,14 +202,22 @@ class TorchLDASampler:
     def _initial_theta(self, ndk, alpha):
         return None   # only GGS carries theta in state
 
-    def _step(self, state: LDAState, doc_mask: Optional[torch.Tensor]):
+    def _step(self, state: LDAState, doc_mask: Optional[torch.Tensor],
+              type_mask: Optional[torch.Tensor] = None):
         """One iteration, updating `state` in place. `doc_mask = None` is
-        the full sweep (every document selected)."""
+        the full sweep (every document selected); `type_mask = None`
+        redraws every phi column, else only the columns where it is True
+        (the others keep their values up to the row's renormalisation)."""
         raise NotImplementedError
 
     # ------------------------------------------------------------------
     # main loop (UncollapsedParallelLDA.sample:552-943)
     # ------------------------------------------------------------------
+    def _mask(self, mask: np.ndarray) -> Optional[torch.Tensor]:
+        """A builder's mask on the device, or None when it selects all."""
+        return None if mask.all() else torch.as_tensor(mask,
+                                                       device=self.device)
+
     def sample(self, iterations: int | None = None):
         cfg = self.config
         iterations = iterations or cfg.iterations
@@ -192,12 +225,52 @@ class TorchLDASampler:
             raise RuntimeError("call add_instances first")
         deadline = time.time() + cfg.exec_time if cfg.exec_time > 0 else None
         start_iter = self.state.iteration
+        # measure_timing (UncollapsedParallelLDA.java:1340-1347 wrote
+        # per-thread phase files): per-iteration wall times to timings.txt
+        # plus one torch.profiler trace of iterations 2-4 under
+        # timing_data/, where the per-kernel device time lives
+        timing = cfg.measure_timing and self.logger is not None
+        profiler = None
         for it in range(start_iter + 1, start_iter + iterations + 1):
-            mask = self.doc_batch_builder.doc_mask(it)
-            doc_mask = (None if mask.all()
-                        else torch.as_tensor(mask, device=self.device))
-            self._step(self.state, doc_mask)
-            self._periodic_logging(it)
+            t0 = time.perf_counter()
+            doc_mask = self._mask(self.doc_batch_builder.doc_mask(it))
+            type_mask = self._mask(self.topic_index_builder.type_mask(
+                it, self._last_delta_types))
+            need_prev = (self._needs_delta() or self._in_interval(
+                it, cfg.dn_diagnostic_interval))
+            prev_nkw = self.state.nkw.clone() if need_prev else None
+            # topic-batch row selection (PercentageTopicBatchBuilder):
+            # unselected phi rows keep their previous draw — exact, since
+            # rows are independent Dirichlets given counts
+            topic_mask = self._mask(self.topic_batch_builder.topic_mask(it))
+            prev_phi = self.state.phi if topic_mask is not None else None
+            self._step(self.state, doc_mask, type_mask)
+            if prev_phi is not None:
+                tm = (topic_mask[:, None] if self.nkw_layout == "kv"
+                      else topic_mask[None, :])
+                self.state.phi = torch.where(tm, self.state.phi, prev_phi)
+            if prev_nkw is not None:
+                # the types whose counts moved, along the type axis of
+                # either orientation
+                topic_axis = 0 if self.nkw_layout == "kv" else 1
+                self._last_delta_types = _np((self.state.nkw != prev_nkw)
+                                             .any(dim=topic_axis))
+            if cfg.paranoid:
+                self._paranoid_checks()
+            if timing:
+                self.logger.log_timing(f"iteration_{it}",
+                                       (time.perf_counter() - t0) * 1e3)
+                if it == start_iter + 2:
+                    profiler = self._start_trace()
+                elif it == start_iter + 4 and profiler is not None:
+                    self._stop_trace(profiler)
+                    profiler = None
+            self._periodic_logging(it, t0)
+            self._interval_dumps(it, prev_nkw)
+            self._accumulate_phi_mean(it, iterations)
+            if (cfg.hyperparam_optim_interval > 0
+                    and it % cfg.hyperparam_optim_interval == 0):
+                self._optimize_hyperparameters()
             self.post_iteration()
             # cooperative abort: flag or an `abort` file in the working
             # directory (UncollapsedParallelLDA.java:131,908-910)
@@ -205,6 +278,8 @@ class TorchLDASampler:
                 break
             if deadline is not None and time.time() > deadline:
                 break
+        if profiler is not None:      # stopped inside the trace window
+            self._stop_trace(profiler)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -212,6 +287,22 @@ class TorchLDASampler:
     def post_iteration(self):
         """Lifecycle hook after every iteration's logging
         (LDAGibbsSampler.java:10-46); a no-op here."""
+
+    def _start_trace(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_trace(self, profiler):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        trace_dir = os.path.join(self.logger.run_dir, "timing_data")
+        os.makedirs(trace_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
     # ------------------------------------------------------------------
     # periodic work inside the loop
@@ -225,32 +316,193 @@ class TorchLDASampler:
         phi = self.state.phi
         return phi if self.nkw_layout == "kv" else phi.T
 
+    def _needs_delta(self) -> bool:
+        return isinstance(self.topic_index_builder, (
+            randomscan.DeltaNTopicIndexBuilder,
+            randomscan.MixedMandelbrotDeltaNTopicIndexBuilder))
+
     def model_log_likelihood(self) -> float:
         st = self.state
         return float(model_log_likelihood(st.ndk, self._nkw_kv(), st.alpha,
                                           st.beta))
 
-    def _periodic_logging(self, it: int):
+    def _periodic_logging(self, it: int, t0: float):
         cfg = self.config
         interval = cfg.topic_interval
         if interval is None or interval <= 0 or it % interval != 0:
             return
         st = self.state
+        stats = IterationStats(iteration=it,
+                               total_ms=(time.perf_counter() - t0) * 1e3)
         if cfg.compute_likelihood:
             ll = self.model_log_likelihood()
             self._ll_history.append((it, ll))
             if self.logger:
                 self.logger.log_likelihood(it, ll)
-        if self.logger is None:
-            return
-        if cfg.start_diagnostic > 0 and it >= cfg.start_diagnostic:
+        if self.logger and cfg.start_diagnostic > 0 \
+                and it >= cfg.start_diagnostic:
             theta = (st.theta if st.theta is not None
-                     else torch.as_tensor(self.get_theta_estimate()))
+                     else torch.as_tensor(self.get_theta_estimate(),
+                                          device=self.device))
             lp = float(log_posterior(st.ndk, self._nkw_kv(), theta,
                                      self._phi_kv(), st.alpha, st.beta))
             self.logger.log_posterior(it, lp)
+            if cfg.compute_doc_topic_distances:
+                # min pairwise Euclidean distances between theta rows and
+                # between phi rows, one CSV row per diagnostic iteration
+                # (UncollapsedParallelLDA.java:723-806)
+                self.logger.log_min_distances(
+                    "min_doc_distances.csv", it,
+                    _np(min_pairwise_distances(theta)))
+                self.logger.log_min_distances(
+                    "min_topic_distances.csv", it,
+                    _np(min_pairwise_distances(self._phi_kv())))
+        if self.test_corpus is not None:
+            hll = self._held_out_log_likelihood()
+            self._held_out_history.append((it, hll))
+            if self.logger:
+                self.logger.log_held_out_ll(it, hll)
+        if self.logger is None:
+            return
+        if cfg.log_type_topic_density:
+            stats.density_nkw = float(matrix_density(st.nkw))
+        if cfg.log_document_density:
+            stats.density_ndk = float(matrix_density(st.ndk))
+        if cfg.log_phi_density:
+            stats.density_phi = float(matrix_density(st.phi))
+        self.logger.log_stats_row(stats.as_row())
         if cfg.log_tokens_per_topic:
             self.logger.log_tokens_per_topic(_np(st.nk))
+        # device memory every RESOURCE_LOG_INTERVAL iterations — the JMX
+        # MemoryMXBean equivalent (UncollapsedParallelLDA.java:1972-2048)
+        if it % 100 == 0:
+            self.logger.log_device_metrics(it,
+                                           device_memory_stats(self.device))
+
+    @staticmethod
+    def _in_interval(it: int, intervals) -> bool:
+        """intervals = flat (a1, b1, a2, b2, ...) iteration windows
+        (Configuration-README.txt `diagnostic_interval`)."""
+        pairs = list(intervals or ())
+        return any(a <= it <= b for a, b in zip(pairs[::2], pairs[1::2]))
+
+    def _interval_dumps(self, it: int, prev_nkw):
+        """Windowed artifact dumps (UncollapsedParallelLDA.java:829-833 and
+        :945-968): binary phi/N/M snapshots + z CSV inside
+        `diagnostic_interval`, delta-N magnitude inside
+        `dn_diagnostic_interval`, doc-topic / top-word console prints
+        inside their windows."""
+        cfg = self.config
+        if self.logger is None:
+            return
+        if self._in_interval(it, cfg.diagnostic_interval):
+            base = self.logger.run_dir
+            matrix_io.write_binary_double_matrix(
+                self.get_phi(), it, os.path.join(base, "phi"))
+            matrix_io.write_binary_int_matrix(
+                self.get_topic_type_counts(), it, os.path.join(base, "N"))
+            matrix_io.write_binary_int_matrix(
+                self.get_document_topic_matrix(), it,
+                os.path.join(base, "M"))
+            self.logger.save_z(it, self.get_z_indicators())
+        if (self._in_interval(it, cfg.dn_diagnostic_interval)
+                and prev_nkw is not None):
+            delta = int((self.state.nkw.to(torch.int64)
+                         - prev_nkw.to(torch.int64)).abs().sum())
+            self.logger._append("delta_n.txt", f"{it}\t{delta}")
+        if (self._in_interval(it, cfg.print_ndocs_interval)
+                and cfg.print_ndocs_cnt > 0):
+            theta = self.get_theta_estimate()[: cfg.print_ndocs_cnt]
+            print(f"Iteration {it} doc-topic means:\n{np.round(theta, 4)}")
+        if (self._in_interval(it, cfg.print_ntopwords_interval)
+                and cfg.print_ntopwords_cnt > 0):
+            for k, ws in enumerate(self.get_top_words(
+                    cfg.print_ntopwords_cnt)):
+                print(f"Iteration {it} topic {k}: {' '.join(ws)}")
+
+    def _accumulate_phi_mean(self, it: int, total_iters: int):
+        cfg = self.config
+        if not cfg.save_phi_means:
+            return
+        burn_iter = int(total_iters * cfg.phi_mean_burnin / 100.0)
+        if it <= burn_iter or (it - burn_iter) % max(cfg.phi_mean_thin, 1):
+            return
+        phi = self._phi_kv()
+        self._phi_mean = (phi.clone() if self._phi_mean is None
+                          else self._phi_mean + phi)
+        self._phi_mean_count += 1
+
+    def _optimize_hyperparameters(self):
+        """optimizeAlpha / optimizeBeta (ModifiedSimpleLDA.java:812-905)."""
+        st = self.state
+        ndk = _np(st.ndk)
+        lengths = ndk.sum(axis=1)
+        if self.config.symmetric_alpha:
+            a = learn_symmetric_concentration(ndk, lengths,
+                                              self.config.topics,
+                                              float(st.alpha[0]))
+            alpha = np.full(self.config.topics, a)
+        else:
+            alpha = learn_dirichlet_parameters(_np(st.alpha), ndk, lengths)
+        nkw = _np(self._nkw_kv())
+        b = learn_symmetric_concentration(nkw, nkw.sum(axis=1),
+                                          self.corpus.num_types,
+                                          float(st.beta))
+        st.alpha = torch.as_tensor(alpha, dtype=torch.float32,
+                                   device=self.device)
+        st.beta = float(np.float32(b))
+
+    def _paranoid_checks(self):
+        """ParanoidUncollapsedParallelLDA invariants
+        (test subclass, SURVEY.md §4.3) run inline each iteration."""
+        st = self.state
+        nkw_kv = self._nkw_kv()
+        checks = check_count_consistency(nkw_kv, st.ndk,
+                                         self.corpus.num_tokens)
+        for name, ok in checks.items():
+            if not ok:
+                raise AssertionError(
+                    f"paranoid: invariant {name} violated at iteration "
+                    f"{st.iteration}")
+        phi_sums = self._phi_kv().sum(dim=-1)
+        # Inactive HDP topics have all-zero phi rows by design
+        # (PoissonPolyaUrnHLDA.java:810-819); every other row must
+        # normalise (ensureConsistentPhi).
+        if not bool((((phi_sums - 1.0).abs() < 1e-3)
+                     | (phi_sums == 0.0)).all()):
+            raise AssertionError("paranoid: phi rows not normalised "
+                                 "(ensureConsistentPhi)")
+        # recount N_kw from z (ensureConsistentTopicTypeCounts proper,
+        # UncollapsedParallelLDA.java:299-338): catches any kernel/layout
+        # drift between the z array and the count matrices
+        k, v = self.config.topics, self.corpus.num_types
+        ref = np.bincount(self.corpus.tokens.astype(np.int64) * k
+                          + self.get_z_indicators(), minlength=v * k)
+        if not np.array_equal(_np(nkw_kv).T.reshape(-1), ref):
+            raise AssertionError(
+                "paranoid: N_kw does not match a recount of z "
+                f"(iteration {st.iteration})")
+
+    def _held_out_generator(self, iteration: int) -> torch.Generator:
+        """The held-out estimator's own generator, seeded from (seed,
+        iteration): the chain's generator never advances for it, as the
+        JAX package's fold_in(key, 7919) leaves the chain's key alone."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(((self.config.effective_seed() * 1_000_003 + 7919)
+                         * 1_000_003 + iteration) & 0x7FFF_FFFF_FFFF_FFFF)
+        return gen
+
+    def _held_out_log_likelihood(self, gumbel=None) -> float:
+        """Left-to-right held-out LL of the test documents under the
+        current counts, with 100 particles (base.py:650-657 of the JAX
+        package). `gumbel` injects each position's noise (tests)."""
+        st = self.state
+        w_pad, mask_pad = self._test_pad
+        gen = (None if gumbel is not None
+               else self._held_out_generator(st.iteration))
+        return float(left_to_right_from_counts(
+            w_pad, mask_pad, self._nkw_kv(), st.nk, st.alpha, st.beta, 100,
+            gen, gumbel))
 
     # ------------------------------------------------------------------
     # accessors (LDAGibbsSampler / LDASamplerWithPhi getters)
@@ -291,6 +543,62 @@ class TorchLDASampler:
     def get_log_likelihoods(self) -> list:
         return list(self._ll_history)
 
+    def get_held_out_log_likelihoods(self) -> list:
+        return list(self._held_out_history)
+
+    def get_phi_means(self) -> Optional[np.ndarray]:
+        """Mean of the phi draws kept by `save_phi_means` (burn-in and
+        thinning applied), [K, V]; None before the first one."""
+        if self._phi_mean is None or self._phi_mean_count == 0:
+            return None
+        return _np(self._phi_mean) / self._phi_mean_count
+
+    def get_fold_in_theta(self) -> Optional[np.ndarray]:
+        """The post-burn-in theta mean of the last `sample_z_given_phi`."""
+        return self._fold_in_theta
+
+    def get_top_words(self, n: int | None = None) -> list:
+        return top_words(self.get_topic_type_counts(), self.corpus.vocab,
+                         n or self.config.no_top_words)
+
+    def set_phi(self, phi, vocab=None, labels=None):
+        """setPhi with alphabet verification
+        (UncollapsedParallelLDA.java:1913-1926). `phi` is [K, V]."""
+        if vocab is not None and list(vocab) != list(self.corpus.vocab):
+            raise ValueError("vocabulary mismatch in set_phi")
+        phi = torch.as_tensor(np.asarray(phi, np.float32), device=self.device)
+        if phi.shape != self._phi_kv().shape:
+            raise ValueError(f"phi must be [K, V] = "
+                             f"{tuple(self._phi_kv().shape)}")
+        self.state.phi = (phi if self.nkw_layout == "kv"
+                          else phi.T.contiguous())
+
+    def sample_z_given_phi(self, iterations: int = 100):
+        """Resample z (and the count matrices) holding phi fixed —
+        LDASamplerWithPhi.sampleZGivenPhi
+        (UncollapsedParallelLDA.java:975-1014) — by `evaluation/foldin.py`
+        over this sampler's corpus, on the GGS z-draw and count kernels,
+        with the chain's generator. phi and theta stay; the post-burn-in
+        theta mean is kept for `get_fold_in_theta`."""
+        cfg = self.config
+        res = fold_in(self._phi_kv(), self.corpus, self.state.alpha,
+                      self.generator, int(iterations),
+                      token_block=cfg.token_block,
+                      vocab_span=cfg.vocab_span, doc_span=cfg.doc_span,
+                      blocks=self._fold_in_blocks())
+        self._fold_in_theta = _np(res.theta_mean)
+        self._adopt_fold_in(res)
+        return self
+
+    def _fold_in_blocks(self):
+        """Cell blocks of this corpus to fold in on (None: build them)."""
+        return None
+
+    def _adopt_fold_in(self, res):
+        """Take a fold-in's z into this sampler's layout and recount."""
+        self._rebuild_counts(torch.as_tensor(self._z_from_flat(res.flat_z()),
+                                             device=self.device))
+
     def get_z_indicators(self) -> np.ndarray:
         """Per-token topic assignments in flat corpus order."""
         z = self.state.z.cpu().numpy().reshape(-1)
@@ -312,16 +620,21 @@ class TorchLDASampler:
         z[valid] = z_flat[self._flat_index[valid]]
         return z.reshape(tuple(self._slot_mask.shape))
 
+    def _rebuild_counts(self, z: torch.Tensor):
+        """z in this sampler's layout becomes the state's z, with its
+        counts recounted."""
+        st = self.state
+        nkw = self._count_nkw(z)
+        st.z, st.nkw, st.ndk = z, nkw, self._count_ndk(z)
+        st.nk = self._nk(nkw)
+
     def set_z_indicators(self, z_flat):
         """Rebuild counts from imported z and redraw phi through the
         scheme's own initial draw (setZIndicators,
         UncollapsedParallelLDA.java:1797-1843)."""
-        st = self.state
-        z = torch.as_tensor(self._z_from_flat(z_flat), device=self.device)
-        nkw = self._count_nkw(z)
-        st.z, st.nkw, st.ndk = z, nkw, self._count_ndk(z)
-        st.nk = self._nk(nkw)
-        st.phi = self._initial_phi(nkw, st.beta)
+        self._rebuild_counts(torch.as_tensor(self._z_from_flat(z_flat),
+                                             device=self.device))
+        self.state.phi = self._initial_phi(self.state.nkw, self.state.beta)
 
     def swap_corpus_tokens(self, corpus: Corpus):
         """Replace the training tokens with a same-shape corpus, keeping

@@ -35,10 +35,11 @@ class SerialCollapsedLDA(FlatLayoutMixin, TorchLDASampler):
     def _initial_theta(self, ndk, alpha):
         return rnd.dirichlet(ndk.to(torch.float32) + alpha, self.generator)
 
-    def _step(self, state: LDAState, doc_mask):
+    def _step(self, state: LDAState, doc_mask, type_mask=None):
         """One iteration, replacing the fields of `state` in place.
         Random-scan selection masks unselected documents' tokens out of
-        the sweep."""
+        the sweep; the diagnostic phi draw ignores a type mask, as the
+        JAX package's does."""
         sel = (self._slot_mask if doc_mask is None
                else self._slot_mask & doc_mask[self._slot_d])
         ndk, nkw, nk, z = cgs_serial_sweep(

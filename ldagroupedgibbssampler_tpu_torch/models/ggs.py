@@ -95,11 +95,17 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
         return ndk[: self.corpus.num_docs]
 
     # ------------------------------------------------------------------
-    def _sample_phi(self, nkw_vk, beta):
-        """phi in [V, K] orientation: Gamma draw + column normalisation."""
-        g = rnd.gamma(nkw_vk.to(torch.float32) + beta, self.generator)
-        g = g.clamp_min(rnd.DIRICHLET_FLOOR)
-        return g / g.sum(dim=0, keepdim=True)
+    def _sample_phi(self, nkw_vk, beta, type_mask=None, prev_phi_vk=None):
+        """phi in [V, K] orientation: Gamma draw + column normalisation;
+        with a type mask, the conditional Dirichlet redraw of the masked
+        types of every topic row."""
+        conc = nkw_vk.to(torch.float32) + beta
+        if type_mask is None:
+            g = rnd.gamma(conc, self.generator).clamp_min(
+                rnd.DIRICHLET_FLOOR)
+            return g / g.sum(dim=0, keepdim=True)
+        return rnd.conditional_dirichlet(prev_phi_vk.T, conc.T, type_mask,
+                                         self.generator).T.contiguous()
 
     def _initial_phi(self, nkw_vk, beta):
         return self._sample_phi(nkw_vk, beta)
@@ -114,7 +120,7 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
             return theta_new
         return torch.where(doc_mask[:, None], theta_new, state.theta)
 
-    def _step(self, state: LDAState, doc_mask):
+    def _step(self, state: LDAState, doc_mask, type_mask=None):
         """One GGS iteration, replacing the fields of `state` in place."""
         cfg = self.config
         blocks = self._blocks
@@ -139,24 +145,23 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
         # (3b) n_dk rebuild on the d-window-major layout.
         ndk = self._count_ndk(z)
         # (4) phi draws.
-        phi = self._sample_phi(nkw, state.beta)
+        phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)
         state.z, state.ndk, state.nkw, state.phi, state.theta = (
             z, ndk, nkw, phi, theta)
         state.nk = nkw.sum(dim=0, dtype=torch.int32)
         state.iteration += 1
 
     # ------------------------------------------------------------------
-    # layout-aware accessors
+    # fold-in on this sampler's own cell blocks: its z comes back in this
+    # layout, with the z-draw's N_kw
     # ------------------------------------------------------------------
-    def set_phi(self, phi, vocab=None, labels=None):
-        """setPhi with alphabet verification; `phi` is [K, V]."""
-        if vocab is not None and list(vocab) != list(self.corpus.vocab):
-            raise ValueError("vocabulary mismatch in set_phi")
-        phi = torch.as_tensor(np.asarray(phi, np.float32), device=self.device)
-        if phi.shape != self.state.phi.T.shape:
-            raise ValueError(f"phi must be [K, V] = "
-                             f"{tuple(self.state.phi.T.shape)}")
-        self.state.phi = phi.T.contiguous()
+    def _fold_in_blocks(self):
+        return self._blocks
+
+    def _adopt_fold_in(self, res):
+        st = self.state
+        st.z, st.ndk, st.nkw = res.z, res.ndk, res.nkw_vk
+        st.nk = res.nkw_vk.sum(dim=0, dtype=torch.int32)
 
 
 class LDAGroupedGibbsSamplerTest(LDAGroupedGibbsSampler):

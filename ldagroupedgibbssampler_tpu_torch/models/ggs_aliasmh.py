@@ -189,7 +189,7 @@ class LDAGroupedGibbsSamplerAliasMH(LDAGroupedGibbsSampler):
         self._mh_doc_len = dev(lengths[doc_ids])
         self._mh_ty_cnt = dev(ty_cnt[tokens])
 
-    def _step(self, state, doc_mask):
+    def _step(self, state, doc_mask, type_mask=None):
         """One iteration, replacing the fields of `state` in place."""
         cfg = self.config
         K = cfg.topics
@@ -252,7 +252,7 @@ class LDAGroupedGibbsSamplerAliasMH(LDAGroupedGibbsSampler):
         nkw = self._count_nkw(z)
         ndk = self._count_ndk(z)
         # (4) phi
-        phi = self._sample_phi(nkw, state.beta)
+        phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)
         state.z, state.ndk, state.nkw, state.phi, state.theta = (
             z, ndk, nkw, phi, theta)
         state.nk = nkw.sum(dim=0, dtype=torch.int32)

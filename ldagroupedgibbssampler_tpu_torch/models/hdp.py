@@ -244,8 +244,10 @@ class PoissonPolyaUrnHDPLDAInfiniteTopics(FusedPCGSSweepMixin,
         return (state.active & (nk > 0)) | (births > 0), births
 
     # -- iteration -----------------------------------------------------------
-    def _step(self, state: HDPState, doc_mask):
-        """One iteration, replacing the fields of `state` in place."""
+    def _step(self, state: HDPState, doc_mask, type_mask=None):
+        """One iteration, replacing the fields of `state` in place. The
+        Polya-Urn phi draw ignores a type mask, as the JAX package's
+        does."""
         cfg = self.config
         z, ndk, nkw = self._fused_zsweep(state.z, state.ndk, state.alpha,
                                          state.phi.T.contiguous(), doc_mask)

@@ -36,6 +36,7 @@ import torch
 
 from ldagroupedgibbssampler_tpu_torch.models.base import LDAState
 from ldagroupedgibbssampler_tpu_torch.models.pcgs import UncollapsedParallelLDA
+from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
 
 
 class LightPCLDA(UncollapsedParallelLDA):
@@ -51,14 +52,14 @@ class LightPCLDA(UncollapsedParallelLDA):
         phi_vk = state.phi.T.contiguous()
         return phi_vk, phi_vk
 
-    def _step(self, state: LDAState, doc_mask):
+    def _step(self, state: LDAState, doc_mask, type_mask=None):
         """One iteration, replacing the fields of `state` in place."""
         tw, qw = self._word_tables(state)
         z, ndk, nkw = self._fused_zsweep(state.z, state.ndk, state.alpha,
                                          tw, doc_mask, proposal_vk=qw)
         state.z, state.ndk, state.nkw = z, ndk, nkw
         state.nk = self._nk(nkw)
-        state.phi = self._sample_phi(nkw, state.beta)
+        state.phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)
         state.iteration += 1
 
 
@@ -78,6 +79,11 @@ class CollapsedLightLDA(LightPCLDA):
     of adlda), word proposal from the same counts. The kernel's N_kw is the
     per-sweep count merge; the inherited phi ~ Dir(N_kw + beta) is only a
     diagnostic draw of the collapsed chain."""
+
+    def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):
+        """The collapsed chain's diagnostic phi draw, Dir(N_kw + beta),
+        ignores a type mask, as the JAX package's does."""
+        return rnd.dirichlet(nkw.to(torch.float32) + beta, self.generator)
 
     def _word_tables(self, state: LDAState):
         num_types = self.corpus.num_types

@@ -15,7 +15,7 @@ sampler (`positive_support` off).
 from __future__ import annotations
 
 from ldagroupedgibbssampler_tpu_torch.models.polyaurn import (
-    PolyaUrnSpaliasLDA)
+    PolyaUrnSpaliasLDA, keep_unmasked_columns)
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
 
 
@@ -26,7 +26,7 @@ class NZVSSpaliasUncollapsedParallelLDA(PolyaUrnSpaliasLDA):
     # the vectorised form
     vs_sequential = False
 
-    def _sample_phi(self, nkw, beta, prev_phi=None):
+    def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):
         """phi ~ VS-Dirichlet(N_k + beta) given the previous draw's zeros;
         `prev_phi=None` means a dense previous draw (zeroPhi = 0), the
         reference's bootstrap from its parent's dense init."""
@@ -34,6 +34,6 @@ class NZVSSpaliasUncollapsedParallelLDA(PolyaUrnSpaliasLDA):
                                       self.vs_prior, self.generator,
                                       previous_phi=prev_phi,
                                       sequential=self.vs_sequential)
-        return phi
+        return keep_unmasked_columns(phi, type_mask, prev_phi)
 
     _initial_phi = _sample_phi

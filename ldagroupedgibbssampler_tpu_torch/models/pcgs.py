@@ -41,19 +41,23 @@ class UncollapsedParallelLDA(FusedPCGSSweepMixin, TorchLDASampler):
     # conditional is positive for every topic
     fused_positive_support = True
 
-    def _sample_phi(self, nkw, beta, prev_phi=None):
-        """phi | z, w. `prev_phi` is the phi the sweep just used, for the
-        schemes whose draw depends on it (nzvsspalias)."""
+    def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):
+        """phi | z, w. `prev_phi` is the phi the sweep just used: a type
+        mask redraws only its columns by the conditional Dirichlet, and
+        nzvsspalias's draw depends on it."""
         conc = nkw.to(torch.float32) + (beta if self.smooth_phi else 1e-7)
-        return rnd.dirichlet(conc, self.generator)
+        if type_mask is None:
+            return rnd.dirichlet(conc, self.generator)
+        return rnd.conditional_dirichlet(prev_phi, conc, type_mask,
+                                         self.generator)
 
-    def _step(self, state: LDAState, doc_mask):
+    def _step(self, state: LDAState, doc_mask, type_mask=None):
         """One iteration, replacing the fields of `state` in place."""
         z, ndk, nkw = self._fused_zsweep(state.z, state.ndk, state.alpha,
                                          state.phi.T.contiguous(), doc_mask)
         state.z, state.ndk, state.nkw = z, ndk, nkw
         state.nk = self._nk(nkw)
-        state.phi = self._sample_phi(nkw, state.beta, state.phi)
+        state.phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)
         state.iteration += 1
 
 

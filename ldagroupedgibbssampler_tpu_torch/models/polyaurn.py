@@ -14,10 +14,23 @@ whose mass is nonzero.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ldagroupedgibbssampler_tpu_torch.models.pcgs import (
     UncollapsedParallelLDA)
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
+
+_EPS = 1e-30
+
+
+def keep_unmasked_columns(phi, type_mask, prev_phi):
+    """The sparse-phi schemes' partial update (JAX `polyaurn.py:43-48`):
+    the columns outside `type_mask` take the previous draw's values, then
+    every row is renormalised. `type_mask = None` keeps the fresh draw."""
+    if type_mask is None:
+        return phi
+    phi = torch.where(type_mask[None, :], phi, prev_phi)
+    return phi / phi.sum(dim=-1, keepdim=True).clamp_min(_EPS)
 
 
 class PolyaUrnSpaliasLDA(UncollapsedParallelLDA):
@@ -26,10 +39,10 @@ class PolyaUrnSpaliasLDA(UncollapsedParallelLDA):
     # computed, not assumed
     fused_positive_support = False
 
-    def _sample_phi(self, nkw, beta, prev_phi=None):
+    def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):
         phi, _zero = rnd.polya_urn_dirichlet(nkw, float(self.config.beta),
                                              self.generator)
-        return phi
+        return keep_unmasked_columns(phi, type_mask, prev_phi)
 
     _initial_phi = _sample_phi
 

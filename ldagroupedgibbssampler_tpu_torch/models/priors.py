@@ -27,6 +27,8 @@ import torch
 
 from ldagroupedgibbssampler_tpu_torch.models.pcgs import (
     UncollapsedParallelLDA)
+from ldagroupedgibbssampler_tpu_torch.models.polyaurn import (
+    keep_unmasked_columns)
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
 
 _EPS = 1e-30
@@ -109,7 +111,7 @@ class SpaliasUncollapsedParallelWithPriors(UncollapsedParallelLDA):
         return (None if self.topic_priors is None
                 else self.topic_priors.cpu().numpy())
 
-    def _sample_phi(self, nkw, beta, prev_phi=None):
+    def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):
         """phi_k ~ Dir((N_k + beta) * prior_k): masked coordinates exactly
         0, the others floored at 1e-30 (priors.py:109-126)."""
         conc = nkw.to(torch.float32) + beta
@@ -117,6 +119,7 @@ class SpaliasUncollapsedParallelWithPriors(UncollapsedParallelLDA):
             conc = conc * self.topic_priors
         g = torch.where(conc > 0, rnd.gamma(conc, self.generator)
                         .clamp_min(_EPS), 0.0)
-        return g / g.sum(dim=-1, keepdim=True).clamp_min(_EPS)
+        phi = g / g.sum(dim=-1, keepdim=True).clamp_min(_EPS)
+        return keep_unmasked_columns(phi, type_mask, prev_phi)
 
     _initial_phi = _sample_phi

@@ -1,7 +1,8 @@
 """Count matrices rebuilt from z, in plain PyTorch.
 
 The port's copy of `ldagroupedgibbssampler_tpu/ops/counts.py`
-(`topic_word_counts`, `doc_topic_counts`, `tokens_per_topic`). The
+(`topic_word_counts`, `doc_topic_counts`, `tokens_per_topic`,
+`check_count_consistency`). The
 reference maintains typeTopicCounts / tokensPerTopic with per-sweep delta
 merges (UncollapsedParallelLDA.java:102,363-368,1107-1221); here counts are
 rebuilt from the assignment vector with one accumulate, for the init, for
@@ -39,3 +40,20 @@ def doc_topic_counts(z, doc_ids, mask, num_docs: int,
 def tokens_per_topic(nkw: torch.Tensor) -> torch.Tensor:
     """n_k [K] = row sums of N_kw [K, V]."""
     return nkw.sum(dim=-1, dtype=torch.int32)
+
+
+def check_count_consistency(nkw, ndk, num_tokens: int) -> dict:
+    """Paranoid-mode invariants (the analogue of
+    ensureConsistentTopicTypeCounts / ensureTTEquals,
+    UncollapsedParallelLDA.java:299-351): both count matrices sum to the
+    corpus token count, their per-topic marginals agree, and no count is
+    negative. `nkw` is [K, V]. Returns a dict of Python bools."""
+    ndk = ndk.reshape(-1, ndk.shape[-1])
+    return {
+        "nkw_sum_ok": int(nkw.sum(dtype=torch.int64)) == num_tokens,
+        "ndk_sum_ok": int(ndk.sum(dtype=torch.int64)) == num_tokens,
+        "marginals_match": bool(torch.equal(
+            nkw.sum(dim=1, dtype=torch.int64),
+            ndk.sum(dim=0, dtype=torch.int64))),
+        "non_negative": bool((nkw >= 0).all() and (ndk >= 0).all()),
+    }

@@ -4,7 +4,7 @@ family.
 
 The port's copy of `ldagroupedgibbssampler_tpu/ops/random.py`
 (`_gamma_marsaglia`, `gamma`, `dirichlet`, `DIRICHLET_FLOOR`,
-`polya_urn_dirichlet`, `_lgamma_ratio`, `vs_inclusion_prob`,
+`conditional_dirichlet`, `polya_urn_dirichlet`, `_lgamma_ratio`, `vs_inclusion_prob`,
 `vs_dirichlet`, `poisson`, `binomial`, `beta`) in plain
 PyTorch: a fixed-round vectorised Marsaglia-Tsang sampler, elementwise over
 the whole [D, K] or [V, K] concentration matrix, on whatever device the
@@ -77,6 +77,46 @@ def dirichlet(concentration, generator: torch.Generator) -> torch.Tensor:
     g = _gamma_marsaglia(torch.as_tensor(concentration), generator)
     g = g.clamp_min(DIRICHLET_FLOOR)
     return g / g.sum(dim=-1, keepdim=True)
+
+
+def conditional_dirichlet(previous, concentration, mask,
+                          generator: torch.Generator) -> torch.Tensor:
+    """Redraw only the coordinates where `mask` is True, along the last
+    axis.
+
+    Mirrors types/ConditionalDirichlet.java (`nextConditionalDistribution`,
+    used by UncollapsedParallelLDA.java:1326-1329 for partial phi updates):
+    given an existing Dirichlet draw `previous`, redraw the masked subset
+    from its conditional distribution and rescale so the row still sums to
+    1. The conditional of a Dirichlet sub-vector given the rest is a scaled
+    Dirichlet: redraw sub ~ Dir(conc[mask]), give it total mass
+    B ~ Beta(sum(conc[mask]), sum(conc[~mask])) and scale the kept block by
+    (1 - B) / its current mass.
+
+    B is clamped to [1e-7, 1 - 1e-7]: with a tiny keep-block concentration
+    the float32 Beta draw can round to exactly 1, and the kept entries
+    would become 0, losing the positive support the sweep kernel's
+    `positive_support` path relies on (`models/pcgs.py`, `adlda.py`). The
+    clamp is below the float32 Beta draw's own granularity.
+    """
+    previous = torch.as_tensor(previous).to(torch.float32)
+    conc = torch.as_tensor(concentration).to(torch.float32)
+    mask = torch.as_tensor(mask, device=conc.device).to(torch.bool)
+    conc_sub_sum = torch.where(mask, conc, 0.0).sum(dim=-1, keepdim=True)
+    conc_keep_sum = torch.where(mask, 0.0, conc).sum(dim=-1, keepdim=True)
+    b = beta(conc_sub_sum.clamp_min(1e-6), conc_keep_sum.clamp_min(1e-6),
+             generator).clamp(1e-7, 1.0 - 1e-7)
+    # a fresh Dirichlet over the masked block (masked-out coordinates 0)
+    g = _gamma_marsaglia(torch.where(mask, conc, 1.0), generator)
+    g = torch.where(mask, g.clamp_min(DIRICHLET_FLOOR), 0.0)
+    sub = g / g.sum(dim=-1, keepdim=True).clamp_min(DIRICHLET_FLOOR)
+    keep_mass_now = torch.where(mask, 0.0, previous).sum(dim=-1,
+                                                          keepdim=True)
+    keep_scale = torch.where(keep_mass_now > 0, (1.0 - b) / keep_mass_now
+                             .clamp_min(DIRICHLET_FLOOR), 0.0)
+    out = torch.where(mask, b * sub, previous * keep_scale)
+    # degenerate rows (everything masked) take the fresh draw
+    return torch.where(mask.all(dim=-1, keepdim=True), sub, out)
 
 
 def polya_urn_dirichlet(counts, beta: float, generator: torch.Generator):

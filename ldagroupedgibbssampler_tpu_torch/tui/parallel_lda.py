@@ -11,8 +11,7 @@ Run lifecycle mirrored from ParallelLDA.doSample (:68-330):
 The port's counterpart of `ldagroupedgibbssampler_tpu/tui/parallel_lda.py`.
 Runs on the device of the config's `device` key (default "cuda"; an error
 when no CUDA device is present), e.g. `--device=cpu` on a machine without
-one. Not written yet: `topic_diagnostics.csv` (evaluation/diagnostics.py is
-not ported) and held-out evaluation (`test_dataset` raises).
+one.
 
 Usage:
     python -m ldagroupedgibbssampler_tpu_torch.tui.parallel_lda \
@@ -30,6 +29,8 @@ from ldagroupedgibbssampler_tpu_torch.config import parse_args, parse_ini
 from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
 from ldagroupedgibbssampler_tpu_torch.corpus import load_dataset
 from ldagroupedgibbssampler_tpu_torch.corpus.tokenizer import tokenizer_mode
+from ldagroupedgibbssampler_tpu_torch.evaluation.diagnostics import (
+    topic_diagnostics_csv)
 from ldagroupedgibbssampler_tpu_torch.evaluation.topwords import (
     top_relevance_words, top_words)
 from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
@@ -51,14 +52,15 @@ def run_subconfig(cfg: LDAConfig, logger: RunLogger, common_seed: int,
     print(f"Loaded {corpus.num_docs} documents, vocab {corpus.num_types}, "
           f"{corpus.num_tokens} tokens in {time.time()-t_load:.1f}s")
 
-    if cfg.test_dataset:
-        raise ValueError("test_dataset: held-out evaluation is not ported to "
-                         "ldagroupedgibbssampler_tpu_torch yet")
     cfg = cfg.replace(seed=common_seed)
     model = create_model(cfg, logger=logger, verbose=True)
     if model_holder is not None:
         model_holder.append(model)
     model.add_instances(corpus)
+    if cfg.test_dataset:
+        test = load_dataset(cfg.test_dataset, stoplist_path=cfg.stoplist,
+                            vocab=corpus.vocab)
+        model.add_test_instances(test)
 
     t0 = time.time()
     model.sample(cfg.iterations)
@@ -90,6 +92,10 @@ def _dump_artifacts(model, corpus, cfg: LDAConfig, logger: RunLogger):
     if cfg.save_doc_theta_estimate:
         logger.save_matrix_csv(cfg.doc_topic_theta_filename,
                                model.get_theta_estimate())
+    if cfg.save_phi_means:
+        pm = model.get_phi_means()
+        if pm is not None:
+            logger.save_matrix_csv(cfg.phi_mean_filename, pm)
     if cfg.save_phi:
         logger.save_matrix_csv("phi.csv", model.get_phi())
     if cfg.save_vocabulary:
@@ -111,6 +117,10 @@ def _dump_artifacts(model, corpus, cfg: LDAConfig, logger: RunLogger):
             lines.append(",".join(str(int(t))
                                   for t in corpus.tokens[s:e]))
         logger.save_lines("corpus.txt", lines)
+    # topic diagnostics CSV (TopicModelDiagnosticsPlain, ParallelLDA.java
+    # :219-225)
+    logger.save_lines("topic_diagnostics.csv",
+                      topic_diagnostics_csv(model, corpus))
 
 
 def main(argv=None):

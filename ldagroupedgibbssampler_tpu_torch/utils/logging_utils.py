@@ -6,11 +6,15 @@ Mirrors cc/mallet/util/LoggingUtils.java + the LDAUtils log writers:
   - series writers with the reference's exact filenames so downstream
     analysis scripts keep working: `likelihood.txt` (iteration<TAB>ll,
     LDAUtils.logLikelihoodToFile:942-979), `log_posterior.txt` (:955-969),
-    `tokens_per_topic.csv` (UncollapsedParallelLDA.java:876-878).
+    `test_held_out_log_likelihood.txt` (:928-940), `stats.txt`
+    (logStatsToFile:981-1036), `tokens_per_topic.csv`
+    (UncollapsedParallelLDA.java:876-878), z snapshots `z_<iter>.csv`
+    (:945-968), `timings.txt`, `log-detail-metrics.txt` and the
+    min-distance CSVs.
   - run metadata summary incl. git commit (LoggingUtils.dynamicLogRun:155,
     getCommitHash:171-202).
-The port's copy of the JAX package's RunLogger, with the writers the
-ported samplers use.
+The port's copy of the JAX package's RunLogger, with the same file names
+and line formats.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import subprocess
 from typing import Iterable
 
 import numpy as np
+import torch
 
 
 def _timestamp() -> str:
@@ -41,6 +46,22 @@ def git_commit_info(cwd: str = ".") -> dict:
         return {"commit": h, "comment": msg}
     except (OSError, subprocess.SubprocessError):
         return {"commit": "unknown", "comment": ""}
+
+
+def device_memory_stats(device) -> dict:
+    """The device's memory statistics under the JAX package's key names
+    (`Device.memory_stats()`): torch.cuda.memory_stats' current and peak
+    allocated bytes and allocation count, and the card's total memory.
+    Empty on the CPU, which has none of them."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    st = torch.cuda.memory_stats(device)
+    return {"bytes_in_use": st.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": st.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.get_device_properties(
+                device).total_memory,
+            "num_allocs": st.get("allocation.all.allocated", 0)}
 
 
 class RunLogger:
@@ -74,13 +95,58 @@ class RunLogger:
     def log_posterior(self, iteration: int, lp: float):
         self._append("log_posterior.txt", f"{iteration}\t{lp}")
 
+    def log_held_out_ll(self, iteration: int, ll: float):
+        self._append("test_held_out_log_likelihood.txt", f"{iteration}\t{ll}")
+
+    def log_perplexity(self, iteration: int, p: float):
+        self._append("test_perplexity.txt", f"{iteration}\t{p}")
+
+    def log_stats_row(self, row: dict):
+        """stats file: header on first write, tab-separated values after
+        (LDAUtils.logStatsToFile:981-1036)."""
+        fn = "stats.txt"
+        if fn not in self._files:
+            self._append(fn, "\t".join(row.keys()))
+        self._append(fn, "\t".join(str(v) for v in row.values()))
+
     def log_tokens_per_topic(self, counts: Iterable[int]):
         self._append("tokens_per_topic.csv",
                      ",".join(str(int(c)) for c in counts))
 
+    def log_timing(self, event: str, ms: float):
+        self._append("timings.txt", f"{event}\t{ms:.3f}")
+
+    # -- snapshots -------------------------------------------------------
     def save_matrix_csv(self, filename: str, mat, fmt: str = "%.6g"):
         np.savetxt(os.path.join(self.run_dir, filename), np.asarray(mat),
                    delimiter=",", fmt=fmt)
+
+    def save_matrix_binary(self, filename: str, mat):
+        """Row-major float64 binary dump (LDAUtils binary writers
+        :1037-1174)."""
+        np.asarray(mat, np.float64).tofile(
+            os.path.join(self.run_dir, filename))
+
+    def save_z(self, iteration: int, z):
+        self.save_matrix_csv(f"z_{iteration}.csv",
+                             np.asarray(z).reshape(1, -1), fmt="%d")
+
+    def log_device_metrics(self, iteration: int, mem_stats: dict):
+        """Device memory metrics — the JMX resource log equivalent
+        (`log-detail-metrics.txt`, UncollapsedParallelLDA.java:1984-2028).
+        `mem_stats` uses the JAX package's key names
+        (`device_memory_stats` maps torch's onto them); a missing key
+        writes `-`."""
+        keys = ("bytes_in_use", "peak_bytes_in_use", "bytes_limit",
+                "num_allocs")
+        row = "\t".join(f"{k}={mem_stats.get(k, '-')}" for k in keys)
+        self._append("log-detail-metrics.txt", f"{iteration}\t{row}")
+
+    def log_min_distances(self, filename: str, iteration: int, dists):
+        """Append one `iteration,v1,v2,...` row (min_doc_distances.csv /
+        min_topic_distances.csv, UncollapsedParallelLDA.java:746-752)."""
+        vals = ",".join(f"{v:.6g}" for v in dists)
+        self._append(filename, f"{iteration},{vals}")
 
     def save_lines(self, filename: str, lines: Iterable[str]):
         with open(os.path.join(self.run_dir, filename), "w",

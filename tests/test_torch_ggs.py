@@ -196,5 +196,20 @@ def test_random_scan_unselected_docs_keep_z(corpus):
 
 
 def test_unported_options_raise(corpus):
-    with pytest.raises(ValueError, match="hyperparam_optim_interval"):
-        _port(corpus, hyperparam_optim_interval=5)
+    """Every key of the JAX single-device runner is ported now: the keys
+    that raised here before are accepted, and only a builder name that
+    neither package knows raises."""
+    for kw in (dict(hyperparam_optim_interval=5),
+               dict(topic_index_building_scheme="delta_n"),
+               dict(topic_batch_building_scheme="percentage",
+                    percentage_split_size_topic=0.5),
+               dict(paranoid=True), dict(measure_timing=True),
+               dict(save_phi_means=True),
+               dict(compute_doc_topic_distances=True),
+               dict(diagnostic_interval=(1, 2)),
+               dict(dn_diagnostic_interval=(1, 2)),
+               dict(print_ndocs_interval=(1, 2)),
+               dict(print_ntopwords_interval=(1, 2))):
+        _port(corpus, **kw)
+    with pytest.raises(ValueError, match="topic_index_building_scheme"):
+        _port(corpus, topic_index_building_scheme="bogus")

@@ -17,6 +17,11 @@ _PROBE = """
 import sys
 sys.path.insert(0, sys.argv[1])
 import ldagroupedgibbssampler_tpu_torch
+import ldagroupedgibbssampler_tpu_torch.corpus.perplexity
+import ldagroupedgibbssampler_tpu_torch.evaluation.diagnostics
+import ldagroupedgibbssampler_tpu_torch.evaluation.foldin
+import ldagroupedgibbssampler_tpu_torch.evaluation.hyperopt
+import ldagroupedgibbssampler_tpu_torch.evaluation.marginal
 import ldagroupedgibbssampler_tpu_torch.models.adlda
 import ldagroupedgibbssampler_tpu_torch.models.cgs
 import ldagroupedgibbssampler_tpu_torch.models.ggs
@@ -31,6 +36,8 @@ import ldagroupedgibbssampler_tpu_torch.ops.cuda_lightlda
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs
 import ldagroupedgibbssampler_tpu_torch.ops.kernels
 import ldagroupedgibbssampler_tpu_torch.tui.parallel_lda
+import ldagroupedgibbssampler_tpu_torch.utils.matrix_io
+import ldagroupedgibbssampler_tpu_torch.utils.timing
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "ldagroupedgibbssampler_tpu"
