@@ -40,6 +40,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      version (the sequential chain), the one-warp launch on the first 200
      documents, and a chi-square of 200,704 one-token documents, with the
      launch shape (warps per block, shared memory per warp);
+     wherever z is held to a plain version at 99.9% agreement, the tokens
+     that differ must be proven rounding ties (for the z-draw each such
+     token, for the sweeps each differing document's first token, for the
+     one-warp collapsed chain its first differing token), and the z-draw
+     also runs at K=4096 (`[3 zdraw K=4096]`: its time beside its bound
+     on the whole corpus, agreement on the first 8 blocks);
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
@@ -80,6 +86,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      then pcgs with a delta-N builder and paranoid checks, 10 iterations
      each, ms/iteration against plain;
      `[4 collapsed]`, the serial oracle on the first 100 documents;
+     `[4 fused]`, iteration fusion (scan_chunk 9, the largest group
+     between likelihood events every 10) against single-stepping from one
+     seed: ggs, pcgs, lightpclda, adlda and ggs_aliasmh at K=100 for 30
+     iterations, pcgs, lightpclda and adlda at K=200 (streamed) and dense
+     ggs at K=4096 for 10: z, n_dk, N_kw, n_k, phi and theta bit-equal
+     (adlda's parallel launch differs between two runs of one chain, so
+     its pairs hold the likelihood within 0.5% and `[4 fused adlda
+     one-warp]` holds the one-warp launch bit for bit), the likelihood
+     series and the launch counters equal, ms/iteration in turns, device
+     busy under the profiler single-stepped and over replays of a captured
+     group, peak memory and capture time; ggs with random scan over
+     documents; every other fusable scheme for 10 iterations; the serial
+     oracle's groups run single-stepped; and one single-stepped iteration
+     of every fusable scheme under set_sync_debug_mode("error");
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
      cuda, with a ggs, a pcgs, a lightpclda, an adlda, a ggs_aliasmh, a
      spalias_priors (with its prior file) and a ppu_hdplda section; then
@@ -189,9 +209,9 @@ def profile_iterations(torch, model, n: int) -> str:
     return profile_calls(torch, lambda: model.sample(n), n, "iteration")
 
 
-def profile_calls(torch, fn, n: int, unit: str) -> str:
-    """Device time by kernel of `fn()`, which does `n` `unit`s of work
-    (torch.profiler), against its host wall time."""
+def profile_numbers(torch, fn, n: int):
+    """(host wall ms, device busy ms, [(ms, kernel name)]) per unit of
+    `fn()`, which does `n` units of work, under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -207,7 +227,13 @@ def profile_calls(torch, fn, n: int, unit: str) -> str:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
             rows.append((us / 1e3 / n, e.key))
-    busy = sum(ms for ms, _ in rows)
+    return wall, sum(ms for ms, _ in rows), rows
+
+
+def profile_calls(torch, fn, n: int, unit: str) -> str:
+    """Device time by kernel of `fn()`, which does `n` `unit`s of work
+    (torch.profiler), against its host wall time."""
+    wall, busy, rows = profile_numbers(torch, fn, n)
     if busy == 0:
         return (f"{n} {unit}s, {wall:.3f} ms/{unit}; the profiler saw "
                 "no device time")
@@ -315,8 +341,10 @@ def zdraw_large_k(torch, corpus, Corpus, cfg, cuda_zdraw, cuda_counts, gen,
     """The z-draw at a large K that is no multiple of 4 (the instance
     that loads one topic at a time): K=514 on the first `num_docs`
     documents, u24 and Philox, both precision modes. z agrees with the
-    plain version on >= 99.9% of tokens, N_kw is the histogram of z,
-    padding keeps z. Returns a summary for the [3 zdraw] line."""
+    plain version on >= 99.9% of tokens, each differing token a proven
+    rounding tie (zdraw_ties: the "… ties" entries count them), N_kw is
+    the histogram of z, padding keeps z. Returns a summary for the
+    [3 zdraw] line."""
     from ldagroupedgibbssampler_tpu_torch.corpus.ragged import real_slot_list
     dev = torch.device("cuda", 0)
     sub = first_docs(Corpus, corpus, num_docs)
@@ -354,6 +382,9 @@ def zdraw_large_k(torch, corpus, Corpus, cfg, cuda_zdraw, cuda_counts, gen,
             agree[name] = float((zk == zr)[~pad].float().mean())
             check(agree[name] >= 0.999, f"z-draw K={k} ({name}): only "
                   f"{agree[name]:.6f} of tokens agree with the plain version")
+            agree[f"{name} ties"] = zdraw_ties(
+                torch, f"z-draw K={k} ({name})", zk, zr, args, kw, u,
+                precise)
             hist = cuda_counts.blocked_label_counts_reference(
                 w3.reshape(nb, block), zk.view(nb, block), t(b.win_w),
                 t(b.first_w), nwin=b.nwin_w, vspan=cfg.vocab_span,
@@ -367,6 +398,83 @@ def zdraw_large_k(torch, corpus, Corpus, cfg, cuda_zdraw, cuda_counts, gen,
             f"load: "
             f"z agreement "
             f"{json.dumps(agree)}, N_kw and kept z exact")
+
+
+def zdraw_large_k_full(torch, zargs, zkw, real_slots, blocks, n_tok, gen,
+                       cuda_zdraw, rnd, k=4096, nb_check=8):
+    """[3 zdraw K=4096]: the z-draw at dense ggs's large K on the whole
+    corpus's layout A, every document selected: its time beside its bound
+    (bytes / 3.35 TB/s against f32 operations / 67 TFLOP/s, as at K=100),
+    and, on the first `nb_check` blocks (the plain version gathers a
+    [slots, K] row per slot, 49 GB over all of them), z against the plain
+    version in both precision modes with injected and Philox uniforms:
+    agreement >= 0.999 in bf16 mode and >= 0.99 in precise mode (f32 sums
+    of 4096 products in two associations), every differing token a proven
+    rounding tie,
+    N_kw of the kernel's z its histogram. Returns the kernels-line
+    numbers."""
+    dev = torch.device("cuda", 0)
+    w3, d3, z_old, _, _, seed, winb, firstb, windc = zargs
+    nb, chunks, chunk = w3.shape
+    theta = rnd.dirichlet(torch.rand((D, k), generator=gen, device=dev)
+                          * 20 + 0.5, gen)
+    phi = rnd.gamma(torch.rand((V, k), generator=gen, device=dev) * 5
+                    + 0.01, gen).clamp_min(rnd.DIRICHLET_FLOOR)
+    phi = (phi / phi.sum(dim=0, keepdim=True)).contiguous()
+    z_k = torch.where(w3 < zkw["vspan"], z_old * (k // K), 0).contiguous()
+    kw = dict(zkw, num_topics=k)
+    args = (w3, d3, z_k, theta, phi, seed, winb, firstb, windc)
+    sub = (w3[:nb_check], d3[:nb_check], z_k[:nb_check], theta, phi, seed,
+           winb[:nb_check], firstb[:nb_check], windc[:nb_check * chunks])
+    sub_slots = real_slots[real_slots < nb_check * chunks * chunk]
+    u24 = torch.randint(0, 2 ** 24, tuple(sub[0].shape), generator=gen,
+                        device=dev, dtype=torch.int32)
+    pad = sub[0] == zkw["vspan"]
+    agree = {}
+    for precise in (False, True):
+        for label, u in (("u24", u24), ("philox", None)):
+            name = f"{label} {'precise' if precise else 'bf16'}"
+            zk, nkw_k = cuda_zdraw.fused_zdraw_nkw(
+                *sub, u, precise=precise, real_slots=sub_slots, **kw)
+            zr, nkw_r = cuda_zdraw.fused_zdraw_nkw_reference(
+                *sub, u, precise=precise, **kw)
+            torch.cuda.synchronize()
+            agree[name] = float((zk == zr)[~pad].float().mean())
+            # bf16 products sum exactly in f32 in any order; precise
+            # mode's f32 sums of 4096 terms differ by association on ~0.1%
+            # of tokens, each proven a tie below
+            bar = 0.99 if precise else 0.999
+            check(agree[name] >= bar, f"z-draw K={k} ({name}): only "
+                  f"{agree[name]:.6f} of tokens agree with the plain version")
+            agree[f"{name} ties"] = zdraw_ties(
+                torch, f"z-draw K={k} ({name})", zk, zr, sub, kw, u, precise)
+            hist = torch.zeros_like(nkw_k)
+            real = ~pad
+            rows = (winb[:nb_check].long()[:, None, None] * zkw["vspan"]
+                    + sub[0].long())[real]
+            hist.index_put_((rows, zk[real].long()),
+                            torch.ones_like(rows, dtype=torch.int32),
+                            accumulate=True)
+            check(torch.equal(nkw_k, hist), f"z-draw K={k} ({name}): N_kw "
+                  "is not the histogram of the kernel's z")
+            del zk, zr, nkw_k, nkw_r, hist
+    ms = time_ms(torch, lambda: cuda_zdraw.fused_zdraw_nkw(
+        *args, real_slots=real_slots, **kw), reps=5, calls=5)
+    slots = w3.numel()
+    nbytes = (4 * 4 * slots + 4 * (D + V) * k + 8 + 4 * 2 * nb
+              + 4 * nb * chunks + 4 * blocks.nwin_w * zkw["vspan"] * k)
+    b_ms, b_by = bound(nbytes, 3.0 * n_tok * k)
+    check_tokens = int((~pad).sum())
+    print(f"[3 zdraw K={k}] whole corpus, every document selected: "
+          f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes / 1e6:.1f} MB, {3.0 * n_tok * k / 1e9:.2f} GFLOP), "
+          f"{ms / b_ms:.1f}x the bound; against the plain version on the "
+          f"first {nb_check} blocks ({check_tokens} tokens): z agreement "
+          f"{json.dumps(agree)}, N_kw the histogram of z", flush=True)
+    del theta, phi, args, sub
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "agreement": agree}
 
 
 def ptxas_registers(_build, name):
@@ -524,8 +632,12 @@ def pcgs_sweep_checks(torch, model, gen, seed, plain_of, label, doc_sel):
     injected uniforms, Philox and phi with exact zeros (about half the
     entries, positive_support off), N_kw, n_dk, flags and kept z exact, no
     draw on a zero-probability topic, and the kernel with the documents in
-    index order bit-equal to longest first. Returns (agreement, max |N_kw
+    index order bit-equal to longest first; where z differs, each
+    differing document's first token a proven rounding tie
+    (ties_at_first_disagreement; the agreement's "… ties" entries count
+    the tokens and documents that differ). Returns (agreement, max |N_kw
     - plain| of the Philox run)."""
+    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
     st, dev = model.state, model.device
     real = model._slot_mask
     table = model._ndk_table(st.ndk, st.alpha, doc_sel)
@@ -541,6 +653,10 @@ def pcgs_sweep_checks(torch, model, gen, seed, plain_of, label, doc_sel):
         agreement[name] = float((zk == zr)[real].float().mean())
         check(agreement[name] >= 0.999, f"{label} ({name}): only "
               f"{agreement[name]:.6f} of tokens agree with the plain version")
+        words = u if u is not None else philox_u24(seed, st.z.numel())
+        agreement[f"{name} ties"] = ties_at_first_disagreement(
+            torch, model, f"{label} ({name})", st.z, zk, zr, table, phi_vk,
+            words)
         check_sweep_outputs(torch, model, f"{label} ({name})", st.z, zk,
                             nkw_k, tb_k, doc_sel)
         if name == "philox":
@@ -563,6 +679,9 @@ def pcgs_sweep_checks(torch, model, gen, seed, plain_of, label, doc_sel):
     agreement["philox zero-phi"] = float((zk == zr)[real].float().mean())
     check(agreement["philox zero-phi"] >= 0.999,
           f"{label} zero-phi: z agreement {agreement}")
+    agreement["philox zero-phi ties"] = ties_at_first_disagreement(
+        torch, model, f"{label} (zero-phi)", st.z, zk, zr, table, phi_zero,
+        philox_u24(seed, st.z.numel()))
     check_sweep_outputs(torch, model, f"{label} (zero-phi)", st.z, zk,
                         nkw_k, tb_k, doc_sel)
     sel = real & doc_sel[model._slot_d]
@@ -620,6 +739,184 @@ def ties_at_first_disagreement(torch, model, label, z_old, zk, zr, table,
               f"at slot {s} ({a} vs {b}) {gap / total:.2e} of its total from "
               "an exact cdf boundary: not a rounding tie")
     return n_tok, len(docs)
+
+
+def cdf_boundary_gap(torch, probs, u24, a, b):
+    """Rows of f32 `probs` [n, K] as a kernel multiplied them, each drawn
+    by u = u24 * 2^-24 * total: the largest distance, as a share of the
+    total, from u to the exact (f64) cdf at a boundary between the draws
+    a and b [n]. Two draws of one row that differ only by the association
+    of the f32 prefix sums lie within ~1e-6 of every such boundary.
+    Returns f64 [n]."""
+    cdf = probs.double().cumsum(dim=1)
+    total = cdf[:, -1]
+    u = u24.double() * 2.0 ** -24 * total
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    topics = torch.arange(probs.shape[1], device=probs.device)
+    between = (topics >= lo[:, None]) & (topics < hi[:, None])
+    gap = torch.where(between, (cdf - u[:, None]).abs(), 0.0)
+    return gap.max(dim=1).values / total
+
+
+def zdraw_ties(torch, label, zk, zr, args, kw, u24, precise):
+    """Where the z-draw kernel's z differs from the plain version's, every
+    differing token (tokens are independent given theta and phi) must be
+    a rounding tie: u within 2 (K - 1) 2^-24 of the total (two f32 sums of
+    K positive terms in any association differ by no more; at least 1e-5)
+    from the exact cdf of the products the kernel computes (the f32
+    products of its bf16, or hi + lo, table values, rounded to bf16
+    outside precise mode) at every boundary between the two draws.
+    Returns [tokens that differ, the largest gap]."""
+    from ldagroupedgibbssampler_tpu_torch.ops.cuda_zdraw import _table
+    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
+    w3, d3, _, theta, phi, seed, win_w, _, win_d_chunks = args
+    nb, chunks, chunk = w3.shape
+    w, d = w3.reshape(-1), d3.reshape(-1)
+    idx = torch.nonzero((zk != zr).reshape(-1) & (w < kw["vspan"])
+                        & (d < kw["dspan"])).flatten()
+    if idx.numel() == 0:
+        return [0, 0.0]
+    wrow = (win_w.long()[idx // (chunks * chunk)] * kw["vspan"]
+            + w[idx].long())
+    drow = win_d_chunks.long()[idx // chunk] * kw["dspan"] + d[idx].long()
+    probs = _table(theta, precise)[drow] * _table(phi, precise)[wrow]
+    if not precise:
+        probs = probs.to(torch.bfloat16).to(torch.float32)
+    words = u24 if u24 is not None else philox_u24(seed, w3.numel())
+    gap = cdf_boundary_gap(torch, probs, words.reshape(-1)[idx],
+                           zk.reshape(-1)[idx].long(),
+                           zr.reshape(-1)[idx].long())
+    worst = int(gap.argmax())
+    tol = max(1e-5, 2.0 * (kw["num_topics"] - 1) * 2.0 ** -24)
+    check(float(gap[worst]) <= tol, f"{label}: slot {int(idx[worst])} "
+          f"draws {int(zk.reshape(-1)[idx[worst]])} against "
+          f"{int(zr.reshape(-1)[idx[worst]])}, "
+          f"{float(gap[worst]):.2e} of its total from an exact cdf "
+          "boundary: not a rounding tie")
+    return [int(idx.numel()), float(gap[worst])]
+
+
+def mh_ties_at_first_disagreement(torch, model, label, z_old, zk, zr, table,
+                                  tw_vk, qw_vk, words):
+    """The MH sweep's counterpart of ties_at_first_disagreement. At each
+    differing document's first differing token, from the n_dk both had
+    there, the token's four decisions are recomputed on the host in exact
+    arithmetic along the exact path: the word proposal's cdf draw from
+    bf16(qw), its acceptance test, the doc proposal's draw from bf16(n_dk),
+    its acceptance test. One of them must lie within 1e-5 of its boundary
+    (a share of the cdf total, or of the larger side of the test): else
+    both f32 computations would have taken the exact path and agreed.
+    `words` are the four uniforms of every slot, int32 [slots, 4].
+    Returns (tokens that differ, documents)."""
+    real = model._slot_mask
+    diff = (zk != zr) & real
+    n_tok = int(diff.sum())
+    if n_tok == 0:
+        return 0, 0
+    docs = torch.unique(model._slot_d[diff]).tolist()
+    check(len(docs) <= 64, f"{label}: {len(docs)} documents differ from the "
+          "plain version")
+    k = model.config.topics
+    kpad = table.shape[0] - 8
+    off = model.doc_slot_offsets.cpu().tolist()
+    slots = model.doc_slots.cpu().tolist()
+    zo, zk_, zr_, w_of = (t.reshape(-1).cpu() for t in
+                          (z_old, zk, zr, model._slot_w))
+    u_all = words.cpu().double() * 2.0 ** -24
+    tab = table.cpu()
+    bf = torch.bfloat16
+
+    def draw(p, u):
+        """(topic, margin) of the inverse-cdf draw from p [K] at u."""
+        cdf = p.cumsum(0)
+        x = u * float(cdf[-1])
+        last = int(torch.nonzero(p > 0).max()) if bool((p > 0).any()) else 0
+        kk = min(int((cdf <= x).sum()), last)
+        near = [abs(float(cdf[j]) - x) for j in (kk - 1, kk) if 0 <= j < k]
+        return kk, min(near) / max(float(cdf[-1]), 1e-300)
+
+    def test(lhs, rhs):
+        """(lhs < rhs, margin) of an acceptance test."""
+        return lhs < rhs, abs(lhs - rhs) / max(abs(lhs), abs(rhs), 1e-300)
+    for d in docs:
+        col = tab[:k, d].clone()                 # f32 n_dk + alpha
+        flag = float(tab[kpad, d])
+        for s in slots[off[d]:off[d + 1]]:
+            a, b = int(zk_[s]), int(zr_[s])
+            if a != b:
+                break
+            if a != int(zo[s]):
+                col[int(zo[s])] -= 1.0
+                col[a] += 1.0
+        z0 = int(zo[s])
+        nd32 = col.clone()
+        nd32[z0] -= flag
+        nd, ndq = nd32.double(), nd32.to(bf).double()
+        tw = tw_vk[int(w_of[s])].cpu().to(bf).double()
+        qw = qw_vk[int(w_of[s])].cpu().to(bf).double()
+        u = u_all[s]
+        k1, m1 = draw(qw, float(u[0]))
+        take1, m2 = test(float(u[1]) * nd[z0] * tw[z0] * qw[k1],
+                         nd[k1] * tw[k1] * qw[z0])
+        z1 = k1 if take1 and float(qw.sum()) > 0 else z0
+        k2, m3 = draw(ndq, float(u[2]))
+        _, m4 = test(float(u[3]) * nd[z1] * tw[z1] * ndq[k2],
+                     nd[k2] * tw[k2] * ndq[z1])
+        margin = min(m1, float(m2), m3, float(m4))
+        check(margin <= 1e-5, f"{label}: document {d} first differs at slot "
+              f"{s} ({a} vs {b}); its closest decision is {margin:.2e} from "
+              "its boundary: not a rounding tie")
+    return n_tok, len(docs)
+
+
+def collapsed_tie_at_first_disagreement(torch, model, label, z_old, zk, zr,
+                                        table, counts_vk, nk_plus, beta,
+                                        u24, num_docs):
+    """The one-warp collapsed launch and the plain version are both the
+    sequential chain over the first `num_docs` documents in index order,
+    N_kw, V beta + n_k and n_dk live. Up to the chain's first differing
+    token both saw the same counts; there, with the conditional in the
+    kernel's f32 arithmetic (`_collapsed_reference`), u must lie within
+    1e-5 of the total from the exact cdf at every boundary between the two
+    draws. After it the chains part. Returns the slot, or None."""
+    kpad = table.shape[0] - 8
+    k = model.config.topics
+    real = model._slot_mask
+    if bool(((zk == zr) | ~real).all()):
+        return None
+    off = model.doc_slot_offsets.cpu().tolist()
+    slots = model.doc_slots.cpu().tolist()
+    zo, zk_, zr_, w_of = (t.reshape(-1).cpu().numpy() for t in
+                          (z_old, zk, zr, model._slot_w))
+    tab = table.cpu()
+    nkw = counts_vk.cpu().to(torch.float32).clone()
+    nkp = nk_plus.cpu().to(torch.float32).clone()
+    beta32 = torch.tensor(beta, dtype=torch.float32)
+    for d in range(num_docs):
+        flag = float(tab[kpad, d])
+        if flag <= 0.5:
+            continue
+        col = tab[:k, d].clone()
+        for s in slots[off[d]:off[d + 1]]:
+            z0, w = int(zo[s]), int(w_of[s])
+            a, b = int(zk_[s]), int(zr_[s])
+            if a != b:
+                e = torch.zeros(k)
+                e[z0] = flag
+                p = ((col - e) * (((nkw[w] + beta32) - e) / (nkp - e)))
+                p = p.to(torch.bfloat16).to(torch.float32)
+                gap = float(cdf_boundary_gap(
+                    torch, p[None], u24.reshape(-1)[s:s + 1].cpu(),
+                    torch.tensor([a]), torch.tensor([b]))[0])
+                check(gap <= 1e-5, f"{label}: the chain first differs at "
+                      f"slot {s} ({a} vs {b}), {gap:.2e} of its total from "
+                      "an exact cdf boundary: not a rounding tie")
+                return s
+            if a != z0:
+                for t in (col, nkw[w], nkp):
+                    t[z0] -= 1.0
+                    t[a] += 1.0
+    return None
 
 
 def pcgs_zero_alpha_check(torch, model, gen, seed, plain_of, label, doc_sel):
@@ -1208,8 +1505,11 @@ def lightlda_kernel_phase(torch, corpus, LDAConfig, create_model,
     20NG shapes, on the resident layout at K=100 (row 5) and the streamed
     one at K=200 (row 6), with operands built by a `lightpclda` model as
     its main path builds them and a proposal table that differs from the
-    target (N_kw + beta, as `lightpcldaw2`). Returns one `kernels` entry
-    per layout (launches filled in later)."""
+    target (N_kw + beta, as `lightpcldaw2`); where z differs, each
+    differing document's first token a proven rounding tie
+    (mh_ties_at_first_disagreement). Returns one `kernels` entry per
+    layout (launches filled in later)."""
+    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24x4
     plain_of = {
         cuda_lightlda.fused_lightlda_sweep:
             cuda_lightlda.fused_lightlda_sweep_reference,
@@ -1247,6 +1547,11 @@ def lightlda_kernel_phase(torch, corpus, LDAConfig, create_model,
             agreement[label] = agree
             check(agree >= 0.999, f"lightlda K={k} ({label}): only "
                   f"{agree:.6f} of tokens agree with the plain version")
+            words = (cuda_lightlda._slot_uniforms(u, tuple(st.z.shape))
+                     if u is not None else philox_u24x4(seed, st.z.numel()))
+            agreement[f"{label} ties"] = mh_ties_at_first_disagreement(
+                torch, model, f"lightlda K={k} ({label})", st.z, zk, zr,
+                table, tw, qw, words)
             check_sweep_outputs(torch, model, f"lightlda K={k} ({label})",
                                 st.z, zk, nkw_k, tb_k, doc_sel)
             if label == "philox":
@@ -1531,8 +1836,11 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
     resident layout at K=100 (row 3) and the streamed one at K=200 (row
     4), with operands built by an `adlda` model as its main path builds
     them: (a) bookkeeping on the full corpus, (b) one selected document,
-    (c) the one-warp launch on the first 200 documents, (d) a chi-square.
-    Returns one `kernels` entry per layout (launches filled in later)."""
+    (c) the one-warp launch on the first 200 documents (where z differs,
+    the chain's first differing token a proven rounding tie), (d) a
+    chi-square. Returns one `kernels` entry per layout (launches filled in
+    later)."""
+    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
     plain_of = {
         cuda_pcgs.fused_pcgs_sweep: cuda_pcgs.fused_pcgs_sweep_reference,
         cuda_pcgs.fused_pcgs_sweep_streamed:
@@ -1616,6 +1924,9 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
         agree_c = float((zk == zr)[in_slice].float().mean())
         check(agree_c >= 0.999, f"{label} (c): one-warp launch agrees with "
               f"the plain version on only {agree_c:.6f} of tokens")
+        tie_c = collapsed_tie_at_first_disagreement(
+            torch, model, f"{label} (c)", st.z, zk, zr, table, counts,
+            nk_plus, st.beta, philox_u24(seed, st.z.numel()), 200)
         check(torch.equal(zk[~in_slice], st.z[~in_slice]),
               f"{label} (c): a token outside the slice moved")
         live = entry + slot_hist(torch, model, zk, entry.shape[0]) \
@@ -1664,7 +1975,10 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
               f"to the plain version on every token, u24 and Philox; own "
               f"count at the draw's boundary: z {z_edge} as computed; (c) "
               f"one-warp launch on the first 200 documents ({n_slice} "
-              f"tokens): z agreement {agree_c:.6f}, N_kw and V beta + n_k "
+              f"tokens): z agreement {agree_c:.6f} ("
+              + ("equal on every token" if tie_c is None else
+                 f"first differing at slot {tie_c}, a proven rounding tie")
+              + f"), N_kw and V beta + n_k "
               f"exact, max |N_kw - plain| {err}; (d) chi2={chi2:.1f} (df "
               f"{k - 1}, p={pval:.3g}, 200,704 one-token documents, "
               f"{moved_d} moved); kernel {ms:.4f} ms, one-warp launch "
@@ -1918,6 +2232,284 @@ def collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model,
           f"host loop); LL init {ll0:.1f} -> it2 {ll:.1f}; counts exact; "
           f"no kernel launched", flush=True)
     del model
+
+
+# [4 fused]: scan_chunk. A fused group is exactly FUSED_CHUNK event-free
+# iterations; with the likelihood every 10, 9 is the largest group between
+# two events (27 of 30 iterations fused, 9 of 10).
+FUSED_CHUNK = 9
+FUSED_PAIRS = (("ggs", 100, ITERS), ("pcgs", 100, ITERS),
+               ("lightpclda", 100, ITERS), ("adlda", 100, ITERS),
+               ("ggs_aliasmh", 100, ITERS), ("pcgs", 200, 10),
+               ("lightpclda", 200, 10), ("adlda", 200, 10),
+               ("ggs", 4096, 10))
+
+
+def chain_snapshot(model):
+    """(the fields a step replaces, cloned; the likelihood series; the
+    iteration) of a model."""
+    from ldagroupedgibbssampler_tpu_torch.models.fusion import FIELDS
+    st = model.state
+    return ({f: None if getattr(st, f) is None else getattr(st, f).clone()
+             for f in FIELDS}, model.get_log_likelihoods(), st.iteration)
+
+
+def check_same_chain(torch, label, a, b):
+    """Two chain_snapshot()s are bit-equal."""
+    (fa, la, ia), (fb, lb, ib) = a, b
+    check(ia == ib, f"{label}: iterations {ia} and {ib}")
+    for f, t in fa.items():
+        u = fb[f]
+        check(t is None and u is None or (t is not None and u is not None
+                                          and torch.equal(t, u)),
+              f"{label}: {f} differs between the fused and the "
+              "single-stepped chain")
+    check(la == lb, f"{label}: likelihood series {la} and {lb}")
+
+
+def timed_sample(torch, model, iters, counters):
+    """model.sample(iters) with every launch counter set to 0 and the peak
+    memory reset just before: (ms/iteration host wall, {counter: launches
+    > 0}, peak GiB allocated)."""
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.sample(iters)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    launches = {f"{fn.__name__}.{attr}": getattr(fn, attr)
+                for fn, attr in counters if getattr(fn, attr)}
+    return ms, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def sync_debug_step(torch, model):
+    """One single-stepped iteration, on a copy of the state, under
+    torch.cuda.set_sync_debug_mode("error"): any host sync on the step's
+    path (.item(), float(tensor), .cpu(), nonzero, a blocking copy)
+    raises. Advances the model's generator."""
+    import dataclasses
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model._step(dataclasses.replace(model.state), None, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def expected_groups(model, iters, chunk):
+    """The fused groups of model.sample(iters) from iteration 1, by the
+    base's own rule."""
+    it, groups = 1, 0
+    while it <= iters:
+        n = model._fusable_span(it, iters, chunk)
+        groups += n > 1
+        it += n
+    return groups
+
+
+def fused_pair(torch, corpus, LDAConfig, create_model, counters, scheme, k,
+               iters, timed=True, chunk=FUSED_CHUNK, serial=False,
+               exact=True, **kw):
+    """`scheme` at K=`k` from seed 2019 twice, single-stepped and with
+    scan_chunk = `chunk`, `iters` iterations each with the likelihood
+    every 10 (and `kw` config keys): z, n_dk, N_kw, n_k, phi and theta
+    bit-equal, the likelihood series and every launch counter equal, the
+    counts exact, each group the base's rule forms fused. `serial`
+    launches adlda's sweep as one warp (the sequential chain). `exact`
+    False is the parallel collapsed launch, whose draws depend on the
+    order of the other warps' atomics, so that two runs of one chain
+    differ: a third chain, single-stepped again, shows by how much, and
+    the fused chain's likelihood must lie within 0.5% (the [4 adlda
+    oracle] bar) of the single-stepped one's, counts exact and launches
+    equal. With `timed`, both chains then run `iters` more in turns
+    (single, fused, fused, single), still bit-equal when `exact`; then
+    device busy under the profiler over `chunk` single-stepped iterations
+    and over three replays of a group captured beforehand (and CUDA events
+    over three more), and last, at K=100, the sync-debug pass on the
+    single-stepped model. Returns the numbers."""
+    from ldagroupedgibbssampler_tpu_torch.models.fusion import FusedSteps
+    label = f"[4 fused] {scheme} K={k}"
+
+    def make(c):
+        m = create_model(pcgs_config(LDAConfig, scheme, k).replace(
+            scan_chunk=c, **kw))
+        if serial:
+            m._serial_sweep = True
+        return m.add_instances(corpus)
+    single, fused = make(1), make(chunk)
+    check(fused._fusable_chunk() == chunk and fused._capturable_step,
+          f"{label}: the scheme is not fused")
+    runs = [timed_sample(torch, m, iters, counters) for m in (single, fused)]
+    for m in (single, fused):
+        check_counts_exact(m, corpus, label)
+    check(runs[0][1] == runs[1][1], f"{label}: launches {runs[0][1]} "
+          f"single-stepped, {runs[1][1]} fused")
+    fs = fused.fused_steps
+    groups = expected_groups(fused, iters, chunk)
+    check(groups >= 1 and fs.groups == groups and fs.captures == 1,
+          f"{label}: {fs.groups} groups of {groups}, {fs.captures} "
+          "captures")
+    out = {"launches": runs[0][1], "peak_gib": (runs[0][2], runs[1][2]),
+           "capture_s": fs.capture_s, "groups": groups,
+           "lls": fused.get_log_likelihoods()}
+    if exact:
+        check_same_chain(torch, label, chain_snapshot(single),
+                         chain_snapshot(fused))
+    else:
+        again = make(1)
+        timed_sample(torch, again, iters, counters)
+        check_counts_exact(again, corpus, label)
+        out["z_differ"] = tuple(int((m.state.z != single.state.z).sum())
+                                for m in (fused, again))
+        for (i, a), (j, b) in zip(single.get_log_likelihoods(),
+                                  out["lls"]):
+            check(i == j and abs(a - b) < 0.005 * abs(a), f"{label}: LL "
+                  f"{b} fused against {a} single-stepped at {i}")
+        del again
+    if not timed:
+        return out
+    second = [timed_sample(torch, m, iters, counters)
+              for m in (fused, single)]
+    if exact:
+        check_same_chain(torch, f"{label}, second run",
+                         chain_snapshot(single), chain_snapshot(fused))
+    out["ms"] = (runs[0][0], runs[1][0], second[0][0], second[1][0])
+    out["capture_s2"] = fused.fused_steps.capture_s
+    # iterations 2 iters + 1 to 2 iters + chunk hold no event
+    out["profile_single"] = profile_numbers(
+        torch, lambda: single.sample(chunk), chunk)
+    steps = FusedSteps(fused)
+    masks = [np.ones(corpus.num_docs, bool)] * chunk
+    steps.run(masks)
+    out["profile_replay"] = profile_numbers(
+        torch, lambda: [steps.run(masks) for _ in range(3)], 3 * chunk)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(3):
+        steps.run(masks)
+    b.record()
+    b.synchronize()
+    out["replay_event_ms"] = a.elapsed_time(b) / (3 * chunk)
+    steps.close()
+    if k == 100:
+        sync_debug_step(torch, single)
+    return out
+
+
+def fused_phase(torch, corpus, Corpus, LDAConfig, create_model, counters,
+                smi):
+    """[4 fused]: iteration fusion (scan_chunk) as captured CUDA graphs
+    against single-stepping: the nine pairs of FUSED_PAIRS (timed and
+    profiled), ggs with random scan over documents (half of them an
+    iteration), every other fusable scheme for 10 iterations, the serial
+    oracle `collapsed` on 20 documents (its groups run single-stepped: no
+    capture), the HDP family (unfused by its hook), and the sync-debug
+    pass on every fusable scheme at K=100."""
+    name = torch.cuda.get_device_name(0)
+
+    def prof(p):
+        wall, busy, rows = p
+        return (f"{wall:.3f} ms/iteration host wall, device busy "
+                f"{busy:.3f} ms/iteration ({100 * busy / wall:.1f}%), "
+                f"{len(rows)} kernels")
+    for scheme, k, iters in FUSED_PAIRS:
+        exact = scheme != "adlda"
+        r = fused_pair(torch, corpus, LDAConfig, create_model, counters,
+                       scheme, k, iters, exact=exact)
+        s1, f1, f2, s2 = r["ms"]
+        same = ("z, n_dk, N_kw, n_k, phi, theta bit-equal after "
+                f"{iters} and {2 * iters}; LL series equal" if exact else
+                "the parallel collapsed launch differs between two runs "
+                "of one chain (a second single-stepped chain on "
+                f"{r['z_differ'][1]} tokens, the fused one on "
+                f"{r['z_differ'][0]}): LL within 0.5%")
+        print(f"[4 fused] {scheme} K={k} on {name} ({smi}), scan_chunk "
+              f"{FUSED_CHUNK} against 1, {iters} iterations, likelihood "
+              f"every 10 (fused groups: {r['groups']}): {same} "
+              f"{json.dumps([round(ll, 1) for _, ll in r['lls']])}; "
+              f"launches equal {json.dumps(r['launches'])}; counts exact; "
+              f"ms/iteration in turns single {s1:.3f}, fused {f1:.3f}, "
+              f"fused {f2:.3f}, single {s2:.3f} (host clock, the capture "
+              f"and the likelihood included; capture {r['capture_s']:.3f} "
+              f"/ {r['capture_s2']:.3f} s a run); peak memory single "
+              f"{r['peak_gib'][0]:.3f} GiB, fused {r['peak_gib'][1]:.3f} "
+              f"GiB", flush=True)
+        print(f"[4 fused profile] {scheme} K={k}: single-stepped "
+              f"{prof(r['profile_single'])}; replays of a captured group "
+              f"{prof(r['profile_replay'])}; replays timed by CUDA events "
+              f"{r['replay_event_ms']:.3f} ms/iteration", flush=True)
+        torch.cuda.empty_cache()
+    # the collapsed mode bit for bit: the one-warp launch (the sequential
+    # chain, 1.7-3.2 s a sweep) for 3 iterations, one group of 2
+    for k in (100, 200):
+        r = fused_pair(torch, corpus, LDAConfig, create_model, counters,
+                       "adlda", k, 3, timed=False, chunk=2, serial=True)
+        print(f"[4 fused adlda one-warp] K={k}: scan_chunk 2 against 1, 3 "
+              f"iterations of the one-warp launch (the sequential chain): "
+              f"z, n_dk, N_kw, n_k, phi, theta bit-equal; launches equal "
+              f"{json.dumps(r['launches'])}", flush=True)
+    doc_scan = dict(batch_building_scheme="percentage",
+                    percentage_split_size_doc=0.5)
+    r = fused_pair(torch, corpus, LDAConfig, create_model, counters, "ggs",
+                   100, 10, timed=False, **doc_scan)
+    print(f"[4 fused random scan] ggs K=100, half of the documents an "
+          f"iteration (percentage builder): z, n_dk, N_kw, n_k, phi, theta "
+          f"bit-equal after 10 iterations (1-9 one group on the masked "
+          f"graph); LL {r['lls']}; launches equal "
+          f"{json.dumps(r['launches'])}", flush=True)
+    prior_path = os.path.join(ROOT, "build", "chip_smoke_priors.txt")
+    os.makedirs(os.path.dirname(prior_path), exist_ok=True)
+    prior_spec_file(corpus, prior_path)
+    from ldagroupedgibbssampler_tpu_torch.models.registry import SCHEMES
+    paired = {s for s, _, _ in FUSED_PAIRS}
+    fusable, others, unfused = [], [], []
+    for scheme in SCHEMES:
+        kw = ({"topic_prior_filename": prior_path}
+              if scheme == "spalias_priors" else {})
+        model = create_model(pcgs_config(LDAConfig, scheme, 100).replace(
+            scan_chunk=FUSED_CHUNK, **kw))
+        if model._fusable_chunk() == 1:
+            unfused.append(scheme)
+            continue
+        if not model._capturable_step:
+            continue
+        fusable.append(scheme)
+        if scheme in paired:
+            continue
+        fused_pair(torch, corpus, LDAConfig, create_model, counters, scheme,
+                   100, 10, timed=False, **kw)
+        model.add_instances(corpus)
+        sync_debug_step(torch, model)
+        others.append(scheme)
+        del model
+        torch.cuda.empty_cache()
+    check(set(unfused) == {"ppu_hlda", "ppu_hdplda", "ppu_hdplda_all_topics"},
+          f"unfused schemes {unfused}")
+    # the serial oracle: groups formed, run single-stepped, no capture
+    sub = first_docs(Corpus, corpus, 20)
+    snaps = []
+    for chunk in (1, 2):
+        model = create_model(pcgs_config(LDAConfig, "collapsed", 100)
+                             .replace(scan_chunk=chunk))
+        model.add_instances(sub)
+        model.sample(2)
+        snaps.append(chain_snapshot(model))
+    fs = model.fused_steps
+    check(fs.groups == 1 and fs.captures == 0,
+          f"collapsed: {fs.groups} groups, {fs.captures} captures")
+    check_same_chain(torch, "[4 fused] collapsed", *snaps)
+    print(f"[4 fused] sync-debug pass (one single-stepped iteration under "
+          f"set_sync_debug_mode('error'), K=100) on every fusable scheme: "
+          f"{', '.join(fusable)}; {', '.join(others)} also fused for 10 "
+          f"iterations, bit-equal to single-stepping with equal launches; "
+          f"collapsed on the first 20 documents: one group of 2 run "
+          f"single-stepped (no capture), bit-equal; unfused by the hook "
+          f"rule: {', '.join(unfused)}", flush=True)
 
 
 
@@ -2261,6 +2853,7 @@ def main() -> int:
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
     from ldagroupedgibbssampler_tpu_torch.corpus.ragged import (
         Corpus, real_slot_list)
+    from ldagroupedgibbssampler_tpu_torch.models.fusion import launch_counters
     from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
     from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts,
                                                       cuda_lightlda,
@@ -2360,6 +2953,8 @@ def main() -> int:
         agreement[label] = agree
         check(agree >= 0.999, f"z-draw ({label}): only {agree:.6f} of "
               "tokens agree with the plain version")
+        agreement[f"{label} ties"] = zdraw_ties(
+            torch, f"z-draw ({label})", zk, zr, zargs, zkw, u, precise)
         hist = cuda_counts.blocked_label_counts_reference(
             wb, zk.view(wb.shape), winb, firstb, **kc)
         check(torch.equal(nk_k, hist), f"z-draw ({label}): N_kw is not "
@@ -2428,6 +3023,9 @@ def main() -> int:
           flush=True)
     del theta, phi, theta_m, onehot, u24, z
     torch.cuda.empty_cache()
+    zdraw_k4096 = zdraw_large_k_full(torch, zargs, zkw, real_slots, blocks,
+                                     n_tok, gen, cuda_zdraw, rnd)
+    torch.cuda.empty_cache()
     pcgs_entries = pcgs_kernel_phase(torch, corpus, Corpus, LDAConfig,
                                      create_model, cuda_pcgs, _build)
     lightlda_entries = lightlda_kernel_phase(torch, corpus, LDAConfig,
@@ -2492,14 +3090,10 @@ def main() -> int:
     base_options_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
                        cuda_zdraw, cuda_pcgs, smi)
     # every launch counter of the port's wrappers
-    counters = [(fn, "launches") for fn in (
-        cuda_counts.blocked_label_counts, cuda_zdraw.fused_zdraw_nkw,
-        cuda_lightlda.fused_lightlda_sweep,
-        cuda_lightlda.fused_lightlda_sweep_streamed)]
-    counters += [(fn, attr) for fn in (cuda_pcgs.fused_pcgs_sweep,
-                                       cuda_pcgs.fused_pcgs_sweep_streamed)
-                 for attr in ("launches", "collapsed_launches")]
+    counters = launch_counters()
     collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model, counters)
+    fused_phase(torch, corpus, Corpus, LDAConfig, create_model, counters,
+                smi)
 
     # ---- 5. the experiment CLI ------------------------------------------
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -2591,7 +3185,8 @@ def main() -> int:
          "max_abs_err": zdraw_err,
          "ms": zdraw_ms, "precise_ms": zdraw_precise_ms,
          "plain_ms": zdraw_plain_ms, "bound_ms": zdraw_bound,
-         "bound_by": zdraw_by, "library_ms": None},
+         "bound_by": zdraw_by, "library_ms": None,
+         "k4096": zdraw_k4096},
         *pcgs_entries,
         *lightlda_entries,
         *adlda_entries,

@@ -146,7 +146,7 @@ class LDAConfig:
     doc_span: int = 128            # aligned doc-window width (GGS n_dk path)
     doc_length_multiple: int = 8   # doc-major padding multiple
     paranoid: bool = False         # run count invariants every iteration
-    scan_chunk: int = 1            # iterations fused per lax.scan chunk
+    scan_chunk: int = 1            # iterations fused per captured group
     prng_impl: str = "rbg"         # "rbg" (fast on TPU) or "threefry2x32"
     zdraw_kernel: str = "auto"     # z-draw: "auto" | "fused" | "xla"
     #   | "interpret" (test-only: fused sweep kernels under the pltpu

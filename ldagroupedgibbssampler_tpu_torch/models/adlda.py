@@ -35,6 +35,7 @@ layout's visit order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ldagroupedgibbssampler_tpu_torch.models.base import (LDAState,
@@ -57,9 +58,11 @@ class ADLDA(FusedPCGSSweepMixin, TorchLDASampler):
         """One iteration, replacing the fields of `state` in place. The
         phi draw is only diagnostic and ignores a type mask, as the JAX
         package's does."""
-        beta32 = torch.tensor(state.beta, dtype=torch.float32,
-                              device=self.device)
-        nk_plus = beta32 * self.corpus.num_types + state.nk.to(torch.float32)
+        # V beta as f32(beta) * V rounded to f32, added as a host scalar:
+        # no host-to-device copy, so the step can be captured
+        v_beta = float(np.float32(state.beta)
+                       * np.float32(self.corpus.num_types))
+        nk_plus = state.nk.to(torch.float32) + v_beta
         z, ndk, nkw = self._fused_zsweep(
             state.z, state.ndk, state.alpha,
             state.nkw.T.to(torch.float32).contiguous(), doc_mask,

@@ -22,7 +22,9 @@ with a profiler trace, the likelihood / log-posterior / held-out / stats
 series every `topic_interval` iterations, windowed dumps, phi-mean
 accumulation with burn-in + thinning, and hyperparameter optimisation.
 Every feature costs nothing while its key is off. Iteration fusion
-(`scan_chunk`) is ignored: it never changed results.
+(`scan_chunk`) follows the JAX base's rule: groups of `scan_chunk`
+event-free iterations run as one replay of a captured CUDA graph on the
+card (`models/fusion.py`), bit-equal to single-stepping.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ldagroupedgibbssampler_tpu_torch.evaluation.marginal import (
     left_to_right_from_counts)
 from ldagroupedgibbssampler_tpu_torch.evaluation.topwords import top_words
 from ldagroupedgibbssampler_tpu_torch.models import randomscan
+from ldagroupedgibbssampler_tpu_torch.models.fusion import FusedSteps
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
 from ldagroupedgibbssampler_tpu_torch.ops.counts import (
     check_count_consistency, doc_topic_counts, tokens_per_topic,
@@ -118,6 +121,10 @@ class TorchLDASampler:
     # GibbsSampler.java:95-118 fixes the unsmoothed draw flagged at
     # UncollapsedParallelLDA.java:1313-1315).
     smooth_phi = True
+    # Whether `_step` can be captured as a CUDA graph (models/fusion.py):
+    # False for a step that runs host code per token, whose fused groups
+    # then run single-stepped.
+    _capturable_step = True
 
     def __init__(self, config: LDAConfig, logger=None):
         self.config = config
@@ -137,6 +144,8 @@ class TorchLDASampler:
         self.doc_batch_builder = None
         self.topic_index_builder = None
         self.topic_batch_builder = None
+        # the fused groups of the last sample() call (None without fusion)
+        self.fused_steps: Optional[FusedSteps] = None
 
     # ------------------------------------------------------------------
     # data loading (LDAGibbsSampler.addInstances / addTestInstances)
@@ -218,6 +227,48 @@ class TorchLDASampler:
         return None if mask.all() else torch.as_tensor(mask,
                                                        device=self.device)
 
+    # ------------------------------------------------------------------
+    # iteration fusion (config key scan_chunk), the JAX base's rule
+    # ------------------------------------------------------------------
+    def _fusable_chunk(self) -> int:
+        """scan_chunk when iteration groups can be fused without changing
+        any observable behaviour, else 1. Conditions: no per-iteration host
+        work (the hook, paranoid checks, timing, phi-mean accumulation,
+        hyperopt) and no runtime-feedback random scan (delta-N type masks,
+        percentage topic batches)."""
+        cfg = self.config
+        if (cfg.scan_chunk <= 1 or cfg.paranoid or cfg.measure_timing
+                or cfg.save_phi_means or cfg.hyperparam_optim_interval > 0
+                or cfg.topic_index_building_scheme != "all"
+                or cfg.topic_batch_building_scheme != "even"
+                or float(cfg.percentage_split_size_topic) < 1.0
+                or self._needs_delta()):
+            return 1
+        if type(self).post_iteration is not TorchLDASampler.post_iteration:
+            return 1
+        return max(1, int(cfg.scan_chunk))
+
+    def _iteration_has_event(self, it: int) -> bool:
+        cfg = self.config
+        if cfg.topic_interval and cfg.topic_interval > 0 \
+                and it % cfg.topic_interval == 0:
+            return True
+        if self.logger is not None and it % 100 == 0:
+            return True          # device-metrics logging cadence
+        return any(self._in_interval(it, w) for w in (
+            cfg.diagnostic_interval, cfg.dn_diagnostic_interval,
+            cfg.print_ndocs_interval, cfg.print_ntopwords_interval))
+
+    def _fusable_span(self, it: int, end_it: int, chunk: int) -> int:
+        """Length of the fused group starting at `it`: exactly `chunk`
+        event-free iterations, else 1 (a fixed group size keeps one
+        captured graph instead of one per remainder length)."""
+        if it + chunk - 1 > end_it:
+            return 1
+        if any(self._iteration_has_event(j) for j in range(it, it + chunk)):
+            return 1
+        return chunk
+
     def sample(self, iterations: int | None = None):
         cfg = self.config
         iterations = iterations or cfg.iterations
@@ -231,7 +282,26 @@ class TorchLDASampler:
         # timing_data/, where the per-kernel device time lives
         timing = cfg.measure_timing and self.logger is not None
         profiler = None
-        for it in range(start_iter + 1, start_iter + iterations + 1):
+        fuse = self._fusable_chunk()
+        self.fused_steps = FusedSteps(self) if fuse > 1 else None
+        end_it = start_iter + iterations
+        it = start_iter + 1
+        while it <= end_it:
+            # scan_chunk: a group of event-free iterations is one replay of
+            # a captured CUDA graph (models/fusion.py), the same _step with
+            # the same masks and draws as single-stepping; the abort flag
+            # and the deadline are checked once a group. The topic index
+            # builder of a fusable run ("all") selects every type.
+            n = self._fusable_span(it, end_it, fuse) if fuse > 1 else 1
+            if n >= 2:
+                self.fused_steps.run([self.doc_batch_builder.doc_mask(j)
+                                      for j in range(it, it + n)])
+                it += n
+                if self._abort or os.path.exists("abort"):
+                    break
+                if deadline is not None and time.time() > deadline:
+                    break
+                continue
             t0 = time.perf_counter()
             doc_mask = self._mask(self.doc_batch_builder.doc_mask(it))
             type_mask = self._mask(self.topic_index_builder.type_mask(
@@ -278,6 +348,9 @@ class TorchLDASampler:
                 break
             if deadline is not None and time.time() > deadline:
                 break
+            it += 1
+        if self.fused_steps is not None:
+            self.fused_steps.close()
         if profiler is not None:      # stopped inside the trace window
             self._stop_trace(profiler)
         if self.device.type == "cuda":

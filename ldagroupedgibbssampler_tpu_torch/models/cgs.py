@@ -31,6 +31,9 @@ from ldagroupedgibbssampler_tpu_torch.ops.kernels import cgs_serial_sweep
 class SerialCollapsedLDA(FlatLayoutMixin, TorchLDASampler):
     nkw_layout = "kv"
     smooth_phi = True
+    # the sweep walks the tokens from the host: under scan_chunk its
+    # groups run single-stepped, where the JAX package scans them
+    _capturable_step = False
 
     def _initial_theta(self, ndk, alpha):
         return rnd.dirichlet(ndk.to(torch.float32) + alpha, self.generator)
