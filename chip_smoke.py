@@ -104,9 +104,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cuda, with a ggs, a pcgs, a lightpclda, an adlda, a ggs_aliasmh, a
      spalias_priors (with its prior file) and a ppu_hdplda section; then
      (`[5 cli held-out]`) with a test_dataset and every base option in a
-     ggs and a pcgs section, each artifact checked.
-Then one JSON line describing every kernel, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.
+     ggs and a pcgs section, each artifact checked;
+  6. the apps (`[6 apps]`) on cuda: `[6 similarity]`, LDADistancer
+     (spalias, K=100) trained on the train half of a 2-fold split of the
+     same corpus for 30 iterations and distance() of the test half (5,635
+     x 5,634 symmetric KL) after 200 fold-in iterations, the launches of
+     rows 1-3 checked (201 counts, 200 z-draws, 30 PCGS sweeps), the kl
+     matrix against the CPU on its first 256 rows, every metric against
+     the CPU on 32 rows and timed on 256, the products with TF32 on and
+     off; `[6 bm25]`, BM25Searcher on the train half searched against
+     itself (top 2), the first 256 rows against the CPU; `[6 classify]`,
+     KLDivergenceClassifier.cross_validate (2 folds, 30 training and 300
+     fold-in iterations) on the corpus labelled d % 20, its launches
+     checked; `[6 cli apps]`, the seven secondary drivers' main (the KL
+     classifier also with --multi_corpus) on phase 5's text corpus, every
+     artifact checked, the KL classifier's accuracy >= 0.8 and the nearest
+     training document of the same theme on >= 80% of test documents;
+     each part with its seconds and peak memory.
+Then one JSON line describing every kernel (the counts, z-draw and PCGS
+entries with their launches in phase 6 as `launches_apps`), the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false or when the port's package is not beside it.
@@ -2841,6 +2858,387 @@ def cli_held_out(torch, work, themes, rng, counters, cuda_zdraw):
           f"artifact written; held-out LL {json.dumps(found)}", flush=True)
 
 
+# ---- 6. the apps -------------------------------------------------------
+APPS_FOLD_IN = 200          # LDADistancer.distance's default iterations
+CLASSIFY_FOLD_IN = 300      # KLDivergenceClassifier's default iterations
+APPS_BLOCK = 256            # query rows held against the CPU and timed
+APPS_CHECK = 32             # rows of every metric held against the CPU
+LOOSE_METRICS = ("hellinger", "euclidean", "statistical", "t", "uber")
+PRODUCT_METRICS = ("kl", "hellinger", "euclidean", "cosine", "statistical")
+
+
+def read_launches(counters) -> dict:
+    """Every launch counter of the port's wrappers, by wrapper and mode."""
+    return {fn.__name__ + ("" if attr == "launches" else " collapsed"):
+            getattr(fn, attr) for fn, attr in counters}
+
+
+def zero_launches(counters):
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+
+
+def rows_123(launches) -> tuple:
+    """Launches of kernel rows 1-3: counts, z-draw, PCGS sweep."""
+    return (launches["blocked_label_counts"], launches["fused_zdraw_nkw"],
+            launches["fused_pcgs_sweep"])
+
+
+def gib(nbytes) -> str:
+    return f"{nbytes / 2 ** 30:.3f} GiB"
+
+
+def apps_similarity(torch, corpus, LDAConfig, counters, smi, dev):
+    """[6 similarity]: LDADistancer (spalias, K=100) trained on the train
+    half of a 2-fold split for ITERS iterations, then distance() of the
+    test half with the default 200 fold-in iterations; the launches of
+    rows 1-3 checked (fold-in: 201 counts, 200 z-draws; training: 30 PCGS
+    sweeps); the kl matrix against the CPU on the first rows, every metric
+    against the CPU on a few rows, the products with TF32 on and off, and
+    each metric timed on a block of test rows."""
+    import ldagroupedgibbssampler_tpu_torch.similarity.lda_distancer as ldd
+    from ldagroupedgibbssampler_tpu_torch.corpus.perplexity import (
+        cross_validation_folds)
+    from ldagroupedgibbssampler_tpu_torch.similarity import (DISTANCES,
+                                                             LDADistancer,
+                                                             pairwise)
+    from ldagroupedgibbssampler_tpu_torch.similarity import distances
+    (train_idx, test_idx), _ = cross_validation_folds(corpus.num_docs, 2,
+                                                      2019)
+    train, test = corpus.subset(train_idx), corpus.subset(test_idx)
+    cfg = pcgs_config(LDAConfig, "spalias", K).replace(device=dev)
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    distancer = LDADistancer(cfg)
+    distancer.train(train, iterations=ITERS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    real_fold_in, fold = ldd.fold_in, {}
+
+    def timed_fold_in(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_fold_in(*args, **kwargs)
+        torch.cuda.synchronize()
+        fold["s"] = time.perf_counter() - t
+        return out
+    ldd.fold_in = timed_fold_in
+    try:
+        t0 = time.perf_counter()
+        dist = distancer.distance(test)
+        distance_s = time.perf_counter() - t0
+    finally:
+        ldd.fold_in = real_fold_in
+    launches = read_launches(counters)
+    check(rows_123(launches) == (APPS_FOLD_IN + 1, APPS_FOLD_IN, ITERS),
+          f"[6 similarity] launches of rows 1-3 (counts, z-draw, PCGS) "
+          f"{rows_123(launches)}, expected "
+          f"{(APPS_FOLD_IN + 1, APPS_FOLD_IN, ITERS)}")
+    shape = (test.num_docs, train.num_docs)
+    check(dist.shape == shape and bool(np.isfinite(dist).all())
+          and float(dist.min()) > -1e-4,
+          f"[6 similarity] kl matrix {dist.shape}, min {dist.min()}")
+    theta_test = torch.as_tensor(distancer.sampled_test_topics, device=dev)
+    theta_train = torch.as_tensor(distancer.train_thetas,
+                                  dtype=torch.float32, device=dev)
+    kl_ms = time_ms(torch, lambda: pairwise("kl", theta_test, theta_train,
+                                            device=dev), reps=3, calls=3)
+    host_test = distancer.sampled_test_topics
+    cpu = pairwise("kl", host_test[:APPS_BLOCK], distancer.train_thetas,
+                   device="cpu").numpy()
+    kl_err = float(np.abs(dist[:APPS_BLOCK] - cpu).max())
+    check(np.allclose(dist[:APPS_BLOCK], cpu, rtol=1e-5, atol=1e-5),
+          f"[6 similarity] kl on {dev} against cpu: max |diff| {kl_err}")
+    block = theta_test[:APPS_BLOCK]
+    errs, metric_ms = {}, {}
+    for name in sorted(DISTANCES):
+        got = pairwise(name, block[:APPS_CHECK], theta_train, device=dev)
+        want = pairwise(name, host_test[:APPS_CHECK],
+                        distancer.train_thetas, device="cpu")
+        errs[name] = float((got.cpu() - want).abs().max())
+        tol = 1e-4 if name in LOOSE_METRICS else 1e-5
+        check(torch.allclose(got.cpu(), want, rtol=tol, atol=tol),
+              f"[6 similarity] {name} on {dev} against cpu: max |diff| "
+              f"{errs[name]}")
+        if name != "kl":
+            metric_ms[name] = time_ms(
+                torch, lambda n=name: pairwise(n, block, theta_train,
+                                               device=dev), reps=3, calls=2)
+    # the products give one result whatever the TF32 flag; a TF32 product
+    # of the same rows would not
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for name in PRODUCT_METRICS:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            on = pairwise(name, block, theta_train, device=dev)
+            check(torch.backends.cuda.matmul.allow_tf32,
+                  f"[6 similarity] {name} did not restore the TF32 flag")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            off = pairwise(name, block, theta_train, device=dev)
+            check(torch.equal(on, off),
+                  f"[6 similarity] {name} depends on the TF32 flag")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        raw_on = block @ theta_train.T
+        torch.backends.cuda.matmul.allow_tf32 = False
+        raw_off = block @ theta_train.T
+        tf32_gap = float((raw_on - raw_off).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[6 similarity] LDADistancer spalias K={K} on "
+          f"{torch.cuda.get_device_name(0)} ({smi}): trained on "
+          f"{train.num_docs} documents in {train_s:.3f} s ({ITERS} "
+          f"iterations), distance() of {test.num_docs} test documents in "
+          f"{distance_s:.3f} s: fold-in {APPS_FOLD_IN} iterations "
+          f"{fold['s'] * 1e3 / APPS_FOLD_IN:.3f} ms/iteration (host clock, "
+          f"synchronised); kl matrix {shape[0]} x {shape[1]} "
+          f"{kl_ms:.3f} ms (CUDA events), max |cuda - cpu| {kl_err:.3g} on "
+          f"the first {APPS_BLOCK} rows; launches of rows 1-3 (counts, "
+          f"z-draw, PCGS) {rows_123(launches)}; every metric against cpu "
+          f"on {APPS_CHECK} rows, max |diff| {json.dumps(errs)}; products "
+          f"equal with TF32 on and off (a TF32 product of the same rows "
+          f"moves by up to {tf32_gap:.3g}); {APPS_BLOCK} x {shape[1]} "
+          f"block ms {json.dumps(metric_ms)}; working set "
+          f"{gib(distances.WORKING_SET_BYTES)} a tile; peak memory "
+          f"{gib(peak)}", flush=True)
+    return train, launches, dict(
+        fold_in_ms=fold["s"] * 1e3 / APPS_FOLD_IN, kl_ms=kl_ms,
+        metric_ms=metric_ms, peak=peak)
+
+
+def apps_bm25(torch, train, smi, dev):
+    """[6 bm25]: BM25Searcher on the train half, searched against itself
+    (top 2): index and score seconds, peak memory, the self-in-top-2 rate,
+    and the first rows' scores against the CPU's."""
+    from ldagroupedgibbssampler_tpu_torch.similarity import BM25Searcher
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    searcher = BM25Searcher(train, device=dev)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    searcher.score(train)
+    t0 = time.perf_counter()
+    scores = searcher.score(train)
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx, _ = searcher.search(train, top_n=2)
+    search_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = train.num_docs
+    self_top2 = float(((idx[:, 0] == np.arange(n))
+                       | (idx[:, 1] == np.arange(n))).mean())
+    check(self_top2 > 0.5, f"[6 bm25] self in top 2 on {self_top2:.3f}")
+    cpu = BM25Searcher(train, device="cpu").score(
+        train.subset(np.arange(APPS_BLOCK)))
+    rel = float((np.abs(scores[:APPS_BLOCK] - cpu)
+                 / np.maximum(np.abs(cpu), 1e-30)).max())
+    check(np.allclose(scores[:APPS_BLOCK], cpu, rtol=1e-5, atol=0),
+          f"[6 bm25] scores on {dev} against cpu: max relative diff {rel}")
+    del searcher
+    torch.cuda.empty_cache()
+    print(f"[6 bm25] BM25Searcher on {n} train documents x {train.num_types} "
+          f"types on {torch.cuda.get_device_name(0)} ({smi}): index "
+          f"{index_s:.3f} s, score {n} x {n} {score_s * 1e3:.3f} ms (host "
+          f"clock, the scores' copy to the host included), search top 2 "
+          f"{search_s:.3f} s (host argsort); self in top 2 on "
+          f"{self_top2:.4f}; first {APPS_BLOCK} rows against cpu, max "
+          f"relative diff {rel:.3g}; peak memory {gib(peak)}", flush=True)
+    return dict(index_s=index_s, score_ms=score_s * 1e3, peak=peak)
+
+
+def apps_classify(torch, corpus, Corpus, LDAConfig, counters, smi, dev):
+    """[6 classify]: KLDivergenceClassifier.cross_validate, 2 folds, ITERS
+    training iterations and 300 fold-in iterations, on the corpus labelled
+    d % 20 (no planted classes, so the accuracy has no bar); the launches
+    of rows 1-3 equal the folds' iterations."""
+    from ldagroupedgibbssampler_tpu_torch.classify import (
+        EnhancedConfusionMatrix, KLDivergenceClassifier)
+    labelled = Corpus(tokens=corpus.tokens, doc_offsets=corpus.doc_offsets,
+                      vocab=corpus.vocab,
+                      labels=[str(d % 20) for d in range(corpus.num_docs)])
+    cfg = pcgs_config(LDAConfig, "spalias", K).replace(device=dev)
+    zero_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trials = KLDivergenceClassifier(cfg).cross_validate(labelled, folds=2,
+                                                        iterations=ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(counters)
+    want = (2 * (CLASSIFY_FOLD_IN + 1), 2 * CLASSIFY_FOLD_IN, 2 * ITERS)
+    check(rows_123(launches) == want,
+          f"[6 classify] launches of rows 1-3 {rows_123(launches)}, "
+          f"expected {want}")
+    combined = EnhancedConfusionMatrix.combined(trials)
+    check(combined.total == corpus.num_docs and combined.num_classes == 20,
+          f"[6 classify] {combined.total} documents, "
+          f"{combined.num_classes} classes")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[6 classify] KLDivergenceClassifier spalias K={K}, 20 labels "
+          f"(d % 20), 2 folds on {torch.cuda.get_device_name(0)} ({smi}): "
+          f"{seconds:.3f} s ({ITERS} training and {CLASSIFY_FOLD_IN} fold-in "
+          f"iterations a fold); launches of rows 1-3 {rows_123(launches)}; "
+          f"accuracy {combined.average_accuracy:.4f} (no planted classes); "
+          f"peak memory {gib(peak)}", flush=True)
+    return launches, dict(seconds=seconds, peak=peak)
+
+
+def app_run_dir(out: str) -> str:
+    dirs = glob.glob(os.path.join(out, "RunSuite*", "Runapps-*"))
+    check(len(dirs) == 1, f"[6 cli apps] run directories under {out}: "
+          f"{dirs}")
+    return dirs[0]
+
+
+def rows_sum_to_one(path: str, atol: float) -> np.ndarray:
+    m = np.loadtxt(path, delimiter=",", ndmin=2)
+    check(bool(np.allclose(m.sum(axis=1), 1.0, rtol=0, atol=atol)),
+          f"[6 cli apps] rows of {path} do not sum to 1")
+    return m
+
+
+def confusion_accuracy(path: str) -> float:
+    rows = [ln.split(",") for ln in open(path).read().splitlines()]
+    n = len(rows) - 2
+    return sum(int(rows[1 + i][1 + i]) for i in range(n)) / int(rows[-1][-1])
+
+
+def apps_cli(torch, work, counters, smi, dev):
+    """[6 cli apps]: the seven secondary drivers' main (kl_classifier also
+    with --multi_corpus) on phase 5's three-theme text corpus, each
+    artifact checked; the KL classifier's accuracy >= 0.8 and the nearest
+    training document of the same theme on >= 80% of the test documents."""
+    from ldagroupedgibbssampler_tpu_torch.config import parse_ini
+    from ldagroupedgibbssampler_tpu_torch.tui import (bm25_search,
+                                                      kl_classifier,
+                                                      lda_similarity,
+                                                      svmlight_export,
+                                                      topic_mass, train_test,
+                                                      xvalidation)
+    from ldagroupedgibbssampler_tpu_torch.tui.common import (
+        load_configured_dataset)
+    test_ids = [str(d) for d in range(0, 300, 10)]
+    with open(os.path.join(work, "test_ids.txt"), "w") as f:
+        f.write("\n".join(test_ids) + "\n")
+    cfg_path = os.path.join(work, "apps.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(f"configs = apps\nno_runs = 1\niterations = {ITERS}\n"
+                f"topics = 3\nalpha = 1\nbeta = 0.01\n"
+                f"dataset = {work}/docs.txt\nrare_threshold = 0\n"
+                f"seed = 2019\nfolds = 2\nstoplist =\ndevice = {dev}\n"
+                f"test_ids_filename = {work}/test_ids.txt\n\n"
+                f"[apps]\nscheme = ggs\n")
+    corpus = load_configured_dataset(parse_ini(cfg_path).activate("apps"))
+    found = {}
+    for name, module, extra in (
+            ("xvalidation", xvalidation, []),
+            ("train_test", train_test, []),
+            ("kl_classifier", kl_classifier, []),
+            ("kl_classifier --multi_corpus", kl_classifier,
+             ["--multi_corpus"]),
+            ("lda_similarity", lda_similarity, []),
+            ("bm25_search", bm25_search, []),
+            ("topic_mass", topic_mass, []),
+            ("svmlight_export", svmlight_export, [])):
+        out = os.path.join(work, "apps", name.replace(" --", "_"))
+        zero_launches(counters)
+        t0 = time.perf_counter()
+        module.main([f"--run_cfg={cfg_path}", f"--experiment_out_dir={out}",
+                     *extra])
+        torch.cuda.synchronize()
+        entry = {"s": round(time.perf_counter() - t0, 3),
+                 "launches": rows_123(read_launches(counters))}
+        run = app_run_dir(out)
+        if name == "xvalidation":
+            ids = []
+            for fold in ("fold-1", "fold-2"):
+                fd = os.path.join(run, fold)
+                for fn in ("train-doc_topic_means.csv",
+                           "test-doc_topic_means.csv"):
+                    rows_sum_to_one(os.path.join(fd, fn), 1e-9)
+                rows_sum_to_one(os.path.join(fd, "train-phi_means.csv"), 1e-5)
+                ids += open(os.path.join(fd, "test-ids.txt")).read().split()
+            check(sorted(ids, key=int) == [str(i) for i in range(300)],
+                  "[6 cli apps] xvalidation test ids do not partition the "
+                  "corpus")
+        elif name == "train_test":
+            check(open(os.path.join(run, "test-ids.txt")).read().split()
+                  == test_ids, "[6 cli apps] train_test test ids")
+            m = rows_sum_to_one(os.path.join(run, "test-doc_topic_means.csv"),
+                                1e-9)
+            check(m.shape == (30, 3), f"[6 cli apps] test matrix {m.shape}")
+            rows_sum_to_one(os.path.join(run, "train-doc_topic_means.csv"),
+                            1e-9)
+        elif name.startswith("kl_classifier"):
+            acc = confusion_accuracy(os.path.join(
+                run, "last-confusion-matrix.csv"))
+            entry["accuracy"] = acc
+            if name == "kl_classifier":
+                check(acc >= 0.8, f"[6 cli apps] KL classifier accuracy "
+                      f"{acc}")
+        elif name == "lda_similarity":
+            pairs = [ln.split(",") for ln in open(os.path.join(
+                run, "similarities.csv")).read().splitlines()[1:]]
+            same = float(np.mean([int(t) % 3 == int(r) % 3
+                                  for t, r, _ in pairs]))
+            entry["same_theme"] = same
+            check(len(pairs) == 150 and same >= 0.8,
+                  f"[6 cli apps] {len(pairs)} similarities, nearest of the "
+                  f"same theme on {same}")
+        elif name == "bm25_search":
+            lines = open(os.path.join(run, "bm25_results.csv")).readlines()
+            check(len(lines) == 151, f"[6 cli apps] {len(lines)} BM25 lines")
+        elif name == "topic_mass":
+            lines = open(os.path.join(run, "type_mass_cumsum.csv")
+                         ).read().splitlines()
+            check(lines[0] == "type_fraction,cumulative_mass"
+                  and len(lines) >= 2, f"[6 cli apps] type mass {lines}")
+        else:
+            docs = [list(corpus.tokens[corpus.doc_offsets[d]:
+                                       corpus.doc_offsets[d + 1]])
+                    for d in range(corpus.num_docs)]
+            check(svmlight_export.read_token_index_corpus(os.path.join(
+                run, "apps-corpus.txt")) == docs
+                  and svmlight_export.read_svmlight_corpus(os.path.join(
+                      run, "apps-corpus.svmlight")) == docs
+                  and open(os.path.join(run, "apps-vocabulary.txt")
+                           ).read().split() == list(corpus.vocab),
+                  "[6 cli apps] the svmlight export does not round-trip")
+        found[name] = entry
+    print(f"[6 cli apps] the seven drivers' main on {dev} "
+          f"({torch.cuda.get_device_name(0)}, {smi}), every artifact "
+          f"checked; seconds, launches of rows 1-3 and quality "
+          f"{json.dumps(found)}", flush=True)
+    return found
+
+
+def apps_phase(torch, corpus, Corpus, LDAConfig, counters, smi, work,
+               dev="cuda"):
+    """[6 apps]: similarity, BM25, classification and the seven secondary
+    drivers on the card. Returns the launches of rows 1-3 of each part."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # earlier phases' tensors
+    t0 = time.perf_counter()
+    train, sim_launches, sim = apps_similarity(torch, corpus, LDAConfig,
+                                               counters, smi, dev)
+    bm = apps_bm25(torch, train, smi, dev)
+    cls_launches, cls = apps_classify(torch, corpus, Corpus, LDAConfig,
+                                      counters, smi, dev)
+    cli = apps_cli(torch, work, counters, smi, dev)
+    seconds = time.perf_counter() - t0
+    print(f"[6 apps] {seconds:.1f} s on {torch.cuda.get_device_name(0)} "
+          f"({smi}); peak memory allocated: similarity {gib(sim['peak'])}, "
+          f"bm25 {gib(bm['peak'])}, classify {gib(cls['peak'])}, each "
+          f"including the {gib(held)} that earlier phases still held when "
+          f"the phase began", flush=True)
+    parts = {"similarity": sim_launches, "classify": cls_launches}
+    return {name: {part: launches[name] for part, launches in parts.items()}
+            | {"cli": sum(e["launches"][i] for e in cli.values())}
+            for i, name in enumerate(("blocked_label_counts",
+                                      "fused_zdraw_nkw", "fused_pcgs_sweep"))}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3173,6 +3571,14 @@ def main() -> int:
 
     cli_held_out(torch, work, themes, rng, counters, cuda_zdraw)
 
+    # ---- 6. the apps ----------------------------------------------------
+    apps_launches = apps_phase(torch, corpus, Corpus, LDAConfig, counters,
+                               smi, work)
+    counts_entry["launches_apps"] = apps_launches["blocked_label_counts"]
+    for entry in pcgs_entries:
+        if entry["name"] == "fused_pcgs_sweep":
+            entry["launches_apps"] = apps_launches["fused_pcgs_sweep"]
+
     kernels = [
         {**counts_entry, "launches": aliasmh_launches,
          "launches_ggs": launches["blocked_label_counts"],
@@ -3182,6 +3588,7 @@ def main() -> int:
          "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_zdraw.py:59",
          "launches": launches["fused_zdraw_nkw"],
          "launches_foldin": foldin_launches["fused_zdraw_nkw"],
+         "launches_apps": apps_launches["fused_zdraw_nkw"],
          "max_abs_err": zdraw_err,
          "ms": zdraw_ms, "precise_ms": zdraw_precise_ms,
          "plain_ms": zdraw_plain_ms, "bound_ms": zdraw_bound,

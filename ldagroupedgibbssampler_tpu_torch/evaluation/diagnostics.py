@@ -74,6 +74,14 @@ class TopicDiagnostics:
         self._codoc = (co, col)
         return self._codoc
 
+    def codocument_matrix(self, topic: int) -> np.ndarray:
+        """[num_top_words, num_top_words] co-document counts for one
+        topic's top words (getCodocumentMatrix,
+        TopicModelDiagnosticsPlain.java:222-224)."""
+        co, col = self._codocument_counts()
+        idx = [col[int(t)] for t in self.top_idx[topic]]
+        return co[np.ix_(idx, idx)].astype(np.int64)
+
     def coherence(self):
         """Mimno coherence: sum_{i<j} log((D(w_i, w_j) + 1) / D(w_j))
         over the topic's top words (:474-500)."""

@@ -84,6 +84,15 @@ def fold_in(phi_kv: torch.Tensor, corpus: Corpus, alpha,
     if blocks is None:
         blocks = corpus.cell_blocks(block=token_block, vspan=vocab_span,
                                     dspan=doc_span)
+    if corpus.num_docs == 0:
+        # no document to fold in: empty counts and theta, as the JAX
+        # fold-in returns (an id file that matches no document)
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return FoldIn(z=zeros(blocks.mask.size), ndk=zeros(0, num_topics),
+                      nkw_vk=zeros(num_types, num_topics),
+                      theta_mean=zeros(0, num_topics, dtype=torch.float32),
+                      blocks=blocks, num_tokens=0)
 
     def t(a):
         return torch.as_tensor(a, device=dev)

@@ -80,6 +80,11 @@ class RunLogger:
                             f"Run{subconfig + '-' if subconfig else ''}{ts}")
         return cls(path)
 
+    def sub_logger(self, name: str) -> "RunLogger":
+        """A logger writing into the subdirectory `name` of this run's
+        directory (the cross-validation folds' `fold-<n>`)."""
+        return RunLogger(os.path.join(self.run_dir, name))
+
     def _append(self, filename: str, line: str):
         f = self._files.get(filename)
         if f is None:

@@ -1,12 +1,37 @@
-"""Per-iteration stats rows and host memory: the port's copy of
-`IterationStats` and `host_memory_mb` from
-`ldagroupedgibbssampler_tpu/utils/timing.py` (replaces util/Stats.java and
-the JMX resource logging of UncollapsedParallelLDA.java:1972-2048 — host
-RSS stands in for JVM heap)."""
+"""Per-phase timing, per-iteration stats rows and host memory: the port's
+copy of `ldagroupedgibbssampler_tpu/utils/timing.py` (replaces
+util/Stats.java, util/Timing.java and the JMX resource logging of
+UncollapsedParallelLDA.java:1972-2048 — host RSS stands in for JVM heap).
+`Timing` reads the host clock: around device work, synchronise inside the
+timed block."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
+
+
+@dataclass
+class Timing:
+    """Named event timer (util/Timing.java): `with timing.time(name):`
+    appends (name, milliseconds) to `events`."""
+    events: list = field(default_factory=list)
+
+    def time(self, name: str):
+        return _TimeCtx(self, name)
+
+
+class _TimeCtx:
+    def __init__(self, timing: Timing, name: str):
+        self.timing, self.name = timing, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.timing.events.append(
+            (self.name, (time.perf_counter() - self.t0) * 1000.0))
 
 
 @dataclass

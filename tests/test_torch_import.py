@@ -17,11 +17,15 @@ _PROBE = """
 import sys
 sys.path.insert(0, sys.argv[1])
 import ldagroupedgibbssampler_tpu_torch
+import ldagroupedgibbssampler_tpu_torch.classify
+import ldagroupedgibbssampler_tpu_torch.classify.confusion
+import ldagroupedgibbssampler_tpu_torch.classify.kl_classifier
 import ldagroupedgibbssampler_tpu_torch.corpus.perplexity
 import ldagroupedgibbssampler_tpu_torch.evaluation.diagnostics
 import ldagroupedgibbssampler_tpu_torch.evaluation.foldin
 import ldagroupedgibbssampler_tpu_torch.evaluation.hyperopt
 import ldagroupedgibbssampler_tpu_torch.evaluation.marginal
+import ldagroupedgibbssampler_tpu_torch.evaluation.topwords
 import ldagroupedgibbssampler_tpu_torch.models.adlda
 import ldagroupedgibbssampler_tpu_torch.models.cgs
 import ldagroupedgibbssampler_tpu_torch.models.ggs
@@ -32,11 +36,28 @@ import ldagroupedgibbssampler_tpu_torch.models.nzvs
 import ldagroupedgibbssampler_tpu_torch.models.pcgs
 import ldagroupedgibbssampler_tpu_torch.models.polyaurn
 import ldagroupedgibbssampler_tpu_torch.models.priors
+import ldagroupedgibbssampler_tpu_torch.ops.alias
+import ldagroupedgibbssampler_tpu_torch.ops.categorical
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_lightlda
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs
 import ldagroupedgibbssampler_tpu_torch.ops.kernels
+import ldagroupedgibbssampler_tpu_torch.similarity
+import ldagroupedgibbssampler_tpu_torch.similarity.bm25
+import ldagroupedgibbssampler_tpu_torch.similarity.corpus_statistics
+import ldagroupedgibbssampler_tpu_torch.similarity.distances
+import ldagroupedgibbssampler_tpu_torch.similarity.lda_distancer
+import ldagroupedgibbssampler_tpu_torch.tui.bm25_search
+import ldagroupedgibbssampler_tpu_torch.tui.common
+import ldagroupedgibbssampler_tpu_torch.tui.kl_classifier
+import ldagroupedgibbssampler_tpu_torch.tui.lda_similarity
 import ldagroupedgibbssampler_tpu_torch.tui.parallel_lda
+import ldagroupedgibbssampler_tpu_torch.tui.svmlight_export
+import ldagroupedgibbssampler_tpu_torch.tui.topic_mass
+import ldagroupedgibbssampler_tpu_torch.tui.train_test
+import ldagroupedgibbssampler_tpu_torch.tui.xvalidation
+import ldagroupedgibbssampler_tpu_torch.utils
 import ldagroupedgibbssampler_tpu_torch.utils.matrix_io
+import ldagroupedgibbssampler_tpu_torch.utils.sampling
 import ldagroupedgibbssampler_tpu_torch.utils.timing
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
