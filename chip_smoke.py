@@ -120,9 +120,27 @@ Phases (each prints one line; any failure raises and exits non-zero):
      classifier also with --multi_corpus) on phase 5's text corpus, every
      artifact checked, the KL classifier's accuracy >= 0.8 and the nearest
      training document of the same theme on >= 80% of test documents;
-     each part with its seconds and peak memory.
+     each part with its seconds and peak memory;
+  7. the sharded schemes on torch.distributed (`[7 parallel]`), each rank
+     a process spawned once a run, which loads the kernels phase 2 built:
+     all five (sharded_ggs, vocab_sharded_ggs, sharded_adlda, sharded_pcgs,
+     sharded_uncollapsed) at 2 gloo ranks sharing cuda:0, then sharded_ggs
+     and vocab_sharded_ggs at 1 NCCL rank (its n_dk all-reduce in int16),
+     10 iterations each at K=100 on the whole corpus, with the launch
+     counters set to 0 just before and read just after (rows 2 and 1, or
+     row 3, once an iteration a rank): the likelihood at 0 and 10, the
+     exact recount of the gathered z against the merged counts, every
+     replicated tensor bit-equal across the ranks, the GGS kernels at a
+     rank's shapes against their plain versions, ms/iteration and the
+     all-reduce's ms (CUDA events) and bytes an iteration; then
+     `[7 sharded_adlda oracle]`, sharded_adlda at 2 ranks on the first
+     2,000 documents for 30 iterations with each rank's parallel launch
+     against the one-warp launch from one seed (gap under 0.5%), beside
+     the single-device one-warp chain of `[4 adlda oracle]`. A rank that
+     fails, or a run past its deadline, fails the script.
 Then one JSON line describing every kernel (the counts, z-draw and PCGS
-entries with their launches in phase 6 as `launches_apps`), the nvidia-smi
+entries with their launches in phase 6 as `launches_apps`, every entry
+with its launches in phase 7 as `launches_parallel`), the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
@@ -1847,6 +1865,105 @@ def collapsed_boundary(torch, fn, plain, seed):
     return z
 
 
+def collapsed_sweep_checks(torch, model, gen, seed, plain_of, label,
+                           serial_docs=200):
+    """The collapsed-mode checks of one model's layout, shared by [3 adlda
+    sweep] and the sharded_adlda ranks of [7 parallel], from entry counts
+    that are not the z_old histogram (collapsed_entry): (a) the parallel
+    launch over every document but each 5th: N_kw = entry + moves, n_dk,
+    flags, kept z and V beta + n_k exact; (b) the longest, the first and
+    the middle document alone: equal to the plain version on every token,
+    injected and Philox uniforms; (c) the one-warp launch over the first
+    `serial_docs` documents against the plain version (both the
+    sequential chain): z agreement >= 0.999, where z differs the chain's
+    first differing token a proven rounding tie, N_kw the entry plus the
+    moves. Returns what [3 adlda sweep] prints, with `call` (table, u,
+    **kw) -> (fn, args, kw), the one-warp launch's `table` and `entry`."""
+    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
+    dev, st, corpus = model.device, model.state, model.corpus
+    d = corpus.num_docs
+    real = model._slot_mask
+    entry, counts, nk_plus = collapsed_entry(torch, model, gen)
+    nkp = torch.empty_like(nk_plus)
+
+    def call(table, u=None, **kw):
+        fn, args, ckw = model._sweep_call(st.z, table, counts, seed, u,
+                                          nk_plus=nk_plus, beta=st.beta)
+        return fn, args, {**ckw, **kw}
+
+    # (a) bookkeeping on the whole corpus, parallel launch
+    doc_sel = (torch.arange(d, device=dev) % 5) != 0
+    table = model._ndk_table(st.ndk, st.alpha, doc_sel)
+    fn, args, kw = call(table, nk_out=nkp)
+    zk, nkw_k, tb_k = fn(*args, **kw)
+    torch.cuda.synchronize()
+    check_sweep_outputs(torch, model, f"{label} (a)", st.z, zk, nkw_k,
+                        tb_k, doc_sel, entry)
+    check_nk_plus(torch, f"{label} (a)", nk_plus, entry, nkw_k, nkp)
+    moved_a = int((zk != st.z)[real].sum())
+
+    # (b) one selected document, injected and Philox uniforms
+    lengths = np.diff(corpus.doc_offsets)
+    docs = (int(np.argmax(lengths)), 0, d // 2)
+    u24 = torch.randint(0, 2 ** 24, tuple(st.z.shape), generator=gen,
+                        device=dev, dtype=torch.int32)
+    for doc in docs:
+        one = torch.arange(d, device=dev) == doc
+        table1 = model._ndk_table(st.ndk, st.alpha, one)
+        for u in (u24, None):
+            nkp_r = torch.empty_like(nk_plus)
+            fn, args, kw = call(table1, u, nk_out=nkp)
+            zk, nkw_k, tb_k = fn(*args, **kw)
+            zr, nkw_r, tb_r = plain_of[fn](*args, **{**kw,
+                                                     "nk_out": nkp_r})
+            torch.cuda.synchronize()
+            src = "philox" if u is None else "u24"
+            what = f"{label} (b) doc {doc} {src}"
+            check(torch.equal(zk, zr) and torch.equal(nkw_k, nkw_r)
+                  and torch.equal(tb_k, tb_r) and torch.equal(nkp, nkp_r),
+                  f"{what}: kernel and plain version differ on "
+                  f"{int((zk != zr).sum())} tokens")
+            check_sweep_outputs(torch, model, what, st.z, zk, nkw_k,
+                                tb_k, one, entry)
+    del table1, u24
+
+    # (c) the one-warp launch against the plain version on the first
+    # documents (the kernel walks only the listed documents)
+    table = model._ndk_table(st.ndk, st.alpha, None)
+    fn, args, kw = call(table, serial=True, nk_out=nkp)
+    i_off = next(i for i, a in enumerate(args)
+                 if a is model.doc_slot_offsets)
+    sargs = list(args)
+    sargs[i_off] = model.doc_slot_offsets[:serial_docs + 1]
+    zk, nkw_k, tb_k = fn(*sargs, **kw)
+    torch.cuda.synchronize()
+    nkp_r = torch.empty_like(nk_plus)
+    t0 = time.perf_counter()
+    zr, nkw_r, _ = plain_of[fn](*sargs, **{**kw, "nk_out": nkp_r})
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    in_slice = real & (model._slot_d < serial_docs)
+    n_slice = int(in_slice.sum())
+    agree_c = float((zk == zr)[in_slice].float().mean())
+    check(agree_c >= 0.999, f"{label} (c): one-warp launch agrees with "
+          f"the plain version on only {agree_c:.6f} of tokens")
+    tie_c = collapsed_tie_at_first_disagreement(
+        torch, model, f"{label} (c)", st.z, zk, zr, table, counts,
+        nk_plus, st.beta, philox_u24(seed, st.z.numel()), serial_docs)
+    check(torch.equal(zk[~in_slice], st.z[~in_slice]),
+          f"{label} (c): a token outside the slice moved")
+    live = entry + slot_hist(torch, model, zk, entry.shape[0]) \
+        - slot_hist(torch, model, st.z, entry.shape[0])
+    check(torch.equal(nkw_k, live), f"{label} (c): N_kw is not the "
+          "entry count plus the one-warp launch's moves")
+    check_nk_plus(torch, f"{label} (c)", nk_plus, entry, nkw_k, nkp)
+    err = int((nkw_k - nkw_r).abs().max())
+    return dict(call=call, table=table, entry=entry, moved_a=moved_a,
+                docs=docs, lengths=[int(lengths[x]) for x in docs],
+                n_slice=n_slice, agree_c=agree_c, tie_c=tie_c, err=err,
+                plain_ms=plain_ms)
+
+
 def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
     """[3 adlda sweep]: the collapsed mode of the sweep kernel against its
     plain version (the sequential chain) at the 20NG shapes, on the
@@ -1857,7 +1974,6 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
     the chain's first differing token a proven rounding tie), (d) a
     chi-square. Returns one `kernels` entry per layout (launches filled in
     later)."""
-    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
     plain_of = {
         cuda_pcgs.fused_pcgs_sweep: cuda_pcgs.fused_pcgs_sweep_reference,
         cuda_pcgs.fused_pcgs_sweep_streamed:
@@ -1873,85 +1989,13 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
         dev, st = model.device, model.state
         gen = torch.Generator(device=dev)
         gen.manual_seed(k + 2)
-        real = model._slot_mask
-        entry, counts, nk_plus = collapsed_entry(torch, model, gen)
         seed = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64,
                             device=dev)
-        nkp = torch.empty_like(nk_plus)
         label = f"adlda K={k}"
-
-        def call(table, u=None, **kw):
-            fn, args, ckw = model._sweep_call(st.z, table, counts, seed, u,
-                                              nk_plus=nk_plus, beta=st.beta)
-            return fn, args, {**ckw, **kw}
-
-        # (a) bookkeeping on the full corpus, parallel launch
-        doc_sel = (torch.arange(D, device=dev) % 5) != 0
-        table = model._ndk_table(st.ndk, st.alpha, doc_sel)
-        fn, args, kw = call(table, nk_out=nkp)
-        zk, nkw_k, tb_k = fn(*args, **kw)
-        torch.cuda.synchronize()
-        check_sweep_outputs(torch, model, f"{label} (a)", st.z, zk, nkw_k,
-                            tb_k, doc_sel, entry)
-        check_nk_plus(torch, f"{label} (a)", nk_plus, entry, nkw_k, nkp)
-        moved_a = int((zk != st.z)[real].sum())
-
-        # (b) one selected document, injected and Philox uniforms
-        lengths = np.diff(corpus.doc_offsets)
-        docs = (int(np.argmax(lengths)), 0, D // 2)
-        u24 = torch.randint(0, 2 ** 24, tuple(st.z.shape), generator=gen,
-                            device=dev, dtype=torch.int32)
-        for doc in docs:
-            one = torch.arange(D, device=dev) == doc
-            table1 = model._ndk_table(st.ndk, st.alpha, one)
-            for u in (u24, None):
-                nkp_r = torch.empty_like(nk_plus)
-                fn, args, kw = call(table1, u, nk_out=nkp)
-                zk, nkw_k, tb_k = fn(*args, **kw)
-                zr, nkw_r, tb_r = plain_of[fn](*args, **{**kw,
-                                                         "nk_out": nkp_r})
-                torch.cuda.synchronize()
-                src = "philox" if u is None else "u24"
-                what = f"{label} (b) doc {doc} {src}"
-                check(torch.equal(zk, zr) and torch.equal(nkw_k, nkw_r)
-                      and torch.equal(tb_k, tb_r) and torch.equal(nkp, nkp_r),
-                      f"{what}: kernel and plain version differ on "
-                      f"{int((zk != zr).sum())} tokens")
-                check_sweep_outputs(torch, model, what, st.z, zk, nkw_k,
-                                    tb_k, one, entry)
+        r = collapsed_sweep_checks(torch, model, gen, seed, plain_of, label)
+        call, table, entry = r["call"], r["table"], r["entry"]
+        fn = call(table)[0]
         z_edge = collapsed_boundary(torch, fn, plain_of[fn], seed)
-
-        # (c) the one-warp launch against the plain version on the first
-        # 200 documents (the kernel walks only the listed documents)
-        table = model._ndk_table(st.ndk, st.alpha, None)
-        fn, args, kw = call(table, serial=True, nk_out=nkp)
-        i_off = next(i for i, a in enumerate(args)
-                     if a is model.doc_slot_offsets)
-        sargs = list(args)
-        sargs[i_off] = model.doc_slot_offsets[:201]
-        zk, nkw_k, tb_k = fn(*sargs, **kw)
-        torch.cuda.synchronize()
-        nkp_r = torch.empty_like(nk_plus)
-        t0 = time.perf_counter()
-        zr, nkw_r, _ = plain_of[fn](*sargs, **{**kw, "nk_out": nkp_r})
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        in_slice = real & (model._slot_d < 200)
-        n_slice = int(in_slice.sum())
-        agree_c = float((zk == zr)[in_slice].float().mean())
-        check(agree_c >= 0.999, f"{label} (c): one-warp launch agrees with "
-              f"the plain version on only {agree_c:.6f} of tokens")
-        tie_c = collapsed_tie_at_first_disagreement(
-            torch, model, f"{label} (c)", st.z, zk, zr, table, counts,
-            nk_plus, st.beta, philox_u24(seed, st.z.numel()), 200)
-        check(torch.equal(zk[~in_slice], st.z[~in_slice]),
-              f"{label} (c): a token outside the slice moved")
-        live = entry + slot_hist(torch, model, zk, entry.shape[0]) \
-            - slot_hist(torch, model, st.z, entry.shape[0])
-        check(torch.equal(nkw_k, live), f"{label} (c): N_kw is not the "
-              "entry count plus the one-warp launch's moves")
-        check_nk_plus(torch, f"{label} (c)", nk_plus, entry, nkw_k, nkp)
-        err = int((nkw_k - nkw_r).abs().max())
 
         # (d) chi-square of one-token documents
         chi2, pval, moved_d = collapsed_chi_square(torch, fn, gen, seed, k)
@@ -1986,33 +2030,35 @@ def adlda_kernel_phase(torch, corpus, LDAConfig, create_model, cuda_pcgs):
               f"corpus, every 5th document "
               f"unselected, entry N_kw = hist + offset: N_kw = entry + "
               f"moves, n_dk, flags, kept z and V beta + n_k exact "
-              f"({moved_a} tokens moved); (b) one selected document "
-              f"({', '.join(map(str, docs))}; lengths "
-              f"{', '.join(str(lengths[d]) for d in docs)}): kernel equal "
+              f"({r['moved_a']} tokens moved); (b) one selected document "
+              f"({', '.join(map(str, r['docs']))}; lengths "
+              f"{', '.join(map(str, r['lengths']))}): kernel equal "
               f"to the plain version on every token, u24 and Philox; own "
               f"count at the draw's boundary: z {z_edge} as computed; (c) "
-              f"one-warp launch on the first 200 documents ({n_slice} "
-              f"tokens): z agreement {agree_c:.6f} ("
-              + ("equal on every token" if tie_c is None else
-                 f"first differing at slot {tie_c}, a proven rounding tie")
+              f"one-warp launch on the first 200 documents ({r['n_slice']} "
+              f"tokens): z agreement {r['agree_c']:.6f} ("
+              + ("equal on every token" if r["tie_c"] is None else
+                 f"first differing at slot {r['tie_c']}, a proven "
+                 "rounding tie")
               + f"), N_kw and V beta + n_k "
-              f"exact, max |N_kw - plain| {err}; (d) chi2={chi2:.1f} (df "
+              f"exact, max |N_kw - plain| {r['err']}; (d) chi2={chi2:.1f} (df "
               f"{k - 1}, p={pval:.3g}, 200,704 one-token documents, "
               f"{moved_d} moved); kernel {ms:.4f} ms, one-warp launch "
               f"{serial_ms:.1f} ms, plain version on the first 200 "
-              f"documents {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+              f"documents {r['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
         entries.append(
             {"name": fn.__name__, "mode": "collapsed", "route": "cuda",
              "source": "ldagroupedgibbssampler_tpu_torch/csrc/pcgs.cu",
              "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_pcgs.py:"
                          + ("215" if layout == "resident" else "825"),
-             "launches": 0, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms,
-             "plain_scope": f"first 200 documents ({n_slice} tokens)",
+             "launches": 0, "max_abs_err": r["err"], "ms": ms,
+             "plain_ms": r["plain_ms"],
+             "plain_scope": f"first 200 documents ({r['n_slice']} "
+                            "tokens)",
              "serial_ms": serial_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None})
-        del model, st, table, table1, entry, counts, u24, zk, zr, tb_k
+        del model, st, table, entry, r, call
         torch.cuda.empty_cache()
     return entries
 
@@ -2174,7 +2220,8 @@ def adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model,
     the same seed (the atomics' order differs from run to run) and
     one-warp chains from two more seeds; it prints the mean and range of
     the three parallel chains' gaps beside the range of the three one-warp
-    chains' LLs at iteration ITERS. Returns the relative gap."""
+    chains' LLs at iteration ITERS. Returns the relative gap and the
+    one-warp chain's LL series (init and every 10)."""
     import dataclasses
     sub = first_docs(Corpus, corpus, num_docs)
     runs = []
@@ -2218,7 +2265,7 @@ def adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model,
           f"[{min(gaps):+.6f}, {max(gaps):+.6f}]; one-warp LLs at {ITERS} "
           f"(seeds 2019, 2020, 2021) {traj(ser_ll)}, range "
           f"{ser_range:.6f} of |LL|", flush=True)
-    return gap
+    return gap, ser
 
 
 def collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model,
@@ -3239,6 +3286,369 @@ def apps_phase(torch, corpus, Corpus, LDAConfig, counters, smi, work,
                                       "fused_zdraw_nkw", "fused_pcgs_sweep"))}
 
 
+# ---- 7. the sharded schemes on torch.distributed -------------------------
+PARALLEL_SCHEMES = ("sharded_ggs", "vocab_sharded_ggs", "sharded_adlda",
+                    "sharded_pcgs", "sharded_uncollapsed")
+PARALLEL_NCCL = ("sharded_ggs", "vocab_sharded_ggs")
+PARALLEL_ITERS = 10
+PARALLEL_DEADLINE_S = 480   # a rank blocked by a dead peer gives up at 180
+ORACLE_DOCS = 2000
+# the largest |relative LL gap| at ITERS of the sharded_adlda chain to the
+# single-device one-warp chain, by ranks: AD-LDA's staleness, which reads
+# -3.4% to -3.7% at 2 ranks and -4.9% to -5.0% at 4 on an H100 (PERF.md §6)
+STALENESS_BAR = {2: 0.05, 4: 0.07}
+# the kernel launches each scheme's rank makes in an iteration, by counter
+PARALLEL_LAUNCHES = {
+    "sharded_ggs": ("fused_zdraw_nkw", "blocked_label_counts"),
+    "vocab_sharded_ggs": ("fused_zdraw_nkw", "blocked_label_counts"),
+    "sharded_adlda": ("fused_pcgs_sweep collapsed",),
+    "sharded_pcgs": ("fused_pcgs_sweep",),
+    "sharded_uncollapsed": ("fused_pcgs_sweep",),
+}
+
+
+def rank_kernels_vs_plain(torch, model, label):
+    """The GGS kernels at this rank's shapes against their plain versions:
+    the count kernel on the rank's layout B (exact) and the z-draw on its
+    layout A with injected uniforms (every token but proven rounding ties,
+    and N_kw the histogram of the kernel's z). Returns (z agreement, the
+    ties entry)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_counts, cuda_zdraw
+    st, b, cfg = model.state, model._blocks, model.config
+    z_b = st.z.view(-1, b.chunk)[model.srcb].view(model.dlb.shape)
+    ckw = dict(nwin=b.nwin_d, vspan=b.dspan, num_labels=cfg.topics)
+    got = cuda_counts.blocked_label_counts(model.dlb, z_b, model.windb,
+                                           model.firstdb, **ckw)
+    ref = cuda_counts.blocked_label_counts_reference(
+        model.dlb, z_b, model.windb, model.firstdb, **ckw)
+    check(torch.equal(got, ref), f"{label}: count kernel differs from its "
+          "plain version on the rank's layout B")
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(11)
+    u24 = torch.randint(0, 2 ** 24, model._shape3, generator=gen,
+                        device=model.device, dtype=torch.int32)
+    seed = torch.zeros(1, dtype=torch.int64, device=model.device)
+    args = (model.wb.view(model._shape3), model.dla.view(model._shape3),
+            st.z.view(model._shape3), st.theta,
+            model._zdraw_phi(st.phi).contiguous(), seed, model.winb,
+            model.firstb, model.windc)
+    zkw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=b.vspan,
+               dspan=b.dspan, num_topics=cfg.topics)
+    zk, nkw = cuda_zdraw.fused_zdraw_nkw(*args, u24,
+                                         real_slots=model._real_slots, **zkw)
+    zr, _ = cuda_zdraw.fused_zdraw_nkw_reference(*args, u24, **zkw)
+    real = model.mf.view(model._shape3)
+    agree = float((zk == zr)[real].float().mean())
+    check(agree >= 0.999, f"{label}: z-draw agrees with its plain version "
+          f"on {agree:.6f} of the rank's tokens")
+    ties = zdraw_ties(torch, f"{label} z-draw", zk, zr, args, zkw, u24,
+                      False)
+    hist = cuda_counts.blocked_label_counts_reference(
+        model.wb, zk.view(model.wb.shape), model.winb, model.firstb,
+        nwin=b.nwin_w, vspan=b.vspan, num_labels=cfg.topics)
+    check(torch.equal(nkw, hist), f"{label}: the z-draw's N_kw is not the "
+          "histogram of its z")
+    return agree, ties
+
+
+def rank_sweep_vs_plain(torch, model, scheme, label):
+    """The sweep kernel (row 3) at this rank's shapes against its plain
+    version: the PCGS-mode checks of [3 pcgs] (pcgs_sweep_checks: z
+    agreement >= 0.999 with tie proofs, N_kw, n_dk, flags and kept z
+    exact) for sharded_pcgs and sharded_uncollapsed, the collapsed-mode
+    checks of [3 adlda sweep] (collapsed_sweep_checks (a)-(c)) for
+    sharded_adlda. Returns the agreements."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_pcgs
+    plain_of = {
+        cuda_pcgs.fused_pcgs_sweep: cuda_pcgs.fused_pcgs_sweep_reference,
+        cuda_pcgs.fused_pcgs_sweep_streamed:
+            cuda_pcgs.fused_pcgs_sweep_streamed_reference}
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13 + model.mesh.rank)
+    seed = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64,
+                        device=dev)
+    if scheme == "sharded_adlda":
+        r = collapsed_sweep_checks(torch, model, gen, seed, plain_of, label)
+        return {"one-warp": r["agree_c"], "one-warp tie at": r["tie_c"],
+                "moved": r["moved_a"]}
+    doc_sel = (torch.arange(model.corpus.num_docs, device=dev) % 5) != 0
+    agreement, _ = pcgs_sweep_checks(torch, model, gen, seed, plain_of,
+                                     label, doc_sel)
+    return agreement
+
+
+def parallel_scheme(torch, corpus, LDAConfig, create_model, counters,
+                    scheme, label):
+    """One scheme on this rank: PARALLEL_ITERS iterations timed, with the
+    launch counters set to 0 just before and read just after, the all-reduce
+    time by CUDA events and its bytes; then the exact recount of the
+    gathered z, the replicated tensors bit-equal across the ranks (the
+    paranoid checks) and the rank's kernels against their plain versions
+    at its shapes: rows 2 and 1 for the GGS schemes
+    (rank_kernels_vs_plain), row 3 for the others (rank_sweep_vs_plain)."""
+    from ldagroupedgibbssampler_tpu_torch.parallel.mesh import (
+        collective_counters, collectives)
+    t0 = time.perf_counter()
+    model = create_model(pcgs_config(LDAConfig, scheme, K))
+    model.add_instances(corpus)
+    setup_s = time.perf_counter() - t0
+    ll0 = model.model_log_likelihood()
+    zero_launches(counters + collective_counters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with collectives.timed() as events:
+        model.sample(PARALLEL_ITERS)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / PARALLEL_ITERS
+    launches = {k: v for k, v in read_launches(counters).items() if v}
+    out = dict(
+        ll0=ll0, ll10=model.get_log_likelihoods()[-1][1], ms=ms,
+        setup_s=setup_s, launches=launches,
+        allreduce_ms=sum(a.elapsed_time(b) for a, b in events)
+        / PARALLEL_ITERS,
+        allreduce_bytes=collectives.bytes / PARALLEL_ITERS,
+        allreduce_calls=collectives.calls / PARALLEL_ITERS,
+        tokens=int(model._slot_mask.sum()), backend=model.mesh.backend,
+        device=f"cuda:{torch.cuda.current_device()}")
+    want = {k: PARALLEL_ITERS for k in PARALLEL_LAUNCHES[scheme]}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(out["ll10"] > ll0 if scheme != "sharded_adlda"
+          else out["ll10"] >= ll0, f"{label}: LL init {ll0} -> "
+          f"it{PARALLEL_ITERS} {out['ll10']}")
+    model._paranoid_checks()
+    check_counts_exact(model, corpus, label)
+    if scheme.endswith("ggs"):
+        out["zdraw_agree"], out["zdraw_ties"] = rank_kernels_vs_plain(
+            torch, model, label)
+    else:
+        out["sweep_agree"] = rank_sweep_vs_plain(torch, model, scheme, label)
+    if scheme == "vocab_sharded_ggs":
+        out["ndk_dtype"] = str(model._ndk_dtype).replace("torch.", "")
+    if hasattr(model, "_mode"):
+        out["layout"] = model._mode
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model,
+                         num_docs, serial):
+    """sharded_adlda on the first `num_docs` documents for ITERS
+    iterations, each rank's sweep the parallel launch or (`serial`) the
+    one-warp launch, the rank's sequential chain: its LL series (init and
+    every 10) and ms/iteration."""
+    sub = first_docs(Corpus, corpus, num_docs)
+    model = create_model(pcgs_config(LDAConfig, "sharded_adlda", K))
+    model._serial_sweep = serial
+    model.add_instances(sub)
+    ll0 = model.model_log_likelihood()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.sample(ITERS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    check_counts_exact(model, sub, "sharded_adlda oracle")
+    lls = [ll0] + [ll for _, ll in model.get_log_likelihoods()]
+    del model
+    return dict(lls=lls, ms=ms)
+
+
+def parallel_rank(rank, world, port, out_dir, tag, schemes, oracle_docs):
+    """One rank of `[7 parallel]`, in a spawned process of its own: it
+    loads the kernels the parent built, joins a group of `world` ranks on
+    the card (more than one rank shares it over gloo; one rank takes
+    choose_backend's NCCL), runs `schemes` and, with `oracle_docs`, the
+    sharded_adlda oracle chain, and writes its results (or its traceback)
+    to out_dir/<tag>_<rank>.json. Any failure exits non-zero."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    result = {"rank": rank, "world": world}
+    path = os.path.join(out_dir, f"{tag}_{rank}.json")
+    try:
+        from ldagroupedgibbssampler_tpu_torch.config.lda_config import (
+            LDAConfig)
+        from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
+        from ldagroupedgibbssampler_tpu_torch.models.fusion import (
+            launch_counters)
+        from ldagroupedgibbssampler_tpu_torch.models.registry import (
+            create_model)
+        from ldagroupedgibbssampler_tpu_torch.ops import _build
+        from ldagroupedgibbssampler_tpu_torch.parallel.mesh import (
+            choose_backend, distributed_initialize)
+        _, result["build_s"] = _build.build()
+        check(result["build_s"] == 0.0, "a rank rebuilt the kernels")
+        _build.library()
+        addr = f"127.0.0.1:{port}"
+        if world > 1:
+            distributed_initialize(addr, num_processes=world, process_id=rank,
+                                   device="cuda", timeout_s=180)
+        else:       # distributed_initialize leaves one process alone
+            torch.cuda.set_device(0)
+            dist.init_process_group(
+                backend=choose_backend("cuda", 1), init_method=f"tcp://{addr}",
+                world_size=1, rank=0,
+                timeout=datetime.timedelta(seconds=180))
+        # the backend's own int16 all-reduce, which psum_counts works around
+        try:
+            dist.all_reduce(torch.ones(2, dtype=torch.int16, device="cuda"))
+            result["int16_all_reduce"] = "accepted"
+        except (RuntimeError, TypeError) as e:
+            result["int16_all_reduce"] = f"refused ({type(e).__name__})"
+        corpus = synth_corpus(Corpus)
+        counters = launch_counters()
+        for scheme in schemes:
+            result[scheme] = parallel_scheme(
+                torch, corpus, LDAConfig, create_model, counters, scheme,
+                f"{scheme} ({world} {dist.get_backend()} ranks, rank {rank})")
+        for serial in (False, True) if oracle_docs else ():
+            result[f"oracle serial={serial}"] = sharded_adlda_oracle(
+                torch, corpus, Corpus, LDAConfig, create_model, oracle_docs,
+                serial)
+        dist.destroy_process_group()
+    except BaseException:
+        result["error"] = traceback.format_exc()
+        with open(path, "w") as f:
+            json.dump(result, f)
+        raise
+    with open(path, "w") as f:
+        json.dump(result, f)
+
+
+def spawn_ranks(world, out_dir, tag, schemes, oracle_docs=0) -> list:
+    """Run `parallel_rank` in `world` spawned processes; join each with a
+    deadline and check every exit code. Returns the ranks' results."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=parallel_rank, args=(
+        r, world, port, out_dir, tag, schemes, oracle_docs))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PARALLEL_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out_dir, f"{tag}_{r}.json")
+        res = json.load(open(path)) if os.path.exists(path) else {}
+        check(p.exitcode == 0 and "error" not in res,
+              f"[7 parallel] {tag} rank {r} of {world} exited {p.exitcode}: "
+              f"{res.get('error', 'no result (killed at the deadline?)')}")
+        results.append(res)
+    return results
+
+
+def parallel_phase(torch, smi, serial_lls):
+    """[7 parallel]: the five sharded schemes on torch.distributed, each rank
+    a spawned process on the card: all five at 2 gloo ranks on cuda:0, then
+    sharded_ggs and vocab_sharded_ggs at 1 NCCL rank, PARALLEL_ITERS
+    iterations each on the whole corpus at K=100; then the sharded_adlda
+    chain at 2 and at 4 gloo ranks on the first ORACLE_DOCS documents with
+    the parallel launch, whose LL at ITERS must lie within 0.5% of the
+    same ranks' chain with each rank's sweep the one-warp launch (the
+    sequential chain of each rank: AD-LDA, exactly), from one seed; and
+    within STALENESS_BAR of the single-device one-warp chain
+    (`serial_lls`, from [4 adlda oracle], seed 2019): the ranks'
+    staleness, which a replica older than one sweep would widen. Returns
+    the launches of each kernel counter in the phase, by run."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    runs = {"2 gloo ranks": spawn_ranks(2, out_dir, "gloo", PARALLEL_SCHEMES,
+                                        ORACLE_DOCS),
+            "1 nccl rank": spawn_ranks(1, out_dir, "nccl", PARALLEL_NCCL)}
+    oracle = {2: runs["2 gloo ranks"][0],
+              4: spawn_ranks(4, out_dir, "gloo4", (), ORACLE_DOCS)[0]}
+    seconds = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    launches = {}
+    for run, ranks in runs.items():
+        backend = ranks[0][PARALLEL_NCCL[0]]["backend"]
+        check(backend == run.split()[1], f"{run}: backend {backend}")
+        for scheme in PARALLEL_SCHEMES:
+            if scheme not in ranks[0]:
+                continue
+            rs = [r[scheme] for r in ranks]
+            for r in rs:
+                for k, v in r["launches"].items():
+                    launches.setdefault(k, {}).setdefault(run, 0)
+                    launches[k][run] += v
+            extra = ""
+            if "zdraw_agree" in rs[0]:
+                extra += ("; kernels vs plain at the ranks' shapes: counts "
+                          "exact, z-draw agreement "
+                          f"{[r['zdraw_agree'] for r in rs]} (ties "
+                          f"{[r['zdraw_ties'] for r in rs]})")
+            if "sweep_agree" in rs[0]:
+                extra += ("; row 3 vs plain at the ranks' shapes (z "
+                          "agreement, ties): "
+                          f"{json.dumps([r['sweep_agree'] for r in rs])}")
+            if "ndk_dtype" in rs[0]:
+                extra += f"; n_dk all-reduce in {rs[0]['ndk_dtype']}"
+            if "layout" in rs[0]:
+                extra += f"; {rs[0]['layout']} layout"
+            print(f"[7 parallel] {scheme}, {run} on {rs[0]['device']} of "
+                  f"{name} ({smi}), K={K}, {PARALLEL_ITERS} iterations: LL "
+                  f"init {rs[0]['ll0']:.1f} -> it{PARALLEL_ITERS} "
+                  f"{rs[0]['ll10']:.1f}; counts exact against the gathered "
+                  f"z; replicated tensors bit-equal; tokens per rank "
+                  f"{[r['tokens'] for r in rs]}; launches per rank "
+                  f"{json.dumps([r['launches'] for r in rs])}; ms/iteration "
+                  f"(host clock, LL at {PARALLEL_ITERS} included) "
+                  f"{[round(r['ms'], 3) for r in rs]}; all-reduce "
+                  f"ms/iteration (CUDA events) "
+                  f"{[round(r['allreduce_ms'], 3) for r in rs]}, "
+                  f"{rs[0]['allreduce_calls']:.1f} calls and "
+                  f"{rs[0]['allreduce_bytes'] / 2 ** 20:.3f} MiB an "
+                  f"iteration a rank; set-up s "
+                  f"{[round(r['setup_s'], 2) for r in rs]}{extra}",
+                  flush=True)
+    def traj(lls):
+        return json.dumps([round(x, 1) for x in lls])
+    for world, res in oracle.items():
+        par, ser = res["oracle serial=False"], res["oracle serial=True"]
+        gap = (par["lls"][-1] - ser["lls"][-1]) / abs(ser["lls"][-1])
+        one = (par["lls"][-1] - serial_lls[-1]) / abs(serial_lls[-1])
+        check(abs(gap) < 0.005, f"[7 sharded_adlda oracle] {world} ranks: "
+              f"LL gap {gap:.5f} at iteration {ITERS} (parallel launch "
+              f"{par['lls']}, one-warp launch {ser['lls']})")
+        check(abs(one) < STALENESS_BAR[world], f"[7 sharded_adlda oracle] "
+              f"{world} ranks: LL gap {one:.5f} at iteration {ITERS} to the "
+              f"single-device one-warp chain {serial_lls} (bar "
+              f"{STALENESS_BAR[world]})")
+        print(f"[7 sharded_adlda oracle] first {ORACLE_DOCS} documents, "
+              f"K={K}, seed 2019, {world} gloo ranks: LL init/10/20/30 with "
+              f"each rank's parallel launch {traj(par['lls'])} "
+              f"({par['ms']:.1f} ms/iteration), with its one-warp launch "
+              f"{traj(ser['lls'])} ({ser['ms']:.1f} ms/iteration); relative "
+              f"gap at {ITERS} {gap:+.6f} (bar 0.005); the single-device "
+              f"one-warp chain {traj(serial_lls)}, the {world}-rank chain's "
+              f"gap to it {one:+.6f} (the ranks' staleness, bar "
+              f"{STALENESS_BAR[world]})", flush=True)
+    int16 = {run: rs[0]["int16_all_reduce"] for run, rs in runs.items()}
+    print(f"[7 parallel] {seconds:.1f} s; ranks spawned with the "
+          f"kernels already built (build_s "
+          f"{[r['build_s'] for rs in runs.values() for r in rs]}); an int16 "
+          f"all-reduce: {json.dumps(int16)}; launches by counter and run "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3478,7 +3888,8 @@ def main() -> int:
                                      cuda_pcgs, smi)
     for entry in adlda_entries:
         entry["launches"] = adlda_launches[entry["name"]]
-    adlda_oracle(torch, corpus, Corpus, LDAConfig, create_model)
+    _, serial_lls = adlda_oracle(torch, corpus, Corpus, LDAConfig,
+                                 create_model)
     aliasmh_launches = aliasmh_main_path(torch, corpus, LDAConfig,
                                          create_model, cuda_counts,
                                          cuda_zdraw, smi)
@@ -3579,6 +3990,9 @@ def main() -> int:
         if entry["name"] == "fused_pcgs_sweep":
             entry["launches_apps"] = apps_launches["fused_pcgs_sweep"]
 
+    # ---- 7. the sharded schemes on torch.distributed --------------------
+    parallel_launches = parallel_phase(torch, smi, serial_lls)
+
     kernels = [
         {**counts_entry, "launches": aliasmh_launches,
          "launches_ggs": launches["blocked_label_counts"],
@@ -3598,6 +4012,12 @@ def main() -> int:
         *lightlda_entries,
         *adlda_entries,
     ]
+    for entry in kernels:
+        key = entry["name"] + (" collapsed" if entry.get("mode")
+                               == "collapsed" else "")
+        entry["launches_parallel"] = {
+            run: parallel_launches.get(key, {}).get(run, 0)
+            for run in ("2 gloo ranks", "1 nccl rank")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -52,27 +52,41 @@ def model_log_likelihood(ndk, nkw, alpha, beta: float) -> torch.Tensor:
     """
     ndk = _f32(ndk)
     nkw = _f32(nkw).to(ndk.device)
-    num_docs, num_topics = ndk.shape
-    num_types = nkw.shape[1]
-    alpha = _f32(alpha).to(ndk.device).expand(num_topics)
-    beta = float(beta)
-    nk = nkw.sum(dim=1)
-    keep = (alpha > 0) | (nk > 0)
+    alpha = _f32(alpha).to(ndk.device).expand(ndk.shape[1])
+    keep = topics_kept(nkw, alpha)
+    return (doc_log_likelihood(ndk, alpha, keep)
+            + topic_log_likelihood(nkw, beta, keep))
+
+
+def topics_kept(nkw, alpha) -> torch.Tensor:
+    """bool [K]: the topics with alpha_k > 0 or n_k > 0, over which the
+    sums of `model_log_likelihood` run (`nkw` [K, V] f32, `alpha` [K])."""
+    return (alpha > 0) | (nkw.sum(dim=1) > 0)
+
+
+def doc_log_likelihood(ndk, alpha, keep) -> torch.Tensor:
+    """The documents' terms of `model_log_likelihood`: a sum over the rows
+    of `ndk` [D, K] f32, so that the ranks of a sharded scheme add up the
+    terms of their own documents."""
     alpha_sum = alpha.sum()
     doc_lengths = ndk.sum(dim=1)
-    doc_part = (torch.where(keep, torch.lgamma(alpha[None, :] + ndk),
-                            0.0).sum()
-                - torch.lgamma(alpha_sum + doc_lengths).sum()
-                + num_docs * (torch.lgamma(alpha_sum)
+    return (torch.where(keep, torch.lgamma(alpha[None, :] + ndk), 0.0).sum()
+            - torch.lgamma(alpha_sum + doc_lengths).sum()
+            + ndk.shape[0] * (torch.lgamma(alpha_sum)
                               - torch.where(keep, torch.lgamma(alpha),
                                             0.0).sum()))
-    topic_part = (torch.where(keep[:, None], torch.lgamma(beta + nkw),
-                              0.0).sum()
-                  - torch.where(keep, torch.lgamma(num_types * beta + nk),
-                                0.0).sum()
-                  + keep.sum() * (torch.lgamma(_f32(num_types * beta))
-                                  - num_types * torch.lgamma(_f32(beta))))
-    return doc_part + topic_part
+
+
+def topic_log_likelihood(nkw, beta: float, keep) -> torch.Tensor:
+    """The topics' terms of `model_log_likelihood` (`nkw` [K, V] f32)."""
+    num_types = nkw.shape[1]
+    beta = float(beta)
+    nk = nkw.sum(dim=1)
+    return (torch.where(keep[:, None], torch.lgamma(beta + nkw), 0.0).sum()
+            - torch.where(keep, torch.lgamma(num_types * beta + nk),
+                          0.0).sum()
+            + keep.sum() * (torch.lgamma(_f32(num_types * beta))
+                            - num_types * torch.lgamma(_f32(beta))))
 
 
 def log_posterior(ndk, nkw, theta, phi, alpha, beta: float) -> torch.Tensor:
@@ -81,15 +95,24 @@ def log_posterior(ndk, nkw, theta, phi, alpha, beta: float) -> torch.Tensor:
     [K, V]. The reference's per-doc m_djt accumulation collapses to
     N_kw."""
     theta = _f32(theta)
+    return (word_log_posterior(nkw, phi, beta, theta.device)
+            + doc_log_posterior(ndk, theta, alpha))
+
+
+def word_log_posterior(nkw, phi, beta: float, device) -> torch.Tensor:
+    """The topics' terms of `log_posterior` (`nkw` / `phi` [K, V])."""
+    log_phi = torch.log(_f32(phi).to(device) + _EPS)
+    return ((_f32(nkw).to(device) * log_phi).sum()
+            + (float(beta) - 1.0) * log_phi.sum())
+
+
+def doc_log_posterior(ndk, theta, alpha) -> torch.Tensor:
+    """The documents' terms of `log_posterior` (`ndk` / `theta` [D, K]), a
+    sum over their rows."""
+    theta = _f32(theta)
     dev = theta.device
-    ndk = _f32(ndk).to(dev)
-    log_theta = torch.log(theta + _EPS)
-    log_phi = torch.log(_f32(phi).to(dev) + _EPS)
-    alpha = _f32(alpha).to(dev)
-    lp = (_f32(nkw).to(dev) * log_phi).sum()
-    lp = lp + ((ndk + alpha - 1.0) * log_theta).sum()
-    lp = lp + (float(beta) - 1.0) * log_phi.sum()
-    return lp
+    return ((_f32(ndk).to(dev) + _f32(alpha).to(dev) - 1.0)
+            * torch.log(theta + _EPS)).sum()
 
 
 def matrix_density(mat) -> torch.Tensor:

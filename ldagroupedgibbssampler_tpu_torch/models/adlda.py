@@ -67,8 +67,9 @@ class ADLDA(FusedPCGSSweepMixin, TorchLDASampler):
             state.z, state.ndk, state.alpha,
             state.nkw.T.to(torch.float32).contiguous(), doc_mask,
             nk_plus=nk_plus, beta=state.beta)
+        nkw = self._merge_nkw(nkw, entry=state.nkw)
         state.z, state.ndk, state.nkw = z, ndk, nkw
         state.nk = tokens_per_topic(nkw)
         state.phi = rnd.dirichlet(nkw.to(torch.float32) + state.beta,
-                                  self.generator)
+                                  self.shared_generator)
         state.iteration += 1

@@ -131,6 +131,10 @@ class TorchLDASampler:
         self.logger = logger
         self.device = resolve_device(config.device)
         self.generator: Optional[torch.Generator] = None
+        # the generator of the draws every rank of a sharded scheme makes
+        # alike (phi, replicated theta, the initial z); one device has one
+        # generator, so it is `generator` there
+        self.shared_generator: Optional[torch.Generator] = None
         self.corpus: Optional[Corpus] = None
         self.test_corpus: Optional[Corpus] = None
         self.state: Optional[LDAState] = None
@@ -153,18 +157,26 @@ class TorchLDASampler:
     def add_instances(self, corpus: Corpus):
         """Random z init + count build (ModifiedSimpleLDA.addInstances
         :939-969 draws each token's initial topic uniformly)."""
-        cfg = self.config
         self.corpus = corpus
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.effective_seed())
+        self._seed_generators()
         self._prepare_device_data(corpus)
         self.state = self._init_state()
+        self._make_builders(corpus)
+        return self
+
+    def _seed_generators(self):
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.config.effective_seed())
+        self.shared_generator = self.generator
+
+    def _make_builders(self, corpus: Corpus):
+        """The random-scan builders over `corpus`."""
+        cfg = self.config
         self.doc_batch_builder = randomscan.make_document_batch_builder(
             cfg, corpus.num_docs)
         self.topic_index_builder = randomscan.make_topic_index_builder(
             cfg, corpus)
         self.topic_batch_builder = randomscan.make_topic_batch_builder(cfg)
-        return self
 
     def add_test_instances(self, corpus: Corpus):
         """The held-out documents (same vocabulary), scored every
@@ -186,12 +198,9 @@ class TorchLDASampler:
         """Uniform z over the layout's real slots, counts rebuilt from it,
         then the scheme's initial phi (and theta where it has one)."""
         cfg = self.config
-        z = torch.randint(0, cfg.topics, self._slot_mask.shape,
-                          generator=self.generator, device=self.device,
-                          dtype=torch.int32)
-        z = torch.where(self._slot_mask, z, 0)
-        nkw = self._count_nkw(z)
-        ndk = self._count_ndk(z)
+        z = self._initial_z()
+        nkw = self._merge_nkw(self._count_nkw(z))
+        ndk = self._merge_ndk(self._count_ndk(z))
         alpha = torch.full((cfg.topics,), cfg.alpha, dtype=torch.float32,
                            device=self.device)
         beta = float(cfg.beta)
@@ -200,13 +209,32 @@ class TorchLDASampler:
         return LDAState(z=z, ndk=ndk, nkw=nkw, nk=self._nk(nkw), phi=phi,
                         theta=theta, alpha=alpha, beta=beta, iteration=0)
 
+    def _initial_z(self) -> torch.Tensor:
+        """Uniform topics on the layout's real slots, 0 on padding."""
+        z = torch.randint(0, self.config.topics, self._slot_mask.shape,
+                          generator=self.generator, device=self.device,
+                          dtype=torch.int32)
+        return torch.where(self._slot_mask, z, 0)
+
+    def _merge_nkw(self, nkw: torch.Tensor,
+                   entry: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """N_kw of the whole corpus from this process's count (or, with
+        `entry`, from its counts kept live from `entry`): the identity on
+        one device, the merge over the ranks of a sharded scheme."""
+        return nkw
+
+    def _merge_ndk(self, ndk: torch.Tensor) -> torch.Tensor:
+        """The state's n_dk from this process's count: the identity but
+        where ranks hold partial counts of the same documents."""
+        return ndk
+
     def _initial_phi(self, nkw, beta):
         """phi rows ~ Dir(n_k + beta), or Dir(n_k + 1e-3) for the
         unsmoothed schemes ([K, V] orientation)."""
         return rnd.dirichlet(nkw.to(torch.float32)
                              + (beta if self.smooth_phi else 0.0)
                              + (0.0 if self.smooth_phi else 1e-3),
-                             self.generator)
+                             self.shared_generator)
 
     def _initial_theta(self, ndk, alpha):
         return None   # only GGS carries theta in state
@@ -226,6 +254,18 @@ class TorchLDASampler:
         """A builder's mask on the device, or None when it selects all."""
         return None if mask.all() else torch.as_tensor(mask,
                                                        device=self.device)
+
+    def _doc_mask(self, mask: np.ndarray) -> Optional[torch.Tensor]:
+        """The step's document mask from the builder's mask over the
+        corpus (a rank of a sharded scheme takes its own documents)."""
+        return self._mask(mask)
+
+    def _should_stop(self, deadline) -> bool:
+        """Cooperative abort (the flag, or an `abort` file in the working
+        directory, UncollapsedParallelLDA.java:131,908-910) or the
+        wall-clock budget; the ranks of a sharded scheme decide together."""
+        return (self._abort or os.path.exists("abort")
+                or (deadline is not None and time.time() > deadline))
 
     # ------------------------------------------------------------------
     # iteration fusion (config key scan_chunk), the JAX base's rule
@@ -297,13 +337,11 @@ class TorchLDASampler:
                 self.fused_steps.run([self.doc_batch_builder.doc_mask(j)
                                       for j in range(it, it + n)])
                 it += n
-                if self._abort or os.path.exists("abort"):
-                    break
-                if deadline is not None and time.time() > deadline:
+                if self._should_stop(deadline):
                     break
                 continue
             t0 = time.perf_counter()
-            doc_mask = self._mask(self.doc_batch_builder.doc_mask(it))
+            doc_mask = self._doc_mask(self.doc_batch_builder.doc_mask(it))
             type_mask = self._mask(self.topic_index_builder.type_mask(
                 it, self._last_delta_types))
             need_prev = (self._needs_delta() or self._in_interval(
@@ -342,11 +380,7 @@ class TorchLDASampler:
                     and it % cfg.hyperparam_optim_interval == 0):
                 self._optimize_hyperparameters()
             self.post_iteration()
-            # cooperative abort: flag or an `abort` file in the working
-            # directory (UncollapsedParallelLDA.java:131,908-910)
-            if self._abort or os.path.exists("abort"):
-                break
-            if deadline is not None and time.time() > deadline:
+            if self._should_stop(deadline):
                 break
             it += 1
         if self.fused_steps is not None:
@@ -373,6 +407,8 @@ class TorchLDASampler:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         profiler.stop()
+        if self.logger.run_dir is None:      # a rank that writes nothing
+            return
         trace_dir = os.path.join(self.logger.run_dir, "timing_data")
         os.makedirs(trace_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
@@ -399,6 +435,22 @@ class TorchLDASampler:
         return float(model_log_likelihood(st.ndk, self._nkw_kv(), st.alpha,
                                           st.beta))
 
+    def _theta_matrix(self) -> torch.Tensor:
+        """theta of every document on the device: the chain's draw where
+        the scheme has one, else the mean estimate."""
+        st = self.state
+        return (st.theta if st.theta is not None
+                else torch.as_tensor(self.get_theta_estimate(),
+                                     device=self.device))
+
+    def log_posterior(self) -> float:
+        """The Doss & George log posterior of the state
+        (evaluation/likelihood.py::log_posterior)."""
+        st = self.state
+        return float(log_posterior(st.ndk, self._nkw_kv(),
+                                   self._theta_matrix(), self._phi_kv(),
+                                   st.alpha, st.beta))
+
     def _periodic_logging(self, it: int, t0: float):
         cfg = self.config
         interval = cfg.topic_interval
@@ -414,19 +466,14 @@ class TorchLDASampler:
                 self.logger.log_likelihood(it, ll)
         if self.logger and cfg.start_diagnostic > 0 \
                 and it >= cfg.start_diagnostic:
-            theta = (st.theta if st.theta is not None
-                     else torch.as_tensor(self.get_theta_estimate(),
-                                          device=self.device))
-            lp = float(log_posterior(st.ndk, self._nkw_kv(), theta,
-                                     self._phi_kv(), st.alpha, st.beta))
-            self.logger.log_posterior(it, lp)
+            self.logger.log_posterior(it, self.log_posterior())
             if cfg.compute_doc_topic_distances:
                 # min pairwise Euclidean distances between theta rows and
                 # between phi rows, one CSV row per diagnostic iteration
                 # (UncollapsedParallelLDA.java:723-806)
                 self.logger.log_min_distances(
                     "min_doc_distances.csv", it,
-                    _np(min_pairwise_distances(theta)))
+                    _np(min_pairwise_distances(self._theta_matrix())))
                 self.logger.log_min_distances(
                     "min_topic_distances.csv", it,
                     _np(min_pairwise_distances(self._phi_kv())))
@@ -440,7 +487,8 @@ class TorchLDASampler:
         if cfg.log_type_topic_density:
             stats.density_nkw = float(matrix_density(st.nkw))
         if cfg.log_document_density:
-            stats.density_ndk = float(matrix_density(st.ndk))
+            stats.density_ndk = float(matrix_density(
+                self.get_document_topic_matrix()))
         if cfg.log_phi_density:
             stats.density_phi = float(matrix_density(st.phi))
         self.logger.log_stats_row(stats.as_row())
@@ -469,15 +517,18 @@ class TorchLDASampler:
         if self.logger is None:
             return
         if self._in_interval(it, cfg.diagnostic_interval):
+            # every rank of a sharded scheme gathers; one writes
             base = self.logger.run_dir
-            matrix_io.write_binary_double_matrix(
-                self.get_phi(), it, os.path.join(base, "phi"))
-            matrix_io.write_binary_int_matrix(
-                self.get_topic_type_counts(), it, os.path.join(base, "N"))
-            matrix_io.write_binary_int_matrix(
-                self.get_document_topic_matrix(), it,
-                os.path.join(base, "M"))
-            self.logger.save_z(it, self.get_z_indicators())
+            ndk, z = self.get_document_topic_matrix(), self.get_z_indicators()
+            if base is not None:
+                matrix_io.write_binary_double_matrix(
+                    self.get_phi(), it, os.path.join(base, "phi"))
+                matrix_io.write_binary_int_matrix(
+                    self.get_topic_type_counts(), it,
+                    os.path.join(base, "N"))
+                matrix_io.write_binary_int_matrix(ndk, it,
+                                                  os.path.join(base, "M"))
+            self.logger.save_z(it, z)
         if (self._in_interval(it, cfg.dn_diagnostic_interval)
                 and prev_nkw is not None):
             delta = int((self.state.nkw.to(torch.int64)
@@ -508,7 +559,7 @@ class TorchLDASampler:
     def _optimize_hyperparameters(self):
         """optimizeAlpha / optimizeBeta (ModifiedSimpleLDA.java:812-905)."""
         st = self.state
-        ndk = _np(st.ndk)
+        ndk = self.get_document_topic_matrix()
         lengths = ndk.sum(axis=1)
         if self.config.symmetric_alpha:
             a = learn_symmetric_concentration(ndk, lengths,
@@ -697,8 +748,8 @@ class TorchLDASampler:
         """z in this sampler's layout becomes the state's z, with its
         counts recounted."""
         st = self.state
-        nkw = self._count_nkw(z)
-        st.z, st.nkw, st.ndk = z, nkw, self._count_ndk(z)
+        nkw = self._merge_nkw(self._count_nkw(z))
+        st.z, st.nkw, st.ndk = z, nkw, self._merge_ndk(self._count_ndk(z))
         st.nk = self._nk(nkw)
 
     def set_z_indicators(self, z_flat):

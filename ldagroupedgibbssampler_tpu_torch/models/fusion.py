@@ -98,7 +98,7 @@ class FusedSteps:
         self.groups += 1
         if s.device.type != "cuda" or not s._capturable_step:
             for m in doc_masks:
-                s._step(s.state, s._mask(m), None)
+                s._step(s.state, s._doc_mask(m), None)
             return
         st = s.state
         n = len(doc_masks)

@@ -44,12 +44,18 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
     # the z-draw kernel draws z and N_kw; a subclass that draws z another
     # way sets this False and uploads none of the z-draw's own arrays
     _use_fused_zdraw = True
+    # theta is drawn with the chain's own generator; a sharded scheme that
+    # replicates theta on every rank draws it with the shared one
+    _replicated_theta = False
 
     # ------------------------------------------------------------------
     def _prepare_device_data(self, corpus):
         cfg = self.config
-        blocks = corpus.cell_blocks(block=cfg.token_block,
-                                    vspan=cfg.vocab_span, dspan=cfg.doc_span)
+        self._upload_blocks(corpus.cell_blocks(
+            block=cfg.token_block, vspan=cfg.vocab_span, dspan=cfg.doc_span))
+
+    def _upload_blocks(self, blocks):
+        """The cell blocks on the device; z lives on their layout A."""
         self._blocks = blocks
         nb = blocks.w_local.shape[0]
         self._shape3 = (nb, blocks.w_local.shape[1] // blocks.chunk,
@@ -78,11 +84,20 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
         self.firstdb = dev(blocks.first_d)
 
     def _count_nkw(self, z):
-        nkw = blocked_label_counts(
+        return self._type_rows(blocked_label_counts(
             self.wb, z.view(self.wb.shape), self.winb, self.firstb,
             nwin=self._blocks.nwin_w, vspan=self.config.vocab_span,
-            num_labels=self.config.topics)
-        return nkw[: self.corpus.num_types]
+            num_labels=self.config.topics))
+
+    def _type_rows(self, nkw_rows):
+        """N_kw [V, K] of the corpus's types from a count over the
+        layout's w-window rows."""
+        return nkw_rows[: self.corpus.num_types]
+
+    def _zdraw_phi(self, phi_vk):
+        """The phi rows of the layout's w-windows, as the z-draw reads
+        them."""
+        return phi_vk
 
     def _count_ndk(self, z):
         # regroup z d-window-major with one chunk-granular row gather, then
@@ -101,21 +116,27 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
         types of every topic row."""
         conc = nkw_vk.to(torch.float32) + beta
         if type_mask is None:
-            g = rnd.gamma(conc, self.generator).clamp_min(
+            g = rnd.gamma(conc, self.shared_generator).clamp_min(
                 rnd.DIRICHLET_FLOOR)
             return g / g.sum(dim=0, keepdim=True)
         return rnd.conditional_dirichlet(prev_phi_vk.T, conc.T, type_mask,
-                                         self.generator).T.contiguous()
+                                         self.shared_generator
+                                         ).T.contiguous()
 
     def _initial_phi(self, nkw_vk, beta):
         return self._sample_phi(nkw_vk, beta)
 
+    def _theta_generator(self) -> torch.Generator:
+        return (self.shared_generator if self._replicated_theta
+                else self.generator)
+
     def _initial_theta(self, ndk, alpha):
-        return rnd.dirichlet(ndk.to(torch.float32) + alpha, self.generator)
+        return rnd.dirichlet(ndk.to(torch.float32) + alpha,
+                             self._theta_generator())
 
     def _theta_update(self, state, doc_mask):
         theta_new = rnd.dirichlet(state.ndk.to(torch.float32) + state.alpha,
-                                  self.generator)
+                                  self._theta_generator())
         if doc_mask is None:       # full sweep: no per-doc select needed
             return theta_new
         return torch.where(doc_mask[:, None], theta_new, state.theta)
@@ -134,16 +155,17 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
                              device=self.device, dtype=torch.int64)
         z3, nkw = fused_zdraw_nkw(
             self.wb.view(self._shape3), self.dla.view(self._shape3),
-            state.z.view(self._shape3), theta_m, state.phi, seed,
+            state.z.view(self._shape3), theta_m, self._zdraw_phi(state.phi),
+            seed,
             self.winb, self.firstb, self.windc,
             nwin_w=blocks.nwin_w, nwin_d=blocks.nwin_d,
             vspan=cfg.vocab_span, dspan=blocks.dspan,
             num_topics=cfg.topics, precise=cfg.zdraw_precise,
             real_slots=self._real_slots)
         z = z3.view(-1)
-        nkw = nkw[: self.corpus.num_types]
+        nkw = self._merge_nkw(self._type_rows(nkw))
         # (3b) n_dk rebuild on the d-window-major layout.
-        ndk = self._count_ndk(z)
+        ndk = self._merge_ndk(self._count_ndk(z))
         # (4) phi draws.
         phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)
         state.z, state.ndk, state.nkw, state.phi, state.theta = (

@@ -47,14 +47,15 @@ class UncollapsedParallelLDA(FusedPCGSSweepMixin, TorchLDASampler):
         nzvsspalias's draw depends on it."""
         conc = nkw.to(torch.float32) + (beta if self.smooth_phi else 1e-7)
         if type_mask is None:
-            return rnd.dirichlet(conc, self.generator)
+            return rnd.dirichlet(conc, self.shared_generator)
         return rnd.conditional_dirichlet(prev_phi, conc, type_mask,
-                                         self.generator)
+                                         self.shared_generator)
 
     def _step(self, state: LDAState, doc_mask, type_mask=None):
         """One iteration, replacing the fields of `state` in place."""
         z, ndk, nkw = self._fused_zsweep(state.z, state.ndk, state.alpha,
                                          state.phi.T.contiguous(), doc_mask)
+        nkw = self._merge_nkw(nkw)
         state.z, state.ndk, state.nkw = z, ndk, nkw
         state.nk = self._nk(nkw)
         state.phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)

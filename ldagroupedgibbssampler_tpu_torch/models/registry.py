@@ -1,7 +1,7 @@
 """Scheme registry — mirrors ParallelLDA.createModel
-(topics/tui/ParallelLDA.java:401-490): the 18 single-device schemes of the
-JAX package's registry. The JAX package's sharded schemes are not ported;
-any other scheme name raises `ValueError` naming the ported ones.
+(topics/tui/ParallelLDA.java:401-490): the 18 single-device schemes and
+the 5 sharded schemes of the JAX package's registry; any other scheme name
+raises `ValueError` naming them.
 """
 
 from __future__ import annotations
@@ -57,16 +57,45 @@ SCHEMES = {
 }
 
 
+# Multi-device variants (beyond the reference, whose parallelism was
+# single-process threads): constructed with the default mesh over every
+# rank of the process group (`parallel/mesh.py`); mesh shape/axes come from
+# config.mesh_shape / config.mesh_axis_names.
+_SHARDED_SCHEMES = {
+    "sharded_ggs": ("parallel.sharded_ggs", "ShardedGGS",
+                    "GGS, documents sharded over the device mesh "
+                    "(per-iteration N_kw psum)."),
+    "vocab_sharded_ggs": ("parallel.vocab_sharded_ggs", "VocabShardedGGS",
+                          "GGS, vocabulary windows sharded over the device "
+                          "mesh; fused Pallas kernel per shard."),
+    "sharded_adlda": ("parallel.sharded_adlda", "ShardedADLDA",
+                      "ADLDA, replicated stale counts + per-sweep psum "
+                      "merge over the device mesh."),
+    "sharded_pcgs": ("parallel.sharded_pcgs", "ShardedPCGS",
+                     "PCGS, documents sharded over the device mesh "
+                     "(exact: docs independent given phi; one N_kw psum "
+                     "per sweep)."),
+    "sharded_uncollapsed": ("parallel.sharded_pcgs", "ShardedUncollapsedLDA",
+                            "uncollapsed-variant PCGS (unsmoothed phi), "
+                            "documents sharded over the device mesh."),
+}
+
+
 def create_model(config: LDAConfig, scheme: str | None = None, logger=None,
                  verbose: bool = False):
     """Instantiate a sampler for `scheme` (default: config.scheme)."""
     scheme = scheme or config.scheme
-    if scheme not in SCHEMES:
+    if scheme in _SHARDED_SCHEMES:
+        module_name, class_name, description = _SHARDED_SCHEMES[scheme]
+        package = "ldagroupedgibbssampler_tpu_torch"
+    elif scheme in SCHEMES:
+        module_name, class_name, description = SCHEMES[scheme]
+        package = "ldagroupedgibbssampler_tpu_torch.models"
+    else:
         raise ValueError(f"Invalid model type {scheme!r}: the PyTorch port "
-                         f"has schemes {sorted(SCHEMES)}")
-    module_name, class_name, description = SCHEMES[scheme]
-    module = importlib.import_module(
-        f"ldagroupedgibbssampler_tpu_torch.models.{module_name}")
+                         f"has schemes {sorted(SCHEMES)} and "
+                         f"{sorted(_SHARDED_SCHEMES)}")
+    module = importlib.import_module(f"{package}.{module_name}")
     if verbose:
         print(description)
     return getattr(module, class_name)(config, logger=logger)

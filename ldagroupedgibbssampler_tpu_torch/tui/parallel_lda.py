@@ -13,9 +13,17 @@ Runs on the device of the config's `device` key (default "cuda"; an error
 when no CUDA device is present), e.g. `--device=cpu` on a machine without
 one.
 
+Under `torchrun`, `main` starts the process group from its environment
+(`parallel/mesh.py::distributed_initialize`), and a sharded scheme's
+section runs with one rank per process; only rank 0 writes the run
+directory (the other ranks log to a `NullRunLogger` and run the same
+collectives). In one process a sharded section runs as a 1-rank mesh.
+
 Usage:
     python -m ldagroupedgibbssampler_tpu_torch.tui.parallel_lda \
         --run_cfg=plda-cats-test.cfg [--scheme=ggs --device=cpu ...overrides]
+    torchrun --nproc_per_node=2 -m \
+        ldagroupedgibbssampler_tpu_torch.tui.parallel_lda --run_cfg=...
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import os
 import signal
 import sys
 import time
+
+import torch.distributed as dist
 
 from ldagroupedgibbssampler_tpu_torch.config import parse_args, parse_ini
 from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
@@ -34,7 +44,10 @@ from ldagroupedgibbssampler_tpu_torch.evaluation.diagnostics import (
 from ldagroupedgibbssampler_tpu_torch.evaluation.topwords import (
     top_relevance_words, top_words)
 from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
-from ldagroupedgibbssampler_tpu_torch.utils.logging_utils import RunLogger
+from ldagroupedgibbssampler_tpu_torch.parallel.mesh import (
+    distributed_initialize)
+from ldagroupedgibbssampler_tpu_torch.utils.logging_utils import (
+    NullRunLogger, RunLogger)
 from ldagroupedgibbssampler_tpu_torch.utils.tee import tee_console
 
 
@@ -140,11 +153,18 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _abort_handler)
 
     base_global = parsed.activate(parsed.sub_config_names()[0], overrides)
+    # under torchrun: one rank per process (a no-op in one process)
+    started = distributed_initialize(device=base_global.device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
     no_runs = base_global.no_runs
     for run in range(no_runs):
         for name in parsed.sub_config_names():
             cfg = parsed.activate(name, overrides)
             common_seed = cfg.effective_seed()
+            if rank != 0:
+                run_subconfig(cfg, NullRunLogger(), common_seed,
+                              model_holder=models)
+                continue
             out_dir = cfg.experiment_out_dir or "runs"
             logger = RunLogger.create_run_suite(out_dir, subconfig=name)
             print(f"=== run {run + 1}/{no_runs} subconfig [{name}] "
@@ -154,6 +174,8 @@ def main(argv=None):
             with tee_console(os.path.join(logger.run_dir, "console.txt")):
                 run_subconfig(cfg, logger, common_seed, model_holder=models)
             logger.close()
+    if started:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -173,3 +173,31 @@ class RunLogger:
         for f in self._files.values():
             f.close()
         self._files.clear()
+
+
+class NullRunLogger(RunLogger):
+    """The logger of a rank that writes nothing: the ranks of a sharded
+    scheme run the same logging code (whose accessors are collectives),
+    and rank 0 alone writes the run directory. `run_dir` is None."""
+
+    def __init__(self):
+        self.run_dir = None
+        self._files = {}
+
+    def sub_logger(self, name: str) -> "RunLogger":
+        return self
+
+    def _append(self, filename: str, line: str):
+        pass
+
+    def save_matrix_csv(self, filename: str, mat, fmt: str = "%.6g"):
+        pass
+
+    def save_matrix_binary(self, filename: str, mat):
+        pass
+
+    def save_lines(self, filename: str, lines: Iterable[str]):
+        pass
+
+    def save_metadata(self, config, extra: dict | None = None):
+        pass

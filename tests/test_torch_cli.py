@@ -100,7 +100,7 @@ def test_cli_runs_adlda_on_cpu(tmp_path):
 
 
 def test_cli_rejects_unported_scheme(tmp_path):
-    cfg = _write_run(tmp_path, scheme="sharded_ggs", device="cpu")
+    cfg = _write_run(tmp_path, scheme="no_such_scheme", device="cpu")
     with pytest.raises(ValueError, match="ggs"):
         parallel_lda.main([f"--run_cfg={cfg}"])
 
@@ -146,3 +146,61 @@ def test_cli_runs_spalias_priors_and_ppu_hdplda_on_cpu(tmp_path):
     assert len(lls) == 2 and np.isfinite(lls).all()
     top = open(os.path.join(hdp[0], "TopWords.txt")).read().splitlines()
     assert len(top) == 6
+
+
+def test_cli_runs_sharded_pcgs_on_one_and_two_ranks(tmp_path):
+    """A sharded_pcgs section through `parallel_lda.main`: in one process
+    as a 1-rank mesh, then as two gloo ranks under the torchrun
+    environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), where only
+    rank 0 writes a run directory and prints its header."""
+    import socket
+    import subprocess
+    import sys
+    (tmp_path / "one").mkdir()
+    cfg = _write_run(tmp_path / "one", scheme="sharded_pcgs", device="cpu")
+    parallel_lda.main([f"--run_cfg={cfg}"])
+    runs = glob.glob(str(tmp_path / "one" / "runs" / "RunSuite*" / "Run*"))
+    assert len(runs) == 1
+    one = [float(ln.split("\t")[1])
+           for ln in open(os.path.join(runs[0], "likelihood.txt"))]
+    assert len(one) == 2 and one[1] > one[0] - 50
+
+    (tmp_path / "two").mkdir()
+    cfg = _write_run(tmp_path / "two", scheme="sharded_pcgs", device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "ldagroupedgibbssampler_tpu_torch.tui.parallel_lda",
+             f"--run_cfg={cfg}"], cwd=str(tmp_path / "two"), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    suites = glob.glob(str(tmp_path / "two" / "runs" / "RunSuite*"))
+    runs = glob.glob(str(tmp_path / "two" / "runs" / "RunSuite*" / "Run*"))
+    assert len(suites) == 1 and len(runs) == 1, runs
+    two = [float(ln.split("\t")[1])
+           for ln in open(os.path.join(runs[0], "likelihood.txt"))]
+    assert len(two) == 2 and two[1] > two[0] - 50
+    top = open(os.path.join(runs[0], "TopWords.txt")).read().splitlines()
+    assert len(top) == 3
+    assert "=== run 1/1" in outs[0] and "=== run" not in outs[1]

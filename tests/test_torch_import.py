@@ -41,6 +41,13 @@ import ldagroupedgibbssampler_tpu_torch.ops.categorical
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_lightlda
 import ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs
 import ldagroupedgibbssampler_tpu_torch.ops.kernels
+import ldagroupedgibbssampler_tpu_torch.parallel
+import ldagroupedgibbssampler_tpu_torch.parallel.mesh
+import ldagroupedgibbssampler_tpu_torch.parallel.sharded
+import ldagroupedgibbssampler_tpu_torch.parallel.sharded_adlda
+import ldagroupedgibbssampler_tpu_torch.parallel.sharded_ggs
+import ldagroupedgibbssampler_tpu_torch.parallel.sharded_pcgs
+import ldagroupedgibbssampler_tpu_torch.parallel.vocab_sharded_ggs
 import ldagroupedgibbssampler_tpu_torch.similarity
 import ldagroupedgibbssampler_tpu_torch.similarity.bm25
 import ldagroupedgibbssampler_tpu_torch.similarity.corpus_statistics
@@ -93,7 +100,7 @@ def test_unknown_scheme_names_ported_ones():
     from ldagroupedgibbssampler_tpu_torch import create_model
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
     with pytest.raises(ValueError, match="ggs_test.*pcgs"):
-        create_model(LDAConfig(scheme="sharded_ggs", device="cpu"))
+        create_model(LDAConfig(scheme="no_such_scheme", device="cpu"))
 
 
 def test_port_has_every_scheme_of_the_jax_registry():
@@ -113,6 +120,28 @@ def test_port_has_every_scheme_of_the_jax_registry():
     for module, cls, _ in SCHEMES.values():
         assert hasattr(importlib.import_module(
             f"ldagroupedgibbssampler_tpu_torch.models.{module}"), cls)
+
+
+def test_port_has_every_sharded_scheme_of_the_jax_registry():
+    """The port's _SHARDED_SCHEMES keys, classes and descriptions are the
+    JAX registry's _SHARDED_SCHEMES block, read as text, and each names a
+    class of the port's parallel package."""
+    import ast
+    import importlib
+
+    from ldagroupedgibbssampler_tpu_torch.models.registry import (
+        _SHARDED_SCHEMES)
+    with open(os.path.join(ROOT, "ldagroupedgibbssampler_tpu", "models",
+                           "registry.py"), encoding="utf-8") as f:
+        text = f.read()
+    block = re.search(r"^_SHARDED_SCHEMES = (\{.*?^\})", text,
+                      re.M | re.S).group(1)
+    jax_schemes = ast.literal_eval(block)
+    assert len(jax_schemes) == 5
+    assert _SHARDED_SCHEMES == jax_schemes
+    for module, cls, _ in _SHARDED_SCHEMES.values():
+        assert hasattr(importlib.import_module(
+            f"ldagroupedgibbssampler_tpu_torch.{module}"), cls)
 
 
 def test_kernel_inventory_matches_perf_table():
