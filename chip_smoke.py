@@ -8,7 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. environment: card name and power limit (nvidia-smi), torch and CUDA;
-  2. build: compiles csrc/*.cu through ops/_build.py and reports the time;
+  2. build: compiles csrc/*.cu through ops/_build.py and the native corpus
+     builders (native/*.cpp, g++) through corpus/_native_build.py, and
+     reports the times;
   3. kernels against their plain PyTorch versions on the card, at the
      shapes of the synthetic 20NG corpus (D=11,269, V=20,000, K=100, mean
      doc length 120, Zipf 1.1 types, default_rng(0) — the same recipe as
@@ -137,11 +139,34 @@ Phases (each prints one line; any failure raises and exits non-zero):
      2,000 documents for 30 iterations with each rank's parallel launch
      against the one-warp launch from one seed (gap under 0.5%), beside
      the single-device one-warp chain of `[4 adlda oracle]`. A rank that
-     fails, or a run past its deadline, fails the script.
+     fails, or a run past its deadline, fails the script;
+  8. ingestion and the sweeps at the NYTimes shape (`[8 ingest]`): a UCI
+     text file of D=300,000 documents, V=102,660 pseudo-words of 3-12
+     letters, Zipf 1.1, Poisson(333) lengths (at least 5), seed 1
+     (~100M tokens, ~860 MB), synthesised in vectorised chunks and read
+     by `load_dataset` (the native C++ tokenizer); then
+     `create_model(cfg).add_instances(corpus).sample(n)` for ggs K=100
+     with doc_span 1024 (the native cell blocks; rows 2 and 1) and pcgs
+     K=100 (the streamed layout: the native stream blocks and row 4), 1 +
+     5 iterations each with the launch counters set to 0 just before and
+     read just after: the synthesis, tokenizer and builders' seconds, the
+     native call counters (each at least 1), ms/iteration over 5, the
+     device-busy share, slots, peak memory on the card and the host,
+     exact recounts of N_kw, n_dk and n_k on the whole corpus; rows 2 and
+     1 against their plain versions on the first 8 blocks and row 4 on
+     the first d-window's documents cut to the first 8 blocks (with the
+     tie proofs), and each timed on the whole layout beside its bound;
+     native against Python / NumPy, bit-equal, on a 2M-token prefix
+     (tokenizer, cell blocks, stream blocks), with both paths' seconds.
+     Phase 3's `[3 layout]` builds the 20NG cell blocks natively (1.35M
+     tokens, above the 1M switch) and with NumPy, bit-equal, and prints
+     both seconds.
 Then one JSON line describing every kernel (the counts, z-draw and PCGS
 entries with their launches in phase 6 as `launches_apps`, every entry
-with its launches in phase 7 as `launches_parallel`), the nvidia-smi
-line, and as the last line {"ok": true, "device": {...}}.
+with its launches in phase 7 as `launches_parallel`; the counts, z-draw
+and streamed PCGS entries with phase 8's launches by scheme as
+`launches_ingest` and their numbers at that shape as `ingest`), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false or when the port's package is not beside it.
@@ -222,12 +247,8 @@ def bound(nbytes: float, nops: float):
 def check_counts_exact(model, corpus, label: str):
     """N_kw, n_dk and n_k of the model's state equal a host recount of its
     z (get_z_indicators)."""
-    zc = model.get_z_indicators()
-    k = model.config.topics
-    nkw_ref = np.zeros((corpus.num_types, k), np.int64)
-    np.add.at(nkw_ref, (corpus.tokens, zc), 1)
-    ndk_ref = np.zeros((corpus.num_docs, k), np.int64)
-    np.add.at(ndk_ref, (corpus.token_doc_ids(), zc), 1)
+    nkw_ref, ndk_ref = recount(corpus, model.get_z_indicators(),
+                               model.config.topics)
     check(np.array_equal(model.get_topic_type_counts().T, nkw_ref),
           f"{label}: N_kw differs from a recount of z")
     check(np.array_equal(model.get_document_topic_matrix(), ndk_ref),
@@ -3649,6 +3670,536 @@ def parallel_phase(torch, smi, serial_lls):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 8. ingestion and the sweeps at the NYTimes shape
+# ---------------------------------------------------------------------------
+# the NYTimes shape of benchmarks/text_scale_rehearsal.py: D, V, the mean
+# document length (Poisson, at least 5 tokens), Zipf 1.1 over V
+INGEST_DOCS, INGEST_VOCAB, INGEST_MEAN_LEN = 300_000, 102_660, 333
+INGEST_ITERS = 5
+INGEST_PREFIX = 2_000_000     # tokens held native against Python / NumPy
+INGEST_BLOCKS = 8             # rows 1, 2, 4 meet their plain versions here
+INGEST_SEED = 0x1234_5678_9ABC_DEF
+
+
+def ingest_vocab(v: int, seed: int = 0) -> list:
+    """`v` distinct lowercase pseudo-words of 3-12 letters (bytes), in
+    draw order."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    words, seen = [], set()
+    while len(words) < v:
+        m = 2 * (v - len(words))
+        lens = rng.integers(3, 13, m).tolist()
+        raw = letters[rng.integers(0, 26, (m, 12))].tobytes()
+        for i, n in enumerate(lens):
+            w = raw[12 * i: 12 * i + n]
+            if w not in seen:
+                seen.add(w)
+                words.append(w)
+                if len(words) == v:
+                    break
+    return words
+
+
+def synth_ingest_file(path: str, docs: int, v: int, mean_len: int,
+                      seed: int = 1, docs_a_chunk: int = 10_000):
+    """A UCI text file at the NYTimes shape, one `docno:<d>\\tX\\t<text>`
+    line a document, built in vectorised chunks (each token's bytes
+    gathered from one blob of the words, each followed by a space).
+    Returns (tokens written, seconds)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    words = ingest_vocab(v)
+    wlen = np.array([len(w) for w in words], np.int64) + 1
+    blob = np.frombuffer(b" ".join(words) + b" ", np.uint8)
+    wstart = np.concatenate([[0], np.cumsum(wlen)[:-1]])
+    cdf = np.cumsum(1.0 / np.arange(1, v + 1, dtype=np.float64) ** 1.1)
+    lengths = np.maximum(5, rng.poisson(mean_len, docs)).astype(np.int64)
+    with open(path, "wb") as f:
+        for s in range(0, docs, docs_a_chunk):
+            e = min(docs, s + docs_a_chunk)
+            n = int(lengths[s:e].sum())
+            ids = np.minimum(np.searchsorted(cdf, rng.random(n) * cdf[-1],
+                                             side="right"), v - 1)
+            tl = wlen[ids]
+            ends = np.cumsum(tl)
+            src = (np.arange(int(ends[-1]), dtype=np.int64)
+                   + np.repeat(wstart[ids] - (ends - tl), tl))
+            text = blob[src]
+            doc_end = ends[np.cumsum(lengths[s:e]) - 1]
+            text[doc_end - 1] = ord("\n")   # a line's last space ends it
+            buf = text.tobytes()
+            parts, prev = [], 0
+            for d, end in zip(range(s, e), doc_end.tolist()):
+                parts.append(b"docno:%d\tX\t" % d)
+                parts.append(buf[prev:end])
+                prev = end
+            f.write(b"".join(parts))
+    return int(lengths.sum()), time.perf_counter() - t0
+
+
+class timed_functions:
+    """While active, each function `getattr(module, name)` of `targets`
+    adds its seconds to `spent[name]` (the callers look it up there at
+    call time)."""
+
+    def __init__(self, spent: dict, *targets):
+        self.spent, self.targets = spent, targets
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for m, n, fn in self.saved:
+            setattr(m, n, self._wrap(fn, n))
+        return self.spent
+
+    def _wrap(self, fn, name):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.spent[name] = (self.spent.get(name, 0.0)
+                                    + time.perf_counter() - t0)
+        return timed
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def host_peak_gib() -> float:
+    """The process's peak resident host memory so far, GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def ingest_run(torch, model, corpus):
+    """add_instances, one warm-up iteration, then INGEST_ITERS timed, and
+    2 under the profiler. Returns the numbers of the line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.add_instances(corpus)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model.sample(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.sample(INGEST_ITERS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / INGEST_ITERS
+    return {"setup_s": setup_s, "ms_per_iteration": ms}
+
+
+def ingest_ggs_kernels(torch, model, cuda_counts, cuda_zdraw):
+    """Rows 2 and 1 at this shape: on the first INGEST_BLOCKS blocks
+    against their plain versions (the z-draw with injected and Philox
+    uniforms, every differing token a proven rounding tie, its N_kw the
+    histogram of its z; the count kernel exact on layouts A and B), then
+    timed on the whole layout (CUDA events) beside their bounds, the
+    count kernel's plain version and torch.bincount on layout B."""
+    st, b, cfg = model.state, model._blocks, model.config
+    dev, k = model.device, cfg.topics
+    nb, chunks, chunk = model._shape3
+    block = chunks * chunk
+    nbc = INGEST_BLOCKS
+    seed = torch.tensor([INGEST_SEED], dtype=torch.int64, device=dev)
+    phi = model._zdraw_phi(st.phi).contiguous()
+    shape3 = model._shape3
+    full = (model.wb.view(shape3), model.dla.view(shape3), st.z.view(shape3),
+            st.theta, phi, seed, model.winb, model.firstb, model.windc)
+    sub = (*(a[:nbc] for a in full[:3]), st.theta, phi, seed,
+           model.winb[:nbc], model.firstb[:nbc],
+           model.windc[:nbc * chunks])
+    sub_slots = model._real_slots[model._real_slots < nbc * block]
+    zkw = dict(nwin_w=b.nwin_w, nwin_d=b.nwin_d, vspan=b.vspan,
+               dspan=b.dspan, num_topics=k, precise=cfg.zdraw_precise)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    u24 = torch.randint(0, 2 ** 24, tuple(sub[0].shape), generator=gen,
+                        device=dev, dtype=torch.int32)
+    real = sub[0] < b.vspan
+    agree = {}
+    zt = {key: v for key, v in zkw.items() if key != "precise"}
+    for name, u in (("u24", u24), ("philox", None)):
+        zk, nkw = cuda_zdraw.fused_zdraw_nkw(*sub, u, real_slots=sub_slots,
+                                             **zkw)
+        zr, _ = cuda_zdraw.fused_zdraw_nkw_reference(*sub, u, **zkw)
+        agree[name] = float((zk == zr)[real].float().mean())
+        check(agree[name] >= 0.999, f"[8 ingest] z-draw ({name}): only "
+              f"{agree[name]:.6f} of the first {nbc} blocks' tokens agree "
+              "with the plain version")
+        agree[f"{name} ties"] = zdraw_ties(
+            torch, f"[8 ingest] z-draw ({name})", zk, zr, sub, zt, u,
+            cfg.zdraw_precise)
+        hist = cuda_counts.blocked_label_counts_reference(
+            sub[0].reshape(nbc, block), zk.reshape(nbc, block), sub[6],
+            nwin=b.nwin_w, vspan=b.vspan, num_labels=k)
+        check(torch.equal(nkw, hist), f"[8 ingest] z-draw ({name}): N_kw "
+              "is not the histogram of its z")
+        del zk, zr, nkw, hist
+    z_b = st.z.view(-1, chunk)[model.srcb].view(model.dlb.shape)
+    ckw_b = dict(nwin=b.nwin_d, vspan=b.dspan, num_labels=k)
+    ckw_a = dict(nwin=b.nwin_w, vspan=b.vspan, num_labels=k)
+    for lay, args, ckw in (
+            ("B", (model.dlb[:nbc], z_b[:nbc].contiguous(),
+                   model.windb[:nbc], model.firstdb[:nbc]), ckw_b),
+            ("A", (model.wb[:nbc], st.z.view(model.wb.shape)[:nbc],
+                   model.winb[:nbc], model.firstb[:nbc]), ckw_a)):
+        check(torch.equal(cuda_counts.blocked_label_counts(*args, **ckw),
+                          cuda_counts.blocked_label_counts_reference(
+                              *args, **ckw)),
+              f"[8 ingest] count kernel on layout {lay}'s first {nbc} "
+              "blocks differs from its plain version")
+    n_tok = model.corpus.num_tokens
+    d_, v_ = model.corpus.num_docs, model.corpus.num_types
+    zfull = dict(zkw, real_slots=model._real_slots)
+    zdraw_ms = time_ms(torch, lambda: cuda_zdraw.fused_zdraw_nkw(
+        *full, **zfull), reps=5, calls=3)
+    zdraw_plain_ms = time_ms(torch, lambda: cuda_zdraw.
+                             fused_zdraw_nkw_reference(*sub, **zkw),
+                             reps=3, calls=1)
+    slots = st.z.numel()
+    zbytes = (4 * 4 * slots + 4 * (d_ + v_) * k + 8 + 4 * 2 * nb
+              + 4 * nb * chunks + 4 * b.nwin_w * b.vspan * k)
+    zb_ms, zb_by = bound(zbytes, 3.0 * n_tok * k)
+    cargs = (model.dlb, z_b.contiguous(), model.windb, model.firstdb)
+    counts_ms = time_ms(torch, lambda: cuda_counts.blocked_label_counts(
+        *cargs, **ckw_b), reps=5, calls=3)
+    sub_b = (model.dlb[:nbc], z_b[:nbc].contiguous(), model.windb[:nbc],
+             model.firstdb[:nbc])
+    counts_plain_ms = time_ms(torch, lambda: cuda_counts.
+                              blocked_label_counts_reference(*sub_b, **ckw_b),
+                              reps=3, calls=1)
+    valid = model.dlb < b.dspan
+    nrows = b.nwin_d * b.dspan
+    key = ((model.windb.to(torch.int64)[:, None] * b.dspan
+            + model.dlb)[valid] * k + cargs[1][valid])
+    counts_lib_ms = time_ms(torch, lambda: torch.bincount(
+        key, minlength=nrows * k), reps=5, calls=3)
+    cbytes = 4 * (model.dlb.numel() + int(valid.sum()) + model.windb.numel()
+                  + nrows * k)
+    cb_ms, cb_by = bound(cbytes, 0)
+    inst = cuda_counts.count_instance(b.dspan, k, block)
+    del key, cargs, z_b, valid
+    torch.cuda.empty_cache()
+    return {
+        "zdraw": {"ms": zdraw_ms, "plain_ms_first_blocks": zdraw_plain_ms,
+                  "bound_ms": zb_ms, "bound_by": zb_by, "agreement": agree},
+        "counts": {"ms": counts_ms,
+                   "plain_ms_first_blocks": counts_plain_ms,
+                   "library_ms": counts_lib_ms, "bound_ms": cb_ms,
+                   "bound_by": cb_by, "instance": inst.kind,
+                   "shared_bytes": inst.shared_bytes,
+                   "layout": f"B, doc span {b.dspan}"}}
+
+
+def ingest_pcgs_kernel(torch, model, cuda_pcgs):
+    """Row 4 at this shape: the streamed PCGS sweep over the first
+    d-window's documents, each cut to its slots in the first INGEST_BLOCKS
+    blocks, against its plain version with injected and Philox uniforms
+    (z agreement >= 0.999, each differing document's first token a proven
+    rounding tie; N_kw the histogram of the kernel's z over those slots;
+    the table's n_dk moved by exactly its moves), then timed on the whole
+    layout with Philox uniforms beside its bound."""
+    from types import SimpleNamespace
+
+    from ldagroupedgibbssampler_tpu_torch.corpus.ragged import longest_first
+    from ldagroupedgibbssampler_tpu_torch.ops.philox import philox_u24
+    st, dev, b = model.state, model.device, model._sblocks
+    k = model.config.topics
+    block = b.w_local.shape[1]
+    docs = b.dspan                                  # the first d-window
+    off = model.doc_slot_offsets.to(torch.int64)
+    slots = model.doc_slots[: int(off[docs])]
+    doc = torch.repeat_interleave(torch.arange(docs, device=dev),
+                                  off[1:docs + 1] - off[:docs])
+    keep = slots < INGEST_BLOCKS * block
+    sub_off = torch.zeros(docs + 1, dtype=torch.int32, device=dev)
+    sub_off[1:] = torch.cumsum(torch.bincount(doc[keep], minlength=docs), 0)
+    sub_slots = slots[keep].contiguous()
+    order = torch.as_tensor(longest_first(sub_off.cpu().numpy()),
+                            device=dev)
+    visited = torch.zeros(st.z.numel(), dtype=torch.bool, device=dev)
+    visited[sub_slots.long()] = True
+    visited = visited.view(st.z.shape)
+    # the tie proof walks the cut documents' slot lists
+    view = SimpleNamespace(_slot_mask=visited, _slot_d=model._slot_d,
+                           _slot_w=model._slot_w, config=model.config,
+                           doc_slot_offsets=sub_off, doc_slots=sub_slots)
+    doc_sel = (torch.arange(model.corpus.num_docs, device=dev) % 5) != 0
+    table = model._ndk_table(st.ndk, st.alpha, doc_sel)
+    phi_vk = st.phi.T.contiguous()
+    seed = torch.tensor([INGEST_SEED], dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    u24 = torch.randint(0, 2 ** 24, tuple(st.z.shape), generator=gen,
+                        device=dev, dtype=torch.int32)
+    agree = {}
+    w_v, d_v = model._slot_w[visited], model._slot_d[visited]
+    for name, u in (("u24", u24), ("philox", None)):
+        fn, args, kw = model._sweep_call(st.z, table, phi_vk, seed, u)
+        check(fn is cuda_pcgs.fused_pcgs_sweep_streamed,
+              f"[8 ingest] pcgs runs {fn.__name__}")
+        args = (*args[:8], sub_off, sub_slots, u)
+        kw = {**kw, "doc_order": order}
+        zk, nkw_k, tb_k = fn(*args, **kw)
+        zr, _, _ = cuda_pcgs.fused_pcgs_sweep_streamed_reference(
+            *args, **without_order(kw))
+        agree[name] = float((zk == zr)[visited].float().mean())
+        check(agree[name] >= 0.999, f"[8 ingest] streamed PCGS ({name}): "
+              f"only {agree[name]:.6f} of the cut documents' tokens agree "
+              "with the plain version")
+        words = u if u is not None else philox_u24(seed, st.z.numel())
+        agree[f"{name} ties"] = ties_at_first_disagreement(
+            torch, view, f"[8 ingest] streamed PCGS ({name})", st.z, zk, zr,
+            table, phi_vk, words)
+        del words
+        hist = torch.zeros_like(nkw_k)
+        hist.index_put_((w_v, zk[visited].long()),
+                        torch.ones_like(w_v, dtype=torch.int32),
+                        accumulate=True)
+        check(torch.equal(nkw_k, hist), f"[8 ingest] streamed PCGS ({name}):"
+              " N_kw is not the histogram of its z over the cut documents")
+        moves = torch.zeros((k, table.shape[1]), dtype=torch.float32,
+                            device=dev)
+        for z, sign in ((zk, 1.0), (st.z, -1.0)):
+            moves.index_put_((z[visited].long(), d_v), torch.full_like(
+                d_v, sign, dtype=torch.float32), accumulate=True)
+        check(torch.equal(tb_k[:k], table[:k] + moves),
+              f"[8 ingest] streamed PCGS ({name}): the table's n_dk is not "
+              "moved by exactly the kernel's moves")
+        del zk, zr, nkw_k, tb_k, hist, moves
+    fn, args, kw = model._sweep_call(st.z, table, phi_vk, seed)
+    ms = time_ms(torch, lambda: fn(*args, **kw), reps=5, calls=3)
+    sub_args = (*args[:8], sub_off, sub_slots, None)
+    plain_ms = time_ms(torch, lambda: cuda_pcgs.
+                       fused_pcgs_sweep_streamed_reference(
+                           *sub_args, **without_order(kw)), reps=3, calls=1)
+    slots_n, n = st.z.numel(), model.corpus.num_tokens
+    d_, v_ = model.corpus.num_docs, model.corpus.num_types
+    nbytes = (4 * 3 * slots_n + 4 * model.doc_slots.numel() + 4 * (d_ + 1)
+              + 4 * n + 4 * v_ * k + 8 + 2 * 4 * table.numel()
+              + 4 * b.nwin_w * model._vspan * k)
+    b_ms, b_by = bound(nbytes, 3.0 * n * k)
+    cut = int(sub_slots.numel())
+    del table, phi_vk, u24, visited, view
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms_first_blocks": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "agreement": agree, "checked_tokens": cut}
+
+
+def ingest_prefix(corpus, path, cell_kw, stream_kw):
+    """Native against Python / NumPy on the documents of the first
+    INGEST_PREFIX tokens: the tokenizer (the prefix's corpus also equal to
+    the whole corpus's first documents), the cell blocks and the stream
+    blocks, every field bit-equal. Returns seconds by step and path."""
+    import dataclasses
+    import itertools
+
+    from ldagroupedgibbssampler_tpu_torch.corpus import native_blocks, ragged
+    from ldagroupedgibbssampler_tpu_torch.corpus.pipeline import build_corpus
+    from ldagroupedgibbssampler_tpu_torch.corpus.uci import iter_uci_lines
+    m = int(np.searchsorted(corpus.doc_offsets, INGEST_PREFIX))
+    raw = list(itertools.islice(iter_uci_lines(path), m))
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+    nat = timed("tokenize native", lambda: build_corpus(raw))
+    py = timed("tokenize python", lambda: build_corpus(raw, native=False))
+    end = int(corpus.doc_offsets[m])
+    for label, c in (("python", py), ("the whole corpus", corpus)):
+        tok = c.tokens[:end] if c is corpus else c.tokens
+        check(nat.vocab == c.vocab[: len(nat.vocab)]
+              and np.array_equal(nat.tokens, tok)
+              and np.array_equal(nat.doc_offsets, c.doc_offsets[: m + 1]),
+              f"[8 ingest] the native tokenizer's prefix differs from "
+              f"{label}'s")
+    check(nat.vocab == py.vocab and nat.labels == py.labels
+          and nat.doc_ids == py.doc_ids, "[8 ingest] prefix metadata differ")
+    args = (nat.tokens, nat.token_doc_ids(), nat.num_types, nat.num_docs)
+    a = timed("cell blocks native", lambda: native_blocks.
+              build_cell_blocks_native(*args, **cell_kw))
+    saved = ragged.NATIVE_THRESHOLD
+    ragged.NATIVE_THRESHOLD = nat.num_tokens + 1     # the NumPy path
+    try:
+        b = timed("cell blocks numpy", lambda: ragged.build_cell_blocks(
+            *args, **cell_kw))
+    finally:
+        ragged.NATIVE_THRESHOLD = saved
+    c = timed("stream blocks native", lambda: native_blocks.
+              build_stream_blocks_native(*args, **stream_kw))
+    d = timed("stream blocks numpy", lambda: ragged.build_stream_blocks_seq(
+        *args, **stream_kw))
+    for x, y, what in ((a, b, "cell"), (c, d, "stream")):
+        for f in dataclasses.fields(y):
+            p, q = getattr(x, f.name), getattr(y, f.name)
+            same = (p.dtype == q.dtype and np.array_equal(p, q)
+                    if isinstance(q, np.ndarray) else p == q)
+            check(same, f"[8 ingest] native {what} blocks differ from "
+                  f"NumPy's in {f.name} on the prefix")
+    return nat.num_tokens, m, secs
+
+
+def ingest_phase(torch, smi, LDAConfig, create_model, cuda_counts,
+                 cuda_zdraw, cuda_pcgs):
+    """[8 ingest]: the NYTimes-shape corpus through the port's entry points:
+    a UCI text file synthesised, `load_dataset` (the native tokenizer),
+    `create_model(cfg).add_instances(corpus).sample(n)` for ggs K=100 with
+    doc_span 1024 (the native cell blocks; rows 2 and 1) and pcgs K=100
+    (the streamed layout: the native stream blocks and row 4), each with
+    its launch counters set to 0 just before and read just after; the
+    native call counters; exact recounts on the whole corpus; rows 1, 2, 4
+    against their plain versions on the first blocks and timed at this
+    shape; native against Python / NumPy on a 2M-token prefix. Returns
+    (launches by scheme and counter, the kernels' numbers at this
+    shape)."""
+    from ldagroupedgibbssampler_tpu_torch.corpus import (
+        _native_build, native_blocks, native_loader, pipeline)
+    from ldagroupedgibbssampler_tpu_torch.models import fused_sweep
+    from ldagroupedgibbssampler_tpu_torch.models.fusion import (
+        launch_counters)
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_ingest")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "nytimes_shape.txt")
+    raw_n, synth_s = synth_ingest_file(path, INGEST_DOCS, INGEST_VOCAB,
+                                       INGEST_MEAN_LEN)
+    size = os.path.getsize(path)
+    _native_build.calls.clear()
+    spent = {}
+    timers = timed_functions(
+        spent, (pipeline, "read_uci_file"),
+        (native_loader, "tokenize_corpus_native"),
+        (native_blocks, "build_cell_blocks_native"),
+        (native_blocks, "build_stream_blocks_native"),
+        (fused_sweep, "doc_visit_order"))
+    counters = launch_counters()
+    launches, runs, kernels = {}, {}, {}
+    with timers:
+        t0 = time.perf_counter()
+        corpus = pipeline.load_dataset(path, stoplist_path=None,
+                                       rare_threshold=0)
+        load_s = time.perf_counter() - t0
+        check(corpus.num_docs == INGEST_DOCS
+              and corpus.num_types == INGEST_VOCAB
+              and corpus.num_tokens == raw_n,
+              f"[8 ingest] loaded D={corpus.num_docs} V={corpus.num_types} "
+              f"N={corpus.num_tokens}, wrote {INGEST_DOCS} documents of "
+              f"{raw_n} tokens over {INGEST_VOCAB} words")
+        host_load = host_peak_gib()
+        for scheme, extra in (("ggs", dict(doc_span=1024)), ("pcgs", {})):
+            cfg = LDAConfig(scheme=scheme, topics=K, alpha=0.5, beta=0.01,
+                            seed=2019, exec_time=-1, topic_interval=0,
+                            device="cuda", **extra)
+            model = create_model(cfg)
+            for fn, attr in counters:
+                setattr(fn, attr, 0)
+            r = ingest_run(torch, model, corpus)
+            launches[scheme] = {f"{fn.__name__}.{attr}": getattr(fn, attr)
+                                for fn, attr in counters if getattr(fn, attr)}
+            wall, busy, _ = profile_numbers(torch, lambda: model.sample(2), 2)
+            r.update(busy_share=busy / wall, profiled_ms=wall,
+                     slots=int(model.state.z.numel()),
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                     host_peak_gib=host_peak_gib())
+            check_counts_exact(model, corpus, f"[8 ingest] {scheme}")
+            ll = model.model_log_likelihood()
+            check(np.isfinite(ll), f"[8 ingest] {scheme}: LL {ll}")
+            r["ll"] = ll
+            if scheme == "ggs":
+                r["layout"] = (f"cell blocks, token_block {cfg.token_block}, "
+                               f"vocab span {cfg.vocab_span}, doc span "
+                               f"{cfg.doc_span}")
+                cell_kw = dict(block=cfg.token_block, vspan=cfg.vocab_span,
+                               dspan=cfg.doc_span, chunk=model._blocks.chunk)
+                kernels.update(ingest_ggs_kernels(torch, model, cuda_counts,
+                                                  cuda_zdraw))
+            else:
+                b = model._sblocks
+                check(model._mode == "streamed",
+                      f"[8 ingest] pcgs took the {model._mode} layout")
+                r["layout"] = (f"stream blocks, block {b.w_local.shape[1]}, "
+                               f"vocab span {model._vspan}, doc span "
+                               f"{b.dspan}")
+                stream_kw = dict(block=b.w_local.shape[1], vspan=b.vspan,
+                                 dspan=b.dspan, chunk=b.chunk)
+                kernels["pcgs_streamed"] = ingest_pcgs_kernel(torch, model,
+                                                              cuda_pcgs)
+            runs[scheme] = r
+            del model
+            torch.cuda.empty_cache()
+    calls = dict(_native_build.calls)
+    for name in ("tokenize_corpus_native", "build_cell_blocks_native",
+                 "build_stream_blocks_native"):
+        check(calls.get(name, 0) >= 1, f"[8 ingest] {name} ran "
+              f"{calls.get(name, 0)} times on the main path")
+    check(launches["ggs"].get("fused_zdraw_nkw.launches") == 1 + INGEST_ITERS
+          and launches["ggs"].get("blocked_label_counts.launches", 0)
+          >= 1 + INGEST_ITERS
+          and launches["pcgs"].get("fused_pcgs_sweep_streamed.launches")
+          == 1 + INGEST_ITERS,
+          f"[8 ingest] launches {json.dumps(launches)}")
+    print(f"[8 ingest] {smi}: a UCI file of {INGEST_DOCS} documents, "
+          f"{raw_n} tokens over {INGEST_VOCAB} words ({size / 2 ** 20:.1f} "
+          f"MiB) synthesised in {synth_s:.1f} s; load_dataset {load_s:.1f} s "
+          f"(read_uci_file {spent.get('read_uci_file', 0):.1f} s, native "
+          f"tokenizer {spent.get('tokenize_corpus_native', 0):.1f} s), host "
+          f"peak {host_load:.1f} GiB; native cell blocks "
+          f"{spent.get('build_cell_blocks_native', 0):.1f} s, native stream "
+          f"blocks {spent.get('build_stream_blocks_native', 0):.1f} s, "
+          f"doc_visit_order {spent.get('doc_visit_order', 0):.1f} s; native "
+          f"calls {json.dumps(calls)}; launches {json.dumps(launches)}",
+          flush=True)
+    for scheme, r in runs.items():
+        per = r["slots"] / corpus.num_tokens
+        print(f"[8 ingest {scheme} K={K}] {r['layout']}: {r['slots']} slots "
+              f"for {corpus.num_tokens} tokens ({per:.2f} a token); "
+              f"add_instances "
+              f"{r['setup_s']:.1f} s; {r['ms_per_iteration']:.3f} "
+              f"ms/iteration over {INGEST_ITERS} (host clock), "
+              f"{r['profiled_ms']:.3f} under the profiler at "
+              f"{100 * r['busy_share']:.1f}% device busy; peak "
+              f"{r['peak_gib']:.2f} GiB on the card, host peak "
+              f"{r['host_peak_gib']:.1f} GiB; N_kw, n_dk, n_k exact on the "
+              f"whole corpus; LL {r['ll']:.1f}", flush=True)
+    z, c, p = kernels["zdraw"], kernels["counts"], kernels["pcgs_streamed"]
+    print(f"[8 ingest kernels] z-draw: z agreement on the first "
+          f"{INGEST_BLOCKS} blocks {json.dumps(z['agreement'])}, N_kw its "
+          f"histogram; whole layout {z['ms']:.4f} ms, bound "
+          f"{z['bound_ms']:.4f} ms ({z['bound_by']}), plain on the first "
+          f"blocks {z['plain_ms_first_blocks']:.4f} ms. Count kernel "
+          f"({c['layout']}, {c['instance']} instance, {c['shared_bytes']} B "
+          f"of shared memory): exact on layouts A and B's first "
+          f"{INGEST_BLOCKS} blocks; whole layout B {c['ms']:.4f} ms, bound "
+          f"{c['bound_ms']:.4f} ms ({c['bound_by']}), torch.bincount "
+          f"{c['library_ms']:.4f} ms, plain on the first blocks "
+          f"{c['plain_ms_first_blocks']:.4f} ms. Streamed PCGS: z agreement "
+          f"on the first d-window's documents cut to the first "
+          f"{INGEST_BLOCKS} blocks ({p['checked_tokens']} tokens) "
+          f"{json.dumps(p['agreement'])}, N_kw and the table's moves exact; "
+          f"whole layout {p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+          f"({p['bound_by']}), plain on the cut documents "
+          f"{p['plain_ms_first_blocks']:.4f} ms", flush=True)
+    n_pre, m_pre, secs = ingest_prefix(corpus, path, cell_kw, stream_kw)
+    print(f"[8 ingest prefix] the first {m_pre} documents ({n_pre} tokens): "
+          f"native bit-equal to Python / NumPy in the tokenizer, the cell "
+          f"blocks and the stream blocks, and to the whole corpus's first "
+          f"documents; seconds " + json.dumps(
+              {key: round(v, 3) for key, v in secs.items()}), flush=True)
+    del corpus
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[8 ingest] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3688,8 +4239,20 @@ def main() -> int:
             path.with_suffix(".log").read_text().splitlines()
             if "registers" in ln] if path.with_suffix(".log").exists() else []
     _build.library()
+    # the native corpus builders (g++), one compiler a source, together
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ldagroupedgibbssampler_tpu_torch.corpus import (_native_build,
+                                                         ragged)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor() as pool:
+        libs = list(pool.map(_native_build.build, sorted(
+            p.stem for p in _native_build.NATIVE_DIR.glob("*.cpp"))))
+    native_s = time.perf_counter() - t0
     print(f"[2 build] {path.name} in {build_s:.1f} s "
-          f"(0 = already built); ptxas: {' | '.join(regs)}", flush=True)
+          f"(0 = already built); ptxas: {' | '.join(regs)}; native "
+          f"{', '.join(lib.name for lib in libs)} in {native_s:.1f} s",
+          flush=True)
 
     # ---- 3. kernels against their plain versions -----------------------
     corpus = synth_corpus(Corpus)
@@ -3701,6 +4264,22 @@ def main() -> int:
     blocks = corpus.cell_blocks(block=cfg.token_block, vspan=vspan,
                                 dspan=dspan)
     build_blocks_s = time.perf_counter() - t0
+    check(_native_build.calls["build_cell_blocks_native"] == 1,
+          "the 20NG cell blocks were not built natively")
+    # the NumPy builder of the same blocks, bit-equal
+    saved, ragged.NATIVE_THRESHOLD = ragged.NATIVE_THRESHOLD, n_tok + 1
+    try:
+        t0 = time.perf_counter()
+        numpy_blocks = corpus.cell_blocks(block=cfg.token_block,
+                                          vspan=vspan, dspan=dspan)
+        numpy_blocks_s = time.perf_counter() - t0
+    finally:
+        ragged.NATIVE_THRESHOLD = saved
+    for name, a in vars(numpy_blocks).items():
+        b_ = getattr(blocks, name)
+        check(np.array_equal(a, b_) if isinstance(a, np.ndarray)
+              else a == b_, f"[3 layout] native and NumPy {name} differ")
+    del numpy_blocks
     nb, block = blocks.w_local.shape
     chunk = blocks.chunk
     chunks = block // chunk
@@ -3720,8 +4299,9 @@ def main() -> int:
                       dtype=torch.int32)
     z = torch.where(mask, z, 0)
     print(f"[3 layout] N={n_tok} tokens, {nb} blocks x {block} = {slots} "
-          f"slots, layout B {blocks.d_local.shape[0]} blocks, built in "
-          f"{build_blocks_s:.1f} s", flush=True)
+          f"slots, layout B {blocks.d_local.shape[0]} blocks, built by the "
+          f"native builder in {build_blocks_s:.2f} s, by NumPy (bit-equal) "
+          f"in {numpy_blocks_s:.2f} s", flush=True)
 
     kc = dict(nwin=blocks.nwin_w, vspan=vspan, num_labels=K)
     counts_entry = counts_phase(torch, blocks, n_tok, cuda_counts, _build)
@@ -3993,6 +4573,11 @@ def main() -> int:
     # ---- 7. the sharded schemes on torch.distributed --------------------
     parallel_launches = parallel_phase(torch, smi, serial_lls)
 
+    # ---- 8. ingestion and the sweeps at the NYTimes shape ---------------
+    ingest_launches, ingest_kernels = ingest_phase(
+        torch, smi, LDAConfig, create_model, cuda_counts, cuda_zdraw,
+        cuda_pcgs)
+
     kernels = [
         {**counts_entry, "launches": aliasmh_launches,
          "launches_ggs": launches["blocked_label_counts"],
@@ -4018,6 +4603,16 @@ def main() -> int:
         entry["launches_parallel"] = {
             run: parallel_launches.get(key, {}).get(run, 0)
             for run in ("2 gloo ranks", "1 nccl rank")}
+    # phase 8's launches by scheme, and the kernel's numbers at its shape
+    ingest_of = {"blocked_label_counts": "counts",
+                 "fused_zdraw_nkw": "zdraw",
+                 "fused_pcgs_sweep_streamed": "pcgs_streamed"}
+    for entry in kernels:
+        if entry["name"] in ingest_of and entry.get("mode", "pcgs") == "pcgs":
+            entry["launches_ingest"] = {
+                scheme: got.get(f"{entry['name']}.launches", 0)
+                for scheme, got in ingest_launches.items()}
+            entry["ingest"] = ingest_kernels[ingest_of[entry["name"]]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

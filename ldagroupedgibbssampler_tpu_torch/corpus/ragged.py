@@ -17,8 +17,9 @@ sampler copies the arrays to its device once.
 
 This is the port's own copy of the JAX package's `corpus/ragged.py` (the
 subset the ported schemes use): every builder here is bit-identical to that
-package's. The JAX package adds native C++ builders above 1M tokens, whose
-output is bit-identical too; the port has only the NumPy paths.
+package's. As there, `build_cell_blocks` and `build_stream_blocks` switch
+to the native C++ builders (corpus/native_blocks.py) at 1M tokens when a
+C++ compiler is present; their output is bit-identical too.
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+
+# tokens from which the layout builders take the native C++ path (the JAX
+# package's switch)
+NATIVE_THRESHOLD = 1_000_000
 
 
 @dataclass
@@ -308,13 +313,27 @@ def build_cell_blocks(tokens, doc_ids_all, num_types, num_docs, *,
 
     Vectorised implementation (cumsum/searchsorted rank arithmetic instead
     of per-cell Python loops): bit-identical to
-    `build_cell_blocks_reference`. The JAX package adds a native C++
-    builder for large corpora; the port has only this NumPy path.
+    `build_cell_blocks_reference`. Module-level so multi-rank samplers can
+    build per-rank blocks from a token *subset* that is not a contiguous
+    document slice of any Corpus.
+
+    Corpora of 1M tokens or more use the native C++ builder
+    (native/cell_blocks.cpp: counting sort over the cell key space in
+    linear passes) when a compiler is present, as the JAX package does;
+    all three implementations are bit-identical.
     """
     assert block % chunk == 0
     tokens = np.asarray(tokens, np.int32)
     d_all = np.asarray(doc_ids_all, np.int32)
     n = tokens.shape[0]
+    if n >= NATIVE_THRESHOLD:
+        from ldagroupedgibbssampler_tpu_torch.corpus.native_blocks import (
+            build_cell_blocks_native)
+        nb = build_cell_blocks_native(
+            tokens, d_all, num_types, num_docs, block=block, vspan=vspan,
+            dspan=dspan, chunk=chunk)
+        if nb is not None:
+            return nb
     nwin_w = max(1, (num_types + vspan - 1) // vspan)
     nwin_d = max(1, (num_docs + dspan - 1) // dspan)
     ww = tokens // vspan
@@ -653,11 +672,22 @@ def build_stream_blocks_seq(tokens, doc_ids_all, num_types, num_docs, *,
 
 def build_stream_blocks(tokens, doc_ids_all, num_types, num_docs, *,
                         block: int = 4096, vspan: int = 128,
-                        dspan: int = 128, chunk: int = 128
+                        dspan: int = 128, chunk: int = 128,
+                        native_threshold: int = NATIVE_THRESHOLD
                         ) -> "StreamBlocks":
-    """StreamBlocks for any corpus size. The JAX package switches to a
-    native C++ builder at 1M tokens, bit-identical to the NumPy one; the
-    port always takes the NumPy builder."""
+    """StreamBlocks via the native C++ builder (native/stream_blocks.cpp)
+    from `native_threshold` tokens on when a compiler is present (three
+    full-corpus lexsorts in NumPy take minutes at NYTimes scale), NumPy
+    otherwise; both bit-identical, as in the JAX package."""
+    n = np.asarray(tokens).shape[0]
+    if n >= native_threshold:
+        from ldagroupedgibbssampler_tpu_torch.corpus.native_blocks import (
+            build_stream_blocks_native)
+        b = build_stream_blocks_native(
+            tokens, doc_ids_all, num_types, num_docs, block=block,
+            vspan=vspan, dspan=dspan, chunk=chunk)
+        if b is not None:
+            return b
     return build_stream_blocks_seq(tokens, doc_ids_all, num_types,
                                    num_docs, block=block, vspan=vspan,
                                    dspan=dspan, chunk=chunk)

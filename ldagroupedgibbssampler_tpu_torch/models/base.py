@@ -203,7 +203,7 @@ class TorchLDASampler:
         ndk = self._merge_ndk(self._count_ndk(z))
         alpha = torch.full((cfg.topics,), cfg.alpha, dtype=torch.float32,
                            device=self.device)
-        beta = float(cfg.beta)
+        beta = float(np.float32(cfg.beta))     # f32, as the JAX state's
         phi = self._initial_phi(nkw, beta)
         theta = self._initial_theta(ndk, alpha)
         return LDAState(z=z, ndk=ndk, nkw=nkw, nk=self._nk(nkw), phi=phi,
@@ -705,18 +705,28 @@ class TorchLDASampler:
         with the chain's generator. phi and theta stay; the post-burn-in
         theta mean is kept for `get_fold_in_theta`."""
         cfg = self.config
-        res = fold_in(self._phi_kv(), self.corpus, self.state.alpha,
-                      self.generator, int(iterations),
-                      token_block=cfg.token_block,
+        corpus, generator, blocks = self._fold_in_part()
+        res = fold_in(self._phi_kv(), corpus, self.state.alpha, generator,
+                      int(iterations), token_block=cfg.token_block,
                       vocab_span=cfg.vocab_span, doc_span=cfg.doc_span,
-                      blocks=self._fold_in_blocks())
-        self._fold_in_theta = _np(res.theta_mean)
+                      blocks=blocks)
+        self._fold_in_theta = _np(self._docs_whole(res.theta_mean))
         self._adopt_fold_in(res)
         return self
+
+    def _fold_in_part(self):
+        """What this process folds in: (corpus, generator, its cell blocks
+        or None to build them)."""
+        return self.corpus, self.generator, self._fold_in_blocks()
 
     def _fold_in_blocks(self):
         """Cell blocks of this corpus to fold in on (None: build them)."""
         return None
+
+    def _docs_whole(self, rows):
+        """Per-document rows of the whole corpus from this process's rows:
+        the identity but where ranks hold parts of the documents."""
+        return rows
 
     def _adopt_fold_in(self, res):
         """Take a fold-in's z into this sampler's layout and recount."""
@@ -843,8 +853,8 @@ class TorchLDASampler:
                                       self.config.topics).contiguous(),
             beta=float(np.asarray(arrays["beta"])),
             iteration=int(np.asarray(arrays["iteration"])))
-        for name, recount in (("nkw", self._count_nkw(z)),
-                              ("ndk", self._count_ndk(z))):
+        for name, recount in (("nkw", self._merge_nkw(self._count_nkw(z))),
+                              ("ndk", self._merge_ndk(self._count_ndk(z)))):
             if not torch.equal(recount, getattr(state, name)):
                 raise ValueError(f"checkpoint {name} does not match a "
                                  "recount of its z")
@@ -860,11 +870,17 @@ class TorchLDASampler:
         iteration, so a resumed chain is reproducible but does not replay
         the JAX chain's draws."""
         with np.load(path if path.endswith(".npz") else path + ".npz") as d:
-            self.state = self.state_from_numpy(dict(d))
-        self.generator.manual_seed(
-            (self.config.effective_seed() * 1_000_003 + self.state.iteration)
-            & 0x7FFF_FFFF_FFFF_FFFF)
+            self.state = self.state_from_numpy(self._arrays_from_file(dict(d)))
+        self._reseed(self.config.effective_seed() * 1_000_003
+                     + self.state.iteration)
         return self
+
+    def _arrays_from_file(self, arrays: dict) -> dict:
+        """A checkpoint file's arrays as `state_from_numpy` takes them."""
+        return arrays
+
+    def _reseed(self, seed: int):
+        self.generator.manual_seed(seed & 0x7FFF_FFFF_FFFF_FFFF)
 
 
 class FlatLayoutMixin:

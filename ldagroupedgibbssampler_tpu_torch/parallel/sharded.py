@@ -26,6 +26,13 @@ seed, so they are identical on every rank too.
 A sharded step syncs with the host in its collectives, so it is never
 captured in a CUDA graph (`_capturable_step = False`; the JAX package does
 fuse its sharded steps).
+
+State paths, as on one device. A checkpoint is the JAX scheme's file
+(z in canonical order; the whole corpus's n_dk and GGS theta as the JAX
+scheme lays them out; N_kw and phi in its orientation): every rank
+gathers, rank 0 writes, every rank reads and recounts its merged counts.
+Fold-in merges the ranks' counts of a fold-in on the rank's own part
+(`_fold_in_part`). A swap keeps z, phi, theta and both generators.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
 from ldagroupedgibbssampler_tpu_torch.evaluation.likelihood import (
     doc_log_likelihood, doc_log_posterior, topic_log_likelihood, topics_kept,
     word_log_posterior)
-from ldagroupedgibbssampler_tpu_torch.models.base import TorchLDASampler
+from ldagroupedgibbssampler_tpu_torch.models.base import TorchLDASampler, _np
 from ldagroupedgibbssampler_tpu_torch.parallel.mesh import (
     gather_rows, make_mesh, psum, replicated_mismatches)
 
@@ -85,12 +92,9 @@ class ShardedMixin:
             config, seed=int(psum(seed, self.mesh).item()))
 
     def _seed_generators(self):
-        seed = self.config.effective_seed()
         self.shared_generator = torch.Generator(device=self.device)
-        self.shared_generator.manual_seed(seed)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(((seed * 1_000_003 + 104_729) * 1_000_003
-                                    + self.mesh.rank) & 0x7FFF_FFFF_FFFF_FFFF)
+        self._reseed(self.config.effective_seed())
 
     def _initial_z(self) -> torch.Tensor:
         z = torch.randint(0, self.config.topics,
@@ -180,23 +184,111 @@ class ShardedMixin:
                                  "(ensureConsistentPhi)")
 
     # ------------------------------------------------------------------
-    # single-device paths with no sharded counterpart
+    # checkpoints, fold-in and swap: the single-device paths on every rank
     # ------------------------------------------------------------------
-    def _not_sharded(self, what: str):
-        raise NotImplementedError(f"{what} is not available for the sharded "
-                                  f"scheme {type(self).__name__}")
+    # the orientation of N_kw and phi in the JAX scheme's checkpoint file
+    # (its document-sharded schemes keep the reference's [K, V])
+    _file_nkw_layout = "kv"
 
-    def sample_z_given_phi(self, iterations: int = 100):
-        self._not_sharded("sample_z_given_phi (fold-in)")
+    def _docs_own(self, rows):
+        """This rank's rows of per-document rows of the whole corpus (all
+        of them where the ranks replicate the documents)."""
+        return rows
 
-    def swap_corpus_tokens(self, corpus: Corpus):
-        self._not_sharded("swap_corpus_tokens")
+    def _file_docs(self, rows: np.ndarray) -> np.ndarray:
+        """The whole corpus's per-document rows [D, K] as the JAX scheme
+        writes them."""
+        return rows
+
+    def _corpus_docs(self, rows: np.ndarray) -> np.ndarray:
+        """[D, K] from a file's per-document rows: as they are, or the JAX
+        document-sharded layout [S, Dp, K] of S shards of `Dp` rows each,
+        unpacked by the shards' document ranges (any S)."""
+        if rows.ndim != 3:
+            return rows
+        bounds = partition_documents(self.full_corpus, rows.shape[0])
+        return np.concatenate([rows[s, : bounds[s + 1] - bounds[s]]
+                               for s in range(rows.shape[0])])
+
+    def _file_kv(self, t: torch.Tensor) -> np.ndarray:
+        """A [K, V] tensor in the file's orientation."""
+        return _np(t if self._file_nkw_layout == "kv" else t.T)
+
+    def _checkpoint_arrays(self) -> dict:
+        """The JAX scheme's file: z in canonical order, the whole corpus's
+        n_dk (and GGS theta) laid out as the JAX scheme lays them out, and
+        N_kw and phi in its orientation. Every rank takes part (gathers)."""
+        st = self.state
+        arrays = super()._checkpoint_arrays()
+        arrays["ndk"] = self._file_docs(self.get_document_topic_matrix())
+        arrays["nkw"] = self._file_kv(self._nkw_kv())
+        arrays["phi"] = self._file_kv(self._phi_kv())
+        if st.theta is not None:
+            arrays["theta"] = self._file_docs(_np(self._docs_whole(st.theta)))
+        return arrays
 
     def save_checkpoint(self, path: str):
-        self._not_sharded("save_checkpoint")
+        """Every rank gathers the state, rank 0 writes the file, then the
+        ranks meet, so that any rank may read it at once."""
+        arrays = self._checkpoint_arrays()
+        if self.mesh.rank == 0:
+            np.savez(path, **arrays)
+        psum(torch.zeros(1, device=host_device(self.mesh, self.device)),
+             self.mesh)
 
-    def load_checkpoint(self, path: str):
-        self._not_sharded("load_checkpoint")
+    def _arrays_from_file(self, arrays: dict) -> dict:
+        """A file of this scheme (or of the JAX scheme, at any number of
+        shards, or of a single-device scheme with the same orientation)
+        as this rank's state_from_numpy takes it."""
+        out = dict(arrays)
+        for name in ("ndk", "theta"):
+            rows = np.asarray(arrays[name])
+            if rows.size:
+                out[name] = self._docs_own(self._corpus_docs(rows))
+        for name in ("nkw", "phi"):
+            t = np.asarray(arrays[name])
+            if self._file_nkw_layout != self.nkw_layout:
+                t = t.T
+            out[name] = np.ascontiguousarray(t)
+        return out
+
+    def _reseed(self, seed: int):
+        """The shared generator from `seed`, the rank-local one from
+        (`seed`, rank), as at the chain's start."""
+        mask = 0x7FFF_FFFF_FFFF_FFFF
+        self.shared_generator.manual_seed(seed & mask)
+        self.generator.manual_seed(((seed * 1_000_003 + 104_729) * 1_000_003
+                                    + self.mesh.rank) & mask)
+
+    def _use_corpus(self, corpus: Corpus):
+        """Lay out `corpus` (same documents, tokens and types) on this
+        rank."""
+        self.full_corpus = self.corpus = corpus
+        self._prepare_device_data(corpus)
+
+    def swap_corpus_tokens(self, corpus: Corpus):
+        """The single-device swap on every rank: z carries over by
+        canonical token index (gathered), the merged counts are rebuilt
+        for the new tokens, and phi, theta and both generators' states are
+        kept."""
+        old = self.full_corpus
+        if (corpus.num_docs, corpus.num_tokens, corpus.num_types) != (
+                old.num_docs, old.num_tokens, old.num_types):
+            raise ValueError("swap_corpus_tokens needs a corpus of the "
+                             "same documents, tokens and types")
+        z = self.get_z_indicators()
+        st = self.state
+        phi = st.phi
+        theta = None if st.theta is None else self._docs_whole(st.theta)
+        states = [(g, g.get_state())
+                  for g in (self.generator, self.shared_generator)]
+        self._use_corpus(corpus)
+        self.set_z_indicators(z)
+        st.phi = phi
+        st.theta = None if theta is None else self._docs_own(theta)
+        for g, state in states:
+            g.set_state(state)
+        return self
 
 
 class DocShardedMixin(ShardedMixin):
@@ -205,6 +297,10 @@ class DocShardedMixin(ShardedMixin):
     z, n_dk and GGS theta are rank-local."""
 
     def add_instances(self, corpus: Corpus):
+        return super().add_instances(self._split(corpus))
+
+    def _split(self, corpus: Corpus) -> Corpus:
+        """Take `corpus` as the whole corpus; returns this rank's part."""
         self.full_corpus = corpus
         bounds = partition_documents(corpus, self.mesh.size)
         self.doc_bounds = bounds
@@ -215,7 +311,34 @@ class DocShardedMixin(ShardedMixin):
         self._docs = (d0, d1)
         self._tokens = (int(corpus.doc_offsets[d0]),
                         int(corpus.doc_offsets[d1]))
-        return super().add_instances(corpus.subset(np.arange(d0, d1)))
+        return corpus.subset(np.arange(d0, d1))
+
+    def _use_corpus(self, corpus: Corpus):
+        self.corpus = self._split(corpus)
+        self._prepare_device_data(self.corpus)
+
+    def _docs_whole(self, rows):
+        return gather_rows(rows, self.mesh)
+
+    def _docs_own(self, rows):
+        d0, d1 = self._docs
+        return rows[d0:d1]
+
+    def _file_docs(self, rows: np.ndarray) -> np.ndarray:
+        """[S, Dp, K]: shard s's documents in its first rows, zeros after,
+        Dp the largest shard's documents (the JAX schemes' layout)."""
+        bounds = self.doc_bounds
+        sizes = np.diff(bounds)
+        out = np.zeros((len(sizes), int(sizes.max()), *rows.shape[1:]),
+                       rows.dtype)
+        for s, (d0, d1) in enumerate(zip(bounds[:-1], bounds[1:])):
+            out[s, : d1 - d0] = rows[d0:d1]
+        return out
+
+    def _adopt_fold_in(self, res):
+        # the rank folded in its own documents: z in its sub-corpus's order
+        z = super(DocShardedMixin, self)._z_from_flat(res.flat_z())
+        self._rebuild_counts(torch.as_tensor(z, device=self.device))
 
     def _make_builders(self, corpus):
         super()._make_builders(self.full_corpus)

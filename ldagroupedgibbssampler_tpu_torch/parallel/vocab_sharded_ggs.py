@@ -39,6 +39,7 @@ import torch
 
 from ldagroupedgibbssampler_tpu_torch.corpus.ragged import (
     CellBlocks, Corpus, build_cell_blocks)
+from ldagroupedgibbssampler_tpu_torch.models.base import TorchLDASampler
 from ldagroupedgibbssampler_tpu_torch.models.ggs import (
     LDAGroupedGibbsSampler)
 from ldagroupedgibbssampler_tpu_torch.parallel.mesh import (
@@ -139,6 +140,8 @@ class VocabShardedGGS(ShardedMixin, LDAGroupedGibbsSampler):
     cell blocks."""
 
     _replicated_theta = True
+    # the JAX scheme writes the single-device GGS orientation, [V, K]
+    _file_nkw_layout = "vk"
 
     def add_instances(self, corpus: Corpus):
         self.full_corpus = corpus
@@ -189,3 +192,12 @@ class VocabShardedGGS(ShardedMixin, LDAGroupedGibbsSampler):
     def _replicated(self) -> dict:
         st = self.state
         return {**super()._replicated(), "theta": st.theta, "ndk": st.ndk}
+
+    # fold-in: every rank folds in the whole corpus alike (the shared
+    # generator, cell blocks of the whole corpus), then keeps its windows'
+    # tokens and merges the counts
+    def _fold_in_part(self):
+        return self.corpus, self.shared_generator, None
+
+    def _adopt_fold_in(self, res):
+        TorchLDASampler._adopt_fold_in(self, res)

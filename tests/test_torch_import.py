@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package, a CUDA request without CUDA raises, and PERF.md's kernel table
-lists every Pallas kernel of the JAX package."""
+package, a CUDA request without CUDA raises, every module of the JAX
+package has its counterpart in the port, and PERF.md's kernel table lists
+every Pallas kernel of the JAX package."""
 
 import glob
 import os
@@ -20,6 +21,9 @@ import ldagroupedgibbssampler_tpu_torch
 import ldagroupedgibbssampler_tpu_torch.classify
 import ldagroupedgibbssampler_tpu_torch.classify.confusion
 import ldagroupedgibbssampler_tpu_torch.classify.kl_classifier
+import ldagroupedgibbssampler_tpu_torch.corpus._native_build
+import ldagroupedgibbssampler_tpu_torch.corpus.native_blocks
+import ldagroupedgibbssampler_tpu_torch.corpus.native_loader
 import ldagroupedgibbssampler_tpu_torch.corpus.perplexity
 import ldagroupedgibbssampler_tpu_torch.evaluation.diagnostics
 import ldagroupedgibbssampler_tpu_torch.evaluation.foldin
@@ -159,3 +163,26 @@ def test_kernel_inventory_matches_perf_table():
             r"pallas_\w+\.py:\d+", ln)]
     assert calls == 6
     assert len(rows) == calls, rows
+
+
+def _modules(package: str) -> set:
+    """The dotted module paths of a package's .py files, relative to it."""
+    base = os.path.join(ROOT, package)
+    out = set()
+    for path in glob.glob(os.path.join(base, "**", "*.py"), recursive=True):
+        rel = os.path.relpath(path, base)[: -len(".py")]
+        out.add(rel.replace(os.sep, "."))
+    return out
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each module of ldagroupedgibbssampler_tpu/ has one of the same path
+    in the port, a Pallas module `ops/pallas_X` mapping to the port's
+    hand-written kernel module `ops/cuda_X`: the port does all that the
+    JAX package does, module by module."""
+    jax_modules = _modules("ldagroupedgibbssampler_tpu")
+    port = _modules("ldagroupedgibbssampler_tpu_torch")
+    expected = {re.sub(r"^ops\.pallas_", "ops.cuda_", m) for m in jax_modules}
+    assert len(jax_modules) >= 70
+    assert sum(m.startswith("ops.pallas_") for m in jax_modules) == 4
+    assert sorted(expected - port) == []
