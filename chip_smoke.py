@@ -31,7 +31,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      family's operands (alpha exactly 0 on 60% of the topics, whose phi
      rows are 0 and which hold no token), equal to the plain version on
      every token but documents whose first difference is a proven
-     rounding tie.
+     rounding tie, and two seeded one-token cases (the lane kernel at
+     K=100, the shared-memory kernel at K=300) on which the count,
+     without the zero-run repair, draws a zero-probability topic.
      The LightLDA MH sweep kernel likewise (resident K=100, streamed
      K=200), with a chi-square against the enumerated MH transition, its
      word-cdf pre-pass against its plain version and timed alone, and its
@@ -48,11 +50,35 @@ Phases (each prints one line; any failure raises and exits non-zero):
      one-warp collapsed chain its first differing token), and the z-draw
      also runs at K=4096 (`[3 zdraw K=4096]`: its time beside its bound
      on the whole corpus, agreement on the first 8 blocks);
+     `[3 gamma]`, the Gamma and Dirichlet kernels (csrc/gamma.cu) at the
+     ggs K=100 shapes (theta [D, K] from counts + 0.5, phi [V, K] from
+     counts + 0.01 normalised over V): the Gamma kernel against
+     gamma_reference (the kernel's own Philox words) on every element,
+     within 1e-5 on 99.9% and every other element a proven accept/reject
+     tie, the Dirichlet kernels against the kernel's Gamma draws floored
+     and normalised, sums and floor, and the same for the long-row
+     Dirichlet at the PCGS family's phi [K, V] (N_kw + 0.01, rows split
+     across blocks); on shapes 0 to 1e4 the same
+     agreement on 100,000 elements, a KS test of 200,000 draws against
+     scipy.stats.gamma and the exact 0 at shape 0; times beside the plain
+     version, the eager generator path it replaced, torch._standard_gamma
+     and torch._sample_dirichlet; `[3 left-to-right]`, the held-out
+     estimator kernel (csrc/left_to_right.cu) at the [4 held-out] shapes,
+     K = 100 and 4096: draws equal to left_to_right_reference on the
+     first 64 test documents but proven ties (the exact cdf within 4
+     sqrt(K) 2^-24 T of u T), the total within 1e-5, a seeded case on
+     which the kernel's walk, unrepaired, draws a zero-product topic, ten
+     kernel seeds' mean within 5 standard errors of five seeds of the
+     plain generator= estimator on the whole split, times and peak
+     memory;
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
      with the likelihood every 10 (exact recounts, rising likelihood,
-     tokens/s, a profile), then pcgs at K=200 (streamed layout), polyaurn
+     tokens/s, a profile; for ggs the Dirichlet kernels' launches checked,
+     3 an iteration and 3 at set-up, at most 4 Gamma-kernel launches an
+     iteration under the profiler, and the profile repeated with the eager
+     generator draws the kernels replaced), then pcgs at K=200 (streamed layout), polyaurn
      at K=100, lightpcldaw2 and lightcollapsed at K=100, lightpclda and
      adlda at K=200 (streamed), 10 iterations each; then `[4 adlda
      oracle]`, adlda on the first 2,000 documents with the parallel and
@@ -76,6 +102,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      `[4 held-out]`, ggs K=100 on the 90% split of a 10%
      build_perplexity_split, 30 iterations with the held-out LL every 10
      (the training series equal to the same seed's without a test set;
+     the estimator kernel launched twice an evaluation;
      one evaluation timed and profiled against a ggs iteration; the
      estimator on cuda against cpu given the same noise; the count phi
      against a uniform phi), then the test documents' first halves folded
@@ -130,7 +157,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and vocab_sharded_ggs at 1 NCCL rank (its n_dk all-reduce in int16),
      10 iterations each at K=100 on the whole corpus, with the launch
      counters set to 0 just before and read just after (rows 2 and 1, or
-     row 3, once an iteration a rank): the likelihood at 0 and 10, the
+     row 3, once an iteration a rank, and the Dirichlet kernels' 3 or 2):
+     the likelihood at 0 and 10, the
      exact recount of the gathered z against the merged counts, every
      replicated tensor bit-equal across the ranks, the GGS kernels at a
      rank's shapes against their plain versions, ms/iteration and the
@@ -161,7 +189,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      Phase 3's `[3 layout]` builds the 20NG cell blocks natively (1.35M
      tokens, above the 1M switch) and with NumPy, bit-equal, and prints
      both seconds.
-Then one JSON line describing every kernel (the counts, z-draw and PCGS
+Then one JSON line describing every kernel (gamma and left_to_right
+among them; the counts, z-draw and PCGS
 entries with their launches in phase 6 as `launches_apps`, every entry
 with its launches in phase 7 as `launches_parallel`; the counts, z-draw
 and streamed PCGS entries with phase 8's launches by scheme as
@@ -238,6 +267,18 @@ def time_ms(torch, fn, reps=7, calls=10):
     return float(np.median(out))
 
 
+def once_ms(torch, fn):
+    """Device time of one call of a slow plain version (CUDA events)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
 def bound(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
@@ -266,8 +307,8 @@ def profile_iterations(torch, model, n: int) -> str:
 
 
 def profile_numbers(torch, fn, n: int):
-    """(host wall ms, device busy ms, [(ms, kernel name)]) per unit of
-    `fn()`, which does `n` units of work, under torch.profiler."""
+    """(host wall ms, device busy ms, [(ms, kernel name, launches)]) per
+    unit of `fn()`, which does `n` units of work, under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -282,22 +323,33 @@ def profile_numbers(torch, fn, n: int):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
-            rows.append((us / 1e3 / n, e.key))
-    return wall, sum(ms for ms, _ in rows), rows
+            rows.append((us / 1e3 / n, e.key, e.count / n))
+    return wall, sum(ms for ms, *_ in rows), rows
+
+
+def profile_summary(wall, busy, rows, unit: str) -> str:
+    """Host wall and device busy ms a unit, the busy share, the distinct
+    kernels and their launches a unit."""
+    return (f"{wall:.3f} ms/{unit} host wall, device busy {busy:.3f} "
+            f"ms/{unit} ({100 * busy / wall:.1f}%), {len(rows)} kernels, "
+            f"{sum(c for *_, c in rows):.1f} launches/{unit}")
 
 
 def profile_calls(torch, fn, n: int, unit: str) -> str:
     """Device time by kernel of `fn()`, which does `n` `unit`s of work
     (torch.profiler), against its host wall time."""
-    wall, busy, rows = profile_numbers(torch, fn, n)
+    return profile_text(*profile_numbers(torch, fn, n), n, unit)
+
+
+def profile_text(wall, busy, rows, n: int, unit: str) -> str:
+    """profile_numbers' results as one line, with the top kernels."""
     if busy == 0:
         return (f"{n} {unit}s, {wall:.3f} ms/{unit}; the profiler saw "
                 "no device time")
     rows.sort(reverse=True)
-    top = "; ".join(f"{ms:.3f} ms {name[:70]}" for ms, name in rows[:8])
-    return (f"{n} {unit}s: {wall:.3f} ms/{unit} host wall, device "
-            f"busy {busy:.3f} ms/{unit} ({100 * busy / wall:.1f}%), "
-            f"{len(rows)} kernels; top: {top}")
+    top = "; ".join(f"{ms:.3f} ms {name[:70]}" for ms, name, _ in rows[:8])
+    return (f"{n} {unit}s: {profile_summary(wall, busy, rows, unit)}; "
+            f"top: {top}")
 
 
 PCGS_LAYOUTS = ((100, "resident"), (200, "streamed"))
@@ -740,9 +792,13 @@ def pcgs_sweep_checks(torch, model, gen, seed, plain_of, label, doc_sel):
         philox_u24(seed, st.z.numel()))
     check_sweep_outputs(torch, model, f"{label} (zero-phi)", st.z, zk,
                         nkw_k, tb_k, doc_sel)
-    sel = real & doc_sel[model._slot_d]
-    check(bool((phi_zero[model._slot_w[sel], zk[sel].long()] > 0).all()),
-          f"{label}: a draw landed on a zero-probability topic")
+    sel = (real & doc_sel[model._slot_d]).reshape(-1)
+    words, drawn = model._slot_w.reshape(-1), zk.reshape(-1).long()
+    on_zero = (sel & ~(phi_zero[words, drawn] > 0)).nonzero()[:, 0]
+    check(on_zero.numel() == 0, f"{label}: {on_zero.numel()} draws landed "
+          f"on a zero-probability topic (words "
+          f"{words[on_zero[:4]].tolist()}, z {drawn[on_zero[:4]].tolist()}, "
+          f"plain z {zr.reshape(-1)[on_zero[:4]].tolist()})")
     return agreement, err
 
 
@@ -975,6 +1031,174 @@ def collapsed_tie_at_first_disagreement(torch, model, label, z_old, zk, zr,
     return None
 
 
+def _bf16_np(x):
+    """bf16 rounding (to nearest even) of float32 values, as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def lane_kernel_count(p, u24):
+    """The draw of csrc/pcgs.cu's lane kernel in its pair instance (kpad
+    128: 16 lanes of 8 contiguous topics a document) for one token with
+    products p [K <= 128], in its own f32 association, before the zero-run
+    repair: each lane sums its 8 products left to right, a Hillis-Steele
+    scan over the 16 lanes gives each lane's inclusive sum, the lane's
+    values are its exclusive offset plus its running sums, and z =
+    min(#{values <= u24 2^-24 total}, last topic with p > 0)."""
+    f32 = np.float32
+    pp = np.zeros(128, f32)
+    pp[: len(p)] = p
+    pre = np.zeros((16, 8), f32)
+    for lane in range(16):
+        s = f32(0)
+        for i in range(8):
+            v = pp[lane * 8 + i]
+            s = v if i == 0 else f32(s + v)
+            pre[lane, i] = s
+    incl = pre[:, -1].copy()
+    off = 1
+    while off < 16:
+        prev = incl.copy()
+        incl[off:] = (prev[off:] + prev[:-off]).astype(f32)
+        off <<= 1
+    excl = np.concatenate([[f32(0)], incl[:-1]]).astype(f32)
+    u = f32(f32(f32(u24) * f32(2.0 ** -24)) * incl[-1])
+    cnt = int(((excl[:, None] + pre).astype(f32) <= u).sum())
+    return min(cnt, int(np.nonzero(pp)[0].max()))
+
+
+def pcgs_zero_run_case(k=100, seed=0):
+    """A one-token case on which the lane kernel's count, before the
+    zero-run repair, lands on a topic whose product is 0: products p (bf16
+    values, a run of zero lanes after lane a), and a u24 that puts u * total
+    between lane a's inclusive sum from the scan and its last running value
+    (the two associations of the same sum). Found by a seeded search over
+    lane_kernel_count; returns the products, the u24, the topic the
+    unrepaired count draws and a z_old with p > 0."""
+    rng = np.random.default_rng(seed)
+    for _ in range(100_000):
+        a = int(rng.integers(1, 10))
+        nz = rng.random(k) < 0.7
+        nz[8 * (a + 1): 8 * (a + 2)] = False
+        p = np.where(nz, _bf16_np(rng.random(k).astype(np.float32)
+                                  * rng.choice([1.0, 1e-3, 1e3], k)),
+                     0).astype(np.float32)
+        # u * total near lane a's end: the left-to-right cumsum only sizes
+        # the search window
+        pre = np.cumsum(p, dtype=np.float32)
+        lo = int(np.floor(float(pre[8 * a + 7]) / float(pre[-1]) * 2 ** 24))
+        for u24 in range(max(lo - 64, 0), min(lo + 64, 1 << 24)):
+            z = lane_kernel_count(p, u24)
+            if p[z] == 0:
+                return {"phi": p, "u24": u24, "unrepaired": z,
+                        "z_old": int(np.nonzero(p)[0][0]), "kpad": 128}
+    raise AssertionError("no zero-run tie case found")
+
+
+def _hillis_steele32(x):
+    """Inclusive f32 Hillis-Steele scan of 32 values, as a warp's
+    __shfl_up_sync loop sums them."""
+    s = np.asarray(x, np.float32).copy()
+    off = 1
+    while off < 32:
+        prev = s.copy()
+        s[off:] = (prev[off:] + prev[:-off]).astype(np.float32)
+        off <<= 1
+    return s
+
+
+def sweep_kernel_count(p, u24, kpad):
+    """The draw of csrc/pcgs.cu's shared-memory sweep kernel (kpad > 256,
+    PCGS mode) for one token with products p [K <= kpad], in its own f32
+    association, before the zero-run repair: each 32-topic chunk of a
+    128-topic tile a Hillis-Steele scan plus the chunk before it, each
+    tile's total added in order; z = min(sum over tiles of #{cdf <= u -
+    the tiles before}, last topic with p > 0)."""
+    f32 = np.float32
+    pp = np.zeros(kpad, f32)
+    pp[: len(p)] = p
+    cdf = np.zeros(kpad, f32)
+    total = f32(0)
+    for t in range(kpad // 128):
+        carry = f32(0)
+        for g in range(4):
+            b = t * 128 + g * 32
+            cdf[b: b + 32] = (_hillis_steele32(pp[b: b + 32])
+                              + carry).astype(f32)
+            carry = cdf[b + 31]
+        total = f32(total + carry)
+    u = f32(f32(f32(u24) * f32(2.0 ** -24)) * total)
+    cnt, off = 0, f32(0)
+    for t in range(kpad // 128):
+        cnt += int((cdf[t * 128: t * 128 + 128] <= f32(u - off)).sum())
+        off = f32(off + cdf[t * 128 + 127])
+    return min(cnt, int(np.nonzero(pp)[0].max()))
+
+
+def pcgs_sweep_zero_run_case(k=300, seed=0):
+    """pcgs_zero_run_case for the shared-memory sweep kernel (K=300, kpad
+    384): products with a zero run at the end of a 32-topic chunk, whose
+    Hillis-Steele sums need not equal the chunk's last nonzero sum, and a
+    u24 on which sweep_kernel_count, before the repair, counts into the
+    run."""
+    from ldagroupedgibbssampler_tpu_torch.ops.cuda_pcgs import kpad_of
+    kpad = kpad_of(k)
+    rng = np.random.default_rng(seed)
+    for _ in range(10_000):
+        c, j = int(rng.integers(0, k // 32)), int(rng.integers(1, 31))
+        nz = rng.random(k) < 0.7
+        nz[32 * c + j: 32 * c + 32] = False
+        p = np.where(nz, _bf16_np(rng.random(k).astype(np.float32)
+                                  * rng.choice([1.0, 1e-3, 1e3], k)),
+                     0).astype(np.float32)
+        pre = np.cumsum(p, dtype=np.float32)
+        lo = int(np.floor(float(pre[32 * c + 31]) / float(pre[-1]) * 2 ** 24))
+        for u24 in range(max(lo - 64, 0), min(lo + 64, 1 << 24)):
+            z = sweep_kernel_count(p, u24, kpad)
+            if p[z] == 0:
+                return {"phi": p, "u24": u24, "unrepaired": z,
+                        "z_old": int(np.nonzero(p)[0][0]), "kpad": kpad}
+    raise AssertionError("no zero-run tie case found")
+
+
+def pcgs_zero_run_draw(torch, case, device="cuda"):
+    """The PCGS sweep (positive_support off) on a corpus of one document of
+    one token, word 0, with alpha 1 and n_dk 1 on z_old, so every product is
+    bf16(phi[0, k]) = case["phi"][k], and the injected u24: returns (the
+    kernel's z, the plain version's z). The case's kpad (128 unless it
+    says) picks the kernel: the lane kernel's pair instance or the
+    shared-memory sweep kernel."""
+    from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
+    from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
+    from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_pcgs
+    k = len(case["phi"])
+    model = create_model(LDAConfig(
+        scheme="pcgs", topics=k, alpha=1.0, beta=0.01, seed=2019,
+        exec_time=-1, device=device))
+    model.add_instances(Corpus.from_token_lists([[0]], ["w0"]))
+    check(model._mode == "resident"
+          and model._kpad() == case.get("kpad", 128),
+          f"zero-run case: kpad {model._kpad()}, not the case's")
+    real = model._slot_mask.reshape(model.state.z.shape)
+    z = torch.where(real, case["z_old"], 0).to(torch.int32)
+    ndk = torch.zeros((1, k), dtype=torch.int32, device=model.device)
+    ndk[0, case["z_old"]] = 1
+    table = model._ndk_table(ndk, torch.ones(k, device=model.device), None)
+    phi_vk = torch.as_tensor(case["phi"], device=model.device)[None, :]
+    u24 = torch.full(tuple(z.shape), case["u24"], dtype=torch.int32,
+                     device=model.device)
+    seed = torch.zeros(1, dtype=torch.int64, device=model.device)
+    fn, args, kw = model._sweep_call(z, table, phi_vk, seed, u24)
+    kw = {**kw, "positive_support": False}
+    zk = fn(*args, **kw)[0]
+    plain = {cuda_pcgs.fused_pcgs_sweep:
+             cuda_pcgs.fused_pcgs_sweep_reference}[fn]
+    zr = plain(*args, **without_order(kw))[0]
+    return int(zk[real][0]), int(zr[real][0])
+
+
 def pcgs_zero_alpha_check(torch, model, gen, seed, plain_of, label, doc_sel):
     """The operands of the HDP family on the model's layout: alpha exactly
     0 on 60% of the topics, whose phi rows are all 0 and which hold no
@@ -1145,6 +1369,28 @@ def pcgs_kernel_phase(torch, corpus, Corpus, LDAConfig, create_model,
              "bound_by": bound_by, "library_ms": None})
         del model, st, table, phi_vk
         torch.cuda.empty_cache()
+    # the zero-run tie (ROADMAP C): a case on which the lane
+    # kernel's count, before its repair, draws a zero-probability topic
+    case = pcgs_zero_run_case()
+    zk, zr = pcgs_zero_run_draw(torch, case)
+    check(case["phi"][zk] > 0, f"[3 pcgs] zero-run tie: the kernel drew "
+          f"topic {zk}, whose probability is 0")
+    print(f"[3 pcgs] zero-run tie (one token, u24 {case['u24']}, positive "
+          f"support off): the unrepaired count of the lane kernel's "
+          f"association draws topic {case['unrepaired']} (p 0); the kernel "
+          f"draws {zk} (p {float(case['phi'][zk]):.4g}), the plain version "
+          f"{zr}", flush=True)
+    # the same at kpad > 256: the shared-memory sweep kernel's copy of the
+    # repair
+    case = pcgs_sweep_zero_run_case()
+    zk, zr = pcgs_zero_run_draw(torch, case)
+    check(case["phi"][zk] > 0, f"[3 pcgs] zero-run tie K=300: the kernel "
+          f"drew topic {zk}, whose probability is 0")
+    print(f"[3 pcgs] zero-run tie K=300 (kpad {case['kpad']}, the "
+          f"shared-memory sweep kernel; u24 {case['u24']}): the unrepaired "
+          f"count of its association draws topic {case['unrepaired']} (p "
+          f"0); the kernel draws {zk} (p {float(case['phi'][zk]):.4g}), the "
+          f"plain version {zr}", flush=True)
     return entries
 
 
@@ -1178,10 +1424,12 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
     polyaurn K=100 for 10 iterations each, each with its launch counts
     set to 0 just before it and read just after. Returns the launches of
     each wrapper in its own run."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma
     res, stm = cuda_pcgs.fused_pcgs_sweep, cuda_pcgs.fused_pcgs_sweep_streamed
     launches = {}
 
     res.launches = stm.launches = 0
+    cuda_gamma.gamma.launches = cuda_gamma.dirichlet.launches = 0
     model = create_model(pcgs_config(LDAConfig, "pcgs", 100))
     model.add_instances(corpus)
     ll0 = model.model_log_likelihood()
@@ -1192,9 +1440,16 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
     torch.cuda.synchronize()
     t_b = time.perf_counter()
     launches[res.__name__] = res.launches
+    launches["dirichlet"] = cuda_gamma.dirichlet.launches
+    launches["gamma"] = cuda_gamma.gamma.launches
     check(res.launches == ITERS and stm.launches == 0,
           f"pcgs: sweep launches (resident, streamed) = "
           f"{(res.launches, stm.launches)}")
+    # phi [K, V] by the long-row Dirichlet (two launches), every iteration
+    # and at set-up
+    check(launches["dirichlet"] == 2 * (ITERS + 1)
+          and launches["gamma"] == 0, f"pcgs: Dirichlet and Gamma kernel "
+          f"launches {(launches['dirichlet'], launches['gamma'])}")
     check_counts_exact(model, corpus, "pcgs")
     lls = dict(model.get_log_likelihoods())
     check(lls[30] > lls[10] > ll0, f"pcgs LL did not rise: init {ll0}, "
@@ -1202,7 +1457,8 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
     n = corpus.num_tokens
     print(f"[4 pcgs main path] pcgs K=100 resident on "
           f"{torch.cuda.get_device_name(0)} ({smi}): launches "
-          f"{launches[res.__name__]}; counts exact; LL init {ll0:.1f} -> "
+          f"{launches[res.__name__]}, the long-row Dirichlet kernels "
+          f"{launches['dirichlet']}; counts exact; LL init {ll0:.1f} -> "
           f"it10 {lls[10]:.1f} -> it30 {lls[30]:.1f}; "
           f"{n * (ITERS - 10) / (t_b - t_a):.0f} tokens/s over iterations "
           f"11-30 ({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} ms/iteration, "
@@ -1320,6 +1576,7 @@ def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
     hist = model.get_active_topic_history()
     check(hist[-1] >= 2, f"ppu_hdplda: no topic born and kept: {hist}")
     n_active = check_hdp_state(model, "ppu_hdplda")
+    prof = profile_numbers(torch, lambda: model.sample(5), 5)
     print(f"[4 ppu_hdplda main path] ppu_hdplda K_max=100 resident on "
           f"{torch.cuda.get_device_name(0)} ({smi}): launches {nl}; counts "
           f"exact; LL init {ll0:.1f} -> it10 {lls[10]:.1f} -> it20 "
@@ -1329,8 +1586,9 @@ def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
           f"{n * (ITERS - 10) / (t_b - t_a):.0f} tokens/s over iterations "
           f"11-30 ({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} ms/iteration, "
           f"host clock, LL at 20 and 30 included); set up in {setup_s:.1f} "
-          "s", flush=True)
-    print(f"[4 ppu_hdplda profile] {profile_iterations(torch, model, 5)}",
+          f"s; device busy {100 * prof[1] / prof[0]:.1f}% over 5 more "
+          "iterations (profiler)", flush=True)
+    print(f"[4 ppu_hdplda profile] {profile_text(*prof, 5, 'iteration')}",
           flush=True)
     del model
     torch.cuda.empty_cache()
@@ -2293,8 +2551,14 @@ def collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model,
                     counters, num_docs=100):
     """[4 collapsed]: scheme `collapsed` (the serial oracle, a per-token
     host loop) on the first 100 documents for 2 iterations on the card;
-    no kernel launch counter may move."""
+    no sweep or count kernel's launch counter may move (its diagnostic
+    theta and phi draws launch the Dirichlet kernels)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma
+    draws = cuda_gamma.dirichlet
     sub = first_docs(Corpus, corpus, num_docs)
+    counters = [(fn, attr) for fn, attr in counters
+                if fn not in (cuda_gamma.gamma, draws)]
+    draws0 = draws.launches
     before = [(fn.__name__, attr, getattr(fn, attr))
               for fn, attr in counters]
     model = create_model(pcgs_config(LDAConfig, "collapsed", 100))
@@ -2310,13 +2574,603 @@ def collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model,
              for fn, attr in counters]
     check(before == after, f"collapsed moved a launch counter: {before} -> "
           f"{after}")
+    check(draws.launches > draws0, "collapsed: no Dirichlet kernel launch")
     ll = model.model_log_likelihood()
     print(f"[4 collapsed] first {num_docs} documents ({sub.num_tokens} "
           f"tokens), "
           f"K=100 on {model.device}: {secs:.2f} s/iteration (a per-token "
           f"host loop); LL init {ll0:.1f} -> it2 {ll:.1f}; counts exact; "
-          f"no kernel launched", flush=True)
+          f"no sweep or count kernel launched, the Dirichlet kernels "
+          f"{draws.launches - draws0} times", flush=True)
     del model
+
+
+GAMMA_GRID = (0.0, 1e-3, 0.01, 0.1, 0.5, 1.0, 2.5, 100.0, 1e4)
+GAMMA_CHECK = 100_000       # elements of each grid shape held to the plain
+GAMMA_KS = 200_000          # kernel draws of each grid shape for the KS
+GAMMA_RTOL = 1e-5
+
+
+def gamma_tie_proof(torch, a, seed, i, r):
+    """Whether round r of element i's accept test is a tie: both sides of
+    log u < x^2/2 + d - d v + d log v recomputed in float64 from the
+    element's Philox words differ by at most GAMMA_RTOL of the terms'
+    magnitude, or 1 + c x is that close to 0 (the sign of v)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma
+    ctr = torch.tensor([i * cuda_gamma.BLOCKS_PER_ELEMENT + r],
+                       dtype=torch.int64, device=seed.device)
+    w = [float(v) for v in (cuda_gamma._unit23(x).double()
+                            for x in cuda_gamma._words(seed, ctr)[:3])]
+    a = float(a)
+    d = (a + 1.0 if a < 1.0 else a) - 1.0 / 3.0
+    c = 1.0 / np.sqrt(9.0 * d)
+    x = np.sqrt(-2.0 * np.log(w[0])) * np.cos(2.0 * np.pi * w[1])
+    v1 = 1.0 + c * x
+    if abs(v1) <= GAMMA_RTOL * (1.0 + abs(c * x)):
+        return True
+    if v1 <= 0:
+        return False
+    v = v1 ** 3
+    terms = (np.log(w[2]), 0.5 * x * x, d, -d * v, d * np.log(v))
+    margin = terms[0] - sum(terms[1:])
+    return abs(margin) <= GAMMA_RTOL * sum(abs(t) for t in terms)
+
+
+def gamma_agreement(torch, cuda_gamma, a, seed, label):
+    """The Gamma kernel against gamma_reference on float32 `a` (flat),
+    both on the card: (share of elements within GAMMA_RTOL, [proven
+    accept/reject ties, boost-amplified last bits], mean rounds a draw).
+    An element outside the tolerance must either have another accepted
+    round than the plain version, the earlier of the two a proven tie, or
+    the same round with a < 1, where the boost exp(log(ub) / a) multiplies
+    a last-bit difference of log(ub) by |log(ub) / a|: its relative error
+    within 2.4e-7 (2 ulp) times 2 + |log(ub) / a|. The relative error's
+    denominator is at least FLT_MIN: a denormal draw counts at the scale of
+    the smallest normal."""
+    a = a.reshape(-1).to(torch.float32).contiguous()
+    rk = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    gk = cuda_gamma.gamma(a, seed, rk)
+    gr, rr = cuda_gamma.gamma_reference(a, seed, return_rounds=True)
+    tiny = torch.finfo(torch.float32).tiny
+    rel = (gk - gr).abs() / gr.abs().clamp_min(tiny)
+    bad = (rel > GAMMA_RTOL).nonzero()[:, 0]
+    share = 1.0 - bad.numel() / max(a.numel(), 1)
+    check(share >= 0.999, f"{label}: only {share:.6f} of the draws within "
+          f"{GAMMA_RTOL} of the plain version")
+    ties = boosted = 0
+    for i in bad[:2000].tolist():
+        if int(rk[i]) != int(rr[i]):
+            m = min(int(rk[i]), int(rr[i]))
+            check(m < cuda_gamma.ROUNDS and gamma_tie_proof(
+                torch, a[i], seed, i, m), f"{label}: element {i} (a="
+                f"{float(a[i])}) accepted round {int(rk[i])} against "
+                f"{int(rr[i])}, not a tie")
+            ties += 1
+            continue
+        ctr = torch.tensor([i * cuda_gamma.BLOCKS_PER_ELEMENT
+                            + cuda_gamma.ROUNDS], dtype=torch.int64,
+                           device=seed.device)
+        ub = float(cuda_gamma._unit23(cuda_gamma._words(seed, ctr)[0]))
+        amp = abs(np.log(ub) / max(float(a[i]), tiny))
+        check(float(a[i]) < 1.0 and float(rel[i]) <= 2.4e-7 * (2 + amp),
+              f"{label}: element {i} (a={float(a[i])}) off by "
+              f"{float(rel[i]):.3g} in the same round")
+        boosted += 1
+    check(bad.numel() <= 2000, f"{label}: {bad.numel()} elements to prove")
+    rounds = (rk.clamp(max=cuda_gamma.ROUNDS - 1) + 1).double().mean()
+    return share, [ties, boosted], float(rounds)
+
+
+def gamma_ops(a, mean_rounds: float) -> float:
+    """f32 operations of the Gamma draws of `a` as the kernel does them:
+    4 to set up, 26 a round over the rounds this run's draws took, 7 for
+    the boost where a < 1."""
+    return a.numel() * (4 + 26 * mean_rounds) + 7 * float((a < 1).sum())
+
+
+def eager_dirichlet(torch, rnd, x, generator, dim=-1, prior=None):
+    """The draw the port ran on the card before the kernel: the generator
+    path of ops/random.py, ~25 eager launches a round."""
+    conc = x.to(torch.float32) + (0.0 if prior is None else prior)
+    g = rnd._gamma_eager(conc, generator)
+    g = g.clamp_min(rnd.DIRICHLET_FLOOR)
+    return g / g.sum(dim=dim, keepdim=True)
+
+
+class eager_draws:
+    """Within the block, ops/random.py draws on the card as it did before
+    the kernel (the generator path): the "before" of [4 profile]."""
+
+    def __init__(self, torch, rnd):
+        self.torch, self.rnd = torch, rnd
+
+    def __enter__(self):
+        torch, rnd = self.torch, self.rnd
+        self.saved = rnd._gamma_marsaglia, rnd.dirichlet
+        rnd._gamma_marsaglia = lambda a, gen: rnd._gamma_eager(
+            a.to(torch.float32), gen)
+        rnd.dirichlet = lambda x, gen, dim=-1, prior=None: eager_dirichlet(
+            torch, rnd, torch.as_tensor(x), gen, dim, prior)
+
+    def __exit__(self, *exc):
+        self.rnd._gamma_marsaglia, self.rnd.dirichlet = self.saved
+
+
+def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
+    """[3 gamma]: the Gamma and Dirichlet kernels (csrc/gamma.cu) at the
+    ggs K=100 main path's shapes: theta [D, K] from counts + 0.5 (one
+    launch a draw, rows) and phi [V, K] from counts + 0.01 normalised over
+    V (two launches, axis 0), with n_dk and N_kw a recount of a random z,
+    and the PCGS family's phi [K, V] from N_kw + 0.01 over V (two
+    launches, rows split across blocks: gamma_long_rows). The Gamma kernel against gamma_reference on every element of both
+    (gamma_agreement: within 1e-5 but proven ties); the Dirichlet kernels
+    against the kernel's own Gamma draws floored and normalised by torch
+    (the same draws: 1e-5, the sums' order), rows and columns summing to 1
+    within 1e-5, every coordinate above 0 (the floor); on the grid of
+    shapes GAMMA_GRID the kernel against gamma_reference on GAMMA_CHECK
+    elements, a KS test of GAMMA_KS draws against scipy.stats.gamma
+    (conditioned on draws above 1e-30 below shape 0.1, as the CPU tests
+    do), the exact 0 at shape 0, and a row with zero shapes floored. Timed
+    by CUDA events: each Dirichlet draw and the elementwise Gamma, beside
+    the plain versions (dirichlet_reference), the eager generator path the
+    port ran before, torch._standard_gamma and torch._sample_dirichlet on
+    the same concentrations (the yardstick), and the bound. Returns the
+    kernels-JSON entry."""
+    from scipy import stats as sps
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    z = rng.integers(0, K, corpus.num_tokens)
+    nkw_ref, ndk_ref = recount(corpus, z, K)
+    ndk = torch.as_tensor(ndk_ref.astype(np.int32), device=dev)
+    nkw = torch.as_tensor(nkw_ref.astype(np.int32), device=dev)
+    alpha = torch.full((K,), 0.5, device=dev)
+    beta = 0.01
+    theta_conc = ndk.to(torch.float32) + alpha
+    phi_conc = nkw.to(torch.float32) + beta
+    seed = torch.tensor([0x5EED_1234_ABCD], dtype=torch.int64, device=dev)
+    out = {}
+    for name, conc in (("theta", theta_conc), ("phi", phi_conc)):
+        out[name] = gamma_agreement(torch, cuda_gamma, conc, seed,
+                                    f"[3 gamma] {name}")
+    # the Dirichlet kernels on the main path's counts-plus-prior operands
+    theta = cuda_gamma.dirichlet(ndk, seed, -1, alpha)
+    phi = cuda_gamma.dirichlet(nkw, seed, 0, beta)
+    max_err = 0.0
+    for name, got, conc, dim in (("theta", theta, theta_conc, -1),
+                                 ("phi", phi, phi_conc, 0)):
+        g = cuda_gamma.gamma(conc, seed).clamp_min(rnd.DIRICHLET_FLOOR)
+        want = g / g.sum(dim=dim, keepdim=True)
+        rel = float(((got - want).abs() / want).max())
+        check(rel <= GAMMA_RTOL, f"[3 gamma] {name}: the Dirichlet kernel "
+              f"off the kernel's own Gamma draws by {rel:.3g}")
+        sums = got.sum(dim=dim)
+        check(bool(((sums - 1).abs() <= 1e-5).all()) and bool((got > 0)
+              .all()), f"[3 gamma] {name}: sums or floor")
+        plain = cuda_gamma.dirichlet_reference(
+            ndk if name == "theta" else nkw, seed, dim,
+            alpha if name == "theta" else beta)
+        max_err = max(max_err, float((got - plain).abs().max()))
+    grid = {}
+    for a in GAMMA_GRID:
+        conc = torch.full((GAMMA_KS,), a, device=dev)
+        share, ties, mean_rounds = gamma_agreement(
+            torch, cuda_gamma, conc[:GAMMA_CHECK], seed, f"[3 gamma] a={a}")
+        draws = cuda_gamma.gamma(conc, seed).double().cpu().numpy()
+        if a == 0.0:
+            check(bool((draws == 0).all()), "[3 gamma] a=0: not exactly 0")
+            grid[str(a)] = {"agree": share, "ties": ties, "exact_zero": True}
+            continue
+        eps = 1e-30 if a < 0.1 else 0.0
+        kept = draws[draws > eps]
+        f_eps = sps.gamma.cdf(eps, a)
+        ks = sps.kstest(kept, lambda x: (sps.gamma.cdf(x, a) - f_eps)
+                        / (1.0 - f_eps))
+        check(ks.pvalue > 1e-4, f"[3 gamma] a={a}: KS p={ks.pvalue:.3g}")
+        grid[str(a)] = {"agree": share, "ties": ties, "ks_p": ks.pvalue,
+                        "kept": int(kept.size), "mean": float(draws.mean()),
+                        "rounds": mean_rounds}
+    long_rows = gamma_long_rows(torch, nkw.T.contiguous(), beta, seed,
+                                cuda_gamma, rnd)
+    max_err = max(max_err, long_rows["max_abs_err"])
+    zero_row = cuda_gamma.dirichlet(
+        torch.tensor([[0.0, 0.0, 5.0]], device=dev), seed)
+    check(bool((zero_row[0, :2] > 0).all()) and float(zero_row[0, 2]) > 0.99,
+          f"[3 gamma] zero shapes not floored: {zero_row.tolist()}")
+    # times
+    gen = torch.Generator(device=dev).manual_seed(7)
+    theta_ms = time_ms(torch, lambda: cuda_gamma.dirichlet(ndk, seed, -1,
+                                                           alpha))
+    phi_ms = time_ms(torch, lambda: cuda_gamma.dirichlet(nkw, seed, 0, beta))
+    gamma_ms = (time_ms(torch, lambda: cuda_gamma.gamma(theta_conc, seed))
+                + time_ms(torch, lambda: cuda_gamma.gamma(phi_conc, seed)))
+    plain_ms = time_ms(torch, lambda: (
+        cuda_gamma.dirichlet_reference(ndk, seed, -1, alpha),
+        cuda_gamma.dirichlet_reference(nkw, seed, 0, beta)), reps=3, calls=2)
+    eager_ms = time_ms(torch, lambda: (
+        eager_dirichlet(torch, rnd, ndk, gen, -1, alpha),
+        eager_dirichlet(torch, rnd, nkw, gen, 0, beta)), reps=3, calls=3)
+    lib_dir_ms = time_ms(torch, lambda: (
+        torch._sample_dirichlet(theta_conc),
+        torch._sample_dirichlet(phi_conc.T.contiguous())))
+    lib_gamma_ms = time_ms(torch, lambda: (
+        torch._standard_gamma(theta_conc), torch._standard_gamma(phi_conc)))
+    n = theta_conc.numel() + phi_conc.numel()
+    nbytes = 8 * n + 4 * K
+    nops = (gamma_ops(theta_conc, out["theta"][2])
+            + gamma_ops(phi_conc, out["phi"][2]) + 4 * n)
+    bound_ms, by = bound(nbytes, nops)
+    print(f"[3 gamma] {smi}: Gamma kernel against gamma_reference on every "
+          f"element (share within {GAMMA_RTOL}, [ties, boost last bits], "
+          f"mean rounds): theta [{D}, {K}] {json.dumps(out['theta'])}, phi "
+          f"[{V}, {K}] {json.dumps(out['phi'])}; Dirichlet kernels equal "
+          f"the kernel's own Gamma draws normalised, rows and columns sum to "
+          f"1, floor held, max |Dirichlet - dirichlet_reference| "
+          f"{max_err:.3g}; grid {json.dumps(grid)}; theta Dirichlet "
+          f"{theta_ms:.4f} ms (1 launch), phi Dirichlet {phi_ms:.4f} ms (2 "
+          f"launches), elementwise Gamma of both {gamma_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms, eager generator path {eager_ms:.4f} ms, "
+          f"torch._sample_dirichlet {lib_dir_ms:.4f} ms, "
+          f"torch._standard_gamma {lib_gamma_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+          f"{nops / 1e6:.1f} M f32 operations); long rows (the PCGS "
+          f"family's phi [{K}, {V}] from N_kw + {beta} over V, rows split "
+          f"across blocks, 2 launches): equal the kernel's own Gamma draws "
+          f"normalised within {long_rows['rel']:.3g}, rows sum to 1 within "
+          f"{long_rows['sum_err']:.3g}, floor held, max |Dirichlet - "
+          f"dirichlet_reference| {long_rows['max_abs_err']:.3g}; "
+          f"{long_rows['ms']:.4f} ms, plain {long_rows['plain_ms']:.4f} "
+          f"ms, torch._sample_dirichlet {long_rows['library_ms']:.4f} ms, "
+          f"bound {long_rows['bound_ms']:.4f} ms ({long_rows['bound_by']}, "
+          f"{long_rows['rounds']:.4f} mean rounds)", flush=True)
+    return {"name": "gamma", "route": "cuda",
+            "source": "ldagroupedgibbssampler_tpu_torch/csrc/gamma.cu",
+            "replaces": "ldagroupedgibbssampler_tpu/ops/random.py:43",
+            "max_abs_err": max_err, "ms": theta_ms + phi_ms,
+            "theta_ms": theta_ms, "phi_ms": phi_ms, "gamma_ms": gamma_ms,
+            "plain_ms": plain_ms, "eager_ms": eager_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_dir_ms, "library_gamma_ms": lib_gamma_ms,
+            "agreement": {"theta": out["theta"], "phi": out["phi"]},
+            "grid": grid, "long_rows": long_rows}
+
+
+def gamma_long_rows(torch, nkw_kv, beta, seed, cuda_gamma, rnd):
+    """The long-row Dirichlet (csrc/gamma.cu's dirichlet_long_draw_kernel
+    and dirichlet_long_normalise_kernel: fewer than LONG_ROWS_BELOW rows,
+    each split across blocks of LONG_CHUNK) at the PCGS family's phi shape:
+    int32 N_kw [K, V] + beta over the last axis. Held to the Gamma kernel's
+    own draws of the same concentrations floored and normalised by torch
+    (within GAMMA_RTOL) and to dirichlet_reference; rows sum to 1 within
+    1e-5 and every coordinate is above 0. Timed beside the plain version,
+    torch._sample_dirichlet and the bound, from the rounds this run's
+    draws took."""
+    rows, last = nkw_kv.shape
+    check(rows < cuda_gamma.LONG_ROWS_BELOW and last >= cuda_gamma.LONG_CHUNK,
+          f"[3 gamma] long rows: [{rows}, {last}] takes another path")
+    conc = nkw_kv.to(torch.float32) + beta
+    launches = cuda_gamma.dirichlet.launches
+    got = cuda_gamma.dirichlet(nkw_kv, seed, -1, beta)
+    check(cuda_gamma.dirichlet.launches - launches == 2,
+          "[3 gamma] long rows: not the two-launch path")
+    rk = torch.empty(conc.shape, dtype=torch.int32, device=conc.device)
+    g = cuda_gamma.gamma(conc, seed, rk).clamp_min(rnd.DIRICHLET_FLOOR)
+    want = g / g.sum(dim=-1, keepdim=True)
+    rel = float(((got - want).abs() / want).max())
+    check(rel <= GAMMA_RTOL, f"[3 gamma] long rows: the Dirichlet kernels "
+          f"off the kernel's own Gamma draws by {rel:.3g}")
+    sum_err = float((got.sum(dim=-1) - 1).abs().max())
+    check(sum_err <= 1e-5 and bool((got > 0).all()),
+          f"[3 gamma] long rows: sums off 1 by {sum_err:.3g}, or the floor")
+    err = float((got - cuda_gamma.dirichlet_reference(
+        nkw_kv, seed, -1, beta)).abs().max())
+    rounds = float((rk.clamp(max=cuda_gamma.ROUNDS - 1) + 1).double().mean())
+    ms = time_ms(torch, lambda: cuda_gamma.dirichlet(nkw_kv, seed, -1, beta))
+    plain_ms = time_ms(torch, lambda: cuda_gamma.dirichlet_reference(
+        nkw_kv, seed, -1, beta), reps=3, calls=2)
+    library_ms = time_ms(torch, lambda: torch._sample_dirichlet(conc))
+    nbytes = 8 * conc.numel()
+    bound_ms, by = bound(nbytes, gamma_ops(conc, rounds) + 4 * conc.numel())
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+            "rel": rel, "sum_err": sum_err, "rounds": rounds}
+
+
+L2R_DOCS = 64               # test documents held to the plain version
+L2R_SEEDS = 5               # seeds of the plain estimator (1.6 s each at K=4096)
+L2R_KERNEL_SEEDS = 10
+# a proven tie: the exact cdf within L2R_TIE sqrt(K) 2^-24 T of u T. The
+# f32 sums' rounding errors add up like a random walk, ~sqrt(K) units of
+# 2^-24 T; the window is 15x below a topic's share T / K at K = 4096
+L2R_TIE = 4.0
+L2R_TOTAL_RTOL = 1e-5       # the kernel's total against the plain one
+
+
+def l2r_tie_proof(torch, wp_t, alpha, w_pad, mask, z_ref, seed, t, r, d,
+                  zk, zr):
+    """Whether the first differing draw of particle r of document d, at
+    position t, is a tie: with the counts of the draws before t (equal on
+    both sides), every cdf value from min(zk, zr) up to the other draw
+    minus one, recomputed in float64, lies within L2R_TIE sqrt(K) 2^-24 T
+    of u T. Returns (the verdict, the largest gap over T)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_left_to_right
+    k = wp_t.shape[1]
+    past = z_ref[:t, r, d]
+    past = past[past >= 0].long()
+    counts = torch.bincount(past, minlength=k).double()
+    s = (counts + alpha.double()) * wp_t[int(w_pad[d, t])].double()
+    cdf = torch.cumsum(s, 0)
+    total = float(cdf[-1])
+    u = int(cuda_left_to_right._u24(seed, t, r + 1, d + 1)[r, d])
+    target = u * 2.0 ** -24 * total
+    lo, hi = min(zk, zr), max(zk, zr)
+    gap = float((cdf[lo:hi] - target).abs().max())
+    return (gap <= L2R_TIE * np.sqrt(k) * 2.0 ** -24 * total,
+            gap / max(total, 1e-300))
+
+
+def l2r_kernel_draw(p, u24):
+    """The draw of csrc/left_to_right.cu for one particle whose products are
+    p [K], in the kernel's own f32 association, before its zero-topic
+    repair: lane l sums topics [l S, (l + 1) S) in order, a Hillis-Steele
+    scan over the 32 lanes gives their inclusive sums, the first lane whose
+    sum passes u T walks its range from its exclusive sum and stops at the
+    first running value above u T, else at its last topic."""
+    f32 = np.float32
+    k = len(p)
+    per = -(-k // 32)
+    pp = np.zeros(32 * per, f32)
+    pp[:k] = p
+    part = np.zeros(32, f32)
+    for lane in range(32):
+        acc = f32(0)
+        for j in range(per):
+            acc = f32(acc + pp[lane * per + j])
+        part[lane] = acc
+    incl = _hillis_steele32(part)
+    excl = np.concatenate([[f32(0)], incl[:-1]]).astype(f32)
+    target = f32(f32(f32(u24) * f32(2.0 ** -24)) * incl[31])
+    first = int((incl <= target).sum())
+    if first == 32:
+        return k - 1
+    z, acc = min(first * per + per, k) - 1, excl[first]
+    for j in range(per):
+        if first * per + j >= k:
+            break
+        acc = f32(acc + pp[first * per + j])
+        if acc > target:
+            return first * per + j
+    return z
+
+
+def l2r_zero_run_case(k=100, seed=0):
+    """A one-position, one-particle case on which the estimator kernel's
+    draw, before its repair, lands on a topic whose product is 0: products
+    p (the alpha of a document's first position under a word whose
+    probability is 1 in every topic) with a run of zeros at the end of lane
+    a's range, the lanes after a scaled so that u T lies at lane a's end,
+    where the scan's sum and the lane's own walk are two associations of
+    one sum. u is the kernel's Philox word of (seed 0, position 0, particle
+    0, document 0). Found by a seeded search over l2r_kernel_draw."""
+    import torch
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_left_to_right
+    u24 = int(cuda_left_to_right._u24(
+        torch.zeros(1, dtype=torch.int64), 0, 1, 1)[0, 0])
+    per = -(-k // 32)
+    rng = np.random.default_rng(seed)
+    for _ in range(10_000):
+        a = int(rng.integers(1, k // per - 1))
+        p = (rng.random(k) * rng.choice([1.0, 1e-3, 1e3], k)).astype(
+            np.float32)
+        p[a * per + per - int(rng.integers(1, per)): a * per + per] = 0
+        pre = np.cumsum(p, dtype=np.float32)
+        head = float(pre[a * per + per - 1])
+        rest = float(pre[-1]) - head
+        scale = (head * 2.0 ** 24 / u24 - head) / rest
+        p[a * per + per:] = (p[a * per + per:] * scale).astype(np.float32)
+        z = l2r_kernel_draw(p, u24)
+        if p[z] == 0:
+            return {"alpha": p, "u24": u24, "unrepaired": z}
+    raise AssertionError("no zero-topic case found")
+
+
+def l2r_zero_run_draw(torch, case, device="cuda"):
+    """The estimator on the case (one document of one word, word
+    probabilities 1, alpha = the products, one particle, seed 0): returns
+    (the kernel's z, the plain version's z); on the CPU both are the plain
+    version."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_left_to_right
+    alpha = torch.as_tensor(case["alpha"], device=device)
+    k = alpha.numel()
+    w_pad = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    mask = torch.ones((1, 1), dtype=torch.bool, device=device)
+    word_prob = torch.ones((k, 1), device=device)
+    seed = torch.zeros(1, dtype=torch.int64, device=device)
+    z_k = torch.full((1, 1, 1), -1, dtype=torch.int32, device=device)
+    cuda_left_to_right.left_to_right(w_pad, mask, word_prob, alpha, 1, seed,
+                                     z_k)
+    _, z_r = cuda_left_to_right.left_to_right_reference(
+        w_pad, mask, word_prob, alpha, 1, seed, return_z=True)
+    return int(z_k.reshape(-1)[0]), int(z_r.reshape(-1)[0])
+
+
+def l2r_agreement(torch, cuda_left_to_right, w_pad, mask, word_prob, alpha,
+                  seed, label):
+    """The kernel against left_to_right_reference on the same operands and
+    seed: z equal on every (position, particle, document) but after a
+    proven tie at that particle's first difference; the totals within
+    L2R_TOTAL_RTOL. Returns (share of draws equal, ties, relative total
+    difference, largest tie gap over T)."""
+    num_docs, length = w_pad.shape
+    z_k = torch.full((length, 100, num_docs), -1, dtype=torch.int32,
+                     device=w_pad.device)
+    tk = float(cuda_left_to_right.left_to_right(w_pad, mask, word_prob,
+                                                alpha, 100, seed, z_k))
+    tr, z_r = cuda_left_to_right.left_to_right_reference(
+        w_pad, mask, word_prob, alpha, 100, seed, return_z=True)
+    tr = float(tr)
+    rel = abs(tk - tr) / abs(tr)
+    check(rel <= L2R_TOTAL_RTOL, f"{label}: total {tk} against plain {tr}")
+    differ = z_k != z_r
+    share = 1.0 - float(differ.float().mean())
+    wp_t = word_prob.T.contiguous()
+    ties, worst = 0, 0.0
+    # at K=4096 a topic holds ~1/K of T, so a cdf value lies within the
+    # f32 sums' rounding of u T in a fraction of the draws: many particles
+    # meet a tie somewhere in their ~88 draws, each proven below
+    pairs = differ.any(dim=0).nonzero().tolist()
+    check(len(pairs) <= 0.2 * 100 * num_docs,
+          f"{label}: {len(pairs)} particles differ")
+    for r, d in pairs:
+        t = int(differ[:, r, d].nonzero()[0, 0])
+        ok, gap = l2r_tie_proof(torch, wp_t, alpha, w_pad, mask, z_r, seed,
+                                t, r, d, int(z_k[t, r, d]),
+                                int(z_r[t, r, d]))
+        check(ok, f"{label}: particle {r} of document {d} differs at "
+              f"position {t} ({int(z_k[t, r, d])} against "
+              f"{int(z_r[t, r, d])}), not a tie (gap {gap:.3g} T)")
+        ties += 1
+        worst = max(worst, gap)
+    return share, ties, rel, worst
+
+
+def l2r_case(torch, corpus, cuda_left_to_right, marginal, k, smi):
+    """One shape of [3 left-to-right]: the 10% split's test documents
+    (build_perplexity_split seed 2019, as [4 held-out]) under the count
+    word probabilities of a training z that puts 80% of each word's tokens
+    on topic (word id mod K), 100 particles, alpha 0.5, beta 0.01."""
+    from ldagroupedgibbssampler_tpu_torch.corpus.perplexity import (
+        build_perplexity_split)
+    dev = torch.device("cuda", 0)
+    train, _est, evl = build_perplexity_split(corpus, 0.1, seed=2019)
+    rng = np.random.default_rng(5)
+    z = np.where(rng.random(train.num_tokens) < 0.8, train.tokens % k,
+                 rng.integers(0, k, train.num_tokens))
+    nkw = np.bincount(z * V + train.tokens, minlength=k * V).reshape(k, V)
+    nkw_t = torch.as_tensor(nkw.astype(np.float32), device=dev)
+    word_prob = ((0.01 + nkw_t)
+                 / (0.01 * V + nkw_t.sum(dim=1))[:, None]).contiguous()
+    alpha = torch.full((k,), 0.5, device=dev)
+    w_np, m_np = evl.to_padded()
+    w_pad = torch.as_tensor(w_np, device=dev)
+    mask = torch.as_tensor(m_np, device=dev)
+    seed = torch.tensor([0xC0FFEE + k], dtype=torch.int64, device=dev)
+    label = f"[3 left-to-right] K={k}"
+    agree = l2r_agreement(torch, cuda_left_to_right, w_pad[:L2R_DOCS],
+                          mask[:L2R_DOCS], word_prob, alpha, seed, label)
+    # the whole split: ten seeds of the kernel against five of the plain
+    # generator= estimator (Gumbel-max, the eager path). One estimate
+    # against the range of five others would fail ~3% of correct runs (the
+    # range of five normal draws is often narrow), so the bar is the means:
+    # within 5 standard errors of their difference, from the pooled
+    # seed-to-seed deviation (13 degrees of freedom: ~0.02% of correct runs)
+    ours = np.array([float(marginal.left_to_right_from_word_prob(
+        w_pad, mask, word_prob, alpha, 100,
+        generator=torch.Generator(device=dev).manual_seed(s)))
+        for s in range(L2R_KERNEL_SEEDS)])
+    plain = np.array([float(eager_left_to_right(
+        torch, marginal, w_pad, mask, word_prob, alpha,
+        torch.Generator(device=dev).manual_seed(100 + s)))
+        for s in range(L2R_SEEDS)])
+    pooled = (((ours - ours.mean()) ** 2).sum()
+              + ((plain - plain.mean()) ** 2).sum()) / (ours.size
+                                                       + plain.size - 2)
+    se = np.sqrt(pooled * (1 / ours.size + 1 / plain.size))
+    check(abs(ours.mean() - plain.mean()) <= 5 * se,
+          f"{label}: kernel {ours.tolist()} against the plain estimator "
+          f"{plain.tolist()}")
+    inside = bool(plain.min() <= ours[0] <= plain.max())
+    reps, calls = (7, 5) if k <= 100 else (3, 2)
+    ms = time_ms(torch, lambda: cuda_left_to_right.left_to_right(
+        w_pad, mask, word_prob, alpha, 100, seed), reps=reps, calls=calls)
+    plain_ms = once_ms(torch, lambda: cuda_left_to_right.
+                       left_to_right_reference(w_pad, mask, word_prob, alpha,
+                                               100, seed))
+    eager_ms = once_ms(torch, lambda: eager_left_to_right(
+        torch, marginal, w_pad, mask, word_prob, alpha,
+        torch.Generator(device=dev).manual_seed(9)))
+    peaks = []
+    for fn in (lambda: cuda_left_to_right.left_to_right(
+            w_pad, mask, word_prob, alpha, 100, seed),
+            lambda: cuda_left_to_right.left_to_right_reference(
+                w_pad, mask, word_prob, alpha, 100, seed)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    positions = int(mask.sum())
+    words = int(torch.unique(w_pad[mask]).numel())
+    nbytes = 5 * w_pad.numel() + 4 * words * k + 4 * k + 4
+    nops = 4.0 * positions * 100 * k
+    bound_ms, by = bound(nbytes, nops)
+    shape = cuda_left_to_right.launch_shape(k, 100, w_pad.shape[1])
+    print(f"{label} {smi}: {evl.num_docs} test documents, {positions} "
+          f"scored positions of {w_pad.shape[1]}, 100 particles; kernel "
+          f"against left_to_right_reference on the first {L2R_DOCS} "
+          f"documents: draws equal {agree[0]:.6f}, {agree[1]} particles "
+          f"with a proven tie (largest gap {agree[3]:.3g} T), total within "
+          f"{agree[2]:.3g}; the whole split, kernel seeds 0-9 "
+          f"{json.dumps([round(v, 3) for v in ours])}, plain generator= "
+          f"estimator seeds 100-104 "
+          f"{json.dumps([round(v, 3) for v in plain])} (means "
+          f"{ours.mean() - plain.mean():+.3f} apart, {5 * se:.3f} allowed; "
+          f"seed 0 inside the plain range: {inside}); "
+          f"{ms:.4f} ms against plain {plain_ms:.3f} ms and the eager "
+          f"Gumbel estimator {eager_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({by}); peak memory above the operands {peaks[0]:.3f} GiB "
+          f"(plain {peaks[1]:.3f} GiB); launch {shape._asdict()}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "eager_ms": eager_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "max_abs_err": agree[2], "agree": agree[0], "ties": agree[1],
+            "peak_gib": peaks[0], "plain_peak_gib": peaks[1],
+            "kernel_seeds": ours.tolist(), "plain_seeds": plain.tolist(),
+            "seed0_inside_plain_range": inside}
+
+
+def eager_left_to_right(torch, marginal, w_pad, mask, word_prob, alpha,
+                        generator):
+    """The plain estimator with the generator's Gumbel draws, as the port
+    ran it on the card before the kernel: its noise injected per position
+    so that the plain path runs on the card."""
+    shape = (100, w_pad.shape[0], word_prob.shape[0])
+
+    def noise(t):
+        return marginal._gumbel(shape, generator, word_prob.device)
+    return marginal.left_to_right_from_word_prob(
+        w_pad, mask, word_prob, alpha, 100, gumbel=noise)
+
+
+def left_to_right_phase(torch, corpus, cuda_left_to_right, smi,
+                        k_big=4096):
+    """[3 left-to-right]: the estimator kernel (csrc/left_to_right.cu) at
+    the [4 held-out] shapes, K = 100 and 4096. Returns the kernels-JSON
+    entry (K = 100's numbers, K = 4096's under `k4096`)."""
+    from ldagroupedgibbssampler_tpu_torch.evaluation import marginal
+    # the zero-topic repair (ROADMAP C): a case on which the kernel's
+    # draw, before its repair, lands on a topic whose product is 0
+    case = l2r_zero_run_case()
+    zk, zr = l2r_zero_run_draw(torch, case)
+    check(case["alpha"][zk] > 0, f"[3 left-to-right] zero-topic tie: the "
+          f"kernel drew topic {zk}, whose product is 0")
+    print(f"[3 left-to-right] zero-topic tie (one particle, u24 "
+          f"{case['u24']}): the unrepaired walk of the kernel's association "
+          f"draws topic {case['unrepaired']} (product 0); the kernel draws "
+          f"{zk} (product {float(case['alpha'][zk]):.4g}), the plain "
+          f"version {zr}", flush=True)
+    k100 = l2r_case(torch, corpus, cuda_left_to_right, marginal, K, smi)
+    torch.cuda.empty_cache()
+    k4096 = l2r_case(torch, corpus, cuda_left_to_right, marginal, k_big, smi)
+    torch.cuda.empty_cache()
+    return {"name": "left_to_right", "route": "cuda",
+            "source": "ldagroupedgibbssampler_tpu_torch/csrc/left_to_right.cu",
+            "replaces":
+                "ldagroupedgibbssampler_tpu/evaluation/marginal.py:38",
+            **{key: k100[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "eager_ms", "bound_ms",
+                "bound_by", "agree", "ties", "peak_gib", "plain_peak_gib")},
+            "library_ms": None, "k4096": k4096}
 
 
 # [4 fused]: scan_chunk. A fused group is exactly FUSED_CHUNK event-free
@@ -2498,10 +3352,7 @@ def fused_phase(torch, corpus, Corpus, LDAConfig, create_model, counters,
     name = torch.cuda.get_device_name(0)
 
     def prof(p):
-        wall, busy, rows = p
-        return (f"{wall:.3f} ms/iteration host wall, device busy "
-                f"{busy:.3f} ms/iteration ({100 * busy / wall:.1f}%), "
-                f"{len(rows)} kernels")
+        return profile_summary(*p, "iteration")
     for scheme, k, iters in FUSED_PAIRS:
         exact = scheme != "adlda"
         r = fused_pair(torch, corpus, LDAConfig, create_model, counters,
@@ -2619,7 +3470,7 @@ def host_gumbel(torch, shape):
 
 
 def held_out_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
-                   cuda_zdraw, smi, fold_iters=20):
+                   cuda_zdraw, cuda_left_to_right, smi, fold_iters=20):
     """[4 held-out]: ggs K=100 on the 90% training split of a 10%
     build_perplexity_split for ITERS iterations, the held-out LL of the
     test documents' second halves every 10 (100 particles); the training
@@ -2628,8 +3479,11 @@ def held_out_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
     particles); the count phi against a uniform phi; then the test
     documents' first halves folded in under the trained phi (fold_iters
     iterations, the z-draw in precise mode and the count kernel, their
-    counters set to 0 just before and read just after). Returns the
-    fold-in's launches of the two kernels."""
+    counters set to 0 just before and read just after). The estimator
+    kernel's launches over the ITERS iterations (its counter set to 0 just
+    before, read just after: two a call, three evaluations) are checked.
+    Returns the fold-in's launches of the two kernels and the
+    estimator's."""
     from ldagroupedgibbssampler_tpu_torch.corpus.perplexity import (
         build_perplexity_split)
     from ldagroupedgibbssampler_tpu_torch.evaluation import marginal
@@ -2644,7 +3498,12 @@ def held_out_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
     model = create_model(cfg)
     model.add_instances(train)
     model.add_test_instances(evl)
+    l2r = cuda_left_to_right.left_to_right
+    l2r.launches = 0
     model.sample(ITERS)
+    l2r_launches = l2r.launches
+    check(l2r_launches == 2 * (ITERS // 10), f"[4 held-out] the estimator "
+          f"kernel launched {l2r_launches} times")
     check(model.get_log_likelihoods() == lls_ref, "held-out evaluation "
           f"changed the chain: {model.get_log_likelihoods()} against "
           f"{lls_ref}")
@@ -2709,7 +3568,8 @@ def held_out_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
           f"({smi}), 10% split ({train.num_docs} training documents, "
           f"{evl.num_docs} test documents, {evl.num_tokens} scored tokens, "
           f"{w_pad.shape[1]} positions): held-out LL (100 particles) "
-          f"{json.dumps(held)}; training LL series equal to the chain "
+          f"{json.dumps(held)} (estimator kernel launches {l2r_launches}); "
+          f"training LL series equal to the chain "
           f"without a test set; one evaluation {eval_ms:.3f} ms against "
           f"{iter_ms:.3f} ms a ggs iteration (host clock, synchronised); "
           f"estimator cuda {ll_dev:.3f} = cpu {ll_cpu:.3f} given the same "
@@ -2721,7 +3581,7 @@ def held_out_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
     print(f"[4 held-out profile] {eval_profile}", flush=True)
     del model, res
     torch.cuda.empty_cache()
-    return launches
+    return launches, l2r_launches
 
 
 def held_out_large_k(torch, corpus, LDAConfig, create_model, smi,
@@ -2756,8 +3616,13 @@ def held_out_large_k(torch, corpus, LDAConfig, create_model, smi,
         t1 = time.perf_counter()
         model._held_out_log_likelihood()
         torch.cuda.synchronize()
-        res[scheme] = (held, (time.perf_counter() - t1) * 1e3, secs,
-                       torch.cuda.max_memory_allocated() / 2 ** 30)
+        eval_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        model.sample(5)             # no evaluation in iterations 21-25
+        torch.cuda.synchronize()
+        res[scheme] = (held, eval_ms, secs,
+                       torch.cuda.max_memory_allocated() / 2 ** 30,
+                       (time.perf_counter() - t1) / 5 * 1e3)
         del model
         torch.cuda.empty_cache()
     mh, dense = res["ggs_aliasmh"], res["ggs"]
@@ -2766,7 +3631,9 @@ def held_out_large_k(torch, corpus, LDAConfig, create_model, smi,
           f"ggs_aliasmh {json.dumps(mh[0])}, dense ggs "
           f"{json.dumps(dense[0])}; dense - alias-MH at {iters} "
           f"{dense[0][-1][1] - mh[0][-1][1]:.1f} nats; one evaluation "
-          f"{mh[1]:.1f} / {dense[1]:.1f} ms; run {mh[2]:.2f} / "
+          f"{mh[1]:.1f} / {dense[1]:.1f} ms against an iteration's "
+          f"{mh[4]:.1f} / {dense[4]:.1f} ms (host clock, synchronised); "
+          f"run {mh[2]:.2f} / "
           f"{dense[2]:.2f} s with two evaluations; peak device memory "
           f"{mh[3]:.2f} / {dense[3]:.2f} GiB", flush=True)
 
@@ -3319,12 +4186,16 @@ ORACLE_DOCS = 2000
 # -3.4% to -3.7% at 2 ranks and -4.9% to -5.0% at 4 on an H100 (PERF.md §6)
 STALENESS_BAR = {2: 0.05, 4: 0.07}
 # the kernel launches each scheme's rank makes in an iteration, by counter
+# (the Dirichlet kernels: theta one, phi over V two; phi [K, V], 100 rows
+# of 20,000, two: its rows are split across blocks)
 PARALLEL_LAUNCHES = {
-    "sharded_ggs": ("fused_zdraw_nkw", "blocked_label_counts"),
-    "vocab_sharded_ggs": ("fused_zdraw_nkw", "blocked_label_counts"),
-    "sharded_adlda": ("fused_pcgs_sweep collapsed",),
-    "sharded_pcgs": ("fused_pcgs_sweep",),
-    "sharded_uncollapsed": ("fused_pcgs_sweep",),
+    "sharded_ggs": {"fused_zdraw_nkw": 1, "blocked_label_counts": 1,
+                    "dirichlet": 3},
+    "vocab_sharded_ggs": {"fused_zdraw_nkw": 1, "blocked_label_counts": 1,
+                          "dirichlet": 3},
+    "sharded_adlda": {"fused_pcgs_sweep collapsed": 1, "dirichlet": 2},
+    "sharded_pcgs": {"fused_pcgs_sweep": 1, "dirichlet": 2},
+    "sharded_uncollapsed": {"fused_pcgs_sweep": 1, "dirichlet": 2},
 }
 
 
@@ -3432,7 +4303,8 @@ def parallel_scheme(torch, corpus, LDAConfig, create_model, counters,
         allreduce_calls=collectives.calls / PARALLEL_ITERS,
         tokens=int(model._slot_mask.sum()), backend=model.mesh.backend,
         device=f"cuda:{torch.cuda.current_device()}")
-    want = {k: PARALLEL_ITERS for k in PARALLEL_LAUNCHES[scheme]}
+    want = {k: n * PARALLEL_ITERS
+            for k, n in PARALLEL_LAUNCHES[scheme].items()}
     check(launches == want, f"{label}: launches {launches}, expected {want}")
     check(out["ll10"] > ll0 if scheme != "sharded_adlda"
           else out["ll10"] >= ll0, f"{label}: LL init {ll0} -> "
@@ -4215,6 +5087,8 @@ def main() -> int:
     from ldagroupedgibbssampler_tpu_torch.models.fusion import launch_counters
     from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
     from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts,
+                                                      cuda_gamma,
+                                                      cuda_left_to_right,
                                                       cuda_lightlda,
                                                       cuda_pcgs, cuda_zdraw)
     from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
@@ -4420,10 +5294,14 @@ def main() -> int:
                                              create_model, cuda_lightlda)
     adlda_entries = adlda_kernel_phase(torch, corpus, LDAConfig,
                                        create_model, cuda_pcgs)
+    gamma_entry = gamma_phase(torch, corpus, cuda_gamma, rnd, smi)
+    torch.cuda.empty_cache()
+    l2r_entry = left_to_right_phase(torch, corpus, cuda_left_to_right, smi)
 
     # ---- 4. main path: the library entry point -------------------------
     cuda_counts.blocked_label_counts.launches = 0
     cuda_zdraw.fused_zdraw_nkw.launches = 0
+    cuda_gamma.gamma.launches = cuda_gamma.dirichlet.launches = 0
     model = create_model(cfg)
     model.add_instances(corpus)
     ll0 = model.model_log_likelihood()
@@ -4435,11 +5313,16 @@ def main() -> int:
     t_b = time.perf_counter()
     launches = {
         "fused_zdraw_nkw": cuda_zdraw.fused_zdraw_nkw.launches,
-        "blocked_label_counts": cuda_counts.blocked_label_counts.launches}
+        "blocked_label_counts": cuda_counts.blocked_label_counts.launches,
+        "gamma": cuda_gamma.gamma.launches,
+        "dirichlet": cuda_gamma.dirichlet.launches}
     check(launches["fused_zdraw_nkw"] == ITERS,
           f"z-draw kernel launched {launches['fused_zdraw_nkw']} times")
     check(launches["blocked_label_counts"] >= ITERS,
           f"count kernel launched {launches['blocked_label_counts']} times")
+    # theta (one launch) and phi (two) every iteration, and at set-up
+    check(launches["dirichlet"] == 3 * (ITERS + 1),
+          f"Dirichlet kernels launched {launches['dirichlet']} times")
     check_counts_exact(model, corpus, "ggs")
     lls = dict(model.get_log_likelihoods())
     check(lls[30] > lls[10] > ll0, f"LL did not rise: init {ll0}, {lls}")
@@ -4450,7 +5333,18 @@ def main() -> int:
           f"{tok_s:.0f} tokens/s over iterations 11-30 "
           f"({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} ms/iteration, host "
           "clock, LL at 20 and 30 included)", flush=True)
-    print(f"[4 profile] {profile_iterations(torch, model, 5)}", flush=True)
+    after = profile_numbers(torch, lambda: model.sample(5), 5)
+    draws = sum(c for _, name, c in after[2]
+                if "dirichlet" in name or "gamma_kernel" in name)
+    check(draws <= 4, f"[4 profile] theta and phi drawn in {draws} "
+          "launches of the Gamma kernels an iteration")
+    with eager_draws(torch, rnd):
+        before = profile_numbers(torch, lambda: model.sample(5), 5)
+    print(f"[4 profile] {profile_text(*after, 5, 'iteration')}; theta and "
+          f"phi in {draws:.0f} launches of csrc/gamma.cu an iteration; the "
+          f"same iterations with the eager generator draws of theta and phi "
+          f"(the path before the kernels): "
+          f"{profile_summary(*before, 'iteration')}", flush=True)
     del model
     torch.cuda.empty_cache()
     pcgs_launches = pcgs_main_path(torch, corpus, LDAConfig, create_model,
@@ -4473,8 +5367,9 @@ def main() -> int:
     aliasmh_launches = aliasmh_main_path(torch, corpus, LDAConfig,
                                          create_model, cuda_counts,
                                          cuda_zdraw, smi)
-    foldin_launches = held_out_phase(torch, corpus, LDAConfig, create_model,
-                                     cuda_counts, cuda_zdraw, smi)
+    foldin_launches, l2r_launches = held_out_phase(
+        torch, corpus, LDAConfig, create_model, cuda_counts, cuda_zdraw,
+        cuda_left_to_right, smi)
     held_out_large_k(torch, corpus, LDAConfig, create_model, smi)
     base_options_phase(torch, corpus, LDAConfig, create_model, cuda_counts,
                        cuda_zdraw, cuda_pcgs, smi)
@@ -4596,12 +5491,20 @@ def main() -> int:
         *pcgs_entries,
         *lightlda_entries,
         *adlda_entries,
+        {**gamma_entry,
+         "launches": launches["gamma"] + launches["dirichlet"],
+         "launches_by_wrapper": {k: launches[k]
+                                 for k in ("gamma", "dirichlet")},
+         "launches_pcgs": pcgs_launches["gamma"]
+         + pcgs_launches["dirichlet"]},
+        {**l2r_entry, "launches": l2r_launches},
     ]
     for entry in kernels:
         key = entry["name"] + (" collapsed" if entry.get("mode")
                                == "collapsed" else "")
+        keys = ("gamma", "dirichlet") if key == "gamma" else (key,)
         entry["launches_parallel"] = {
-            run: parallel_launches.get(key, {}).get(run, 0)
+            run: sum(parallel_launches.get(k, {}).get(run, 0) for k in keys)
             for run in ("2 gloo ranks", "1 nccl rank")}
     # phase 8's launches by scheme, and the kernel's numbers at its shape
     ingest_of = {"blocked_label_counts": "counts",

@@ -26,7 +26,10 @@
 //           totals of the tiles before t; total = sum of all tile totals
 //   u     = float(u24) * 2^-24 * total
 //   z     = min(sum_t #{k in tile t : cdf_k <= u - off_t}, last k with p_k > 0)
-//           (K - 1 in place of the last nonzero with positive_support)
+//           (K - 1 in place of the last nonzero with positive_support);
+//           without positive_support a z with p_z = 0 (a count that passed
+//           a lane boundary where two associations of one prefix sum meet
+//           u) moves to the last k <= z with p_k > 0
 //   z_old is kept when flag_d == 0 (document not selected) or total == 0;
 //   when z changes, table[z_old, d] -= 1 and table[z, d] += 1 before the
 //   document's next token. PCGS: N_kw[w, z] += 1 for every real slot.
@@ -363,6 +366,25 @@ __global__ void pcgs_sweep_kernel(const int* __restrict__ w_local,
             }
           }
           z = min(cnt, lastnz);
+          if (!kCollapsed && !positive_support) {
+            // each 32-topic chunk's cdf is a Hillis-Steele scan, whose
+            // association differs from topic to topic: as in
+            // pcgs_lane_kernel, a count that passes into topics whose p is
+            // 0 moves to the last topic at or below it with p > 0
+            for (int c = z >> 5; c >= 0; --c) {
+              const int k = c * 32 + lane;
+              float p = 0.f;
+              if (k <= z) {
+                const float nd = __fsub_rn(col[k], k == zo ? flag : 0.f);
+                p = bf16_round(__fmul_rn(nd, bf16_round(ph[k])));
+              }
+              const unsigned m = __ballot_sync(kFull, p > 0.f);
+              if (m != 0u) {
+                z = c * 32 + 31 - __clz(m);
+                break;
+              }
+            }
+          }
         }
         __syncwarp();
         if (z != zo && lane == 0) {
@@ -518,12 +540,16 @@ __global__ void __maxnreg__(kPair ? kPairRegs : kTileRegs) pcgs_lane_kernel(
         float pre[kPer];
         float s = 0.f;
         int last = -1;
+        unsigned nzbits = 0;          // kLastNz: the topics with p > 0
 #pragma unroll
         for (int i = 0; i < kPer; ++i) {
           const int k = first + i;
           const float nd = k == zo ? __fsub_rn(col[i], flag) : col[i];
           const float p = bf16_round(__fmul_rn(nd, row_value(w, i)));
-          if (kLastNz && p > 0.f) last = k;
+          if (kLastNz && p > 0.f) {
+            last = k;
+            nzbits |= 1u << i;
+          }
           s = i == 0 ? p : __fadd_rn(s, p);
           pre[i] = s;
         }
@@ -568,6 +594,34 @@ __global__ void __maxnreg__(kPair ? kPairRegs : kTileRegs) pcgs_lane_kernel(
         }
         int z = zo;
         if (act && total > 0.f) z = min(static_cast<int>(cnt), lastnz);
+        if (kLastNz) {
+          // The lanes' values are each lane's running sums after its
+          // exclusive offset from the scan, so two associations of one sum
+          // meet at every lane boundary: where u lies between them, the
+          // count can pass over a lane's last topic into a run of topics
+          // whose p is 0. z then moves to the last topic at or below it
+          // with p > 0 (the plain version's cumsum is monotone and never
+          // draws a zero); a z with p > 0 stays. The lane that owns z
+          // sees whether its p is 0, and only then does the warp search.
+          const int zi = z - first;
+          const bool on_zero = act && total > 0.f && zi >= 0 && zi < kPer
+                               && !((nzbits >> zi) & 1u);
+          if (__any_sync(kFull, on_zero)) {
+            const unsigned below =
+                zi < 0 ? 0u
+                       : (zi >= kPer - 1 ? nzbits
+                                         : nzbits & ((2u << zi) - 1u));
+            int cand = below ? first + 31 - __clz(below) : -1;
+            if (kPair) {
+              const int c0 = __reduce_max_sync(kFull, seg == 0 ? cand : -1);
+              const int c1 = __reduce_max_sync(kFull, seg == 1 ? cand : -1);
+              cand = seg == 0 ? c0 : c1;
+            } else {
+              cand = __reduce_max_sync(kFull, cand);
+            }
+            if (act && total > 0.f && cand >= 0) z = cand;
+          }
+        }
         // the lanes that own z_old and z update the column
         if (z != zo) {
 #pragma unroll

@@ -122,7 +122,7 @@ def fold_in(phi_kv: torch.Tensor, corpus: Corpus, alpha,
     theta_sum = torch.zeros((corpus.num_docs, num_topics),
                             dtype=torch.float32, device=dev)
     for it in range(iterations):
-        theta = rnd.dirichlet(ndk.to(torch.float32) + alpha, generator)
+        theta = rnd.dirichlet(ndk, generator, prior=alpha)
         seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
                              device=dev, dtype=torch.int64)
         z3, nkw = fused_zdraw_nkw(

@@ -10,12 +10,17 @@ log mean_r p_r(w_n) per position (:105, logNumParticles :89). Word
 probabilities come from the dense type-topic counts:
 p(w|k) = (beta + n_kw) / (V beta + n_k), or from a row-normalised phi.
 
-One pass over the token positions, vectorised over every test document
-and every particle: the carry is the particles' doc-topic counts
-[R, D, K]. Each position draws every particle's topic by Gumbel-max. The
-noise comes from `generator`, or from `gumbel(t)`, a callable returning
-position t's [R, D, K] float32 noise (the tests feed in the JAX
-function's own draws through it).
+On a CUDA device with a `generator`, the estimator is the hand-written
+kernel of `ops/cuda_left_to_right.py` (csrc/left_to_right.cu): the
+position loop inside one launch, each particle's draw an inverse CDF from
+one Philox uniform keyed by a seed from `generator`. Otherwise (the CPU,
+or injected noise on any device) it is the plain version below: one pass
+over the token positions, vectorised over every test document and every
+particle, the carry the particles' doc-topic counts [R, D, K], each
+position drawing every particle's topic by Gumbel-max. The noise comes
+from `generator`, or from `gumbel(t)`, a callable returning position t's
+[R, D, K] float32 noise (the tests feed in the JAX function's own draws
+through it).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Callable, Optional
 import torch
 
 from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
+from ldagroupedgibbssampler_tpu_torch.ops import cuda_left_to_right
+from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
 
 _EPS = 1e-30
 
@@ -42,11 +49,16 @@ def left_to_right_from_word_prob(w_pad, mask_pad, word_prob, alpha,
                                  ) -> torch.Tensor:
     """Total held-out LL (0-d float32 tensor) of the padded test documents
     w_pad / mask_pad [D, L] under word_prob [K, V], on word_prob's device.
-    The noise comes from `generator` or `gumbel`; one of them is needed."""
+    The noise comes from `generator` or `gumbel`; one of them is needed.
+    On a CUDA device with a generator the kernel runs."""
     if generator is None and gumbel is None:
         raise ValueError("the left-to-right estimator needs a generator or "
                          "injected gumbel noise")
     dev = word_prob.device
+    if gumbel is None and dev.type != "cpu":
+        return cuda_left_to_right.left_to_right(
+            w_pad, mask_pad, word_prob, alpha, num_particles,
+            rnd.kernel_seed(generator, dev))
     w_pad = torch.as_tensor(w_pad, device=dev).to(torch.int64)
     mask_pad = torch.as_tensor(mask_pad, device=dev)
     num_docs, length = w_pad.shape

@@ -70,6 +70,6 @@ class ADLDA(FusedPCGSSweepMixin, TorchLDASampler):
         nkw = self._merge_nkw(nkw, entry=state.nkw)
         state.z, state.ndk, state.nkw = z, ndk, nkw
         state.nk = tokens_per_topic(nkw)
-        state.phi = rnd.dirichlet(nkw.to(torch.float32) + state.beta,
-                                  self.shared_generator)
+        state.phi = rnd.dirichlet(nkw, self.shared_generator,
+                                  prior=state.beta)
         state.iteration += 1

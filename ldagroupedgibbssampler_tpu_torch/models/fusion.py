@@ -51,8 +51,10 @@ import time
 import numpy as np
 import torch
 
-from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts, cuda_lightlda,
-                                                  cuda_pcgs, cuda_zdraw)
+from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts, cuda_gamma,
+                                                  cuda_left_to_right,
+                                                  cuda_lightlda, cuda_pcgs,
+                                                  cuda_zdraw)
 
 # the state's fields that a step replaces
 FIELDS = ("z", "ndk", "nkw", "nk", "phi", "theta")
@@ -63,7 +65,9 @@ def launch_counters() -> list:
     return [(cuda_counts.blocked_label_counts, "launches"),
             (cuda_zdraw.fused_zdraw_nkw, "launches"),
             (cuda_lightlda.fused_lightlda_sweep, "launches"),
-            (cuda_lightlda.fused_lightlda_sweep_streamed, "launches")] + [
+            (cuda_lightlda.fused_lightlda_sweep_streamed, "launches"),
+            (cuda_gamma.gamma, "launches"), (cuda_gamma.dirichlet, "launches"),
+            (cuda_left_to_right.left_to_right, "launches")] + [
         (fn, attr) for fn in (cuda_pcgs.fused_pcgs_sweep,
                               cuda_pcgs.fused_pcgs_sweep_streamed)
         for attr in ("launches", "collapsed_launches")]

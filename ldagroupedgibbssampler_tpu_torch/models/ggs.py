@@ -18,8 +18,9 @@ The port keeps the JAX package's two-layout design
   - n_dk is rebuilt by a chunk-granular regroup `z.view(-1, chunk)
     [src_chunks]` into the d-window-major layout B, then the count kernel
     (`ops/cuda_counts.py`, csrc/label_counts.cu);
-  - theta and phi are whole-matrix Marsaglia-Tsang Gamma draws
-    (`ops/random.py`), plain PyTorch elementwise code on the device.
+  - theta and phi are whole-matrix Marsaglia-Tsang Dirichlet draws
+    (`ops/random.py`): on the card one launch of the Dirichlet kernel for
+    theta and two for phi (`ops/cuda_gamma.py`, csrc/gamma.cu).
 
 On a CPU device the same code runs the kernels' plain versions. State is
 kept type-major: nkw and phi are [V, K] (`nkw_layout = "vk"`).
@@ -111,14 +112,13 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
 
     # ------------------------------------------------------------------
     def _sample_phi(self, nkw_vk, beta, type_mask=None, prev_phi_vk=None):
-        """phi in [V, K] orientation: Gamma draw + column normalisation;
-        with a type mask, the conditional Dirichlet redraw of the masked
-        types of every topic row."""
-        conc = nkw_vk.to(torch.float32) + beta
+        """phi in [V, K] orientation: a Dirichlet draw normalised over V
+        (axis 0); with a type mask, the conditional Dirichlet redraw of the
+        masked types of every topic row."""
         if type_mask is None:
-            g = rnd.gamma(conc, self.shared_generator).clamp_min(
-                rnd.DIRICHLET_FLOOR)
-            return g / g.sum(dim=0, keepdim=True)
+            return rnd.dirichlet(nkw_vk, self.shared_generator, dim=0,
+                                 prior=beta)
+        conc = nkw_vk.to(torch.float32) + beta
         return rnd.conditional_dirichlet(prev_phi_vk.T, conc.T, type_mask,
                                          self.shared_generator
                                          ).T.contiguous()
@@ -131,12 +131,11 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
                 else self.generator)
 
     def _initial_theta(self, ndk, alpha):
-        return rnd.dirichlet(ndk.to(torch.float32) + alpha,
-                             self._theta_generator())
+        return rnd.dirichlet(ndk, self._theta_generator(), prior=alpha)
 
     def _theta_update(self, state, doc_mask):
-        theta_new = rnd.dirichlet(state.ndk.to(torch.float32) + state.alpha,
-                                  self._theta_generator())
+        theta_new = rnd.dirichlet(state.ndk, self._theta_generator(),
+                                  prior=state.alpha)
         if doc_mask is None:       # full sweep: no per-doc select needed
             return theta_new
         return torch.where(doc_mask[:, None], theta_new, state.theta)

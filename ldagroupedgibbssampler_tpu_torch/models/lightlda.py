@@ -83,7 +83,7 @@ class CollapsedLightLDA(LightPCLDA):
     def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):
         """The collapsed chain's diagnostic phi draw, Dir(N_kw + beta),
         ignores a type mask, as the JAX package's does."""
-        return rnd.dirichlet(nkw.to(torch.float32) + beta, self.generator)
+        return rnd.dirichlet(nkw, self.generator, prior=beta)
 
     def _word_tables(self, state: LDAState):
         num_types = self.corpus.num_types

@@ -45,9 +45,10 @@ class UncollapsedParallelLDA(FusedPCGSSweepMixin, TorchLDASampler):
         """phi | z, w. `prev_phi` is the phi the sweep just used: a type
         mask redraws only its columns by the conditional Dirichlet, and
         nzvsspalias's draw depends on it."""
-        conc = nkw.to(torch.float32) + (beta if self.smooth_phi else 1e-7)
+        prior = beta if self.smooth_phi else 1e-7
         if type_mask is None:
-            return rnd.dirichlet(conc, self.shared_generator)
+            return rnd.dirichlet(nkw, self.shared_generator, prior=prior)
+        conc = nkw.to(torch.float32) + prior
         return rnd.conditional_dirichlet(prev_phi, conc, type_mask,
                                          self.shared_generator)
 

@@ -67,6 +67,17 @@ _SIGNATURES = {
                                            _c_int, _c_int, _c_int, _c_int,
                                            _c_int, _c_ptr],
     "lda_lightlda_launch_shape": [_c_int, _c_ptr],
+    # gamma.cu
+    "lda_gamma": [_c_ptr] * 4 + [_c_i64, _c_int, _c_ptr],
+    "lda_dirichlet_rows": [_c_ptr, _c_int, _c_ptr, ctypes.c_float, _c_ptr,
+                           _c_ptr, _c_i64, _c_int, _c_int, _c_ptr],
+    "lda_dirichlet_cols": [_c_ptr, _c_int, _c_ptr, ctypes.c_float, _c_ptr,
+                           _c_ptr, _c_ptr, _c_i64, _c_int, _c_int, _c_ptr],
+    "lda_dirichlet_long_rows": [_c_ptr, _c_int, _c_ptr, ctypes.c_float,
+                                _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int,
+                                _c_int, _c_ptr],
+    # left_to_right.cu
+    "lda_left_to_right": [_c_ptr] * 8 + [_c_int] * 12 + [_c_ptr],
 }
 
 
@@ -157,6 +168,12 @@ def check_tensor(name, t, shape, dtype=torch.int32, device=None):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on `device`, as an entry
+    point takes it."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, name: str) -> None:

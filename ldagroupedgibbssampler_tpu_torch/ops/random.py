@@ -13,7 +13,12 @@ rejection loop (cc/mallet/util/ParallelRandoms.java:60-83).
 
 Random bits come from an explicit `torch.Generator` on the same device;
 the draws differ from the JAX package's bit for bit (another PRNG) but not
-in distribution.
+in distribution. On a CUDA tensor every Gamma draw, and the Dirichlet's
+floor and normalisation with it, is the hand-written kernel of
+`ops/cuda_gamma.py` (csrc/gamma.cu), where the JAX package has XLA fuse
+the rounds into one program: its Philox key is one int64 drawn from the
+generator, so a captured CUDA graph replays new draws. On a CPU tensor the
+draws are the plain PyTorch code below.
 """
 
 from __future__ import annotations
@@ -22,23 +27,44 @@ import math
 
 import torch
 
+from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma
+
 # Floor applied to Dirichlet coordinates, mirroring the Double.MIN_VALUE floor
 # the reference applies to avoid exact zeros in phi/theta
 # (types/ParallelDirichlet.java:46-70), as a float32-friendly tiny value.
 DIRICHLET_FLOOR = 1e-30
 
-# Fixed rejection rounds. Acceptance per round is >= ~0.95 for every boosted
-# shape (a_eff >= 1), so all rounds reject with probability <= 0.05^6 ~
-# 1.6e-8 per element; those rare elements keep the mode d.
-_MARSAGLIA_ROUNDS = 6
+# Fixed rejection rounds, the Gamma kernel's too. Acceptance per round is
+# >= ~0.95 for every boosted shape (a_eff >= 1), so all rounds reject with
+# probability <= 0.05^6 ~ 1.6e-8 per element; those rare elements keep the
+# mode d.
+_MARSAGLIA_ROUNDS = cuda_gamma.ROUNDS
 
 
-def _gamma_marsaglia(a: torch.Tensor, generator: torch.Generator,
-                     rounds: int = _MARSAGLIA_ROUNDS) -> torch.Tensor:
-    """Vectorised Marsaglia-Tsang Gamma(a, 1) with `rounds` unrolled
-    rejection rounds, starting at the mode d, then the u^(1/a) boost for
-    a < 1 (ParallelRandoms.rgamma's alpha<1 path) in exp/log form."""
+def kernel_seed(generator: torch.Generator,
+                device: torch.device) -> torch.Tensor:
+    """The Philox key of one kernel draw: int64 [1] on the device, from
+    the generator (no host sync)."""
+    return torch.randint(0, 2 ** 62, (1,), generator=generator,
+                         device=device, dtype=torch.int64)
+
+
+def _gamma_marsaglia(a: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+    """Vectorised Marsaglia-Tsang Gamma(a, 1) with _MARSAGLIA_ROUNDS
+    unrolled rejection rounds, starting at the mode d, then the u^(1/a)
+    boost for a < 1 (ParallelRandoms.rgamma's alpha<1 path) in exp/log
+    form. On a CUDA tensor: the Gamma kernel."""
     a = a.to(torch.float32)
+    if a.device.type != "cpu":
+        return cuda_gamma.gamma(a, kernel_seed(generator, a.device))
+    return _gamma_eager(a, generator)
+
+
+def _gamma_eager(a: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+    """The plain PyTorch draw of float32 `a` from the generator, about 25
+    elementwise launches a round on any device: the CPU's path."""
     shape, device = a.shape, a.device
     tiny = torch.finfo(torch.float32).tiny
     a_eff = torch.where(a < 1.0, a + 1.0, a)
@@ -47,7 +73,7 @@ def _gamma_marsaglia(a: torch.Tensor, generator: torch.Generator,
     # `out` starts at the mode d: kept only in the ~1.6e-8 all-reject tail
     out = d.clone()
     accepted = torch.zeros(shape, dtype=torch.bool, device=device)
-    for _ in range(rounds):
+    for _ in range(_MARSAGLIA_ROUNDS):
         x = torch.randn(shape, generator=generator, device=device)
         v1 = 1.0 + c * x
         v = v1 * v1 * v1
@@ -70,13 +96,23 @@ def gamma(shape_param, generator: torch.Generator) -> torch.Tensor:
     return _gamma_marsaglia(torch.as_tensor(shape_param), generator)
 
 
-def dirichlet(concentration, generator: torch.Generator) -> torch.Tensor:
-    """Dirichlet draw(s) along the last axis: rows normalised over the last
-    axis, floored at DIRICHLET_FLOOR like the reference's ParallelDirichlet
-    (types/ParallelDirichlet.java:46-70)."""
-    g = _gamma_marsaglia(torch.as_tensor(concentration), generator)
+def dirichlet(concentration, generator: torch.Generator, dim: int = -1,
+              prior=None) -> torch.Tensor:
+    """Dirichlet draw(s) normalised over `dim` (the last axis by default;
+    axis 0 of a matrix for phi in [V, K] orientation), floored at
+    DIRICHLET_FLOOR like the reference's ParallelDirichlet
+    (types/ParallelDirichlet.java:46-70). With `prior` (a float, or a
+    tensor along the last axis), `concentration` holds counts and the
+    concentration is counts.to(float32) + prior. On a CUDA tensor: the
+    Dirichlet kernel, one launch (two for axis 0)."""
+    x = torch.as_tensor(concentration)
+    if x.device.type != "cpu":
+        return cuda_gamma.dirichlet(x, kernel_seed(generator, x.device),
+                                    dim, prior)
+    conc = x if prior is None else x.to(torch.float32) + prior
+    g = _gamma_marsaglia(conc, generator)
     g = g.clamp_min(DIRICHLET_FLOOR)
-    return g / g.sum(dim=-1, keepdim=True)
+    return g / g.sum(dim=dim, keepdim=True)
 
 
 def conditional_dirichlet(previous, concentration, mask,
