@@ -62,7 +62,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      agreement on 100,000 elements, a KS test of 200,000 draws against
      scipy.stats.gamma and the exact 0 at shape 0; times beside the plain
      version, the eager generator path it replaced, torch._standard_gamma
-     and torch._sample_dirichlet; `[3 left-to-right]`, the held-out
+     and torch._sample_dirichlet; the lane-rounds an element of the
+     elementwise kernel (needed, in warps of 32 without compaction, with
+     the queue of rejects); `[3 left-to-right]`, the held-out
      estimator kernel (csrc/left_to_right.cu) at the [4 held-out] shapes,
      K = 100 and 4096: draws equal to left_to_right_reference on the
      first 64 test documents but proven ties (the exact cdf within 4
@@ -217,6 +219,11 @@ D, V, K = 11269, 20000, 100
 MEAN_LEN = 120
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+# per SM and clock, 64 32-bit integer lanes and 16 special-function lanes
+# (Hopper architecture white paper), at the 1.98 GHz of the f32 peak
+# (132 SMs x 128 lanes x 2 x 1.98 GHz = 67 TFLOP/s)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 ITERS = 30
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -279,9 +286,14 @@ def once_ms(torch, fn):
     return a.elapsed_time(b)
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, int_ops: float = 0.0,
+          sfu_ops: float = 0.0):
+    """The least time (ms) for nbytes of traffic and the f32, 32-bit
+    integer and special-function operations, each at its peak rate, and
+    which of bytes and operations sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = max(nops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S,
+                sfu_ops / SFU_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2619,7 +2631,8 @@ def gamma_tie_proof(torch, a, seed, i, r):
 def gamma_agreement(torch, cuda_gamma, a, seed, label):
     """The Gamma kernel against gamma_reference on float32 `a` (flat),
     both on the card: (share of elements within GAMMA_RTOL, [proven
-    accept/reject ties, boost-amplified last bits], mean rounds a draw).
+    accept/reject ties, boost-amplified last bits], mean rounds a draw,
+    gamma_warp_rounds of the kernel's rounds).
     An element outside the tolerance must either have another accepted
     round than the plain version, the earlier of the two a proven tie, or
     the same round with a < 1, where the boost exp(log(ub) / a) multiplies
@@ -2658,7 +2671,35 @@ def gamma_agreement(torch, cuda_gamma, a, seed, label):
         boosted += 1
     check(bad.numel() <= 2000, f"{label}: {bad.numel()} elements to prove")
     rounds = (rk.clamp(max=cuda_gamma.ROUNDS - 1) + 1).double().mean()
-    return share, [ties, boosted], float(rounds)
+    return (share, [ties, boosted], float(rounds),
+            gamma_warp_rounds(torch, rk, cuda_gamma.TILE))
+
+
+def gamma_warp_rounds(torch, rounds, tile):
+    """Rounds a draw of the elementwise Gamma kernel costs, in lane-rounds
+    an element: (what the elements need, what warps of 32 consecutive
+    elements run when each leaves the round loop at its last lane's
+    accept, without a queue, what the compacted kernel runs:
+    round 0 on every element of a tile, then over the tile's queue of
+    rejects in warps of 32, each running its neediest element's later
+    rounds). `rounds`: each element's accepted round (ROUNDS: none, all
+    run). The queue is taken in index order; the kernel appends a warp's
+    rejects together in the order the warps get there."""
+    need = rounds.reshape(-1).to(torch.int64).clamp(max=5) + 1
+    n = need.numel()
+    pad = (-n) % 32
+    groups = torch.cat([need, need.new_zeros(pad)]).reshape(-1, 32)
+    before = 32 * float(groups.amax(dim=1).sum()) / n
+    after = 0.0
+    for t0 in range(0, n, tile):
+        part = need[t0:t0 + tile]
+        after += 32 * -(-part.numel() // 32)
+        queue = part[part > 1] - 1
+        qpad = (-queue.numel()) % 32
+        if queue.numel():
+            after += 32 * float(torch.cat([queue, queue.new_zeros(qpad)])
+                                .reshape(-1, 32).amax(dim=1).sum())
+    return [float(need.double().mean()), before, after / n]
 
 
 def gamma_ops(a, mean_rounds: float) -> float:
@@ -2666,6 +2707,18 @@ def gamma_ops(a, mean_rounds: float) -> float:
     4 to set up, 26 a round over the rounds this run's draws took, 7 for
     the boost where a < 1."""
     return a.numel() * (4 + 26 * mean_rounds) + 7 * float((a < 1).sum())
+
+
+def gamma_int_sfu(a, mean_rounds: float) -> tuple:
+    """(32-bit integer multiplies, special-function calls) of the Gamma
+    draws of `a` at the rounds this run's draws took: a Philox block a
+    round and one for the boost where a < 1, each 10 rounds of two
+    32 x 32 -> 64-bit multiplies (a low and a high 32-bit multiply each);
+    rsqrt to set up, log, sqrt, cos, log v and log u a round, log and exp
+    for the boost."""
+    n, small = a.numel(), float((a < 1).sum())
+    blocks = n * mean_rounds + small
+    return 40 * blocks, n * (1 + 5 * mean_rounds) + 2 * small
 
 
 def eager_dirichlet(torch, rnd, x, generator, dim=-1, prior=None):
@@ -2702,7 +2755,9 @@ def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
     launch a draw, rows) and phi [V, K] from counts + 0.01 normalised over
     V (two launches, axis 0), with n_dk and N_kw a recount of a random z,
     and the PCGS family's phi [K, V] from N_kw + 0.01 over V (two
-    launches, rows split across blocks: gamma_long_rows). The Gamma kernel against gamma_reference on every element of both
+    launches, rows split across blocks: gamma_long_rows), and theta and phi
+    at K=4096 (gamma_large_k). The Gamma kernel against gamma_reference on
+    every element of both
     (gamma_agreement: within 1e-5 but proven ties); the Dirichlet kernels
     against the kernel's own Gamma draws floored and normalised by torch
     (the same draws: 1e-5, the sums' order), rows and columns summing to 1
@@ -2753,7 +2808,7 @@ def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
     grid = {}
     for a in GAMMA_GRID:
         conc = torch.full((GAMMA_KS,), a, device=dev)
-        share, ties, mean_rounds = gamma_agreement(
+        share, ties, mean_rounds, _warps = gamma_agreement(
             torch, cuda_gamma, conc[:GAMMA_CHECK], seed, f"[3 gamma] a={a}")
         draws = cuda_gamma.gamma(conc, seed).double().cpu().numpy()
         if a == 0.0:
@@ -2772,6 +2827,8 @@ def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
     long_rows = gamma_long_rows(torch, nkw.T.contiguous(), beta, seed,
                                 cuda_gamma, rnd)
     max_err = max(max_err, long_rows["max_abs_err"])
+    large = gamma_large_k(torch, corpus, cuda_gamma, rnd, seed)
+    max_err = max(max_err, *(v["max_abs_err"] for v in large.values()))
     zero_row = cuda_gamma.dirichlet(
         torch.tensor([[0.0, 0.0, 5.0]], device=dev), seed)
     check(bool((zero_row[0, :2] > 0).all()) and float(zero_row[0, 2]) > 0.99,
@@ -2798,11 +2855,22 @@ def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
     nbytes = 8 * n + 4 * K
     nops = (gamma_ops(theta_conc, out["theta"][2])
             + gamma_ops(phi_conc, out["phi"][2]) + 4 * n)
-    bound_ms, by = bound(nbytes, nops)
+    int_sfu = [gamma_int_sfu(conc, out[name][2]) for name, conc in
+               (("theta", theta_conc), ("phi", phi_conc))]
+    int_ops = sum(x[0] for x in int_sfu)
+    sfu_ops = sum(x[1] for x in int_sfu)
+    bound_ms, by = bound(nbytes, nops, int_ops, sfu_ops)
+    print(f"[3 gamma] rounds a draw of the elementwise Gamma kernel, in "
+          f"lane-rounds an element (needed, warps of 32 consecutive elements "
+          f"without compaction, with the compacted queue of rejects): "
+          f"theta {json.dumps([round(v, 4) for v in out['theta'][3]])}, phi "
+          f"{json.dumps([round(v, 4) for v in out['phi'][3]])}",
+          flush=True)
     print(f"[3 gamma] {smi}: Gamma kernel against gamma_reference on every "
           f"element (share within {GAMMA_RTOL}, [ties, boost last bits], "
-          f"mean rounds): theta [{D}, {K}] {json.dumps(out['theta'])}, phi "
-          f"[{V}, {K}] {json.dumps(out['phi'])}; Dirichlet kernels equal "
+          f"mean rounds): theta [{D}, {K}] {json.dumps(out['theta'][:3])}, "
+          f"phi [{V}, {K}] {json.dumps(out['phi'][:3])}; Dirichlet kernels "
+          f"equal "
           f"the kernel's own Gamma draws normalised, rows and columns sum to "
           f"1, floor held, max |Dirichlet - dirichlet_reference| "
           f"{max_err:.3g}; grid {json.dumps(grid)}; theta Dirichlet "
@@ -2812,7 +2880,9 @@ def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
           f"torch._sample_dirichlet {lib_dir_ms:.4f} ms, "
           f"torch._standard_gamma {lib_gamma_ms:.4f} ms; bound "
           f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-          f"{nops / 1e6:.1f} M f32 operations); long rows (the PCGS "
+          f"{nops / 1e6:.1f} M f32 operations, {int_ops / 1e6:.1f} M "
+          f"integer multiplies, {sfu_ops / 1e6:.1f} M special-function "
+          f"calls); long rows (the PCGS "
           f"family's phi [{K}, {V}] from N_kw + {beta} over V, rows split "
           f"across blocks, 2 launches): equal the kernel's own Gamma draws "
           f"normalised within {long_rows['rel']:.3g}, rows sum to 1 within "
@@ -2822,6 +2892,17 @@ def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
           f"ms, torch._sample_dirichlet {long_rows['library_ms']:.4f} ms, "
           f"bound {long_rows['bound_ms']:.4f} ms ({long_rows['bound_by']}, "
           f"{long_rows['rounds']:.4f} mean rounds)", flush=True)
+    for name, v in large.items():
+        print(f"[3 gamma] {smi}: {name} {v['shape']} at K=4096 "
+              f"({v['launches']} launches): equal the kernel's own Gamma "
+              f"draws normalised within {v['rel']:.3g}, "
+              f"{v['agree']:.6f} of the elements within {GAMMA_RTOL} of "
+              f"dirichlet_reference (max abs difference "
+              f"{v['max_abs_err']:.3g}), sums within {v['sum_err']:.3g}, "
+              f"floor held; {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, "
+              f"torch._sample_dirichlet {v['library_ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']}, {v['rounds']:.4f} "
+              f"mean rounds)", flush=True)
     return {"name": "gamma", "route": "cuda",
             "source": "ldagroupedgibbssampler_tpu_torch/csrc/gamma.cu",
             "replaces": "ldagroupedgibbssampler_tpu/ops/random.py:43",
@@ -2830,8 +2911,9 @@ def gamma_phase(torch, corpus, cuda_gamma, rnd, smi):
             "plain_ms": plain_ms, "eager_ms": eager_ms,
             "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_dir_ms, "library_gamma_ms": lib_gamma_ms,
-            "agreement": {"theta": out["theta"], "phi": out["phi"]},
-            "grid": grid, "long_rows": long_rows}
+            "agreement": {"theta": out["theta"][:3], "phi": out["phi"][:3]},
+            "warp_rounds": {"theta": out["theta"][3], "phi": out["phi"][3]},
+            "grid": grid, "long_rows": long_rows, "k4096": large}
 
 
 def gamma_long_rows(torch, nkw_kv, beta, seed, cuda_gamma, rnd):
@@ -2869,10 +2951,84 @@ def gamma_long_rows(torch, nkw_kv, beta, seed, cuda_gamma, rnd):
         nkw_kv, seed, -1, beta), reps=3, calls=2)
     library_ms = time_ms(torch, lambda: torch._sample_dirichlet(conc))
     nbytes = 8 * conc.numel()
-    bound_ms, by = bound(nbytes, gamma_ops(conc, rounds) + 4 * conc.numel())
+    bound_ms, by = bound(nbytes, gamma_ops(conc, rounds) + 4 * conc.numel(),
+                         *gamma_int_sfu(conc, rounds))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
             "rel": rel, "sum_err": sum_err, "rounds": rounds}
+
+
+def gamma_large_k(torch, corpus, cuda_gamma, rnd, seed, k=4096):
+    """The Dirichlet kernels at the K=4096 main path's shapes ([4 ggs
+    K=4096], [4 ggs_aliasmh K=4096], [4 held-out K=4096]): theta [D, k]
+    from n_dk + 0.5 over the last axis (one launch, a block a row) and phi
+    [V, k] from N_kw + 0.01 over axis 0 (two launches, tiles of 128
+    columns), n_dk and N_kw a recount of a random z. Each held to the
+    Gamma kernel's own draws of the same concentrations floored and
+    normalised by torch (within GAMMA_RTOL), to dirichlet_reference (at
+    least 0.999 of the elements within GAMMA_RTOL: the rest are the Gamma
+    kernel's proven ties and last bits, as gamma_agreement shows at K=100),
+    sums within 1e-5 and the floor. Timed beside the plain version (one
+    call), torch._sample_dirichlet and the bound, from the rounds this
+    run's draws took."""
+    dev = seed.device
+    z = np.random.default_rng(4).integers(0, k, corpus.num_tokens)
+    nkw_ref, ndk_ref = recount(corpus, z, k)
+    ndk = torch.as_tensor(ndk_ref.astype(np.int32), device=dev)
+    nkw = torch.as_tensor(nkw_ref.astype(np.int32), device=dev)
+    del nkw_ref, ndk_ref
+    alpha = torch.full((k,), 0.5, device=dev)
+    out = {}
+    for name, x, dim, prior, launches in (("theta", ndk, -1, alpha, 1),
+                                          ("phi", nkw, 0, 0.01, 2)):
+        label = f"[3 gamma] {name} K={k}"
+        conc = x.to(torch.float32) + prior
+        before = cuda_gamma.dirichlet.launches
+        got = cuda_gamma.dirichlet(x, seed, dim, prior)
+        check(cuda_gamma.dirichlet.launches - before == launches,
+              f"{label}: not the {launches}-launch path")
+        rk = torch.empty(conc.shape, dtype=torch.int32, device=dev)
+        g = cuda_gamma.gamma(conc, seed, rk).clamp_min(rnd.DIRICHLET_FLOOR)
+        want = g / g.sum(dim=dim, keepdim=True)
+        del g
+        rel = float(((got - want).abs() / want).max())
+        del want
+        check(rel <= GAMMA_RTOL, f"{label}: the Dirichlet kernel off the "
+              f"kernel's own Gamma draws by {rel:.3g}")
+        sum_err = float((got.sum(dim=dim) - 1).abs().max())
+        check(sum_err <= 1e-5 and bool((got > 0).all()),
+              f"{label}: sums off 1 by {sum_err:.3g}, or the floor")
+        plain = cuda_gamma.dirichlet_reference(x, seed, dim, prior)
+        agree = 1.0 - float((((got - plain).abs() / plain) > GAMMA_RTOL)
+                            .double().mean())
+        err = float((got - plain).abs().max())
+        del plain, got
+        check(agree >= 0.999, f"{label}: only {agree:.6f} of the draws "
+              f"within {GAMMA_RTOL} of dirichlet_reference")
+        rounds = float((rk.clamp(max=cuda_gamma.ROUNDS - 1) + 1).double()
+                       .mean())
+        del rk
+        torch.cuda.empty_cache()
+        ms = time_ms(torch, lambda: cuda_gamma.dirichlet(x, seed, dim, prior))
+        plain_ms = once_ms(torch, lambda: cuda_gamma.dirichlet_reference(
+            x, seed, dim, prior))
+        torch.cuda.empty_cache()
+        lib_in = conc if dim == -1 else conc.T.contiguous()
+        library_ms = time_ms(torch, lambda: torch._sample_dirichlet(lib_in))
+        del lib_in
+        n = conc.numel()
+        bound_ms, by = bound(8 * n + 4 * k,
+                             gamma_ops(conc, rounds) + 4 * n,
+                             *gamma_int_sfu(conc, rounds))
+        out[name] = {"shape": list(conc.shape), "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "max_abs_err": err, "rel": rel, "agree": agree,
+                     "sum_err": sum_err, "rounds": rounds,
+                     "launches": launches}
+        del conc
+        torch.cuda.empty_cache()
+    return out
 
 
 L2R_DOCS = 64               # test documents held to the plain version
@@ -2908,66 +3064,132 @@ def l2r_tie_proof(torch, wp_t, alpha, w_pad, mask, z_ref, seed, t, r, d,
             gap / max(total, 1e-300))
 
 
-def l2r_kernel_draw(p, u24):
-    """The draw of csrc/left_to_right.cu for one particle whose products are
-    p [K], in the kernel's own f32 association, before its zero-topic
-    repair: lane l sums topics [l S, (l + 1) S) in order, a Hillis-Steele
-    scan over the 32 lanes gives their inclusive sums, the first lane whose
-    sum passes u T walks its range from its exclusive sum and stops at the
-    first running value above u T, else at its last topic."""
+def l2r_kernel_prefix(a, warps):
+    """The dense prefix A_k of csrc/left_to_right.cu (dense_prefix) in its
+    f32 association: warp v scans its chunks of 32 topics (a Hillis-Steele
+    scan, then the carry of its chunks before), then adds the sum of the
+    totals of warps 0..v-1 in order (warp 0 adds nothing)."""
     f32 = np.float32
-    k = len(p)
-    per = -(-k // 32)
-    pp = np.zeros(32 * per, f32)
-    pp[:k] = p
-    part = np.zeros(32, f32)
-    for lane in range(32):
-        acc = f32(0)
-        for j in range(per):
-            acc = f32(acc + pp[lane * per + j])
-        part[lane] = acc
-    incl = _hillis_steele32(part)
-    excl = np.concatenate([[f32(0)], incl[:-1]]).astype(f32)
-    target = f32(f32(f32(u24) * f32(2.0 ** -24)) * incl[31])
-    first = int((incl <= target).sum())
-    if first == 32:
-        return k - 1
-    z, acc = min(first * per + per, k) - 1, excl[first]
-    for j in range(per):
-        if first * per + j >= k:
-            break
-        acc = f32(acc + pp[first * per + j])
-        if acc > target:
-            return first * per + j
-    return z
+    a = np.asarray(a, f32)
+    k = len(a)
+    nch = -(-k // 32)
+    cpw = -(-nch // warps)
+    padded = np.zeros(nch * 32, f32)
+    padded[:k] = a
+    local = np.zeros(nch * 32, f32)
+    tot = np.zeros(warps, f32)
+    for w in range(warps):
+        carry = f32(0)
+        for c in range(w * cpw, min((w + 1) * cpw, nch)):
+            vals = (carry + _hillis_steele32(padded[c * 32:c * 32 + 32])
+                    ).astype(f32)
+            local[c * 32:c * 32 + 32] = vals
+            carry = vals[31]
+        tot[w] = carry
+    out = local[:k].copy()
+    for w in range(1, warps):
+        off = f32(0)
+        for v in range(w):
+            off = f32(off + tot[v])
+        lo, hi = w * cpw * 32, min((w + 1) * cpw * 32, k)
+        out[lo:hi] = (off + local[lo:hi]).astype(f32)
+    return out
+
+
+def l2r_kernel_draw(a, u24, warps, entries=(), wrow=None):
+    """The draw of csrc/left_to_right.cu for one particle, in the kernel's
+    own f32 association, before its zero-topic repair: a [K] the dense
+    products alpha_k wp[w, k] (l2r_kernel_prefix), entries the particle's
+    list of (topic, count) sorted by topic, wrow [K] the word's row of wp.
+    C = the entries' c_j wp[w, t_j] summed in list order, kept after every
+    STEP-th entry; T = A_{K-1} + C. A binary search over the runs of STEP
+    entries finds the first whose last entry's cdf A_t + C passes u T; the
+    run is walked from the sum before it (the segment before each entry,
+    a binary search of A where A_k + C passes u T there, then the entry);
+    past the runs, the segment after the list; else K - 1. Returns (z, T,
+    whether z is listed, z's list index or insertion point)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_left_to_right
+    f32 = np.float32
+    step = cuda_left_to_right.STEP
+    A = l2r_kernel_prefix(a, warps)
+    k = len(A)
+    m = len(entries)
+    q = [f32(f32(c) * f32(wrow[t])) for t, c in entries]
+    sums, c_all = [], f32(0)
+    for j in range(m):
+        c_all = f32(c_all + q[j])
+        if j % step == step - 1:
+            sums.append(c_all)
+    total = f32(A[-1] + c_all)
+    target = f32(f32(f32(u24) * f32(2.0 ** -24)) * total)
+
+    def first_above(lo, hi, c):
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if f32(A[mid] + c) > target:
+                hi = mid
+            else:
+                lo = mid + 1
+        return lo
+    rlo, rhi = 0, len(sums)
+    while rlo < rhi:
+        mid = (rlo + rhi) >> 1
+        if f32(A[entries[mid * step + step - 1][0]] + sums[mid]) > target:
+            rhi = mid
+        else:
+            rlo = mid + 1
+    j1 = rlo * step
+    c = sums[rlo - 1] if rlo > 0 else f32(0)
+    lo = entries[j1 - 1][0] + 1 if j1 > 0 else 0
+    for j in range(j1, min(j1 + step, m)):
+        t = entries[j][0]
+        if t > lo and f32(A[t - 1] + c) > target:
+            return first_above(lo, t - 1, c), total, False, j
+        c = f32(c + q[j])
+        if f32(A[t] + c) > target:
+            return t, total, True, j
+        lo = t + 1
+    if lo < k and f32(A[-1] + c) > target:
+        return first_above(lo, k - 1, c), total, False, m
+    listed = m > 0 and entries[-1][0] == k - 1
+    return k - 1, total, listed, m - 1 if listed else m
 
 
 def l2r_zero_run_case(k=100, seed=0):
     """A one-position, one-particle case on which the estimator kernel's
     draw, before its repair, lands on a topic whose product is 0: products
     p (the alpha of a document's first position under a word whose
-    probability is 1 in every topic) with a run of zeros at the end of lane
-    a's range, the lanes after a scaled so that u T lies at lane a's end,
-    where the scan's sum and the lane's own walk are two associations of
-    one sum. u is the kernel's Philox word of (seed 0, position 0, particle
-    0, document 0). Found by a seeded search over l2r_kernel_draw."""
+    probability is 1 in every topic, so the list is empty and the draw is
+    a binary search of the dense prefix A) with a zero at topic z inside a
+    32-topic chunk where the shuffle scan's rounding gives A_z > A_{z-1},
+    and the topics after z scaled so that u T lies between the two. u is
+    the kernel's Philox word of (seed 0, position 0, particle 0, document
+    0); the warps are the kernel's launch shape for one particle. Found by
+    a seeded search over l2r_kernel_draw."""
     import torch
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_left_to_right
     u24 = int(cuda_left_to_right._u24(
         torch.zeros(1, dtype=torch.int64), 0, 1, 1)[0, 0])
-    per = -(-k // 32)
+    warps = cuda_left_to_right.launch_shape(k, 1, 1).warps
+    u = float(np.float32(np.float32(u24) * np.float32(2.0 ** -24)))
     rng = np.random.default_rng(seed)
-    for _ in range(10_000):
-        a = int(rng.integers(1, k // per - 1))
+    for _ in range(20_000):
         p = (rng.random(k) * rng.choice([1.0, 1e-3, 1e3], k)).astype(
             np.float32)
-        p[a * per + per - int(rng.integers(1, per)): a * per + per] = 0
-        pre = np.cumsum(p, dtype=np.float32)
-        head = float(pre[a * per + per - 1])
-        rest = float(pre[-1]) - head
-        scale = (head * 2.0 ** 24 / u24 - head) / rest
-        p[a * per + per:] = (p[a * per + per:] * scale).astype(np.float32)
-        z = l2r_kernel_draw(p, u24)
+        z0 = int(rng.integers(2, min(k, 64)))
+        if z0 % 32 == 0:
+            continue
+        p[z0] = 0
+        A = l2r_kernel_prefix(p, warps)
+        if not A[z0] > A[z0 - 1]:
+            continue
+        rest = float(A[-1]) - float(A[z0])
+        want = (float(A[z0 - 1]) + float(A[z0])) / 2 / u
+        scale = (want - float(A[z0])) / rest
+        if scale <= 0:
+            continue
+        p[z0 + 1:] = (p[z0 + 1:] * scale).astype(np.float32)
+        z = l2r_kernel_draw(p, u24, warps)[0]
         if p[z] == 0:
             return {"alpha": p, "u24": u24, "unrepaired": z}
     raise AssertionError("no zero-topic case found")
@@ -3033,27 +3255,38 @@ def l2r_agreement(torch, cuda_left_to_right, w_pad, mask, word_prob, alpha,
     return share, ties, rel, worst
 
 
-def l2r_case(torch, corpus, cuda_left_to_right, marginal, k, smi):
-    """One shape of [3 left-to-right]: the 10% split's test documents
-    (build_perplexity_split seed 2019, as [4 held-out]) under the count
-    word probabilities of a training z that puts 80% of each word's tokens
-    on topic (word id mod K), 100 particles, alpha 0.5, beta 0.01."""
+def l2r_operands(torch, corpus, k, dev):
+    """The operands of one shape of [3 left-to-right]: the 10% split's
+    test documents (build_perplexity_split seed 2019, as [4 held-out])
+    under the count word probabilities of a training z that puts 80% of
+    each word's tokens on topic (word id mod K), alpha 0.5, beta 0.01, and
+    the kernel's seed. word_prob [K, V] is a view of [V, K] storage, as
+    `ggs` (N_kw kept [V, K]) hands it to the estimator, so the wrapper's
+    [V, K] rows need no copy. Returns (w_pad, mask, word_prob, alpha,
+    seed, number of test documents)."""
     from ldagroupedgibbssampler_tpu_torch.corpus.perplexity import (
         build_perplexity_split)
-    dev = torch.device("cuda", 0)
     train, _est, evl = build_perplexity_split(corpus, 0.1, seed=2019)
     rng = np.random.default_rng(5)
     z = np.where(rng.random(train.num_tokens) < 0.8, train.tokens % k,
                  rng.integers(0, k, train.num_tokens))
-    nkw = np.bincount(z * V + train.tokens, minlength=k * V).reshape(k, V)
+    nkw = np.bincount(train.tokens * k + z, minlength=V * k).reshape(V, k)
     nkw_t = torch.as_tensor(nkw.astype(np.float32), device=dev)
     word_prob = ((0.01 + nkw_t)
-                 / (0.01 * V + nkw_t.sum(dim=1))[:, None]).contiguous()
+                 / (0.01 * V + nkw_t.sum(dim=0))[None, :]).T
     alpha = torch.full((k,), 0.5, device=dev)
     w_np, m_np = evl.to_padded()
     w_pad = torch.as_tensor(w_np, device=dev)
     mask = torch.as_tensor(m_np, device=dev)
     seed = torch.tensor([0xC0FFEE + k], dtype=torch.int64, device=dev)
+    return w_pad, mask, word_prob, alpha, seed, evl.num_docs
+
+
+def l2r_case(torch, corpus, cuda_left_to_right, marginal, k, smi):
+    """One shape of [3 left-to-right] (l2r_operands), 100 particles."""
+    dev = torch.device("cuda", 0)
+    w_pad, mask, word_prob, alpha, seed, num_test = l2r_operands(
+        torch, corpus, k, dev)
     label = f"[3 left-to-right] K={k}"
     agree = l2r_agreement(torch, cuda_left_to_right, w_pad[:L2R_DOCS],
                           mask[:L2R_DOCS], word_prob, alpha, seed, label)
@@ -3102,10 +3335,22 @@ def l2r_case(torch, corpus, cuda_left_to_right, marginal, k, smi):
     positions = int(mask.sum())
     words = int(torch.unique(w_pad[mask]).numel())
     nbytes = 5 * w_pad.numel() + 4 * words * k + 4 * k + 4
-    nops = 4.0 * positions * 100 * k
-    bound_ms, by = bound(nbytes, nops)
+    # the work this run's draws need: a position's dense prefix (a
+    # multiply and an add a topic); a particle's draw, two operations an
+    # entry of its list for T and the walk, a binary search of log2 K
+    # steps, four for u T and p; a Philox block (40 32-bit multiplies)
+    z_all = torch.full((w_pad.shape[1], 100, w_pad.shape[0]), -1,
+                       dtype=torch.int32, device=dev)
+    cuda_left_to_right.left_to_right(w_pad, mask, word_prob, alpha, 100,
+                                     seed, z_all)
+    steps = l2r_list_steps(torch, z_all, mask, k)
+    del z_all
+    draws = positions * 100
+    nops = (2.0 * positions * k + 2.0 * steps
+            + draws * (np.ceil(np.log2(max(k, 2))) + 4))
+    bound_ms, by = bound(nbytes, nops, int_ops=40.0 * draws)
     shape = cuda_left_to_right.launch_shape(k, 100, w_pad.shape[1])
-    print(f"{label} {smi}: {evl.num_docs} test documents, {positions} "
+    print(f"{label} {smi}: {num_test} test documents, {positions} "
           f"scored positions of {w_pad.shape[1]}, 100 particles; kernel "
           f"against left_to_right_reference on the first {L2R_DOCS} "
           f"documents: draws equal {agree[0]:.6f}, {agree[1]} particles "
@@ -3118,7 +3363,8 @@ def l2r_case(torch, corpus, cuda_left_to_right, marginal, k, smi):
           f"seed 0 inside the plain range: {inside}); "
           f"{ms:.4f} ms against plain {plain_ms:.3f} ms and the eager "
           f"Gumbel estimator {eager_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({by}); peak memory above the operands {peaks[0]:.3f} GiB "
+          f"({by}; {words} word rows, {steps / draws:.2f} list entries a "
+          f"draw); peak memory above the operands {peaks[0]:.3f} GiB "
           f"(plain {peaks[1]:.3f} GiB); launch {shape._asdict()}",
           flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "eager_ms": eager_ms,
@@ -3127,6 +3373,60 @@ def l2r_case(torch, corpus, cuda_left_to_right, marginal, k, smi):
             "peak_gib": peaks[0], "plain_peak_gib": peaks[1],
             "kernel_seeds": ours.tolist(), "plain_seeds": plain.tolist(),
             "seed0_inside_plain_range": inside}
+
+
+L2R_ONE_BUFFER_K = 20_001   # one word-row buffer at 88 positions, K % 4 != 0
+L2R_ONE_BUFFER_DOCS = 8
+
+
+def l2r_one_buffer_case(torch, corpus, cuda_left_to_right, smi,
+                        k=L2R_ONE_BUFFER_K, docs=L2R_ONE_BUFFER_DOCS):
+    """The estimator kernel where two word rows and a particle's list do
+    not fit a block's shared memory (one row buffer, refilled after each
+    position's draws) and K is not a multiple of 4 (4-byte row copies):
+    l2r_operands at K = k, 100 particles, the first `docs` documents held
+    to left_to_right_reference as [3 left-to-right] holds them (l2r_
+    agreement). Returns the kernels-JSON entry's `one_buffer`."""
+    dev = torch.device("cuda", 0)
+    w_pad, mask, word_prob, alpha, seed, _n = l2r_operands(torch, corpus, k,
+                                                           dev)
+    w_pad, mask = w_pad[:docs].contiguous(), mask[:docs].contiguous()
+    shape = cuda_left_to_right.launch_shape(k, 100, w_pad.shape[1])
+    label = f"[3 left-to-right] K={k}"
+    check(shape.row_buffers == 1 and k % 4 != 0,
+          f"{label}: not the one-buffer, 4-byte path: {shape}")
+    agree = l2r_agreement(torch, cuda_left_to_right, w_pad, mask, word_prob,
+                          alpha, seed, label)
+    ms = time_ms(torch, lambda: cuda_left_to_right.left_to_right(
+        w_pad, mask, word_prob, alpha, 100, seed), reps=3, calls=2)
+    print(f"{label} {smi}: the first {docs} test documents, one word-row "
+          f"buffer, 4-byte row copies; kernel against "
+          f"left_to_right_reference: draws equal {agree[0]:.6f}, {agree[1]} "
+          f"particles with a proven tie (largest gap {agree[3]:.3g} T), "
+          f"total within {agree[2]:.3g}; {ms:.4f} ms; launch "
+          f"{shape._asdict()}", flush=True)
+    return {"k": k, "docs": docs, "ms": ms, "agree": agree[0],
+            "ties": agree[1], "total_rel": agree[2]}
+
+
+def l2r_list_steps(torch, z, mask, k):
+    """The list entries the kernel's particles walk over a run: the sum
+    over real positions t, particles r and documents d of the distinct
+    topics r drew in d before t. z: the draws, int32 [L, R, D] (-1 where
+    not real); mask [D, L], each document's real positions a prefix."""
+    length, num_r, num_d = z.shape
+    zz = z.permute(1, 2, 0).reshape(num_r * num_d, length).long()
+    t = torch.arange(length, device=z.device)
+    rd = torch.arange(num_r * num_d, device=z.device)[:, None]
+    key = (rd * k + zz) * length + t
+    key = key[zz >= 0].sort().values
+    topic = key // length
+    first = torch.ones_like(topic, dtype=torch.bool)
+    first[1:] = topic[1:] != topic[:-1]
+    t_first = (key % length)[first]
+    d = (topic[first] // k) % num_d
+    seen = mask.long().cumsum(dim=1)
+    return int((seen[d, -1] - seen[d, t_first]).sum())
 
 
 def eager_left_to_right(torch, marginal, w_pad, mask, word_prob, alpha,
@@ -3145,8 +3445,9 @@ def eager_left_to_right(torch, marginal, w_pad, mask, word_prob, alpha,
 def left_to_right_phase(torch, corpus, cuda_left_to_right, smi,
                         k_big=4096):
     """[3 left-to-right]: the estimator kernel (csrc/left_to_right.cu) at
-    the [4 held-out] shapes, K = 100 and 4096. Returns the kernels-JSON
-    entry (K = 100's numbers, K = 4096's under `k4096`)."""
+    the [4 held-out] shapes, K = 100 and 4096, and on a few documents at
+    K = 20,001 (l2r_one_buffer_case). Returns the kernels-JSON entry (K =
+    100's numbers, K = 4096's under `k4096`)."""
     from ldagroupedgibbssampler_tpu_torch.evaluation import marginal
     # the zero-topic repair (ROADMAP C): a case on which the kernel's
     # draw, before its repair, lands on a topic whose product is 0
@@ -3163,6 +3464,8 @@ def left_to_right_phase(torch, corpus, cuda_left_to_right, smi,
     torch.cuda.empty_cache()
     k4096 = l2r_case(torch, corpus, cuda_left_to_right, marginal, k_big, smi)
     torch.cuda.empty_cache()
+    one_buffer = l2r_one_buffer_case(torch, corpus, cuda_left_to_right, smi)
+    torch.cuda.empty_cache()
     return {"name": "left_to_right", "route": "cuda",
             "source": "ldagroupedgibbssampler_tpu_torch/csrc/left_to_right.cu",
             "replaces":
@@ -3170,7 +3473,7 @@ def left_to_right_phase(torch, corpus, cuda_left_to_right, smi,
             **{key: k100[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "eager_ms", "bound_ms",
                 "bound_by", "agree", "ties", "peak_gib", "plain_peak_gib")},
-            "library_ms": None, "k4096": k4096}
+            "library_ms": None, "k4096": k4096, "one_buffer": one_buffer}
 
 
 # [4 fused]: scan_chunk. A fused group is exactly FUSED_CHUNK event-free

@@ -70,14 +70,15 @@ _SIGNATURES = {
     # gamma.cu
     "lda_gamma": [_c_ptr] * 4 + [_c_i64, _c_int, _c_ptr],
     "lda_dirichlet_rows": [_c_ptr, _c_int, _c_ptr, ctypes.c_float, _c_ptr,
-                           _c_ptr, _c_i64, _c_int, _c_int, _c_ptr],
+                           _c_ptr, _c_i64, _c_int, _c_int, _c_int, _c_ptr],
     "lda_dirichlet_cols": [_c_ptr, _c_int, _c_ptr, ctypes.c_float, _c_ptr,
-                           _c_ptr, _c_ptr, _c_i64, _c_int, _c_int, _c_ptr],
+                           _c_ptr, _c_ptr, _c_i64, _c_int, _c_int, _c_int,
+                           _c_int, _c_ptr],
     "lda_dirichlet_long_rows": [_c_ptr, _c_int, _c_ptr, ctypes.c_float,
                                 _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int,
                                 _c_int, _c_ptr],
     # left_to_right.cu
-    "lda_left_to_right": [_c_ptr] * 8 + [_c_int] * 12 + [_c_ptr],
+    "lda_left_to_right": [_c_ptr] * 8 + [_c_int] * 11 + [_c_ptr],
 }
 
 

@@ -8,9 +8,12 @@ Counterpart of the XLA program that the JAX package's
 kernels are `csrc/gamma.cu` (its header gives the arithmetic, what bounds
 it on the H100 and the design): `gamma` draws Gamma(a, 1) elementwise in
 one launch; `dirichlet` draws, floors and normalises over the last axis in
-one launch (two where fewer than LONG_ROWS_BELOW rows of at least
-LONG_CHUNK values are split across blocks), or over axis 0 of a matrix in
-two.
+one launch, a block a tile of whole rows (`row_tile`; two launches where
+fewer than LONG_ROWS_BELOW rows of at least LONG_CHUNK values, or rows
+longer than ROW_MAX, are split across blocks), or over axis 0 of a matrix
+in two, a block a tile of rows and columns (`col_tile`). Every kernel
+draws round 0 for each element of its tile and the later rounds over a
+queue of the rejected ones.
 
 The random words are Philox4x32-10 blocks keyed by `seed`, an int64 [1]
 tensor on the device (drawn by the caller from its torch.Generator, so a
@@ -40,11 +43,16 @@ from ldagroupedgibbssampler_tpu_torch.ops.philox import philox4x32_10
 
 ROUNDS = 6                  # fixed rejection rounds
 BLOCKS_PER_ELEMENT = 8      # Philox counters an element: rounds, boost
-CHUNK_ROWS = 128            # rows a block of the axis-0 Dirichlet sums
+TILE = 1024                 # elements a block of the elementwise Gamma
+ROW_TILE = 1024             # elements of whole rows a block draws (at least
+ROW_MAX = 4096              # one row, of at most ROW_MAX)
 LONG_CHUNK = 2048           # elements a block of a split long row
-# a last-axis Dirichlet with fewer rows (one warp each) splits its rows:
-# fewer warps than this do not fill the card's 132 SMs
+# a last-axis Dirichlet with fewer rows splits its rows across blocks
 LONG_ROWS_BELOW = 4096
+COL_TILE_COLS = 128         # axis 0: columns of a block's tile (all of a
+                            # row up to this, else this: kColTileCols), its
+COL_TILE = (2048, 4096)     # elements, the row count set so that there are
+COL_TILES = 1024            # at most COL_TILES tiles down the rows if it can
 DIRICHLET_FLOOR = 1e-30     # ops/random.py's (kFloor in csrc/gamma.cu)
 _TWO_PI = 2.0 * math.pi
 _MASK32 = 0xFFFFFFFF
@@ -62,6 +70,34 @@ def _words(seed: torch.Tensor, counter: torch.Tensor):
                          (s >> 32) & _MASK32)
 
 
+def mt_round(d, c, seed, counter):
+    """One Marsaglia-Tsang round of the draws with (d, c) from the Philox
+    blocks at `counter` (int64, per element): (accepted, d v)."""
+    w = _words(seed, counter)
+    x = (torch.sqrt(-2.0 * torch.log(_unit23(w[0])))
+         * torch.cos(_TWO_PI * _unit23(w[1])))
+    v1 = 1.0 + c * x
+    v = v1 * v1 * v1
+    ok = (v > 0) & (torch.log(_unit23(w[2])) < 0.5 * x * x + d - d * v
+                    + d * torch.log(torch.where(v > 0, v, 1.0)))
+    return ok, d * v
+
+
+def mt_setup(a):
+    """(d, c) of shapes a (float32)."""
+    d = torch.where(a < 1.0, a + 1.0, a) - (1.0 / 3.0)
+    return d, torch.rsqrt(9.0 * d)
+
+
+def mt_boost(a, g, seed, base):
+    """g times the a < 1 boost exp(log(ub) / a), ub from the Philox block
+    at base + ROUNDS; g where a >= 1."""
+    ub = _unit23(_words(seed, base + ROUNDS)[0])
+    tiny = torch.finfo(torch.float32).tiny
+    return g * torch.where(a < 1.0, torch.exp(torch.log(ub)
+                                             / a.clamp_min(tiny)), 1.0)
+
+
 def gamma_reference(a, seed, return_rounds: bool = False):
     """Plain PyTorch version of the Gamma kernel on a's device: Gamma(a, 1)
     float32 of a's shape from the kernel's Philox words. With
@@ -73,27 +109,15 @@ def gamma_reference(a, seed, return_rounds: bool = False):
     seed = seed.to(dev)
     base = torch.arange(flat.numel(), dtype=torch.int64,
                         device=dev) * BLOCKS_PER_ELEMENT
-    small = flat < 1.0
-    d = torch.where(small, flat + 1.0, flat) - (1.0 / 3.0)
-    c = torch.rsqrt(9.0 * d)
+    d, c = mt_setup(flat)
     out = d.clone()
     rounds = torch.full(flat.shape, ROUNDS, dtype=torch.int32, device=dev)
     for r in range(ROUNDS):
-        w = _words(seed, base + r)
-        x = (torch.sqrt(-2.0 * torch.log(_unit23(w[0])))
-             * torch.cos(_TWO_PI * _unit23(w[1])))
-        v1 = 1.0 + c * x
-        v = v1 * v1 * v1
-        ok = (v > 0) & (torch.log(_unit23(w[2])) < 0.5 * x * x + d - d * v
-                        + d * torch.log(torch.where(v > 0, v, 1.0)))
+        ok, g = mt_round(d, c, seed, base + r)
         new = ok & (rounds == ROUNDS)
-        out = torch.where(new, d * v, out)
+        out = torch.where(new, g, out)
         rounds = torch.where(new, r, rounds)
-    ub = _unit23(_words(seed, base + ROUNDS)[0])
-    tiny = torch.finfo(torch.float32).tiny
-    boost = torch.where(small, torch.exp(torch.log(ub)
-                                         / flat.clamp_min(tiny)), 1.0)
-    out = (out * boost).reshape(a.shape)
+    out = mt_boost(flat, out, seed, base).reshape(a.shape)
     return (out, rounds.reshape(a.shape)) if return_rounds else out
 
 
@@ -109,6 +133,21 @@ def dirichlet_reference(x, seed, dim: int = -1, prior=None) -> torch.Tensor:
     normalised over `dim`."""
     g = gamma_reference(_shapes(x, prior), seed).clamp_min(DIRICHLET_FLOOR)
     return g / g.sum(dim=dim, keepdim=True)
+
+
+def row_tile(num_cols: int) -> int:
+    """Rows a block of the one-launch last-axis Dirichlet draws."""
+    return max(1, ROW_TILE // num_cols)
+
+
+def col_tile(num_rows: int, num_cols: int) -> tuple[int, int]:
+    """(rows, columns) of a block's tile in the axis-0 Dirichlet's first
+    launch: COL_TILE_COLS columns at most, between COL_TILE[0] and
+    COL_TILE[1] elements, enough rows that the column sums of at most
+    COL_TILES tiles meet in the second launch where that fits."""
+    tc = min(num_cols, COL_TILE_COLS)
+    lo, hi = (max(1, n // tc) for n in COL_TILE)
+    return min(max(-(-num_rows // COL_TILES), lo), hi), tc
 
 
 def _check_seed(seed, dev):
@@ -189,7 +228,8 @@ def _dirichlet_kernel(x, seed, dim, prior):
     pv = None if prior_vec is None else prior_vec.data_ptr()
     stream = _build.stream(dev)
     rows = x.numel() // last
-    if dim == nd - 1 and rows < LONG_ROWS_BELOW and last >= LONG_CHUNK:
+    if dim == nd - 1 and (last > ROW_MAX or (rows < LONG_ROWS_BELOW
+                                             and last >= LONG_CHUNK)):
         partial = torch.empty((rows, -(-last // LONG_CHUNK)),
                               dtype=torch.float32, device=dev)
         err = lib.lda_dirichlet_long_rows(
@@ -202,19 +242,17 @@ def _dirichlet_kernel(x, seed, dim, prior):
     if dim == nd - 1:
         err = lib.lda_dirichlet_rows(
             x.data_ptr(), counts, pv, prior_val, seed.data_ptr(),
-            out.data_ptr(), rows, last, dev.index, stream)
+            out.data_ptr(), rows, last, row_tile(last), dev.index, stream)
         _build.check(err, "lda_dirichlet_rows")
         dirichlet.launches += 1
         return out
     rows = x.shape[0]
-    chunks = -(-rows // CHUNK_ROWS)
-    if chunks > 65535:
-        raise ValueError(f"{rows} rows: the axis-0 Dirichlet kernel takes at "
-                         f"most {65535 * CHUNK_ROWS}")
-    partial = torch.empty((chunks, last), dtype=torch.float32, device=dev)
+    tr, tc = col_tile(rows, last)
+    partial = torch.empty((-(-rows // tr), last), dtype=torch.float32,
+                          device=dev)
     err = lib.lda_dirichlet_cols(
         x.data_ptr(), counts, pv, prior_val, seed.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), rows, last, dev.index, stream)
+        partial.data_ptr(), rows, last, tr, tc, dev.index, stream)
     _build.check(err, "lda_dirichlet_cols")
     dirichlet.launches += 2
     return out

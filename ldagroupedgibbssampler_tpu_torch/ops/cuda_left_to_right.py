@@ -6,8 +6,10 @@ Counterpart of the XLA program of the JAX package's
 left_to_right_from_word_prob` (one `lax.scan` over token positions). The
 kernel is `csrc/left_to_right.cu` (its header gives the arithmetic, the
 draw, what bounds it on the H100 and the design): the position loop runs
-inside it, each particle's topic counts in shared memory; a second launch
-sums the particles' probabilities into the total.
+inside it, the dense prefix of alpha_k wp[w, k] computed once a position
+for all particles, each particle's nonzero counts a sorted list in shared
+memory searched in topic order; a second launch sums the particles'
+probabilities into the total.
 
 The draw is an inverse CDF from one 24-bit Philox uniform per (position t,
 particle r, document d), keyed by `seed` (an int64 [1] tensor on the
@@ -34,43 +36,57 @@ _MASK32 = 0xFFFFFFFF
 # the counter's fields: d * 2^40 + t * 2^20 + r
 MAX_DOCS, MAX_POSITIONS, MAX_PARTICLES = 1 << 23, 1 << 20, 1 << 20
 # dynamic shared memory a block of the kernel may take (two blocks an SM)
-SHARED_BUDGET = 96 * 1024
+SHARED_BUDGET = 112 * 1024
 SHARED_LIMIT = 232_448
-MAX_WARPS = 16
+MIN_WARPS, MAX_WARPS = 4, 16
+STEP = 4                    # list entries a run (kStep)
+TOPICS_A_WARP = 512         # the dense prefix: at most 16 chunks a warp
+_TOTALS = 2 * 32            # the kernel's warp totals and warp sums
 
 
 class LaunchShape(NamedTuple):
     groups: int        # G: blocks a document
     particles: int     # Rb: particles a block
     warps: int         # W: warps a block
-    topics: int        # S: topics a lane
-    stride: int        # P: a lane's stride in shared memory (S | 1)
+    row_buffers: int   # word-row buffers: 2 (the next row prefetched), 1
+    capacity: int      # list entries a particle: min(K, L)
     shared_bytes: int  # dynamic shared memory a block
-    wide_counts: bool  # 32-bit counts (else 16-bit)
+    wide_entries: bool  # (topic, count) in 32 + 32 bits (else 16 + 16)
 
 
 def launch_shape(num_topics: int, num_particles: int,
                  length: int) -> LaunchShape:
     """The kernel's launch for K topics, R particles and documents padded
-    to `length` positions: as many particles a block as fit SHARED_BUDGET
-    beside the staged alpha and word row, spread evenly over the groups."""
-    s = -(-num_topics // 32)
-    p = s | 1
-    wide = length >= 1 << 16
-    row = 32 * p
-    per_particle = row * (4 if wide else 2)
-    fixed = 2 * 4 * row
-    fit = (SHARED_BUDGET - fixed - 4 * num_particles) // per_particle
-    if fit < 1:       # one particle a block, up to the card's limit
-        fit = 1
-    groups = -(-num_particles // fit)
-    rb = -(-num_particles // groups)
-    groups = -(-num_particles // rb)
-    smem = fixed + 4 * ((rb + 3) // 4 * 4) + rb * per_particle
-    if smem > SHARED_LIMIT:
-        raise ValueError(f"K={num_topics}: one particle's counts need "
-                         f"{smem} B of shared memory, above {SHARED_LIMIT}")
-    return LaunchShape(groups, rb, min(rb, MAX_WARPS), s, p, smem, wide)
+    to `length` positions: two word-row buffers and the dense prefix (K
+    floats each) beside each particle's list of min(K, length) (topic,
+    count) entries, the list's running sum after every STEP-th entry and
+    its length; one word-row buffer where two and one particle's list do
+    not fit the card's shared memory; as many particles a block as fit
+    SHARED_BUDGET, spread evenly over the groups; a thread a particle, at
+    least MIN_WARPS warps and one a TOPICS_A_WARP topics, up to
+    MAX_WARPS."""
+    kp = -(-num_topics // 4) * 4
+    wide = num_topics > 1 << 16 or length >= 1 << 16
+    entry = 8 if wide else 4
+    cap = max(1, min(num_topics, length))
+    per_particle = cap * entry + 4 * (cap // STEP) + 4
+    for bufs in (2, 1):
+        fixed = 4 * ((bufs + 1) * kp + _TOTALS)
+        fit = max(1, (SHARED_BUDGET - fixed) // per_particle)
+        groups = -(-num_particles // fit)
+        rb = -(-num_particles // groups)
+        groups = -(-num_particles // rb)
+        smem = (fixed + 4 * (-(-rb // 4) * 4)
+                + rb * (cap * entry + 4 * (cap // STEP)))
+        if smem <= SHARED_LIMIT:
+            break
+    else:
+        raise ValueError(f"K={num_topics}: a word row and one particle's "
+                         f"list need {smem} B of shared memory, above "
+                         f"{SHARED_LIMIT}")
+    warps = min(MAX_WARPS, max(MIN_WARPS, -(-rb // 32),
+                               -(-num_topics // TOPICS_A_WARP)))
+    return LaunchShape(groups, rb, warps, bufs, cap, smem, wide)
 
 
 def _u24(seed: torch.Tensor, t: int, num_particles: int,
@@ -87,9 +103,10 @@ def _u24(seed: torch.Tensor, t: int, num_particles: int,
 
 def _off_zero(z, counts, alpha, wrow):
     """The kernel's repair of a draw whose s_z = (c_z + alpha_z) wp[w, z]
-    is 0 (where u T rounds up to T, or, in the kernel, where two
-    associations of a prefix sum meet u T): z moves to the last topic at or
-    below it with s > 0. z [R, D], counts [R, D, K], wrow [D, K]."""
+    is 0 (where u T rounds up to T, or, in the kernel, where the dense
+    prefix's rounding puts u T between two equal cdf values): z moves to
+    the last topic at or below it with s > 0. z [R, D], counts [R, D, K],
+    wrow [D, K]."""
     d = torch.arange(z.shape[1], device=z.device)[None, :].expand_as(z)
     sz = (counts.gather(-1, z[..., None])[..., 0] + alpha[z]) * wrow[d, z]
     zero = sz == 0
@@ -205,9 +222,8 @@ def _left_to_right_kernel(w_pad, mask_pad, word_prob, alpha, num_particles,
         alpha.data_ptr(), seed.data_ptr(), psum.data_ptr(),
         None if z_out is None else z_out.data_ptr(), total.data_ptr(),
         num_docs, length, num_topics, num_particles, shape.groups,
-        shape.particles, shape.warps, shape.topics, shape.stride,
-        shape.shared_bytes, int(shape.wide_counts), dev.index,
-        _build.stream(dev))
+        shape.particles, shape.warps, shape.row_buffers, shape.shared_bytes,
+        int(shape.wide_entries), dev.index, _build.stream(dev))
     _build.check(err, "lda_left_to_right")
     left_to_right.launches += 2
     return total[0]

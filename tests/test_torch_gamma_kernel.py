@@ -5,7 +5,9 @@ check, keep the exact 0 at a = 0 and the Dirichlet floor, normalise on
 both axes, agree in distribution with the generator path of the CPU and
 in moments with the JAX package's `_gamma_marsaglia`; the CPU draws of
 ops/random.py are unchanged; the wrappers take the kernel for a tensor off
-the CPU and raise when its build or launch fails."""
+the CPU and raise when its build or launch fails; the kernels' tiles and
+their compacted retries (round 0 for every element, the later rounds over
+a queue of rejects) give every element the plain version's draw."""
 
 import jax
 import numpy as np
@@ -228,3 +230,118 @@ def test_wrappers_raise_when_the_build_or_the_launch_fails(monkeypatch,
             cuda_gamma.dirichlet.launches) == before
     with pytest.raises(ValueError, match="last axis or axis 0"):
         cuda_gamma.dirichlet(torch.empty((2, 3, 4), device="meta"), seed, 1)
+
+
+def _compacted_gamma(a, seed, tile):
+    """The kernels' control flow over the plain version's rounds: each
+    tile of `tile` elements runs round 0 on every element; the rejected
+    ones go to a queue (in index order) and run rounds 1..5, one element
+    a thread, until one accepts (the mode d where none does); then the
+    boost. Each round's words and values are computed once for every
+    element, as gamma_reference computes them."""
+    flat = torch.as_tensor(a).to(torch.float32).reshape(-1)
+    n = flat.numel()
+    base = torch.arange(n, dtype=torch.int64) * cuda_gamma.BLOCKS_PER_ELEMENT
+    d, c = cuda_gamma.mt_setup(flat)
+    table = [cuda_gamma.mt_round(d, c, seed, base + r)
+             for r in range(cuda_gamma.ROUNDS)]
+    out = torch.empty(n)
+    rounds = torch.full((n,), cuda_gamma.ROUNDS, dtype=torch.int32)
+    for t0 in range(0, n, tile):
+        idx = torch.arange(t0, min(t0 + tile, n))
+        ok, g = table[0][0][idx], table[0][1][idx]
+        out[idx[ok]] = g[ok]
+        rounds[idx[ok]] = 0
+        for i in idx[~ok].tolist():
+            out[i] = d[i]
+            for r in range(1, cuda_gamma.ROUNDS):
+                if table[r][0][i]:
+                    out[i], rounds[i] = table[r][1][i], r
+                    break
+    return cuda_gamma.mt_boost(flat, out, seed, base), rounds
+
+
+@pytest.mark.parametrize("tile", [cuda_gamma.TILE, 300, 32])
+def test_compacted_retries_return_the_plain_versions_draws(tile):
+    """Round 0 for every element of a tile, the later rounds over its
+    queue of rejects: every element gets gamma_reference's value and
+    accepted round, at the grid of the card's check and at counts plus
+    0.5 (the theta shapes), whatever the tile."""
+    rng = np.random.default_rng(tile)
+    a = torch.cat([torch.full((3000,), x) for x in
+                   (0.0, 1e-3, 0.01, 0.1, 0.5, 1.0, 2.5, 100.0, 1e4)]
+                  + [torch.as_tensor(rng.poisson(0.4, 6000)
+                                     .astype(np.float32)) + 0.5])
+    seed = _seed(0x5EED_1234_ABCD)
+    want, want_rounds = cuda_gamma.gamma_reference(a, seed,
+                                                   return_rounds=True)
+    got, got_rounds = _compacted_gamma(a, seed, tile)
+    assert torch.equal(got_rounds, want_rounds)
+    assert torch.equal(got, want)
+    assert (want_rounds > 0).any() and (want_rounds > 1).any()
+
+
+def test_warp_rounds_before_and_after_compaction():
+    """chip_smoke.gamma_warp_rounds: with one reject in every warp of 32,
+    each warp runs two rounds without compaction, while the compacted
+    queue gathers the rejects into one warp a tile (1 + 32 / 1024 lane-
+    rounds an element at a tile of 1024); with no rejects all three are
+    1; an element that rejects every round needs 6."""
+    import chip_smoke
+    rounds = torch.zeros(4096, dtype=torch.int32)
+    assert chip_smoke.gamma_warp_rounds(torch, rounds, 1024) == [1.0, 1.0,
+                                                                 1.0]
+    rounds[::32] = 1
+    need, before, after = chip_smoke.gamma_warp_rounds(torch, rounds, 1024)
+    assert need == pytest.approx(1 + 1 / 32)
+    assert before == pytest.approx(2.0)
+    assert after == pytest.approx(1 + 32 / 1024)
+    # element 5 rejects every round: its queue warp of the first tile runs
+    # 5 more rounds, and that tile's 33rd reject takes a second warp
+    rounds[5] = cuda_gamma.ROUNDS
+    need, before, after = chip_smoke.gamma_warp_rounds(torch, rounds, 1024)
+    assert before == pytest.approx(2.0 + 4 * 32 / 4096)
+    assert after == pytest.approx(1 + (32 * (5 + 1) + 3 * 32) / 4096)
+
+
+@pytest.mark.parametrize("rows,cols", [(20_000, 100), (20_000, 4096),
+                                       (50, 7), (10 ** 7, 100)])
+def test_tiles_hold_whole_rows_and_bounded_column_tiles(rows, cols):
+    """The one-launch last-axis Dirichlet's tile holds whole rows within
+    ROW_TILE elements (one row where a row is longer); the axis-0 tile is
+    COL_TILE_COLS columns at most, holds at least COL_TILE[0] and at most
+    COL_TILE[1] elements, and gives at most COL_TILES tiles down the rows
+    where that fits."""
+    tr = cuda_gamma.row_tile(cols)
+    assert tr * cols <= max(cuda_gamma.ROW_TILE, cols)
+    assert (tr + 1) * cols > cuda_gamma.ROW_TILE
+    r, c = cuda_gamma.col_tile(rows, cols)
+    assert c == min(cols, cuda_gamma.COL_TILE_COLS)
+    assert cuda_gamma.COL_TILE[0] // c <= r <= cuda_gamma.COL_TILE[1] // c
+    if r < cuda_gamma.COL_TILE[1] // c:
+        assert -(-rows // r) <= cuda_gamma.COL_TILES
+
+
+@pytest.mark.parametrize("rows,cols", [(1000, 4096), (37, 300), (50, 129),
+                                       (20_000, 100), (64, 128)])
+def test_column_tiles_cover_every_element_once(rows, cols):
+    """The axis-0 Dirichlet's first launch as csrc/gamma.cu indexes it:
+    block (row tile, column tile) takes slots e < rows of the tile x tc,
+    slot e at row r0 + e // tc and column c0 + e % tc, with tc = C (whole
+    rows) or COL_TILE_COLS (the last column tile's slots past C left
+    empty). Every element of [R, C] is drawn by exactly one slot, and the
+    prior's column is the element's column."""
+    tr, tc = cuda_gamma.col_tile(rows, cols)
+    assert tc in (cols, cuda_gamma.COL_TILE_COLS)
+    flat, col = [], []
+    for r0 in range(0, rows, tr):
+        nrows = min(tr, rows - r0)
+        for c0 in range(0, cols, tc):
+            e = np.arange(nrows * tc)
+            k = c0 + e % tc
+            keep = k < min(c0 + tc, cols)
+            flat.append(((r0 + e // tc) * cols + k)[keep])
+            col.append(k[keep])
+    flat, col = np.concatenate(flat), np.concatenate(col)
+    assert np.array_equal(np.sort(flat), np.arange(rows * cols))
+    assert np.array_equal(col, flat % cols)

@@ -4,8 +4,11 @@ inverse-CDF draws from Philox words): the closed form on length-one
 documents, its estimate within the spread of five seeds of the JAX
 package's `left_to_right_from_counts` on a synthetic split, the true phi
 ahead of a uniform one, the draws' counter independent of the other
-documents, the launch shape, and the wiring: off the CPU without injected
-noise the estimator takes the kernel and never falls back. (The estimator
+documents, the launch shape, the kernel's draw (the dense prefix and the
+sparse walk of each particle's sorted list, emulated in Python) against
+the plain version's dense inverse CDF, and the wiring: off the CPU
+without injected noise the estimator takes the kernel and never falls
+back. (The estimator
 given the JAX function's own Gumbel draws stays
 tests/test_torch_heldout.py::test_estimator_equals_jax_given_its_gumbel_draws.)"""
 
@@ -14,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from ldagroupedgibbssampler_tpu.evaluation import marginal as jax_marginal
 from ldagroupedgibbssampler_tpu_torch.corpus.perplexity import (
@@ -132,17 +137,45 @@ def test_draws_do_not_depend_on_the_other_documents():
 
 
 def test_launch_shape_fits_shared_memory():
-    """K=100: one block a document of 100 particles; K=4096: groups of
-    particles whose 16-bit counts fit the budget; a padded length of 2^16
-    or more takes 32-bit counts."""
-    s = cuda_left_to_right.launch_shape(100, 100, 88)
-    assert (s.groups, s.particles, s.topics, s.stride,
-            s.wide_counts) == (1, 100, 4, 5, False)
+    """K=100 and K=4096 at the split's 88 padded positions: one block a
+    document of 100 particles, a thread each, each list min(K, L) entries
+    of 16 + 16 bits, within the budget of two blocks an SM; more topics
+    than four warps' dense prefix takes get more warps (8 at K=4096); a
+    few particles get at least 4 warps; lists that do not fit split
+    the particles into groups; a padded length of 2^16 or more takes
+    32 + 32-bit entries; a K whose two word rows and one list exceed the
+    card's shared memory takes one word-row buffer, up to K = 28,964 at 88
+    positions; a K whose one row and one list exceed it raises."""
+    small = cuda_left_to_right.launch_shape(100, 100, 88)
+    assert (small.groups, small.particles, small.warps, small.row_buffers,
+            small.capacity, small.wide_entries) == (1, 100, 4, 2, 88, False)
     big = cuda_left_to_right.launch_shape(4096, 100, 88)
-    assert big.groups > 1 and big.particles * big.groups >= 100
-    assert big.particles * (big.groups - 1) < 100
-    assert big.shared_bytes <= cuda_left_to_right.SHARED_BUDGET
-    assert cuda_left_to_right.launch_shape(100, 100, 1 << 16).wide_counts
+    assert (big.groups, big.particles, big.warps, big.row_buffers,
+            big.capacity, big.wide_entries) == (1, 100, 8, 2, 88, False)
+    for s in (small, big):
+        assert s.shared_bytes <= cuda_left_to_right.SHARED_BUDGET
+    assert cuda_left_to_right.launch_shape(100, 1, 1).warps == 4
+    long = cuda_left_to_right.launch_shape(4096, 100, 1000)
+    assert long.groups > 1 and long.particles * long.groups >= 100
+    assert long.particles * (long.groups - 1) < 100
+    assert long.shared_bytes <= cuda_left_to_right.SHARED_BUDGET
+    assert cuda_left_to_right.launch_shape(100, 100, 1 << 16).wide_entries
+    assert cuda_left_to_right.launch_shape(19_308, 100, 88).row_buffers == 2
+    for k in (19_312, 20_001, 23_200, 28_964):
+        one = cuda_left_to_right.launch_shape(k, 100, 88)
+        assert one.row_buffers == 1 and one.particles == 1
+        assert one.shared_bytes <= cuda_left_to_right.SHARED_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_left_to_right.launch_shape(28_968, 100, 88)
+
+
+@pytest.mark.parametrize("k,length", [(100, 88), (4096, 88), (7, 88),
+                                      (100, 3), (1, 1)])
+def test_list_capacity_is_the_fewer_of_topics_and_positions(k, length):
+    """A particle lists at most one entry a topic and one a real position,
+    so its capacity is min(K, L) entries."""
+    assert cuda_left_to_right.launch_shape(k, 100, length).capacity == min(
+        k, length)
 
 
 def test_estimator_off_the_cpu_takes_the_kernel(monkeypatch):
@@ -201,17 +234,170 @@ def test_kernel_path_raises_when_the_build_or_the_launch_fails(monkeypatch,
 
 
 def test_the_unrepaired_kernel_walk_draws_a_zero_topic():
-    """The seeded case of chip_smoke.py: in the kernel's association (a
-    lane's in-order sums, a Hillis-Steele scan across lanes) the draw,
-    without its repair, lands on a topic whose product is 0, while the
-    plain version, given the same Philox word, draws a topic with a
-    positive product."""
+    """The seeded case of chip_smoke.py: in the kernel's association (the
+    dense prefix's shuffle scans, the binary search) the draw, without its
+    repair, lands on a topic whose product is 0, while the plain version,
+    given the same Philox word, draws a topic with a positive product."""
     import chip_smoke
     case = chip_smoke.l2r_zero_run_case()
-    z = chip_smoke.l2r_kernel_draw(case["alpha"], case["u24"])
+    warps = cuda_left_to_right.launch_shape(len(case["alpha"]), 1, 1).warps
+    z = chip_smoke.l2r_kernel_draw(case["alpha"], case["u24"], warps)[0]
     assert z == case["unrepaired"] and case["alpha"][z] == 0
     zk, zr = chip_smoke.l2r_zero_run_draw(torch, case, device="cpu")
     assert zk == zr and case["alpha"][zr] > 0
+
+
+def _dense_draw(alpha, wrow, counts, u24):
+    """left_to_right_reference's draw of one particle: the inverse CDF of
+    torch.cumsum((c + alpha) wp[w]) at u T, then the zero-product repair."""
+    s = (counts + alpha) * wrow
+    cdf = torch.cumsum(s, 0)
+    u = torch.tensor(u24, dtype=torch.float32) * 2.0 ** -24 * cdf[-1]
+    z = (cdf <= u).sum().clamp(max=len(s) - 1)
+    z = cuda_left_to_right._off_zero(z.reshape(1, 1), counts[None, None],
+                                     alpha, wrow[None])
+    return int(z)
+
+
+def _is_tie(alpha, wrow, counts, u24, za, zb):
+    """Every exact (float64) cdf value from min(za, zb) up to the other
+    draw minus one lies within L2R_TIE sqrt(K) 2^-24 T of u T."""
+    import chip_smoke
+    s = (counts.double() + alpha.double()) * wrow.double()
+    cdf = torch.cumsum(s, 0)
+    total = float(cdf[-1])
+    target = u24 * 2.0 ** -24 * total
+    lo, hi = min(za, zb), max(za, zb)
+    gap = float((cdf[lo:hi] - target).abs().max())
+    return gap <= chip_smoke.L2R_TIE * np.sqrt(len(s)) * 2.0 ** -24 * total
+
+
+def _kernel_draw(alpha, wrow, counts, u24, warps):
+    """The kernel's draw (chip_smoke.l2r_kernel_draw) with its repair."""
+    import chip_smoke
+    a = (alpha * wrow).numpy()
+    entries = [(int(k), int(counts[k])) for k in torch.nonzero(counts)[:, 0]]
+    z = chip_smoke.l2r_kernel_draw(a, u24, warps, entries, wrow.numpy())[0]
+    z = cuda_left_to_right._off_zero(torch.tensor([[z]]), counts[None, None],
+                                     alpha, wrow[None])
+    return int(z)
+
+
+def _walk_case(seed, k, nonzero, zeros):
+    """A particle's operands from a seed: alpha and the word row of mixed
+    magnitudes with a share `zeros` of zero alphas and zero word
+    probabilities, `nonzero` topics with counts, one Philox-size u."""
+    rng = np.random.default_rng(seed)
+    alpha = (rng.random(k) * rng.choice([1.0, 1e-3, 1e2], k)).astype(
+        np.float32)
+    alpha[rng.random(k) < zeros] = 0
+    wrow = (rng.random(k) * rng.choice([1.0, 1e-4], k)).astype(np.float32)
+    wrow[rng.random(k) < zeros / 2] = 0
+    counts = np.zeros(k, np.float32)
+    picked = rng.choice(k, min(nonzero, k), replace=False)
+    counts[picked] = rng.integers(1, 30, len(picked))
+    return (torch.as_tensor(alpha), torch.as_tensor(wrow),
+            torch.as_tensor(counts), int(rng.integers(0, 1 << 24)))
+
+
+def _walks_agree(seed, k, nonzero, zeros, warps):
+    alpha, wrow, counts, u24 = _walk_case(seed, k, nonzero, zeros)
+    zd = _dense_draw(alpha, wrow, counts, u24)
+    zk = _kernel_draw(alpha, wrow, counts, u24, warps)
+    return zd == zk or _is_tie(alpha, wrow, counts, u24, zd, zk)
+
+
+@pytest.mark.parametrize("k,warps", [(100, 4), (4096, 8), (37, 4),
+                                     (300, 4)])
+def test_sparse_walk_draws_the_dense_inverse_cdf(k, warps):
+    """The kernel's draw (the dense prefix A of alpha_k wp[w, k], then the
+    walk of the particle's sorted (topic, count) list with a binary search
+    of A in the segment where A_k + C passes u T) draws the z of the
+    plain version's dense inverse CDF on 300 seeded particles, but where
+    the two differ by a proven tie (L2R_TIE)."""
+    for seed in range(300):
+        nonzero = seed % 60
+        assert _walks_agree(seed, k, nonzero, 0.3 if seed % 3 == 0 else 0.0,
+                            warps), seed
+
+
+@settings(max_examples=150, deadline=None, database=None,
+          derandomize=True)
+@given(seed=st.integers(0, 2 ** 32 - 1), k=st.integers(1, 700),
+       nonzero=st.integers(0, 90), zeros=st.sampled_from([0.0, 0.2, 0.9]),
+       warps=st.sampled_from([4, 8, 16]))
+def test_sparse_walk_draws_the_dense_inverse_cdf_hypothesis(seed, k, nonzero,
+                                                            zeros, warps):
+    """As above over K, list lengths, zero shares and warps drawn by
+    hypothesis (the values themselves from the seed)."""
+    assert _walks_agree(seed, k, nonzero, zeros, warps)
+
+
+def _emulate_kernel(w_pad, mask, word_prob, alpha, num_particles, seed):
+    """The whole kernel in Python: every (document, particle) keeps its
+    sorted (topic, count) list, each real position draws by
+    chip_smoke.l2r_kernel_draw from the kernel's Philox word and repairs a
+    zero-product draw; returns the draws as int32 [L, R, D] (-1 where not
+    real)."""
+    import chip_smoke
+    num_docs, length = w_pad.shape
+    k = word_prob.shape[0]
+    warps = cuda_left_to_right.launch_shape(k, num_particles, length).warps
+    wp_t = word_prob.T.contiguous()
+    z_all = torch.full((length, num_particles, num_docs), -1,
+                       dtype=torch.int32)
+    lists = [[{} for _ in range(num_particles)] for _ in range(num_docs)]
+    for t in range(length):
+        u24 = cuda_left_to_right._u24(seed, t, num_particles, num_docs)
+        for d in range(num_docs):
+            if not mask[d, t]:
+                continue
+            wrow = wp_t[int(w_pad[d, t])]
+            a = (alpha * wrow).numpy()
+            for r in range(num_particles):
+                lst = lists[d][r]
+                entries = sorted(lst.items())
+                z = chip_smoke.l2r_kernel_draw(a, int(u24[r, d]), warps,
+                                               entries, wrow.numpy())[0]
+                counts = torch.zeros(k)
+                for topic, c in entries:
+                    counts[topic] = c
+                z = int(cuda_left_to_right._off_zero(
+                    torch.tensor([[z]]), counts[None, None], alpha,
+                    wrow[None]))
+                lst[z] = lst.get(z, 0) + 1
+                z_all[t, r, d] = z
+    return z_all
+
+
+@pytest.mark.parametrize("k", [7, 200])
+def test_kernel_emulation_draws_the_plain_versions_z(k):
+    """The emulated kernel (lists, insertions, the walk, the repair) on the
+    planted corpus's first documents, with a tenth of the topics inactive
+    (alpha 0): every particle's draws equal left_to_right_reference's up to
+    its first difference, and that difference is a proven tie."""
+    import chip_smoke
+    corpus = _planted(num_docs=5, doc_len=24)
+    w_pad, mask_pad = corpus.to_padded()
+    w_pad, mask_pad = torch.as_tensor(w_pad), torch.as_tensor(mask_pad)
+    mask_pad[2, 15:] = False
+    rng = np.random.default_rng(k)
+    word_prob = torch.as_tensor(rng.dirichlet(np.full(30, 0.3), k)
+                                .astype(np.float32))
+    alpha = torch.as_tensor(np.where(np.arange(k) % 10 == 3, 0.0,
+                                     rng.random(k) + 0.05).astype(np.float32))
+    seed = _seed(77 + k)
+    zk = _emulate_kernel(w_pad, mask_pad, word_prob, alpha, 6, seed)
+    _t, zr = ref(w_pad, mask_pad, word_prob, alpha, 6, seed, return_z=True)
+    differ = zk != zr
+    assert (zk[~mask_pad.T[:, None, :].expand_as(zk)] == -1).all()
+    assert float(differ.float().mean()) < 0.05
+    for r, d in differ.any(dim=0).nonzero().tolist():
+        t = int(differ[:, r, d].nonzero()[0, 0])
+        ok, gap = chip_smoke.l2r_tie_proof(
+            torch, word_prob.T.contiguous(), alpha, w_pad, mask_pad, zr,
+            seed, t, r, d, int(zk[t, r, d]), int(zr[t, r, d]))
+        assert ok, (r, d, t, gap)
 
 
 def test_a_draw_on_a_zero_product_moves_to_the_last_positive_below():

@@ -4,14 +4,16 @@ card, in turns.
 
 Run from the repository root on a machine with one card and nvcc:
 
-    python3 tools/time_kernel_builds.py --kernel pcgs|lightlda|zdraw|counts \
+    python3 tools/time_kernel_builds.py \
+        --kernel pcgs|lightlda|zdraw|counts|gamma|left_to_right \
         NAME=PATH [NAME=PATH ...] [--root DIR] [--cases CASE,...] \
         [--rounds 2] [--json out.json]
 
 Each PATH is either
   - a source of the kernel (`csrc/pcgs.cu`, `csrc/lightlda.cu`,
-    `csrc/zdraw.cu`, `csrc/label_counts.cu`, or a copy of one beside the
-    `philox.cuh` it includes), timed under the wrappers of the checkout
+    `csrc/zdraw.cu`, `csrc/label_counts.cu`, `csrc/gamma.cu`,
+    `csrc/left_to_right.cu`, or a copy of one beside the `philox.cuh` it
+    includes), timed under the wrappers of the checkout
     `--root` (default: this one), so it must keep that checkout's C
     interface; or
   - a directory holding a checkout of the repository (the parent commit
@@ -35,7 +37,14 @@ and
   - zdraw: `[3 zdraw]` at K=100 in bf16 and in precise mode;
   - counts: `[3 counts]`, layouts A and B at K=100 with uniform and
     concentrated z and layout A at K=4096 (`chip_smoke.py::count_cases` of
-    this checkout, whichever checkout the wrappers come from).
+    this checkout, whichever checkout the wrappers come from);
+  - gamma: `[3 gamma]`'s Dirichlet draws of the `ggs` iteration at K=100
+    and K=4096, theta [D, K] over the last axis and phi [V, K] over axis
+    0, and the PCGS family's long rows at K=100, phi [K, V] over the last
+    axis;
+  - left_to_right: `[3 left-to-right]`, the 10% split at K=100 and
+    K=4096, 100 particles (`chip_smoke.py::l2r_operands` of this
+    checkout).
 The workers start together, so builds and set-up run in parallel; then
 each case is timed with `chip_smoke.time_ms`, one worker at a time, the
 names first to last and back, `--rounds` times, so each has as many early
@@ -64,7 +73,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCES = {"pcgs": "pcgs.cu", "lightlda": "lightlda.cu",
-                  "zdraw": "zdraw.cu", "counts": "label_counts.cu"}
+                  "zdraw": "zdraw.cu", "counts": "label_counts.cu",
+                  "gamma": "gamma.cu", "left_to_right": "left_to_right.cu"}
 TAG = "@@ "                       # prefix of the worker's protocol lines
 
 
@@ -194,12 +204,8 @@ def zdraw_cases(torch, cs, corpus, LDAConfig, create_model):
 def counts_cases(torch, cs, corpus, LDAConfig, create_model):
     """[3 counts]'s timed calls, with the operands of this checkout's
     `chip_smoke.py::count_cases` on the default cell blocks."""
-    import importlib.util
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_counts
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_cases", os.path.join(ROOT, "chip_smoke.py"))
-    own = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(own)
+    own = _own_chip_smoke()
     cfg = LDAConfig(device="cuda")
     blocks = corpus.cell_blocks(block=cfg.token_block, vspan=cfg.vocab_span,
                                 dspan=cfg.doc_span)
@@ -208,8 +214,59 @@ def counts_cases(torch, cs, corpus, LDAConfig, create_model):
         torch, blocks, torch.device("cuda", 0)).items()}
 
 
+def _own_chip_smoke():
+    """This checkout's chip_smoke.py, whichever checkout the wrappers come
+    from (the functions that make the cases' operands)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_cases", os.path.join(ROOT, "chip_smoke.py"))
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    return own
+
+
+def gamma_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 gamma]'s timed Dirichlet draws, n_dk and N_kw a recount of a
+    random z: theta [D, K] from n_dk + 0.5 over the last axis and phi [V,
+    K] from N_kw + 0.01 over axis 0 at K=100 and K=4096, and the long
+    rows, N_kw [K, V] + 0.01 over the last axis, at K=100."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma
+    dev = torch.device("cuda", 0)
+    own = _own_chip_smoke()
+    seed = torch.tensor([0x5EED_1234_ABCD], dtype=torch.int64, device=dev)
+    fn = cuda_gamma.dirichlet
+    cases = {}
+    for k, z_seed in ((own.K, 3), (4096, 4)):
+        z = np.random.default_rng(z_seed).integers(0, k, corpus.num_tokens)
+        nkw_ref, ndk_ref = own.recount(corpus, z, k)
+        ndk = torch.as_tensor(ndk_ref.astype(np.int32), device=dev)
+        nkw = torch.as_tensor(nkw_ref.astype(np.int32), device=dev)
+        alpha = torch.full((k,), 0.5, device=dev)
+        cases[f"theta K={k}"] = (fn, (ndk, seed, -1, alpha), {})
+        cases[f"phi K={k}"] = (fn, (nkw, seed, 0, 0.01), {})
+        if k == own.K:
+            cases[f"long rows K={k}"] = (fn, (nkw.T.contiguous(), seed, -1,
+                                              0.01), {})
+    return cases
+
+
+def left_to_right_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 left-to-right]'s timed calls at K=100 and K=4096."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_left_to_right
+    dev = torch.device("cuda", 0)
+    own = _own_chip_smoke()
+    cases = {}
+    for k in (own.K, 4096):
+        w_pad, mask, word_prob, alpha, seed, _n = own.l2r_operands(
+            torch, corpus, k, dev)
+        cases[f"K={k}"] = (cuda_left_to_right.left_to_right,
+                           (w_pad, mask, word_prob, alpha, 100, seed), {})
+    return cases
+
+
 CASES = {"pcgs": pcgs_cases, "lightlda": lightlda_cases,
-         "zdraw": zdraw_cases, "counts": counts_cases}
+         "zdraw": zdraw_cases, "counts": counts_cases, "gamma": gamma_cases,
+         "left_to_right": left_to_right_cases}
 
 
 def worker(kernel: str, root: str, source: str, out_dir: str) -> int:
