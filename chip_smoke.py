@@ -131,6 +131,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
      documents; every other fusable scheme for 10 iterations; the serial
      oracle's groups run single-stepped; and one single-stepped iteration
      of every fusable scheme under set_sync_debug_mode("error");
+     `[4 sample_chunked]`, the GGS family's multi-iteration path (one
+     CUDA graph of 10 full sweeps captured once per model and chunk, kept
+     across calls): sample_chunked(30, chunk=10) of ggs and ggs_aliasmh at
+     K=100 and sample_chunked(10) of ggs at K=4096 bit-equal to a twin's
+     sample() with scan_chunk 10 (z, n_dk, N_kw, n_k, phi, theta, the
+     iteration), launches equal and counted from 0, counts exact; 25
+     iterations in chunks of 10 advance 30; a sample() between two chunks
+     honoured; three sample_chunked calls and five calls of one
+     _multi_step_fn(10) callable capture once (its warm-up step and
+     capture + instantiation in host seconds), the replay's ms/iteration
+     by CUDA events and host wall, bench.py's tokens/s formula over
+     _multi_step_fn(10) and (30) as a preview, a new beta recaptured; the
+     getters; a pre_z hook unfused and called once an iteration; and
+     log_dirichlet at theta's [D, K] and phi's [K, V] against the
+     Dirichlet kernel's draw from the same generator state (1e-5);
   5. the experiment CLI (tui.parallel_lda.main) on a small text corpus on
      cuda, with a ggs, a pcgs, a lightpclda, an adlda, a ggs_aliasmh, a
      spalias_priors (with its prior file) and a ppu_hdplda section; then
@@ -192,7 +207,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      tokens, above the 1M switch) and with NumPy, bit-equal, and prints
      both seconds.
 Then one JSON line describing every kernel (gamma and left_to_right
-among them; the counts, z-draw and PCGS
+among them; the counts, z-draw and gamma entries with the launches of
+`[4 sample_chunked]`'s ggs K=100 run as `launches_chunked`, the gamma
+entry its capture and replay numbers as `chunked`; the counts, z-draw and PCGS
 entries with their launches in phase 6 as `launches_apps`, every entry
 with its launches in phase 7 as `launches_parallel`; the counts, z-draw
 and streamed PCGS entries with phase 8's launches by scheme as
@@ -3752,6 +3769,241 @@ def fused_phase(torch, corpus, Corpus, LDAConfig, create_model, counters,
 
 
 
+# [4 sample_chunked]: the GGS family's multi-iteration path, one kept
+# CUDA graph of CHUNK full sweeps a (model, chunk), replayed by every call
+CHUNK = 10
+CHUNKED_PAIRS = (("ggs", K, ITERS), ("ggs_aliasmh", K, ITERS),
+                 ("ggs", 4096, 10))
+BENCH_REPEATS = 5
+
+
+def chunked_config(LDAConfig, scheme, k, **kw):
+    """The main path's config without a logging event (topic_interval
+    -1), so that sample() with scan_chunk fuses every whole group."""
+    return pcgs_config(LDAConfig, scheme, k).replace(topic_interval=-1,
+                                                     **kw)
+
+
+def chunked_pair(torch, corpus, LDAConfig, create_model, counters, scheme,
+                 k, iters):
+    """`scheme` at K=`k` from seed 2019 twice: sample_chunked(iters,
+    chunk=CHUNK) against a twin's sample(iters) with scan_chunk = CHUNK,
+    each with the launch counters set to 0 just before and read just
+    after: z, n_dk, N_kw, n_k, phi, theta and the iteration bit-equal,
+    the launches equal, the counts exact, one capture. Returns (the
+    chunked model, its launches)."""
+    label = f"[4 sample_chunked] {scheme} K={k}"
+    chunked = create_model(chunked_config(LDAConfig, scheme, k))
+    chunked.add_instances(corpus)
+    twin = create_model(chunked_config(LDAConfig, scheme, k,
+                                       scan_chunk=CHUNK))
+    twin.add_instances(corpus)
+    runs = []
+    for run in (lambda: chunked.sample_chunked(iters, chunk=CHUNK),
+                lambda: twin.sample(iters)):
+        zero_launches(counters)
+        run()
+        torch.cuda.synchronize()
+        runs.append(read_launches(counters))
+    check(runs[0] == runs[1], f"{label}: launches {runs[0]} chunked, "
+          f"{runs[1]} by sample()")
+    # the path's kernels: the z-draw once an iteration (ggs), the counts at
+    # least once, theta and phi by the Dirichlet kernels
+    got = runs[0]
+    check((got["fused_zdraw_nkw"] == iters or scheme != "ggs")
+          and got["blocked_label_counts"] >= iters
+          and got["dirichlet"] == 3 * iters,
+          f"{label}: launches {got}")
+    check(chunked.chunked_steps.captures == 1
+          and chunked.chunked_steps.groups == iters // CHUNK
+          and twin.fused_steps.groups == iters // CHUNK,
+          f"{label}: {chunked.chunked_steps.captures} captures, "
+          f"{chunked.chunked_steps.groups} and {twin.fused_steps.groups} "
+          "groups")
+    check_same_chain(torch, label, chain_snapshot(chunked),
+                     chain_snapshot(twin))
+    check_counts_exact(chunked, corpus, label)
+    del twin
+    return chunked, runs[0]
+
+
+def chunked_bench(torch, model, n_tok):
+    """bench.py's measurement on the port: `_multi_step_fn(n)` for n = 10
+    and 30, each captured by a first call outside the timed region, then
+    BENCH_REPEATS calls each bounded by torch.cuda.synchronize(); tokens/s
+    = N x 2 x 10 / (median(t_30) - median(t_10)). Returns (tokens/s, the
+    repeats' seconds by n)."""
+    times = {}
+    for n in (CHUNK, 3 * CHUNK):
+        run = model._multi_step_fn(n)
+        run()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(BENCH_REPEATS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        times[n] = out
+    med = {n: float(np.median(t)) for n, t in times.items()}
+    return n_tok * 2 * CHUNK / (med[3 * CHUNK] - med[CHUNK]), times
+
+
+def sample_chunked_phase(torch, corpus, LDAConfig, create_model, counters,
+                         rnd, smi):
+    """[4 sample_chunked]: sample_chunked on ggs and ggs_aliasmh at K=100
+    (30 iterations) and ggs at K=4096 (10), each bit-equal to a twin's
+    sample() with scan_chunk = CHUNK (chunked_pair); on the ggs K=100
+    model: 25 iterations in chunks of 10 advance 30; a sample() between
+    two chunks is honoured; three sample_chunked calls and five calls of
+    one _multi_step_fn(10) callable capture once, the capture's host
+    seconds split into the warm-up step and capture + instantiation, the
+    replay's ms/iteration by CUDA events and by host wall, bench.py's
+    tokens/s (a preview, not a number of record), a new beta recaptures;
+    the getters; a pre_z hook keeps scan_chunk 10 from fusing and runs 30
+    times; log_dirichlet at theta's [D, K] and phi's [K, V] against the
+    Dirichlet kernel's draw from the same generator state. Returns (the
+    launches of the ggs K=100 chunked run by wrapper, the capture and
+    replay numbers)."""
+    name = torch.cuda.get_device_name(0)
+    for scheme, k, iters in CHUNKED_PAIRS:
+        model, launches = chunked_pair(torch, corpus, LDAConfig,
+                                       create_model, counters, scheme, k,
+                                       iters)
+        print(f"[4 sample_chunked] {scheme} K={k} on {name} ({smi}): "
+              f"sample_chunked({iters}, chunk={CHUNK}) against sample("
+              f"{iters}) with scan_chunk {CHUNK}: z, n_dk, N_kw, n_k, phi, "
+              f"theta and the iteration bit-equal; one capture; launches "
+              f"equal {json.dumps({n: c for n, c in launches.items() if c})}"
+              f"; counts exact", flush=True)
+        if (scheme, k) == ("ggs", K):
+            out, kept = launches, model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    model, steps = kept, kept.chunked_steps
+    label = f"[4 sample_chunked] ggs K={K}"
+    it0 = model.state.iteration
+    model.sample_chunked(25, chunk=CHUNK)
+    check(model.state.iteration == it0 + 30,
+          f"{label}: 25 in chunks of 10 advanced {model.state.iteration - it0}")
+    # a sample() between two chunks, against a twin that fuses all three
+    twin = create_model(chunked_config(LDAConfig, "ggs", K,
+                                       scan_chunk=CHUNK))
+    twin.add_instances(corpus)
+    between = create_model(chunked_config(LDAConfig, "ggs", K))
+    between.add_instances(corpus)
+    between.sample_chunked(CHUNK, chunk=CHUNK)
+    between.sample(CHUNK)
+    between.sample_chunked(CHUNK, chunk=CHUNK)
+    twin.sample(3 * CHUNK)
+    check_same_chain(torch, f"{label}, chunk + sample() + chunk",
+                     chain_snapshot(between), chain_snapshot(twin))
+    del twin, between
+    # one capture for each n across calls
+    captures = steps.captures
+    for _ in range(3):
+        model.sample_chunked(2 * CHUNK, chunk=CHUNK)
+    run = model._multi_step_fn(CHUNK)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(5):
+        run()
+    b.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (5 * CHUNK)
+    event_ms = a.elapsed_time(b) / (5 * CHUNK)
+    check(steps.captures == captures == 1 and model.chunked_steps is steps,
+          f"{label}: {steps.captures} captures after repeated calls")
+    warm_s, cap_s = steps.warmup_s, steps.capture_s - steps.warmup_s
+    tok_s, times = chunked_bench(torch, model, corpus.num_tokens)
+    check(steps.captures == 2, f"{label}: {steps.captures} captures after "
+          f"_multi_step_fn({3 * CHUNK}) five times (want one more)")
+    # a new beta is baked into no kept graph: the next call recaptures
+    model.state.beta = float(np.float32(0.02))
+    model.sample_chunked(CHUNK, chunk=CHUNK)
+    check(steps.captures == 3, f"{label}: no recapture after beta changed")
+    model.state.beta = float(np.float32(0.01))
+    check_counts_exact(model, corpus, label)
+    print(f"{label} on {name} ({smi}): 25 iterations in chunks of 10 "
+          f"advanced 30; chunk + sample() + chunk bit-equal to sample(30) "
+          f"with scan_chunk 10; three sample_chunked calls and five calls "
+          f"of one _multi_step_fn(10) callable: 1 capture (warm-up step "
+          f"{warm_s:.4f} s, capture + instantiation {cap_s:.4f} s host); "
+          f"replay {event_ms:.4f} ms/iteration by CUDA events, "
+          f"{wall_ms:.4f} by host wall; _multi_step_fn(30) five times: 1 "
+          f"capture more; a new beta: 1 more", flush=True)
+    print(f"{label} bench preview (ROADMAP A2, not a number of record): "
+          f"bench.py's formula N x 2 x 10 / (median t_30 - median t_10), "
+          f"{BENCH_REPEATS} repeats each bounded by torch.cuda.synchronize"
+          f"(), the graphs captured outside the timed region: {tok_s:.0f} "
+          f"tokens/s; t_10 {json.dumps(times[CHUNK])} s, t_30 "
+          f"{json.dumps(times[3 * CHUNK])} s", flush=True)
+    numbers = {"warmup_s": warm_s, "capture_s": cap_s,
+               "replay_event_ms": event_ms, "replay_wall_ms": wall_ms,
+               "bench_preview_tokens_s": tok_s}
+    # the getters
+    beta = model.get_beta()
+    check(isinstance(beta, float) and beta == float(np.float32(0.01)),
+          f"{label}: get_beta() = {beta!r}")
+    ttm = model.get_type_topic_matrix()
+    check(ttm.shape == (corpus.num_types, K)
+          and np.array_equal(ttm, model.get_topic_type_counts().T)
+          and not model.get_abort(), f"{label}: get_type_topic_matrix")
+    # a hook keeps scan_chunk from fusing; it runs once an iteration
+    calls = []
+    hooked = type("PreZ", (type(model),),
+                  {"pre_z": lambda self: calls.append(1)})(
+        chunked_config(LDAConfig, "ggs", K, scan_chunk=CHUNK))
+    hooked.add_instances(corpus)
+    hooked.sample(ITERS)
+    check(hooked.fused_steps is None and len(calls) == ITERS,
+          f"[4 sample_chunked] pre_z hook: {len(calls)} calls, fused "
+          f"{hooked.fused_steps is not None}")
+    # log_dirichlet against the Dirichlet kernel, same generator state
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(0x10D1)
+    st = model.state
+    errs = {}
+    for what, conc in (("theta", st.ndk.to(torch.float32) + st.alpha),
+                       ("phi", (st.nkw.T.to(torch.float32) + st.beta)
+                        .contiguous())):
+        state = gen.get_state()
+        cuda_gamma.gamma.launches = cuda_gamma.dirichlet.launches = 0
+        x = rnd.log_dirichlet(conc, gen)
+        torch.cuda.synchronize()
+        check(cuda_gamma.gamma.launches == 1
+              and cuda_gamma.dirichlet.launches == 0,
+              f"[4 sample_chunked] log_dirichlet {what}: Gamma kernel "
+              f"launched {cuda_gamma.gamma.launches} times")
+        gen.set_state(state)
+        want = rnd.dirichlet(conc, gen).double()
+        got = x.double().exp()
+        rel = float(((got - want).abs() / want).max())
+        sums = float((got.sum(dim=-1) - 1).abs().max())
+        check(rel <= GAMMA_RTOL and sums <= 1e-5,
+              f"[4 sample_chunked] log_dirichlet {what}: {rel:.3g} from the "
+              f"Dirichlet kernel, row sums off by {sums:.3g}")
+        errs[what] = (tuple(conc.shape), rel, sums)
+    print(f"[4 sample_chunked] getters: get_beta() {beta!r} (the state's "
+          f"float32 beta), get_type_topic_matrix() the transpose of "
+          f"get_topic_type_counts(), get_abort() False; a pre_z hook with "
+          f"scan_chunk {CHUNK}: unfused, called {len(calls)} times in "
+          f"{ITERS} iterations; log_dirichlet, one Gamma kernel launch, "
+          f"exp of it against the Dirichlet kernel's draw from the same "
+          f"generator state (relative error, row sums' error; bar "
+          f"{GAMMA_RTOL}): "
+          + "; ".join(f"{w} {list(s)} {r:.3g}, {e:.3g}"
+                      for w, (s, r, e) in errs.items()), flush=True)
+    del hooked, model
+    torch.cuda.empty_cache()
+    return out, numbers
+
+
 def recount(corpus, z, num_topics):
     """(N_kw [V, K], n_dk [D, K]) of canonical-order z, on the host."""
     nkw = np.bincount(corpus.tokens.astype(np.int64) * num_topics + z,
@@ -5681,6 +5933,8 @@ def main() -> int:
     collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model, counters)
     fused_phase(torch, corpus, Corpus, LDAConfig, create_model, counters,
                 smi)
+    chunked_launches, chunked_numbers = sample_chunked_phase(
+        torch, corpus, LDAConfig, create_model, counters, rnd, smi)
 
     # ---- 5. the experiment CLI ------------------------------------------
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -5779,12 +6033,14 @@ def main() -> int:
     kernels = [
         {**counts_entry, "launches": aliasmh_launches,
          "launches_ggs": launches["blocked_label_counts"],
-         "launches_foldin": foldin_launches["blocked_label_counts"]},
+         "launches_foldin": foldin_launches["blocked_label_counts"],
+         "launches_chunked": chunked_launches["blocked_label_counts"]},
         {"name": "fused_zdraw_nkw", "route": "cuda",
          "source": "ldagroupedgibbssampler_tpu_torch/csrc/zdraw.cu",
          "replaces": "ldagroupedgibbssampler_tpu/ops/pallas_zdraw.py:59",
          "launches": launches["fused_zdraw_nkw"],
          "launches_foldin": foldin_launches["fused_zdraw_nkw"],
+         "launches_chunked": chunked_launches["fused_zdraw_nkw"],
          "launches_apps": apps_launches["fused_zdraw_nkw"],
          "max_abs_err": zdraw_err,
          "ms": zdraw_ms, "precise_ms": zdraw_precise_ms,
@@ -5799,7 +6055,10 @@ def main() -> int:
          "launches_by_wrapper": {k: launches[k]
                                  for k in ("gamma", "dirichlet")},
          "launches_pcgs": pcgs_launches["gamma"]
-         + pcgs_launches["dirichlet"]},
+         + pcgs_launches["dirichlet"],
+         "launches_chunked": chunked_launches["gamma"]
+         + chunked_launches["dirichlet"],
+         "chunked": chunked_numbers},
         {**l2r_entry, "launches": l2r_launches},
     ]
     for entry in kernels:

@@ -7,11 +7,14 @@ for Hopper (`csrc/`, built at first use by `ops/_build.py`). It imports
 neither JAX nor the reference package; the host-side modules it needs are
 its own copies.
 
-Ported so far: schemes `ggs` (and its invalid comparison variant
-`ggs_test`), `pcgs`, `uncollapsed`, `efficient_uncollapsed`, `spalias`,
-`polyaurn`, `lightpclda`, `lightpcldaw2` and `lightcollapsed` end to end,
-through `create_model(cfg)` and the experiment runner
-`python -m ldagroupedgibbssampler_tpu_torch.tui.parallel_lda`.
+It holds all 23 schemes of the JAX registry (the 18 single-device ones
+and the five sharded ones of `parallel/`), the experiment runner
+`python -m ldagroupedgibbssampler_tpu_torch.tui.parallel_lda` and its
+secondary drivers, the apps (`similarity/`, `classify/`) and the corpus
+pipeline, through `create_model(cfg)`. The sampler's interface
+(`add_instances`, `sample`, the lifecycle hooks, iteration listeners,
+getters, checkpoints, and `sample_chunked` of the GGS family) is
+documented in `models/base.py` and `models/ggs.py`.
 Entry points run on `cuda` unless the config asks for `device = cpu`.
 """
 

@@ -135,6 +135,14 @@ class Corpus:
         return np.bincount(self.tokens, minlength=self.num_types
                            ).astype(np.int64)
 
+    def document_frequencies(self) -> np.ndarray:
+        """Number of documents containing each type (TF-IDF / BM25): one
+        np.unique over the (document, type) pairs."""
+        pairs = (self.token_doc_ids().astype(np.int64) * self.num_types
+                 + self.tokens)
+        return np.bincount(np.unique(pairs) % self.num_types,
+                           minlength=self.num_types).astype(np.int64)
+
     def subset(self, doc_indices) -> "Corpus":
         """New Corpus restricted to the given documents (same vocabulary)."""
         doc_indices = np.asarray(doc_indices)

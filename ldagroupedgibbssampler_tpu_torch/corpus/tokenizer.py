@@ -34,6 +34,8 @@ root). Tokens shorter than `min_len` are dropped.
 from __future__ import annotations
 
 import unicodedata
+from typing import Callable, Iterable
+
 _KEEP_CATS = frozenset({"Ll", "Lu", "Lt", "Lm", "Lo", "Mc", "Me", "Mn"})
 _DELIM_CATS = frozenset({"Zs", "Zl", "Zp", "Ps", "Pe", "Pi", "Pf", "Pd",
                          "Po"})
@@ -108,3 +110,16 @@ def tokenize(text: str, stoplist: frozenset[str] = frozenset(),
         if max_tokens is not None and len(out) >= max_tokens:
             break
     return out
+
+
+def tokenize_docs(texts: Iterable[str], **kw) -> list[list[str]]:
+    """`tokenize` of every text, with the same keyword arguments."""
+    return [tokenize(t, **kw) for t in texts]
+
+
+def predicate_filter(doc_tokens: list[list[str]],
+                     predicate: Callable[[str], bool]) -> list[list[str]]:
+    """Keep only tokens the predicate accepts — the
+    TokenSequencePredicateMatcher pipe
+    (pipe/TokenSequencePredicateMatcher.java:22-34)."""
+    return [[t for t in doc if predicate(t)] for doc in doc_tokens]

@@ -3,9 +3,12 @@
 The port's counterpart of `ldagroupedgibbssampler_tpu/models/base.py`. The
 reference defines `LDAGibbsSampler` (topics/LDAGibbsSampler.java:10-46) with
 `addInstances / sample(iterations) / getters / lifecycle hooks`;
-`TorchLDASampler` provides that surface with one lifecycle hook,
-`post_iteration` (the HDP family's per-iteration statistics), and without
-iteration listeners, which nothing here uses.
+`TorchLDASampler` provides that surface: the lifecycle hooks `pre_sample`,
+`post_sample`, `pre_iteration`, `pre_z`, `post_z`, `pre_phi`, `post_phi`
+and `post_iteration` (overridable no-ops, called where the JAX `sample`
+calls them), iteration listeners (`add_iteration_listener(fn)`, called as
+`fn(model, it)` after `post_iteration`, as tui/IterationListener.java:5-7)
+and the getters.
 
 State is a mutable `LDAState` dataclass of tensors on the sampler's device.
 Each scheme's `_step(state, doc_mask, type_mask)` replaces its fields in
@@ -150,6 +153,7 @@ class TorchLDASampler:
         self.topic_batch_builder = None
         # the fused groups of the last sample() call (None without fusion)
         self.fused_steps: Optional[FusedSteps] = None
+        self._iteration_listeners: list = []   # tui/IterationListener.java
 
     # ------------------------------------------------------------------
     # data loading (LDAGibbsSampler.addInstances / addTestInstances)
@@ -273,19 +277,22 @@ class TorchLDASampler:
     def _fusable_chunk(self) -> int:
         """scan_chunk when iteration groups can be fused without changing
         any observable behaviour, else 1. Conditions: no per-iteration host
-        work (the hook, paranoid checks, timing, phi-mean accumulation,
-        hyperopt) and no runtime-feedback random scan (delta-N type masks,
-        percentage topic batches)."""
+        work (hooks, listeners, paranoid checks, timing, phi-mean
+        accumulation, hyperopt) and no runtime-feedback random scan
+        (delta-N type masks, percentage topic batches)."""
         cfg = self.config
-        if (cfg.scan_chunk <= 1 or cfg.paranoid or cfg.measure_timing
-                or cfg.save_phi_means or cfg.hyperparam_optim_interval > 0
+        if (cfg.scan_chunk <= 1 or cfg.paranoid or self._iteration_listeners
+                or cfg.measure_timing or cfg.save_phi_means
+                or cfg.hyperparam_optim_interval > 0
                 or cfg.topic_index_building_scheme != "all"
                 or cfg.topic_batch_building_scheme != "even"
                 or float(cfg.percentage_split_size_topic) < 1.0
                 or self._needs_delta()):
             return 1
-        if type(self).post_iteration is not TorchLDASampler.post_iteration:
-            return 1
+        for h in ("pre_iteration", "post_iteration", "pre_z", "post_z",
+                  "pre_phi", "post_phi"):
+            if getattr(type(self), h) is not getattr(TorchLDASampler, h):
+                return 1
         return max(1, int(cfg.scan_chunk))
 
     def _iteration_has_event(self, it: int) -> bool:
@@ -315,6 +322,7 @@ class TorchLDASampler:
         if self.state is None:
             raise RuntimeError("call add_instances first")
         deadline = time.time() + cfg.exec_time if cfg.exec_time > 0 else None
+        self.pre_sample()
         start_iter = self.state.iteration
         # measure_timing (UncollapsedParallelLDA.java:1340-1347 wrote
         # per-thread phase files): per-iteration wall times to timings.txt
@@ -341,9 +349,11 @@ class TorchLDASampler:
                     break
                 continue
             t0 = time.perf_counter()
+            self.pre_iteration()
             doc_mask = self._doc_mask(self.doc_batch_builder.doc_mask(it))
             type_mask = self._mask(self.topic_index_builder.type_mask(
                 it, self._last_delta_types))
+            self.pre_z()
             need_prev = (self._needs_delta() or self._in_interval(
                 it, cfg.dn_diagnostic_interval))
             prev_nkw = self.state.nkw.clone() if need_prev else None
@@ -353,10 +363,12 @@ class TorchLDASampler:
             topic_mask = self._mask(self.topic_batch_builder.topic_mask(it))
             prev_phi = self.state.phi if topic_mask is not None else None
             self._step(self.state, doc_mask, type_mask)
+            self.post_z()
             if prev_phi is not None:
                 tm = (topic_mask[:, None] if self.nkw_layout == "kv"
                       else topic_mask[None, :])
                 self.state.phi = torch.where(tm, self.state.phi, prev_phi)
+            self.post_phi()
             if prev_nkw is not None:
                 # the types whose counts moved, along the type axis of
                 # either orientation
@@ -380,6 +392,8 @@ class TorchLDASampler:
                     and it % cfg.hyperparam_optim_interval == 0):
                 self._optimize_hyperparameters()
             self.post_iteration()
+            for listener in self._iteration_listeners:
+                listener(self, it)
             if self._should_stop(deadline):
                 break
             it += 1
@@ -389,11 +403,46 @@ class TorchLDASampler:
             self._stop_trace(profiler)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.post_sample()
         return self
 
+    # ------------------------------------------------------------------
+    # lifecycle hooks (LDAGibbsSampler.java:10-46): overridable no-ops,
+    # called by the single-stepped iterations of sample(); a fused group
+    # calls none, and overriding any of the per-iteration ones turns
+    # fusion off (_fusable_chunk)
+    # ------------------------------------------------------------------
+    def pre_sample(self):
+        """Before the first iteration of sample()."""
+
+    def post_sample(self):
+        """After the last iteration of sample(), the device synchronised."""
+
+    def pre_iteration(self):
+        """At the top of an iteration, before its masks are built."""
+
+    def pre_z(self):
+        """After the iteration's masks, just before the step."""
+
+    def post_z(self):
+        """Right after the step, before the topic-batch phi restore."""
+
+    def pre_phi(self):
+        """Never called, as in the JAX package: each scheme's `_step` draws
+        z and phi in one call, so nothing runs between them (a fault of
+        the reference's contract, ROADMAP C)."""
+
+    def post_phi(self):
+        """After the step and the topic-batch phi restore."""
+
     def post_iteration(self):
-        """Lifecycle hook after every iteration's logging
-        (LDAGibbsSampler.java:10-46); a no-op here."""
+        """After every iteration's logging, before the listeners."""
+
+    def add_iteration_listener(self, fn):
+        """Register `fn(model, it)`, called after `post_iteration` of every
+        single-stepped iteration (tui/IterationListener.java:5-7); a
+        registered listener turns fusion off."""
+        self._iteration_listeners.append(fn)
 
     def _start_trace(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -634,6 +683,9 @@ class TorchLDASampler:
     def abort(self):
         self._abort = True
 
+    def get_abort(self) -> bool:
+        return self._abort
+
     def get_phi(self) -> np.ndarray:
         """phi in the reference's [K, V] orientation."""
         return _np(self._phi_kv())
@@ -641,6 +693,11 @@ class TorchLDASampler:
     def get_topic_type_counts(self) -> np.ndarray:
         """K×V counts (topicTypeCountMapping)."""
         return _np(self._nkw_kv())
+
+    def get_type_topic_matrix(self) -> np.ndarray:
+        """V×K counts (typeTopicCounts; the reference keeps both
+        orientations, UncollapsedParallelLDA.java:373-375)."""
+        return self.get_topic_type_counts().T
 
     def get_document_topic_matrix(self) -> np.ndarray:
         return _np(self.state.ndk)
@@ -650,6 +707,9 @@ class TorchLDASampler:
 
     def get_alpha(self) -> np.ndarray:
         return _np(self.state.alpha)
+
+    def get_beta(self) -> float:
+        return float(self.state.beta)
 
     def get_theta_estimate(self) -> np.ndarray:
         """Mean-estimate theta = (ndk + alpha) / (len_d + alphaSum)

@@ -1,21 +1,35 @@
-"""Iteration fusion (config key `scan_chunk`): a group of event-free
-iterations of a sampler's `_step`, captured once as a CUDA graph on the
-card and replayed for every later group of the same size.
+"""Iteration fusion: a group of event-free iterations of a sampler's
+`_step`, captured once as a CUDA graph on the card and replayed for every
+later group of the same size. Two callers:
 
-The port's counterpart of the JAX base's `_get_fused_steps_jit`
-(`ldagroupedgibbssampler_tpu/models/base.py:323-335`), which runs a group
-as one `lax.scan` over the jitted step. The base's `sample()` decides which
-iterations form a group (`_fusable_chunk`, `_fusable_span`, copied from the
-JAX base); this module runs a group. A replay launches the whole group's
-kernels from one host call, so the host no longer dispatches the hundreds
-of small launches of each iteration. The chain is bit-equal to
-single-stepping:
+  - `sample()` with the config key `scan_chunk`, the port's counterpart of
+    the JAX base's `_get_fused_steps_jit`
+    (`ldagroupedgibbssampler_tpu/models/base.py:323-335`), which runs a
+    group as one `lax.scan` over the jitted step. The base's `sample()`
+    decides which iterations form a group (`_fusable_chunk`,
+    `_fusable_span`, copied from the JAX base); one `FusedSteps` runs the
+    groups of one `sample()` call and drops its graphs at its end
+    (`close`).
+  - `models/ggs.py::_multi_step_fn(n)` / `sample_chunked`, the counterpart
+    of the JAX GGS's `_multi_step_fn` (`ldagroupedgibbssampler_tpu/models/
+    ggs.py:309-326`): n full sweeps, no document mask. Its `FusedSteps`
+    is kept by the model across calls, so each n is captured once and
+    replayed by every later call; no `sample()` closes it, and its
+    graphs and their memory pools go with the model's
+    `release_chunked()`, with a new layout (`add_instances`,
+    `swap_corpus_tokens`) or with the model.
+
+A replay launches the whole group's kernels from one host call, so the
+host no longer dispatches the hundreds of small launches of each
+iteration. The chain is bit-equal to single-stepping:
 
   - Static buffers. Each `_step` assigns fresh tensors to the state's
     fields (z, ndk, nkw, nk, phi, theta). The captured region reads them
     from static buffers and ends by copying its outputs into the same
-    buffers; between replays the state's fields are those buffers. Before
-    a group, whatever an unfused iteration replaced is copied in.
+    buffers; right after a replay the state's fields are those buffers.
+    Before every group, whatever the state's fields hold is copied in: an
+    unfused iteration's tensors, or what `set_z_indicators`, `set_phi`,
+    `load_checkpoint` or another `FusedSteps` put there.
   - Random bits. Every draw of a step, the kernels' Philox seeds included,
     comes from the chain's `torch.Generator`, which is registered with
     each graph: a replay takes the generator's offset as it stands and
@@ -27,20 +41,21 @@ single-stepping:
     leaves no trace in the chain.
   - Values frozen at capture. `state.beta` (a Python float handed to the
     kernels) and the `state.alpha` tensor are baked into a graph; the
-    graphs are dropped when either changes, and one `FusedSteps` lives for
-    one `sample()` call only.
+    graphs are dropped when either changes (a kept instance too).
   - Launch counters. No Python runs under a replay, so the counts that a
     capture added (`launch_counters`) are taken back and added again at
     every replay: they equal a single-stepped run's.
-  - Document masks. A group whose builder's masks all select every
-    document replays a graph captured with `doc_mask = None`; any other
-    group replays one that reads a static bool [n, D] mask buffer, filled
-    before the replay (an all-True row draws as `None` does).
+  - Document masks. A group whose masks all select every document (or are
+    None: a full sweep) replays a graph captured with `doc_mask = None`;
+    any other group replays one that reads a static bool [n, D] mask
+    buffer, filled before the replay (an all-True row draws as `None`
+    does).
 
-On a CPU device, and for a scheme whose step runs host code per token
-(`_capturable_step = False`: the serial oracle `collapsed`), the group's
-iterations run one by one through the same `_step`. On `cuda` a failed
-capture or replay raises: nothing falls back to single-stepping.
+On a CPU device, and for a scheme whose step runs host code per token or
+syncs with the host (`_capturable_step = False`: the serial oracle
+`collapsed` and the sharded schemes), the group's iterations run one by
+one through the same `_step`. On `cuda` a failed capture or replay
+raises: nothing falls back to single-stepping.
 """
 
 from __future__ import annotations
@@ -83,7 +98,10 @@ def _write_counters(values) -> None:
 
 
 class FusedSteps:
-    """The fused groups of one sampler during one `sample()` call."""
+    """The fused groups of one sampler: those of one `sample()` call, or
+    the kept full sweeps of `_multi_step_fn`. `captures` counts the
+    graphs captured, `capture_s` the host seconds of their warm-ups and
+    captures (instantiation included), `warmup_s` the warm-ups' part."""
 
     def __init__(self, sampler):
         self.sampler = sampler
@@ -94,19 +112,21 @@ class FusedSteps:
         self.groups = 0           # groups run
         self.captures = 0
         self.capture_s = 0.0      # warm-ups and captures, host seconds
+        self.warmup_s = 0.0       # the warm-up steps' part of capture_s
 
     def run(self, doc_masks) -> None:
         """Advance the chain by one group: `doc_masks[i]` is the document
-        builder's numpy bool [D] mask of the group's i-th iteration."""
+        builder's numpy bool [D] mask of the group's i-th iteration, or
+        None for a full sweep."""
         s = self.sampler
         self.groups += 1
         if s.device.type != "cuda" or not s._capturable_step:
             for m in doc_masks:
-                s._step(s.state, s._doc_mask(m), None)
+                s._step(s.state, None if m is None else s._doc_mask(m), None)
             return
         st = s.state
         n = len(doc_masks)
-        masked = not all(m.all() for m in doc_masks)
+        masked = not all(m is None or m.all() for m in doc_masks)
         if (self.frozen is None or self.frozen[0] != st.beta
                 or self.frozen[1] is not st.alpha):
             self.graphs.clear()
@@ -158,6 +178,7 @@ class FusedSteps:
         s.generator.set_state(rng)
         _write_counters(counts)
         torch.cuda.synchronize(s.device)
+        self.warmup_s += time.perf_counter() - t0
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(s.generator)
         cap = dataclasses.replace(s.state)

@@ -24,6 +24,11 @@ The port keeps the JAX package's two-layout design
 
 On a CPU device the same code runs the kernels' plain versions. State is
 kept type-major: nkw and phi are [V, K] (`nkw_layout = "vk"`).
+
+`sample_chunked(iterations, chunk)` runs full sweeps as replays of one
+CUDA graph of `chunk` steps, captured once per (model, chunk) and kept
+across calls (`_multi_step_fn`, `models/fusion.py`), as the JAX GGS runs
+one compiled scan (`bench.py` times it).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from ldagroupedgibbssampler_tpu_torch.corpus.ragged import real_slot_list
 from ldagroupedgibbssampler_tpu_torch.models.base import (LDAState,
                                                           TorchLDASampler)
+from ldagroupedgibbssampler_tpu_torch.models.fusion import FusedSteps
 from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_counts import (
     blocked_label_counts)
@@ -48,6 +54,8 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
     # theta is drawn with the chain's own generator; a sharded scheme that
     # replicates theta on every rank draws it with the shared one
     _replicated_theta = False
+    # the kept full sweeps of _multi_step_fn, made at its first call
+    chunked_steps = None
 
     # ------------------------------------------------------------------
     def _prepare_device_data(self, corpus):
@@ -57,6 +65,8 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
 
     def _upload_blocks(self, blocks):
         """The cell blocks on the device; z lives on their layout A."""
+        # a kept graph reads the arrays it was captured with
+        self.release_chunked()
         self._blocks = blocks
         nb = blocks.w_local.shape[0]
         self._shape3 = (nb, blocks.w_local.shape[1] // blocks.chunk,
@@ -171,6 +181,47 @@ class LDAGroupedGibbsSampler(TorchLDASampler):
             z, ndk, nkw, phi, theta)
         state.nk = nkw.sum(dim=0, dtype=torch.int32)
         state.iteration += 1
+
+    # ------------------------------------------------------------------
+    # multi-iteration path (bench / large runs): full sweeps, no random
+    # scan, hooks, listeners, logging, abort or deadline check
+    # ------------------------------------------------------------------
+    def _multi_step_fn(self, n: int):
+        """A callable that advances the chain by n full sweeps of
+        `_step(state, None, None)`: on the card one replay of a CUDA graph
+        of the n steps, captured at its first call and kept with the
+        model for every later callable of the same n
+        (`chunked_steps.captures` counts the captures); on the CPU, and
+        for a step that cannot be captured, the n steps one by one. The
+        state's fields are read before every call, so a `sample()`,
+        `set_z_indicators`, `set_phi` or `load_checkpoint` in between is
+        honoured. The kept graphs hold the step's temporaries ([D, K] and
+        [V, K] at least) in their memory pool until `release_chunked()`,
+        a new layout, or the model goes."""
+        if self.state is None:
+            raise RuntimeError("call add_instances first")
+        if self.chunked_steps is None:
+            self.chunked_steps = FusedSteps(self)
+        steps, sweeps = self.chunked_steps, [None] * int(n)
+        return lambda: steps.run(sweeps)
+
+    def sample_chunked(self, iterations: int, chunk: int = 10):
+        """`iterations` rounded up to whole chunks (as the JAX GGS does:
+        25 with chunk 10 runs 30), each chunk one call of
+        `_multi_step_fn(chunk)`; ends with the device synchronised."""
+        run = self._multi_step_fn(chunk)
+        for _ in range(-(-int(iterations) // int(chunk))):
+            run()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def release_chunked(self):
+        """Drop the kept graphs of `_multi_step_fn` and their memory
+        pools; the next call captures again."""
+        if self.chunked_steps is not None:
+            self.chunked_steps.close()
+            self.chunked_steps = None
 
     # ------------------------------------------------------------------
     # fold-in on this sampler's own cell blocks: its z comes back in this

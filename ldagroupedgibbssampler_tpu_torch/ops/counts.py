@@ -2,7 +2,7 @@
 
 The port's copy of `ldagroupedgibbssampler_tpu/ops/counts.py`
 (`topic_word_counts`, `doc_topic_counts`, `tokens_per_topic`,
-`check_count_consistency`). The
+`padded_doc_topic_counts`, `check_count_consistency`). The
 reference maintains typeTopicCounts / tokensPerTopic with per-sweep delta
 merges (UncollapsedParallelLDA.java:102,363-368,1107-1221); here counts are
 rebuilt from the assignment vector with one accumulate, for the init, for
@@ -40,6 +40,15 @@ def doc_topic_counts(z, doc_ids, mask, num_docs: int,
 def tokens_per_topic(nkw: torch.Tensor) -> torch.Tensor:
     """n_k [K] = row sums of N_kw [K, V]."""
     return nkw.sum(dim=-1, dtype=torch.int32)
+
+
+def padded_doc_topic_counts(z_pad, mask, num_topics: int) -> torch.Tensor:
+    """N_dk [D, K] int32 from the doc-major padded layout z_pad [D, L]
+    (mask [D, L] False on padding): each row's histogram, without a
+    doc-id array."""
+    rows = torch.arange(z_pad.shape[0], device=z_pad.device)[:, None]
+    return _histogram(rows.expand(z_pad.shape), z_pad, mask,
+                      (z_pad.shape[0], num_topics))
 
 
 def check_count_consistency(nkw, ndk, num_tokens: int) -> dict:

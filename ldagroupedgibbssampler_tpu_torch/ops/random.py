@@ -3,8 +3,8 @@ theta/phi steps, and the Poisson / Binomial / Beta helpers of the HDP
 family.
 
 The port's copy of `ldagroupedgibbssampler_tpu/ops/random.py`
-(`_gamma_marsaglia`, `gamma`, `dirichlet`, `DIRICHLET_FLOOR`,
-`conditional_dirichlet`, `polya_urn_dirichlet`, `_lgamma_ratio`, `vs_inclusion_prob`,
+(`_gamma_marsaglia`, `gamma`, `dirichlet`, `log_dirichlet`,
+`DIRICHLET_FLOOR`, `conditional_dirichlet`, `polya_urn_dirichlet`, `_lgamma_ratio`, `vs_inclusion_prob`,
 `vs_dirichlet`, `poisson`, `binomial`, `beta`) in plain
 PyTorch: a fixed-round vectorised Marsaglia-Tsang sampler, elementwise over
 the whole [D, K] or [V, K] concentration matrix, on whatever device the
@@ -113,6 +113,19 @@ def dirichlet(concentration, generator: torch.Generator, dim: int = -1,
     g = _gamma_marsaglia(conc, generator)
     g = g.clamp_min(DIRICHLET_FLOOR)
     return g / g.sum(dim=dim, keepdim=True)
+
+
+def log_dirichlet(concentration, generator: torch.Generator) -> torch.Tensor:
+    """log of a Dirichlet draw along the last axis, in log space:
+    log(max(Gamma, DIRICHLET_FLOOR)) minus its logsumexp, so that tiny
+    concentrations (beta = 0.01) do not underflow. The Gamma draw is
+    `gamma`'s (on a CUDA tensor the Gamma kernel), so that exp of the
+    result is `dirichlet` of the same generator state up to rounding: the
+    logs are taken in float64 and the result rounded once to float32."""
+    g = gamma(concentration, generator).clamp_min(DIRICHLET_FLOOR)
+    log_g = g.to(torch.float64).log()
+    return (log_g - torch.logsumexp(log_g, dim=-1, keepdim=True)).to(
+        torch.float32)
 
 
 def conditional_dirichlet(previous, concentration, mask,

@@ -171,6 +171,18 @@ def test_counts_conserved_and_exact(runs, corpus, scheme, world):
 
 
 @pytest.mark.parametrize("scheme,world", CASES)
+def test_getters_answer_for_the_whole_model(runs, corpus, scheme, world):
+    """On every rank get_type_topic_matrix is the V x K recount of the
+    whole corpus's gathered z, not the rank's part, and get_beta the
+    config's beta as a Python float."""
+    for r in _ranks(runs, "", scheme, world):
+        nkw, _ = _recounts(corpus, r["z"])
+        assert np.array_equal(r["type_topic"], nkw.T)
+        assert r["type_topic"].shape == (corpus.num_types, 3)
+        assert float(r["beta"]) == float(np.float32(0.01))
+
+
+@pytest.mark.parametrize("scheme,world", CASES)
 def test_replicated_tensors_bit_equal(runs, scheme, world):
     ranks = _ranks(runs, "", scheme, world)
     names = ["phi", "nkw_state"] + (["theta"] if "theta" in ranks[0]

@@ -8,8 +8,8 @@ the five sharded schemes on the planted-topic corpus of
 tests/conftest.py::synthetic_corpus, with paranoid checks every iteration
 (the exact recount of the gathered z against the merged counts, and every
 replicated tensor bit-equal across the ranks). For each scheme it writes
-OUT_DIR/<scheme>_<WORLD>_<RANK>.npz: the chain's gathered z, counts and
-likelihood series, its replicated tensors as this rank holds them, a
+OUT_DIR/<scheme>_<WORLD>_<RANK>.npz: the chain's gathered z, counts
+(also as `get_type_topic_matrix`), beta and likelihood series, its replicated tensors as this rank holds them, a
 second chain from the same seed, a z round trip, and the n_dk reduction's
 dtype; and OUT_DIR/psum_<WORLD>_<RANK>.npz, whether an int16 all-reduce
 was refused and the int16 route of `psum_counts` against int32. Then,
@@ -77,6 +77,8 @@ def _arrays(model) -> dict:
                ndk=model.get_document_topic_matrix(),
                nk=model.get_tokens_per_topic(),
                phi=st.phi.numpy(), nkw_state=st.nkw.numpy(),
+               type_topic=model.get_type_topic_matrix(),
+               beta=model.get_beta(),
                ll=np.asarray([ll for _, ll in model.get_log_likelihoods()]))
     if st.theta is not None and st.theta.shape[0] == \
             model.full_corpus.num_docs:
