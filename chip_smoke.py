@@ -72,7 +72,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      which the kernel's walk, unrepaired, draws a zero-product topic, ten
      kernel seeds' mean within 5 standard errors of five seeds of the
      plain generator= estimator on the whole split, times and peak
-     memory;
+     memory; `[3 alias-mh]`, the alias-MH z-step kernels
+     (csrc/alias_mh.cu) on a ggs_aliasmh state at K=100 and K=4096, 2
+     rounds, an asymmetric alpha and half the documents selected: z equal
+     to alias_mh_reference on every slot in both table modes but proven
+     ties, the rates from the kernel's acceptance counts equal, packed
+     equal to unpacked, the pack kernel bit-equal to pack_reference, an
+     MH-invariance chi-square, times beside the plain versions,
+     torch.stack and the bounds;
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
@@ -88,9 +95,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      iteration 30), beside the spread of three parallel chains' gaps and
      of three one-warp chains from three seeds; `[4 ggs_aliasmh main
      path]`, scheme ggs_aliasmh at K=100 for 30 iterations (the count
-     kernel on both layouts every iteration) with a profile, and
-     `[4 ggs_aliasmh K=4096]`, ggs_aliasmh beside dense ggs at K=4096, 10
-     iterations each; `[4 ppu_hdplda main path]`, scheme ppu_hdplda at
+     kernel on both layouts and the alias-MH pre-pass, rounds and pack
+     kernels every iteration) with a profile, and `[4 ggs_aliasmh
+     K=4096]`, ggs_aliasmh packed and unpacked beside dense ggs at
+     K=4096, 10 iterations each; `[4 ppu_hdplda main path]`, scheme ppu_hdplda at
      K_max=100 (the JAX package's 20NG HDP configuration) for 30
      iterations with a profile (a finite likelihood, which falls while
      topics are born as in the JAX package's chain; the active topics at
@@ -206,8 +214,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      Phase 3's `[3 layout]` builds the 20NG cell blocks natively (1.35M
      tokens, above the 1M switch) and with NumPy, bit-equal, and prints
      both seconds.
-Then one JSON line describing every kernel (gamma and left_to_right
-among them; the counts, z-draw and gamma entries with the launches of
+Then one JSON line describing every kernel (gamma, left_to_right,
+alias_mh_rounds and alias_mh_pack among them; the counts, z-draw and gamma entries with the launches of
 `[4 sample_chunked]`'s ggs K=100 run as `launches_chunked`, the gamma
 entry its capture and replay numbers as `chunked`; the counts, z-draw and PCGS
 entries with their launches in phase 6 as `launches_apps`, every entry
@@ -2433,19 +2441,23 @@ def adlda_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
 
 
 def aliasmh_main_path(torch, corpus, LDAConfig, create_model, cuda_counts,
-                      cuda_zdraw, smi):
+                      cuda_zdraw, cam, smi):
     """[4 ggs_aliasmh main path]: scheme ggs_aliasmh K=100 for ITERS
     iterations with a profile, the launch counts set to 0 just before it
     and read just after: the count kernel twice an iteration (N_kw on
-    layout A, n_dk on layout B) and twice at set-up, the z-draw never.
-    Then [4 ggs_aliasmh K=4096]: ggs_aliasmh and dense ggs at K=4096 in
-    one call, 10 iterations each, the card's first crossover reading,
-    each with a profile of 3 more.
-    Returns the count kernel's launches in the K=100 run."""
+    layout A, n_dk on layout B) and twice at set-up, the z-draw never, the
+    alias-MH pre-pass, rounds and (packed) pack kernels once an iteration
+    each. Then [4 ggs_aliasmh K=4096]: ggs_aliasmh (packed, the gate's
+    choice), ggs_aliasmh unpacked and dense ggs at K=4096 in one call, 10
+    iterations each, each with its alias-MH launches and a profile of 3
+    more. Returns the K=100 run's launches by wrapper."""
     n = corpus.num_tokens
     counts = cuda_counts.blocked_label_counts
     zdraw = cuda_zdraw.fused_zdraw_nkw
+    mh = (cam.entry_topics, cam.mh_rounds, cam.pack_tables)
     counts.launches = zdraw.launches = 0
+    for fn in mh:
+        fn.launches = 0
     cfg = pcgs_config(LDAConfig, "ggs_aliasmh", K)
     model = create_model(cfg)
     model.add_instances(corpus)
@@ -2457,17 +2469,25 @@ def aliasmh_main_path(torch, corpus, LDAConfig, create_model, cuda_counts,
     model.sample(ITERS - 10)
     torch.cuda.synchronize()
     t_b = time.perf_counter()
-    launches = counts.launches
-    check(launches == 2 * ITERS + 2 and zdraw.launches == 0,
-          f"ggs_aliasmh: count kernel launched {launches} times (expected "
-          f"{2 * ITERS + 2}), z-draw {zdraw.launches}")
+    launches = {"blocked_label_counts": counts.launches,
+                "fused_zdraw_nkw": zdraw.launches,
+                **{fn.__name__: fn.launches for fn in mh}}
+    check(launches["blocked_label_counts"] == 2 * ITERS + 2
+          and zdraw.launches == 0,
+          f"ggs_aliasmh: count kernel launched {counts.launches} times "
+          f"(expected {2 * ITERS + 2}), z-draw {zdraw.launches}")
+    check(all(fn.launches == ITERS for fn in mh), f"ggs_aliasmh: alias-MH "
+          f"kernels launched {launches} (expected {ITERS} each)")
     check_counts_exact(model, corpus, "ggs_aliasmh")
     lls = dict(model.get_log_likelihoods())
     check(lls[30] > lls[10] > ll0, f"ggs_aliasmh: LL did not rise: init "
           f"{ll0}, {lls}")
     print(f"[4 ggs_aliasmh main path] ggs_aliasmh K={K} on "
           f"{torch.cuda.get_device_name(0)} ({smi}): count kernel launches "
-          f"{launches} (2 an iteration + 2 at set-up), z-draw 0; counts "
+          f"{counts.launches} (2 an iteration + 2 at set-up), z-draw 0, "
+          f"alias-MH pre-pass {cam.entry_topics.launches}, rounds "
+          f"{cam.mh_rounds.launches}, pack {cam.pack_tables.launches} (1 "
+          f"an iteration each); counts "
           f"exact; LL init {ll0:.1f} -> it10 {lls[10]:.1f} -> it30 "
           f"{lls[30]:.1f}; {n * (ITERS - 10) / (t_b - t_a):.0f} tokens/s "
           f"over iterations 11-30 ({(t_b - t_a) / (ITERS - 10) * 1e3:.3f} "
@@ -2477,12 +2497,16 @@ def aliasmh_main_path(torch, corpus, LDAConfig, create_model, cuda_counts,
     del model
     torch.cuda.empty_cache()
     k_big, res = 4096, {}
-    for scheme in ("ggs_aliasmh", "ggs"):
+    for name, scheme, mode in (("ggs_aliasmh", "ggs_aliasmh", "auto"),
+                               ("ggs_aliasmh unpacked", "ggs_aliasmh",
+                                "unpacked"), ("ggs", "ggs", "auto")):
         cfg = LDAConfig(scheme=scheme, topics=k_big, alpha=0.5, beta=0.01,
                         seed=2019, exec_time=-1, topic_interval=5,
-                        device="cuda")
+                        device="cuda", aliasmh_packed=mode)
         model = create_model(cfg)
         model.add_instances(corpus)
+        for fn in mh:
+            fn.launches = 0
         ll0 = model.model_log_likelihood()
         model.sample(2)
         torch.cuda.synchronize()
@@ -2490,24 +2514,409 @@ def aliasmh_main_path(torch, corpus, LDAConfig, create_model, cuda_counts,
         model.sample(8)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 8 * 1e3
-        check_counts_exact(model, corpus, f"{scheme} K={k_big}")
+        mh_launches = {fn.__name__: fn.launches for fn in mh}
+        packed = scheme == "ggs_aliasmh" and model._mh_packed()
+        check(packed == (name == "ggs_aliasmh"), f"{name} K={k_big}: the "
+              f"packed gate chose {packed}")
+        want = ({"entry_topics": 10, "mh_rounds": 10,
+                 "pack_tables": 10 if packed else 0}
+                if scheme == "ggs_aliasmh" else dict.fromkeys(mh_launches, 0))
+        check(mh_launches == want, f"{name} K={k_big}: alias-MH launches "
+              f"{mh_launches}, expected {want}")
+        check_counts_exact(model, corpus, f"{name} K={k_big}")
         lls = dict(model.get_log_likelihoods())
-        check(lls[10] > lls[5] > ll0, f"{scheme} K={k_big}: LL did not rise:"
+        check(lls[10] > lls[5] > ll0, f"{name} K={k_big}: LL did not rise:"
               f" init {ll0}, {lls}")
-        res[scheme] = (ms, ll0, lls)
-        print(f"[4 ggs_aliasmh K={k_big} profile] {scheme}: "
+        res[name] = (ms, ll0, lls, mh_launches)
+        print(f"[4 ggs_aliasmh K={k_big} profile] {name}: "
               f"{profile_iterations(torch, model, 3)}", flush=True)
         del model
         torch.cuda.empty_cache()
-    mh, dense = res["ggs_aliasmh"], res["ggs"]
-    print(f"[4 ggs_aliasmh K={k_big}] counts exact and LL rising in both; "
-          f"ggs_aliasmh {mh[0]:.3f} ms/iteration (LL init {mh[1]:.1f} -> it5 "
-          f"{mh[2][5]:.1f} -> it10 {mh[2][10]:.1f}), dense ggs {dense[0]:.3f} "
-          f"ms/iteration (LL init {dense[1]:.1f} -> it5 {dense[2][5]:.1f} -> "
-          f"it10 {dense[2][10]:.1f}), dense / alias-MH time "
-          f"{dense[0] / mh[0]:.3f} (host clock over iterations 3-10, LL at "
-          "5 and 10 included)", flush=True)
+    dense = res["ggs"]
+    text = "; ".join(
+        f"{name} {r[0]:.3f} ms/iteration (LL init {r[1]:.1f} -> it5 "
+        f"{r[2][5]:.1f} -> it10 {r[2][10]:.1f}; alias-MH launches "
+        f"{json.dumps(r[3])}; dense / this time {dense[0] / r[0]:.3f})"
+        for name, r in res.items())
+    print(f"[4 ggs_aliasmh K={k_big}] counts exact and LL rising in each; "
+          f"{text} (host clock over iterations 3-10, LL at 5 and 10 "
+          "included)", flush=True)
     return launches
+
+
+# [3 alias-mh]: the alias-MH z-step kernels (csrc/alias_mh.cu)
+ALIAS_MH_KS = (K, 4096)
+ALIAS_MH_ROUNDS = 2
+# a z that differs from the plain version's is a proven tie where one accept
+# test on the plain version's path has sides this close (relative): f32
+# products rounded in another order move them by a few ulps at most
+ALIAS_MH_TIE = 2.0 ** -20
+ALIAS_MH_CHI = dict(docs=2000, length=300, types=50, topics=20, groups=4,
+                    rounds=8)
+PHILOX_MULTIPLIES = 40      # 32-bit multiplies of one Philox4x32-10 block
+
+
+def alias_mh_case(torch, corpus, LDAConfig, create_model, k):
+    """A ggs_aliasmh model at K=k after 2 iterations on cuda, and the
+    operands of one z-step on its state: an asymmetric alpha (0.05 to 0.95,
+    mean 0.5), the documents of even index selected, a fixed seed."""
+    model = create_model(pcgs_config(LDAConfig, "ggs_aliasmh", k))
+    model.add_instances(corpus)
+    model.sample(2)
+    st, dev = model.state, model.device
+    a_sum = torch.linspace(0.05, 0.95, k, device=dev).sum()
+    return model, dict(
+        z_slot=st.z, ops=model._mh_ops, phi=st.phi, nkw=st.nkw,
+        theta=st.theta, ndk=st.ndk, beta=st.beta, alpha_sum=a_sum,
+        au=a_sum / k, seed=torch.tensor([0x2F6B_11D0_93A7_5C41],
+                                        dtype=torch.int64, device=dev),
+        doc_mask=torch.arange(corpus.num_docs, device=dev) % 2 == 0)
+
+
+def alias_mh_proposals(torch, cam, case, rounds):
+    """Each step's proposed topics, long [2 rounds, N]: they depend on
+    the entry topics and the draws alone, not on acceptance."""
+    ops, k = case["ops"], case["phi"].shape[1]
+    w, d = ops.tok_w.long(), ops.tok_d.long()
+    doc_off, ty_off = ops.doc_off.long(), ops.ty_off.long()
+    doc_base, ty_base = doc_off[d], ty_off[w]
+    doc_len, ty_cnt = doc_off[d + 1] - doc_base, ty_off[w + 1] - ty_base
+    z_can, z_ty, _ = cam.entry_topics_reference(case["z_slot"], ops)
+    f32 = torch.float32
+    cw, ld = ty_cnt.to(f32), doc_len.to(f32)
+    p_w = cw / (cw + k * case["beta"])
+    p_d = ld / (ld + case["alpha_sum"])
+    draws = cam.philox_draws(case["seed"], w.shape[0], ty_cnt.clamp_min(1),
+                             doc_len.clamp_min(1), k)
+    out = []
+    for r in range(rounds):
+        u1, pos1, k1, _, u2, pos2, k2, _ = draws(r)
+        out.append(torch.where(u1 < p_w, z_ty[ty_base + pos1].long(), k1))
+        out.append(torch.where(u2 < p_d, z_can[doc_base + pos2].long(), k2))
+    return z_can.long(), torch.stack(out)
+
+
+def alias_mh_touched(torch, cam, case, rounds):
+    """(table entries, 32-byte sectors of the unpacked tables, sectors of
+    the packed ones) that the updatable tokens' current and proposed
+    topics need: the bound counts each entry's 8 bytes once."""
+    ops, k = case["ops"], case["phi"].shape[1]
+    sel = case["doc_mask"][ops.tok_d.long()]
+    z0, props = alias_mh_proposals(torch, cam, case, rounds)
+    topics = torch.cat([z0[None], props])[:, sel]
+    entries = sectors = packed = 0
+    for rows in (ops.tok_w.long()[sel], ops.tok_d.long()[sel]):
+        idx = torch.unique(rows[None] * k + topics)
+        entries += idx.numel()
+        sectors += 2 * torch.unique(idx // 8).numel()
+        packed += torch.unique(idx // 4).numel()
+    return entries, sectors, packed
+
+
+def alias_mh_tie_gaps(torch, cam, case, rounds, packed, tokens):
+    """For each canonical token of `tokens`, the smallest relative gap
+    |lhs - rhs| / max(lhs, rhs) between the sides of its accept tests on
+    alias_mh_reference's path, repeated in numpy float32 from the same
+    draws and table values: a kernel z that differs from the reference's
+    is a proven tie where this is at most ALIAS_MH_TIE. Returns (the gaps,
+    the z each path ends on)."""
+    f32 = np.float32
+    ops, k = case["ops"], case["phi"].shape[1]
+    w, d = ops.tok_w.long(), ops.tok_d.long()
+    doc_off, ty_off = ops.doc_off.long(), ops.ty_off.long()
+    doc_len = (doc_off[d + 1] - doc_off[d]).clamp_min(1)
+    ty_cnt = (ty_off[w + 1] - ty_off[w]).clamp_min(1)
+    draws = cam.philox_draws(case["seed"], w.shape[0], ty_cnt, doc_len, k)
+    step_draws = [[a.cpu().numpy() for a in draws(r)] for r in range(rounds)]
+    z_can, z_ty, _ = cam.entry_topics_reference(case["z_slot"], ops)
+    z_can, z_ty = z_can.cpu().numpy(), z_ty.cpu().numpy()
+    tabs = (cam.pack_reference(*(case[n] for n in (
+        "phi", "nkw", "theta", "ndk", "beta", "au"))) if packed else None)
+    beta, au = f32(case["beta"]), f32(float(case["au"]))
+    a_sum, kbeta = f32(float(case["alpha_sum"])), f32(k * case["beta"])
+
+    def dens(t, kk):
+        iw, idd = int(w[t]) * k + kk, int(d[t]) * k + kk
+        if tabs is not None:
+            a, b = tabs[0][iw].tolist(), tabs[1][idd].tolist()
+            return f32(a[0]), f32(a[1]), f32(b[0]), f32(b[1])
+        return (f32(float(case["phi"].view(-1)[iw])),
+                f32(int(case["nkw"].view(-1)[iw])) + beta,
+                f32(float(case["theta"].view(-1)[idd])),
+                f32(int(case["ndk"].view(-1)[idd])) + au)
+    gaps, ends = [], []
+    for t in tokens:
+        cw, ld = f32(int(ty_cnt[t])), f32(int(doc_len[t]))
+        p_mix = (cw / (cw + kbeta), ld / (ld + a_sum))
+        base = (int(ty_off[w[t]]), int(doc_off[d[t]]))
+        zz = int(z_can[t])
+        ph, qw, th, qd = dens(t, zz)
+        t_c, gap = th * ph, np.inf
+        for r in range(rounds):
+            for s in (0, 1):
+                u_mix, pos, topic, u_acc = (a[t] for a in
+                                            step_draws[r][4 * s: 4 * s + 4])
+                kp = (int((z_ty, z_can)[s][base[s] + pos])
+                      if u_mix < p_mix[s] else int(topic))
+                phn, qwn, thn, qdn = dens(t, kp)
+                t_new = thn * phn
+                lhs = u_acc * max(t_c * (qwn, qdn)[s], f32(1e-38))
+                rhs = t_new * (qw, qd)[s]
+                gap = min(gap, abs(float(lhs) - float(rhs))
+                          / max(float(lhs), float(rhs), 1e-300))
+                if lhs < rhs:
+                    zz, t_c, qw, qd = kp, t_new, qwn, qdn
+        gaps.append(gap)
+        ends.append(zz)
+    return gaps, ends
+
+
+def alias_mh_agreement(torch, cam, case, label):
+    """The kernel against alias_mh_reference in both modes, with acceptance
+    counts: z equal on every slot but proven ties, padding slots 0,
+    unselected documents' z kept, the rates from the counts equal to the
+    reference's f32 rates, packed equal to unpacked (z and counts), the
+    pack kernel equal to pack_reference bit for bit. Returns (the pack
+    kernel's tables, {mode: numbers})."""
+    dev = case["z_slot"].device
+    rounds, ops = ALIAS_MH_ROUNDS, case["ops"]
+    tables = [case[n] for n in ("phi", "nkw", "theta", "ndk", "beta", "au")]
+    packs = cam.pack_tables(*tables)
+    packs_ref = cam.pack_reference(*tables)
+    check(all(torch.equal(a, b) for a, b in zip(packs, packs_ref)),
+          f"{label}: the pack kernel differs from pack_reference")
+    real = ops.slot_of_can.long()
+    pad = torch.ones(case["z_slot"].shape, dtype=torch.bool, device=dev)
+    pad[real] = False
+    unsel = ~case["doc_mask"][ops.tok_d.long()]
+    den = cam.updatable_tokens(ops, case["doc_mask"])
+    out = {}
+    for mode in ("unpacked", "packed"):
+        counts = torch.zeros((rounds, 2), dtype=torch.int32, device=dev)
+        zk = cam.alias_mh(**case, rounds=rounds,
+                          packed=packs if mode == "packed" else None,
+                          acc_counts=counts)
+        zr, rates = cam.alias_mh_reference(**case, rounds=rounds,
+                                           packed=mode == "packed")
+        diff = (zk[real] != zr[real]).nonzero().flatten()
+        # the proof's path is the plain version's: it ends on its z, here
+        # checked on the differing tokens and the first 16 tokens
+        probe = diff[:64].tolist() + list(range(16))
+        gaps, ends = alias_mh_tie_gaps(torch, cam, case, rounds,
+                                       mode == "packed", probe)
+        check(ends == zr[real[probe]].tolist(), f"{label} {mode}: the tie "
+              f"proof's path ends on {ends}, the plain version on "
+              f"{zr[real[probe]].tolist()}")
+        gaps = gaps[:min(diff.numel(), 64)]
+        check(diff.numel() <= 64 and all(g <= ALIAS_MH_TIE for g in gaps),
+              f"{label} {mode}: {diff.numel()} tokens differ from the plain "
+              f"version, accept-test gaps {gaps[:8]}")
+        got = cam.acceptance_rates(counts, den)
+        check(all(torch.equal(a, b) for a, b in zip(got, rates)),
+              f"{label} {mode}: rates {[a.tolist() for a in got]} from the "
+              f"counts, {[a.tolist() for a in rates]} by the plain version")
+        check(bool((zk[pad] == 0).all()), f"{label} {mode}: a padding slot "
+              "is not 0")
+        check(torch.equal(zk[real[unsel]], case["z_slot"][real[unsel]]),
+              f"{label} {mode}: an unselected document's z moved")
+        out[mode] = dict(z=zk, counts=counts, differ=int(diff.numel()),
+                         gap=max(gaps, default=None),
+                         moved=float((zk[real] != case["z_slot"][real])
+                                     .float().mean()),
+                         max_abs_err=int((zk - zr).abs().max()))
+    check(torch.equal(out["packed"]["z"], out["unpacked"]["z"])
+          and torch.equal(out["packed"]["counts"], out["unpacked"]["counts"]),
+          f"{label}: packed and unpacked kernels differ")
+    return packs, out
+
+
+def alias_mh_chi_square(torch, cam, Corpus, dev):
+    """MH invariance on the card: ALIAS_MH_CHI's documents and types, theta
+    shared by groups of documents, z drawn exactly from theta[d] phi[., w];
+    after its rounds of the kernel z still follows it: chi-square over
+    (group, type) cells, p > 1e-4. Returns (chi2, dof, p, share moved)."""
+    from scipy import stats as sps
+    c = ALIAS_MH_CHI
+    rng = np.random.default_rng(17)
+    k, v, docs, length = c["topics"], c["types"], c["docs"], c["length"]
+    tokens = rng.integers(0, v, docs * length)
+    offsets = np.arange(0, docs * length + 1, length)
+    corpus = Corpus(tokens=tokens.astype(np.int32), doc_offsets=offsets,
+                    vocab=[f"w{i}" for i in range(v)])
+    blocks = corpus.cell_blocks(block=4096, vspan=128, dspan=128)
+    ops = cam.MHOperands.build(tokens, offsets, blocks.flat_index, v, dev)
+    doc_of = np.repeat(np.arange(docs), length)
+    theta = rng.dirichlet(np.full(k, 1.5), c["groups"]).astype(np.float32)[
+        np.arange(docs) % c["groups"]]
+    phi = np.ascontiguousarray(rng.dirichlet(np.full(v, 1.0), k).T,
+                               np.float32)
+    p = theta[doc_of] * phi[tokens]
+    p /= p.sum(axis=1, keepdims=True)
+    z = np.minimum((rng.random(len(tokens))[:, None]
+                    > np.cumsum(p, axis=1)).sum(1), k - 1)
+    nkw = np.zeros((v, k), np.int32)
+    np.add.at(nkw, (tokens, z), 1)
+    ndk = np.zeros((docs, k), np.int32)
+    np.add.at(ndk, (doc_of, z), 1)
+    z_slot = torch.zeros(blocks.flat_index.size, dtype=torch.int32,
+                         device=dev)
+    z_slot[ops.slot_of_can.long()] = torch.as_tensor(z.astype(np.int32),
+                                                     device=dev)
+    a_sum = torch.tensor(0.1 * k, dtype=torch.float32, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    out = cam.alias_mh(z_slot, ops, t(phi), t(nkw), t(theta), t(ndk), 0.01,
+                       a_sum, a_sum / k, torch.tensor(
+                           [0x51DE_C0DE], dtype=torch.int64, device=dev),
+                       c["rounds"])
+    z_after = out[ops.slot_of_can.long()].cpu().numpy()
+    cell = (doc_of % c["groups"]) * v + tokens
+    obs = np.zeros((c["groups"] * v, k))
+    np.add.at(obs, (cell, z_after), 1)
+    expect = np.zeros((c["groups"] * v, k))
+    np.add.at(expect, cell, p)
+    keep = expect > 5
+    chi2 = float((((obs - expect) ** 2)[keep] / expect[keep]).sum())
+    dof = int(keep.sum()) - int(keep.any(axis=1).sum())
+    pval = float(sps.chi2.sf(chi2, dof))
+    moved = float((z_after != z).mean())
+    check(pval > 1e-4 and moved > 0.3, f"[3 alias-mh] MH invariance: chi2 "
+          f"{chi2:.1f} (dof {dof}, p={pval:.3g}), {moved:.3f} of z moved")
+    return chi2, dof, pval, moved
+
+
+def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
+    """[3 alias-mh]: the alias-MH z-step kernels (csrc/alias_mh.cu) on the
+    20NG corpus at K=100 and K=4096, each on a ggs_aliasmh model's state
+    after 2 iterations, with ALIAS_MH_ROUNDS rounds, an asymmetric alpha
+    and half the documents selected (alias_mh_case): the kernel against
+    alias_mh_reference in both modes (alias_mh_agreement); MH invariance by
+    chi-square on the card (alias_mh_chi_square); the z-step (pre-pass and
+    rounds) timed by CUDA events in both modes, the pre-pass alone, the
+    pack kernel, beside the plain versions, `torch.stack` of the same
+    tables (the pack's yardstick; no PyTorch call computes an MH round)
+    and the bounds: the rounds' bytes (the token operands, the slot array
+    written, each table entry the updatable tokens' current and proposed
+    topics need, 8 B once) against the Philox blocks' integer multiplies;
+    the pack's 16 B a table entry. Returns the two kernels-JSON entries."""
+    rounds = ALIAS_MH_ROUNDS
+    res = {}
+    chi = None
+    for k in ALIAS_MH_KS:
+        label = f"[3 alias-mh] K={k}"
+        model, case = alias_mh_case(torch, corpus, LDAConfig, create_model,
+                                    k)
+        packs, agree = alias_mh_agreement(torch, cam, case, label)
+        ops, n = case["ops"], case["ops"].num_tokens
+        tables = [case[nm] for nm in ("phi", "nkw", "theta", "ndk", "beta",
+                                      "au")]
+        ms = {mode: time_ms(torch, lambda p=p: cam.alias_mh(
+            **case, rounds=rounds, packed=p))
+            for mode, p in (("unpacked", None), ("packed", packs))}
+        prepass_ms = time_ms(torch, lambda: cam.entry_topics(case["z_slot"],
+                                                             ops))
+        pack_ms = time_ms(torch, lambda: cam.pack_tables(*tables))
+        plain_ms = {mode: once_ms(torch, lambda mode=mode: cam.
+                                  alias_mh_reference(
+                                      **case, rounds=rounds,
+                                      packed=mode == "packed"))
+                    for mode in ("unpacked", "packed")}
+        pack_plain_ms = time_ms(torch, lambda: cam.pack_reference(*tables))
+        f32 = torch.float32
+        nkw_f = case["nkw"].to(f32) + case["beta"]
+        ndk_f = case["ndk"].to(f32) + case["au"]
+        stack_ms = time_ms(torch, lambda: (
+            torch.stack([case["phi"].reshape(-1), nkw_f.reshape(-1)], 1),
+            torch.stack([case["theta"].reshape(-1), ndk_f.reshape(-1)], 1)))
+        del nkw_f, ndk_f
+        entries, sectors, sectors_packed = alias_mh_touched(torch, cam, case,
+                                                            rounds)
+        upd = int(cam.updatable_tokens(ops, case["doc_mask"]))
+        slots, d_, v_ = case["z_slot"].numel(), case["theta"].shape[0], \
+            case["phi"].shape[0]
+        stream = 4 * 5 * n + 4 * slots + 4 * (d_ + v_ + 2) + d_
+        nbytes = stream + 8 * entries
+        int_ops = upd * 4 * rounds * PHILOX_MULTIPLIES
+        bound_ms, by = bound(nbytes, 0.0, int_ops)
+        pack_bytes = 16 * (v_ + d_) * k
+        pack_bound, pack_by = bound(pack_bytes, 0.0)
+        if k == K:
+            chi = alias_mh_chi_square(torch, cam, Corpus, model.device)
+        numbers = {m: {x: agree[m][x] for x in ("differ", "gap", "moved",
+                                                 "max_abs_err")}
+                   | {"counts": agree[m]["counts"].tolist(), "ms": ms[m],
+                      "plain_ms": plain_ms[m]} for m in agree}
+        res[k] = dict(numbers=numbers, prepass_ms=prepass_ms,
+                      pack_ms=pack_ms, pack_plain_ms=pack_plain_ms,
+                      stack_ms=stack_ms, bound_ms=bound_ms, bound_by=by,
+                      bytes=nbytes, int_ops=int_ops, entries=entries,
+                      sector_bytes=32 * sectors,
+                      sector_bytes_packed=32 * sectors_packed,
+                      pack_bound_ms=pack_bound, pack_bound_by=pack_by,
+                      updatable=upd, tokens=n)
+        print(f"{label} {smi}: {n} tokens, {upd} updatable (even "
+              f"documents), {rounds} rounds, alpha 0.05-0.95: z equal to "
+              f"alias_mh_reference on every slot but proven ties (unpacked "
+              f"{numbers['unpacked']['differ']}, packed "
+              f"{numbers['packed']['differ']} differing, largest accept-test "
+              f"gap {numbers['unpacked']['gap']} / "
+              f"{numbers['packed']['gap']}), padding slots 0, unselected "
+              f"documents' z kept, {numbers['packed']['moved']:.4f} of the "
+              f"tokens moved; acceptance counts (word, doc) by round "
+              f"{json.dumps(numbers['packed']['counts'])} give the plain "
+              f"version's rates; packed equal to unpacked; pack kernel equal "
+              f"to pack_reference; z-step (pre-pass + rounds) unpacked "
+              f"{ms['unpacked']:.4f} ms, packed {ms['packed']:.4f} ms, "
+              f"pre-pass alone {prepass_ms:.4f} ms; plain "
+              f"{plain_ms['unpacked']:.2f} / {plain_ms['packed']:.2f} ms; "
+              f"bound {bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB with "
+              f"{entries} table entries of 8 B, {int_ops / 1e6:.1f} M Philox "
+              f"multiplies; the entries' 32-byte sectors "
+              f"{32 * sectors / 1e6:.1f} MB unpacked, "
+              f"{32 * sectors_packed / 1e6:.1f} MB packed); pack "
+              f"{pack_ms:.4f} ms (1 launch), plain {pack_plain_ms:.4f} ms, "
+              f"torch.stack {stack_ms:.4f} ms, bound {pack_bound:.4f} ms "
+              f"({pack_by}, {pack_bytes / 1e6:.1f} MB)", flush=True)
+        del model, case, packs, agree
+        torch.cuda.empty_cache()
+    print(f"[3 alias-mh] MH invariance on {torch.cuda.get_device_name(0)}: "
+          f"{ALIAS_MH_CHI['docs']} documents of {ALIAS_MH_CHI['length']} "
+          f"tokens, z drawn from theta phi, {ALIAS_MH_CHI['rounds']} rounds "
+          f"of the kernel: chi2 {chi[0]:.1f} (dof {chi[1]}, p={chi[2]:.3g}), "
+          f"{chi[3]:.4f} of z moved", flush=True)
+    main, big = res[ALIAS_MH_KS[0]], res[ALIAS_MH_KS[-1]]
+    src = "ldagroupedgibbssampler_tpu_torch/csrc/alias_mh.cu"
+    rounds_entry = {
+        "name": "alias_mh_rounds", "route": "cuda", "source": src,
+        "replaces": "ldagroupedgibbssampler_tpu/models/ggs_aliasmh.py:89",
+        "max_abs_err": max(r["numbers"][m]["max_abs_err"]
+                           for r in res.values() for m in r["numbers"]),
+        "ms": main["numbers"]["packed"]["ms"],
+        "unpacked_ms": main["numbers"]["unpacked"]["ms"],
+        "prepass_ms": main["prepass_ms"],
+        "plain_ms": main["numbers"]["packed"]["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "chi_square": list(chi),
+        "cases": {str(k): r["numbers"] for k, r in res.items()},
+        "k4096": {"ms": big["numbers"]["packed"]["ms"],
+                  "unpacked_ms": big["numbers"]["unpacked"]["ms"],
+                  "prepass_ms": big["prepass_ms"],
+                  "plain_ms": big["numbers"]["packed"]["plain_ms"],
+                  "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+                  "sector_bytes": big["sector_bytes"],
+                  "sector_bytes_packed": big["sector_bytes_packed"]}}
+    pack_entry = {
+        "name": "alias_mh_pack", "route": "cuda", "source": src,
+        "replaces": "ldagroupedgibbssampler_tpu/models/ggs_aliasmh.py:247",
+        "max_abs_err": 0.0, "ms": main["pack_ms"],
+        "plain_ms": main["pack_plain_ms"], "bound_ms": main["pack_bound_ms"],
+        "bound_by": main["pack_bound_by"], "library_ms": main["stack_ms"],
+        "k4096": {"ms": big["pack_ms"], "plain_ms": big["pack_plain_ms"],
+                  "bound_ms": big["pack_bound_ms"],
+                  "bound_by": big["pack_bound_by"],
+                  "library_ms": big["stack_ms"]}}
+    return rounds_entry, pack_entry
 
 
 def first_docs(Corpus, corpus, num_docs):
@@ -3807,10 +4216,13 @@ def chunked_pair(torch, corpus, LDAConfig, create_model, counters, scheme,
         runs.append(read_launches(counters))
     check(runs[0] == runs[1], f"{label}: launches {runs[0]} chunked, "
           f"{runs[1]} by sample()")
-    # the path's kernels: the z-draw once an iteration (ggs), the counts at
-    # least once, theta and phi by the Dirichlet kernels
+    # the path's kernels: the z-draw once an iteration (ggs), the alias-MH
+    # pre-pass, rounds and pack once an iteration (ggs_aliasmh, packed),
+    # the counts at least once, theta and phi by the Dirichlet kernels
     got = runs[0]
+    mh = (got["entry_topics"], got["mh_rounds"], got["pack_tables"])
     check((got["fused_zdraw_nkw"] == iters or scheme != "ggs")
+          and mh == ((iters,) * 3 if scheme == "ggs_aliasmh" else (0,) * 3)
           and got["blocked_label_counts"] >= iters
           and got["dirichlet"] == 3 * iters,
           f"{label}: launches {got}")
@@ -3864,7 +4276,7 @@ def sample_chunked_phase(torch, corpus, LDAConfig, create_model, counters,
     times; log_dirichlet at theta's [D, K] and phi's [K, V] against the
     Dirichlet kernel's draw from the same generator state. Returns (the
     launches of the ggs K=100 chunked run by wrapper, the capture and
-    replay numbers)."""
+    replay numbers, the launches of the ggs_aliasmh chunked run)."""
     name = torch.cuda.get_device_name(0)
     for scheme, k, iters in CHUNKED_PAIRS:
         model, launches = chunked_pair(torch, corpus, LDAConfig,
@@ -3879,6 +4291,8 @@ def sample_chunked_phase(torch, corpus, LDAConfig, create_model, counters,
         if (scheme, k) == ("ggs", K):
             out, kept = launches, model
         else:
+            if scheme == "ggs_aliasmh":
+                aliasmh = launches
             del model
         torch.cuda.empty_cache()
     model, steps = kept, kept.chunked_steps
@@ -4001,7 +4415,7 @@ def sample_chunked_phase(torch, corpus, LDAConfig, create_model, counters,
                       for w, (s, r, e) in errs.items()), flush=True)
     del hooked, model
     torch.cuda.empty_cache()
-    return out, numbers
+    return out, numbers, aliasmh
 
 
 def recount(corpus, z, num_topics):
@@ -5641,7 +6055,8 @@ def main() -> int:
         Corpus, real_slot_list)
     from ldagroupedgibbssampler_tpu_torch.models.fusion import launch_counters
     from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
-    from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts,
+    from ldagroupedgibbssampler_tpu_torch.ops import (cuda_alias_mh,
+                                                      cuda_counts,
                                                       cuda_gamma,
                                                       cuda_left_to_right,
                                                       cuda_lightlda,
@@ -5852,6 +6267,9 @@ def main() -> int:
     gamma_entry = gamma_phase(torch, corpus, cuda_gamma, rnd, smi)
     torch.cuda.empty_cache()
     l2r_entry = left_to_right_phase(torch, corpus, cuda_left_to_right, smi)
+    torch.cuda.empty_cache()
+    mh_rounds_entry, mh_pack_entry = alias_mh_phase(
+        torch, corpus, Corpus, LDAConfig, create_model, cuda_alias_mh, smi)
 
     # ---- 4. main path: the library entry point -------------------------
     cuda_counts.blocked_label_counts.launches = 0
@@ -5921,7 +6339,7 @@ def main() -> int:
                                  create_model)
     aliasmh_launches = aliasmh_main_path(torch, corpus, LDAConfig,
                                          create_model, cuda_counts,
-                                         cuda_zdraw, smi)
+                                         cuda_zdraw, cuda_alias_mh, smi)
     foldin_launches, l2r_launches = held_out_phase(
         torch, corpus, LDAConfig, create_model, cuda_counts, cuda_zdraw,
         cuda_left_to_right, smi)
@@ -5933,8 +6351,9 @@ def main() -> int:
     collapsed_phase(torch, corpus, Corpus, LDAConfig, create_model, counters)
     fused_phase(torch, corpus, Corpus, LDAConfig, create_model, counters,
                 smi)
-    chunked_launches, chunked_numbers = sample_chunked_phase(
-        torch, corpus, LDAConfig, create_model, counters, rnd, smi)
+    chunked_launches, chunked_numbers, chunked_aliasmh = (
+        sample_chunked_phase(torch, corpus, LDAConfig, create_model,
+                             counters, rnd, smi))
 
     # ---- 5. the experiment CLI ------------------------------------------
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -6031,7 +6450,7 @@ def main() -> int:
         cuda_pcgs)
 
     kernels = [
-        {**counts_entry, "launches": aliasmh_launches,
+        {**counts_entry, "launches": aliasmh_launches["blocked_label_counts"],
          "launches_ggs": launches["blocked_label_counts"],
          "launches_foldin": foldin_launches["blocked_label_counts"],
          "launches_chunked": chunked_launches["blocked_label_counts"]},
@@ -6060,6 +6479,11 @@ def main() -> int:
          + chunked_launches["dirichlet"],
          "chunked": chunked_numbers},
         {**l2r_entry, "launches": l2r_launches},
+        {**mh_rounds_entry, "launches": aliasmh_launches["mh_rounds"],
+         "launches_prepass": aliasmh_launches["entry_topics"],
+         "launches_chunked": chunked_aliasmh["mh_rounds"]},
+        {**mh_pack_entry, "launches": aliasmh_launches["pack_tables"],
+         "launches_chunked": chunked_aliasmh["pack_tables"]},
     ]
     for entry in kernels:
         key = entry["name"] + (" collapsed" if entry.get("mode")

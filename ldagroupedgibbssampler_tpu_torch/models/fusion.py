@@ -66,7 +66,8 @@ import time
 import numpy as np
 import torch
 
-from ldagroupedgibbssampler_tpu_torch.ops import (cuda_counts, cuda_gamma,
+from ldagroupedgibbssampler_tpu_torch.ops import (cuda_alias_mh,
+                                                  cuda_counts, cuda_gamma,
                                                   cuda_left_to_right,
                                                   cuda_lightlda, cuda_pcgs,
                                                   cuda_zdraw)
@@ -82,7 +83,10 @@ def launch_counters() -> list:
             (cuda_lightlda.fused_lightlda_sweep, "launches"),
             (cuda_lightlda.fused_lightlda_sweep_streamed, "launches"),
             (cuda_gamma.gamma, "launches"), (cuda_gamma.dirichlet, "launches"),
-            (cuda_left_to_right.left_to_right, "launches")] + [
+            (cuda_left_to_right.left_to_right, "launches"),
+            (cuda_alias_mh.entry_topics, "launches"),
+            (cuda_alias_mh.mh_rounds, "launches"),
+            (cuda_alias_mh.pack_tables, "launches")] + [
         (fn, attr) for fn in (cuda_pcgs.fused_pcgs_sweep,
                               cuda_pcgs.fused_pcgs_sweep_streamed)
         for attr in ("launches", "collapsed_launches")]

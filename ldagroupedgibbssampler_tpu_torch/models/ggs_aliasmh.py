@@ -21,14 +21,20 @@ rounds whose cost per token does not grow with K:
   accept with min(1, p(k*) q(z) / (p(z) q(k*))).
 
 Given theta and phi the tokens of the grouped sampler are conditionally
-independent, so every token's chain runs in parallel: the rounds are bulk
-PyTorch over the canonical (document-major, unpadded) token axis, with no
-kernel of their own, as the JAX package leaves them to XLA. Only z crosses
-between the canonical axis and GGS's layout-A slots, by one gather each
-way. After the rounds, N_kw and n_dk are rebuilt from z by the count kernel
-(`ops/cuda_counts.py`, csrc/label_counts.cu) on layouts A and B at every
-K, then phi is drawn. Each sweep is [theta | n_d] exact, [z | theta, phi]
-MH rounds that leave p(z | theta, phi, w) invariant, [phi | z] exact.
+independent, so every token's chain runs in parallel over the canonical
+(document-major, unpadded) token axis. Only z crosses between the
+canonical axis and GGS's layout-A slots, by one gather each way. On the
+card the step is the hand-written kernels of `ops/cuda_alias_mh.py`
+(csrc/alias_mh.cu), where the JAX package has XLA fuse it: the entry
+topics' gathers, every round in one launch writing the new z to its slot,
+and in packed mode the tables in one pass; their random words come from an
+in-kernel Philox keyed by one int64 from the chain's generator. On the CPU
+the rounds are the bulk PyTorch of `alias_mh_rounds` below, drawn by
+`generator_draws`: the same distribution, other chains. After the rounds,
+N_kw and n_dk are rebuilt from z by the count kernel (`ops/cuda_counts.py`,
+csrc/label_counts.cu) on layouts A and B at every K, then phi is drawn.
+Each sweep is [theta | n_d] exact, [z | theta, phi] MH rounds that leave
+p(z | theta, phi, w) invariant, [phi | z] exact.
 
 Quality, from the JAX package's runs: the MH z-step mixes less per sweep
 than the exact draw; at K=4096 dense GGS is better held-out at matched
@@ -42,6 +48,8 @@ import numpy as np
 import torch
 
 from ldagroupedgibbssampler_tpu_torch.models.ggs import LDAGroupedGibbsSampler
+from ldagroupedgibbssampler_tpu_torch.ops import cuda_alias_mh
+from ldagroupedgibbssampler_tpu_torch.ops.random import kernel_seed
 
 _TINY = 1e-38
 
@@ -163,6 +171,12 @@ class LDAGroupedGibbsSamplerAliasMH(LDAGroupedGibbsSampler):
 
     def _prepare_device_data(self, corpus):
         super()._prepare_device_data(corpus)
+        if self.device.type != "cpu":
+            # the kernels' int32 token operands, made once
+            self._mh_ops = cuda_alias_mh.MHOperands.build(
+                corpus.tokens, corpus.doc_offsets, self._blocks.flat_index,
+                corpus.num_types, self.device)
+            return
         tokens = corpus.tokens
         n = corpus.num_tokens
 
@@ -191,9 +205,7 @@ class LDAGroupedGibbsSamplerAliasMH(LDAGroupedGibbsSampler):
 
     def _step(self, state, doc_mask, type_mask=None):
         """One iteration, replacing the fields of `state` in place."""
-        cfg = self.config
-        K = cfg.topics
-        f32 = torch.float32
+        K = self.config.topics
         # (1) theta, as in ggs
         theta = self._theta_update(state, doc_mask)
         # (2) the MH rounds over the canonical tokens. The doc proposal's
@@ -201,16 +213,45 @@ class LDAGroupedGibbsSamplerAliasMH(LDAGroupedGibbsSampler):
         # per topic for any alpha vector).
         a_sum = state.alpha.sum()
         au = a_sum / K
+        if self.device.type != "cpu":
+            z = self._kernel_z_step(state, theta, doc_mask, a_sum, au)
+        else:
+            z = self._eager_z_step(state, theta, doc_mask, a_sum, au)
+        # (3) both count tables from z through the count kernel
+        nkw = self._count_nkw(z)
+        ndk = self._count_ndk(z)
+        # (4) phi
+        phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)
+        state.z, state.ndk, state.nkw, state.phi, state.theta = (
+            z, ndk, nkw, phi, theta)
+        state.nk = nkw.sum(dim=0, dtype=torch.int32)
+        state.iteration += 1
+
+    def _kernel_z_step(self, state, theta, doc_mask, a_sum, au):
+        """The MH rounds on the card: the entry topics' gathers and every
+        round in one launch each, after the packed tables' one pass in
+        packed mode; the new z on the layout-A slots."""
+        packed = (cuda_alias_mh.pack_tables(state.phi, state.nkw, theta,
+                                            state.ndk, state.beta, au)
+                  if self._mh_packed() else None)
+        return cuda_alias_mh.alias_mh(
+            state.z, self._mh_ops, state.phi, state.nkw, theta, state.ndk,
+            state.beta, a_sum, au, kernel_seed(self.generator, self.device),
+            max(1, self.config.aliasmh_rounds), doc_mask=doc_mask,
+            packed=packed)
+
+    def _eager_z_step(self, state, theta, doc_mask, a_sum, au):
+        """The MH rounds of `alias_mh_rounds` with the generator's draws
+        (the CPU's path); the new z on the layout-A slots."""
+        cfg = self.config
+        K = cfg.topics
+        f32 = torch.float32
         wK = self._mh_w * K
         dK = self._mh_d * K
         if self._mh_packed():
             # packed [., 2] f32 rows: one 8-byte gather a density
-            wk_pack = torch.stack([state.phi.reshape(-1),
-                                   state.nkw.to(f32).reshape(-1)
-                                   + state.beta], dim=1)
-            dk_pack = torch.stack([theta.reshape(-1),
-                                   state.ndk.to(f32).reshape(-1) + au],
-                                  dim=1)
+            wk_pack, dk_pack = cuda_alias_mh.pack_reference(
+                state.phi, state.nkw, theta, state.ndk, state.beta, au)
 
             def gather_w(k):
                 r = wk_pack[wK + k]
@@ -247,13 +288,4 @@ class LDAGroupedGibbsSamplerAliasMH(LDAGroupedGibbsSampler):
             lambda pos: z_entry_ty[self._mh_ty_base + pos],
             self._mh_doc_len, self._mh_ty_cnt, K,
             max(1, cfg.aliasmh_rounds), generator=self.generator)
-        z = torch.where(self.mf, z_can[self._mh_can_of_slot], 0)
-        # (3) both count tables from z through the count kernel
-        nkw = self._count_nkw(z)
-        ndk = self._count_ndk(z)
-        # (4) phi
-        phi = self._sample_phi(nkw, state.beta, type_mask, state.phi)
-        state.z, state.ndk, state.nkw, state.phi, state.theta = (
-            z, ndk, nkw, phi, theta)
-        state.nk = nkw.sum(dim=0, dtype=torch.int32)
-        state.iteration += 1
+        return torch.where(self.mf, z_can[self._mh_can_of_slot], 0)

@@ -79,6 +79,13 @@ _SIGNATURES = {
                                 _c_int, _c_ptr],
     # left_to_right.cu
     "lda_left_to_right": [_c_ptr] * 8 + [_c_int] * 11 + [_c_ptr],
+    # alias_mh.cu
+    "lda_alias_mh_entry": [_c_ptr] * 6 + [_c_i64, _c_i64, _c_int, _c_ptr],
+    "lda_alias_mh_rounds": [_c_ptr] * 16 + [ctypes.c_float] * 2
+    + [_c_ptr] * 3 + [_c_i64] + [_c_int] * 4 + [_c_ptr],
+    "lda_alias_mh_pack": [_c_ptr, _c_ptr, ctypes.c_float, _c_ptr, _c_i64,
+                          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int,
+                          _c_ptr],
 }
 
 

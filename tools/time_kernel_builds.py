@@ -5,17 +5,17 @@ card, in turns.
 Run from the repository root on a machine with one card and nvcc:
 
     python3 tools/time_kernel_builds.py \
-        --kernel pcgs|lightlda|zdraw|counts|gamma|left_to_right \
+        --kernel pcgs|lightlda|zdraw|counts|gamma|left_to_right|alias_mh \
         NAME=PATH [NAME=PATH ...] [--root DIR] [--cases CASE,...] \
         [--rounds 2] [--json out.json]
 
 Each PATH is either
   - a source of the kernel (`csrc/pcgs.cu`, `csrc/lightlda.cu`,
     `csrc/zdraw.cu`, `csrc/label_counts.cu`, `csrc/gamma.cu`,
-    `csrc/left_to_right.cu`, or a copy of one beside the `philox.cuh` it
-    includes), timed under the wrappers of the checkout
-    `--root` (default: this one), so it must keep that checkout's C
-    interface; or
+    `csrc/left_to_right.cu`, `csrc/alias_mh.cu`, or a copy of one beside
+    the `philox.cuh` it includes), timed under the wrappers of the
+    checkout `--root` (default: this one), so it must keep that
+    checkout's C interface; or
   - a directory holding a checkout of the repository (the parent commit
     unpacked there with `git archive`, say), timed with that checkout's own
     wrappers and its own source of the kernel, so builds whose C
@@ -44,7 +44,13 @@ and
     axis;
   - left_to_right: `[3 left-to-right]`, the 10% split at K=100 and
     K=4096, 100 particles (`chip_smoke.py::l2r_operands` of this
-    checkout).
+    checkout);
+  - alias_mh: `[3 alias-mh]`'s operands (`chip_smoke.py::alias_mh_case`
+    of this checkout) with every document selected, as the main path
+    runs them: the rounds kernel alone at K=100 and K=4096 in both table
+    modes, 2 rounds; at K=100 packed also at 1 and 4 rounds, and at 1, 2
+    and 4 rounds with no document selected (what a token costs without
+    its draws and gathers); the pack at both K.
 The workers start together, so builds and set-up run in parallel; then
 each case is timed with `chip_smoke.time_ms`, one worker at a time, the
 names first to last and back, `--rounds` times, so each has as many early
@@ -74,7 +80,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCES = {"pcgs": "pcgs.cu", "lightlda": "lightlda.cu",
                   "zdraw": "zdraw.cu", "counts": "label_counts.cu",
-                  "gamma": "gamma.cu", "left_to_right": "left_to_right.cu"}
+                  "gamma": "gamma.cu", "left_to_right": "left_to_right.cu",
+                  "alias_mh": "alias_mh.cu"}
 TAG = "@@ "                       # prefix of the worker's protocol lines
 
 
@@ -264,9 +271,38 @@ def left_to_right_cases(torch, cs, corpus, LDAConfig, create_model):
     return cases
 
 
+def alias_mh_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 alias-mh]'s operands at K=100 and K=4096, every document
+    selected: the rounds kernel after one pre-pass, both table modes, and
+    the pack; at K=100 packed the rounds at 1, 2 and 4, with no document
+    and with every document selected."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_alias_mh as cam
+    own = _own_chip_smoke()
+    cases = {}
+    for k in (own.K, 4096):
+        _model, case = own.alias_mh_case(torch, corpus, LDAConfig,
+                                         create_model, k)
+        tables = [case[n] for n in ("phi", "nkw", "theta", "ndk", "beta",
+                                    "au")]
+        head = (*cam.entry_topics(case["z_slot"], case["ops"]), case["ops"])
+        args = {n: case[n] for n in ("phi", "nkw", "theta", "ndk", "beta",
+                                     "alpha_sum", "au", "seed")}
+        none = torch.zeros_like(case["doc_mask"])
+        for mode, packed in (("packed", cam.pack_tables(*tables)),
+                             ("unpacked", None)):
+            probe = k == own.K and mode == "packed"
+            for sel, mask in (("all", None), ("none", none))[:1 + probe]:
+                for r in (1, 2, 4) if probe else (2,):
+                    cases[f"rounds K={k} {mode} {sel} r{r}"] = (
+                        cam.mh_rounds, head,
+                        dict(args, rounds=r, doc_mask=mask, packed=packed))
+        cases[f"pack K={k}"] = (cam.pack_tables, tables, {})
+    return cases
+
+
 CASES = {"pcgs": pcgs_cases, "lightlda": lightlda_cases,
          "zdraw": zdraw_cases, "counts": counts_cases, "gamma": gamma_cases,
-         "left_to_right": left_to_right_cases}
+         "left_to_right": left_to_right_cases, "alias_mh": alias_mh_cases}
 
 
 def worker(kernel: str, root: str, source: str, out_dir: str) -> int:
