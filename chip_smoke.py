@@ -79,7 +79,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      ties, the rates from the kernel's acceptance counts equal, packed
      equal to unpacked, the pack kernel bit-equal to pack_reference, an
      MH-invariance chi-square, times beside the plain versions,
-     torch.stack and the bounds;
+     torch.stack and the bounds; `[3 hdp]`, the table-count and psi
+     kernels (csrc/hdp.cu) on a ppu_hdplda K_max=100 chain after 10
+     iterations: the table counts equal to the plain version on the same
+     Philox words in both instances of the histogram launch (and for
+     hlda's scalar concentration), ge equal to the eager bincount path,
+     psi on the chain's tables and, at K_max=4096 on synthetic inputs,
+     for every birth rule, psi sampler and index prior: births and the
+     active mask exact, psi and alpha within 1e-5; the elementwise
+     Binomial kernel equal to its plain version and KS against
+     torch.binomial; `[3 polya-urn]` (csrc/polya_urn.cu): the rows at
+     [100, 20,000] (that chain's N_kw, with and without its active mask)
+     and [200, 20,000] equal to the plain version, its counts against
+     torch.poisson, the elementwise Poisson kernel on a grid of rates;
+     `[3 vs-dirichlet]` (csrc/vs_dirichlet.cu): the inclusion pattern
+     equal to the plain version's but proven ties, values within 1e-5;
+     each timed beside its plain version, the eager path it replaced and
+     its bound;
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
@@ -108,7 +124,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      30), spalias_priors (10 topics anchoring 5 of the most frequent
      words each: phi exactly 0 and no token on a masked pair) and
      nzvsspalias at K=100, and nzvsspalias at K=200 (streamed), 10
-     iterations each; and
+     iterations each, the draw kernels' launches counted on each run
+     (and on polyaurn's) and each HDP, polyaurn and nzvsspalias profile
+     held free of torch.binomial and torch.poisson kernels beside the
+     same iterations on the eager path they replaced; and
      `[4 held-out]`, ggs K=100 on the 90% split of a 10%
      build_perplexity_split, 30 iterations with the held-out LL every 10
      (the training series equal to the same seed's without a test set;
@@ -215,7 +234,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      tokens, above the 1M switch) and with NumPy, bit-equal, and prints
      both seconds.
 Then one JSON line describing every kernel (gamma, left_to_right,
-alias_mh_rounds and alias_mh_pack among them; the counts, z-draw and gamma entries with the launches of
+alias_mh_rounds, alias_mh_pack, hdp_table_counts, hdp_psi, polya_urn and
+vs_dirichlet among them, the last four with their launches in every run
+of phase 4 as `launches_by_run`; the counts, z-draw and gamma entries
+with the launches of
 `[4 sample_chunked]`'s ggs K=100 run as `launches_chunked`, the gamma
 entry its capture and replay numbers as `chunked`; the counts, z-draw and PCGS
 entries with their launches in phase 6 as `launches_apps`, every entry
@@ -1508,6 +1530,7 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
     for scheme, k, layout in (("pcgs", 200, "streamed"),
                               ("polyaurn", 100, "resident")):
         res.launches = stm.launches = 0
+        zero_draw_launches()
         model = create_model(pcgs_config(LDAConfig, scheme, k))
         model.add_instances(corpus)
         check(model._mode == layout, f"{scheme} K={k}: layout "
@@ -1531,9 +1554,15 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
         check(lls[10] > ll0, f"{scheme} K={k}: LL did not rise: init "
               f"{ll0}, {lls}")
         extra = ""
+        draws = draw_launches()
+        want = {name: 0 for name in draws} | expected_draws(scheme, 10)
+        check(draws == want, f"{scheme} K={k}: draw kernel launches "
+              f"{draws}, expected {want}")
         if scheme == "polyaurn":
+            launches["draws polyaurn"] = draws
             kept = no_token_on_zero_phi(model, corpus, phi_prev, scheme)
-            extra = (f"; phi density {model.get_phi_density():.4f}; "
+            extra = (f"; the Polya-Urn kernels {draws['polya_urn']} "
+                     f"launches; phi density {model.get_phi_density():.4f}; "
                      f"{kept} tokens of all-zero phi columns kept z; no "
                      "draw on a zero phi")
         print(f"[4 {scheme} K={k}] {layout} layout: launches "
@@ -1541,6 +1570,11 @@ def pcgs_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs, smi):
               f"it10 {lls[10]:.1f}; {(t1 - t0) / 10 * 1e3:.3f} "
               f"ms/iteration (host clock, LL at 10 included){extra}",
               flush=True)
+        if scheme == "polyaurn":
+            from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
+            label = f"[4 {scheme} K={k} profile]"
+            line = profile_against_eager(torch, rnd, model, label)[0]
+            print(f"{label} {line}", flush=True)
         del model
         torch.cuda.empty_cache()
     return launches
@@ -1568,13 +1602,20 @@ def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
     iterations, ppu_hdplda_all_topics at K=100 for ITERS, then 10
     iterations each of spalias_priors at K=100 with a prior file of 10
     topics' anchors, and nzvsspalias at K=100 (resident) and K=200
-    (streamed). Returns {wrapper: {path: launches}}."""
+    (streamed). The draw kernels' launches (csrc/hdp.cu, polya_urn.cu,
+    vs_dirichlet.cu) are counted with the
+    sweep's (expected_draws) and the HDP and nzvsspalias profiles run no
+    torch.binomial or torch.poisson kernel (profile_against_eager).
+    Returns {wrapper: {path: launches}}, the draw kernels' under
+    "draws"."""
+    from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
     res, stm = cuda_pcgs.fused_pcgs_sweep, cuda_pcgs.fused_pcgs_sweep_streamed
-    launches = {res.__name__: {}, stm.__name__: {}}
+    launches = {res.__name__: {}, stm.__name__: {}, "draws": {}}
     n = corpus.num_tokens
 
     def run(scheme, k, iters, **kw):
         res.launches = stm.launches = 0
+        zero_draw_launches()
         cfg = pcgs_config(LDAConfig, scheme, k).replace(**kw)
         t0 = time.perf_counter()
         model = create_model(cfg)
@@ -1590,6 +1631,11 @@ def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
               f"{scheme} K={k}: sweep launches {wrapper.launches}, other "
               f"layout {other.launches}")
         launches[wrapper.__name__][f"{scheme} K={k}"] = wrapper.launches
+        draws = draw_launches()
+        want = {name: 0 for name in draws} | expected_draws(scheme, iters)
+        check(draws == want, f"{scheme} K={k}: draw kernel launches "
+              f"{draws}, expected {want}")
+        launches["draws"][f"{scheme} K={k}"] = draws
         check_counts_exact(model, corpus, f"{scheme} K={k}")
         return layout, wrapper.launches
 
@@ -1613,9 +1659,12 @@ def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
     hist = model.get_active_topic_history()
     check(hist[-1] >= 2, f"ppu_hdplda: no topic born and kept: {hist}")
     n_active = check_hdp_state(model, "ppu_hdplda")
-    prof = profile_numbers(torch, lambda: model.sample(5), 5)
+    prof_line, prof = profile_against_eager(torch, rnd, model,
+                                            "[4 ppu_hdplda profile]")
     print(f"[4 ppu_hdplda main path] ppu_hdplda K_max=100 resident on "
-          f"{torch.cuda.get_device_name(0)} ({smi}): launches {nl}; counts "
+          f"{torch.cuda.get_device_name(0)} ({smi}): launches {nl}, "
+          f"the HDP step's kernels "
+          f"{json.dumps(launches['draws']['ppu_hdplda K=100'])}; counts "
           f"exact; LL init {ll0:.1f} -> it10 {lls[10]:.1f} -> it20 "
           f"{lls[20]:.1f} -> it30 {lls[30]:.1f}; active topics at 10 / 20 "
           f"/ 30: {hist[9]} / {hist[19]} / {hist[29]} ({n_active} now); "
@@ -1625,8 +1674,7 @@ def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
           f"host clock, LL at 20 and 30 included); set up in {setup_s:.1f} "
           f"s; device busy {100 * prof[1] / prof[0]:.1f}% over 5 more "
           "iterations (profiler)", flush=True)
-    print(f"[4 ppu_hdplda profile] {profile_text(*prof, 5, 'iteration')}",
-          flush=True)
+    print(f"[4 ppu_hdplda profile] {prof_line}", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1692,13 +1740,21 @@ def new_schemes_main_path(torch, corpus, LDAConfig, create_model, cuda_pcgs,
             extra = (f"; phi density {model.get_phi_density():.4f}; no "
                      f"draw on a zero phi; {kept} tokens of all-zero phi "
                      "columns kept z")
+        draws = {name: v for name, v in
+                 launches["draws"][f"{scheme} K={k}"].items() if v}
         print(f"[4 {scheme} K={k}] {layout} layout (vspan {model._vspan}): "
-              f"launches {nl}; counts exact; LL init {ll0:.1f} -> {trail}; "
+              f"launches {nl}, draw kernels {json.dumps(draws)}; counts "
+              f"exact; LL init {ll0:.1f} -> {trail}; "
               f"{(t1 - t0) / iters * 1e3:.3f} ms/iteration over {iters} "
               f"iterations (host clock, the LL every 10 included); set up "
               f"in {setup_s:.1f} s{extra}", flush=True)
-        print(f"[4 {scheme} K={k} profile] "
-              f"{profile_iterations(torch, model, 5)}", flush=True)
+        label = f"[4 {scheme} K={k} profile]"
+        line = (profile_iterations(torch, model, 5)
+                if scheme == "spalias_priors"
+                else profile_against_eager(
+                    torch, rnd, model, label,
+                    eager_draws=scheme != "nzvsspalias")[0])
+        print(f"{label} {line}", flush=True)
         del model
         torch.cuda.empty_cache()
     return launches
@@ -2917,6 +2973,601 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
                   "bound_by": big["pack_bound_by"],
                   "library_ms": big["stack_ms"]}}
     return rounds_entry, pack_entry
+
+
+# ---------------------------------------------------------------------------
+# The HDP step after the sweep, the Polya-Urn and the VS-Dirichlet draws
+# (csrc/hdp.cu, csrc/polya_urn.cu, csrc/vs_dirichlet.cu with
+# csrc/discrete.cuh)
+# ---------------------------------------------------------------------------
+
+HDP_STATE_ITERS = 10        # the ppu_hdplda chain [3 hdp] starts from
+HDP_PSI_K = 4096            # [3 hdp]'s synthetic psi inputs
+# psi and alpha, kernel against plain: the Gamma draws' last bits and the
+# f64 scans taken in another order, each rounded once to f32
+PSI_RTOL = 1e-5
+PSI_CASES = tuple((births, sampler, dist)
+                  for births in ("none", "candidates", "lowest")
+                  for sampler in ("gem", "poisson")
+                  for dist in ("geometric", "uniform"))
+BINOMIAL_KS = ((6, 0.3), (40, 0.25), (400, 0.1), (90, 0.8))
+POISSON_GRID = (0.01, 0.5, 9.99, 10.0, 37.5, 5000.0)
+DRAW_KS = 200_000           # kernel and library draws of each KS case
+VS_TIE = 1e-6               # an inclusion that differs must have |u - p|
+                            # below this (p's f32 rounding)
+
+
+def draw_wrappers():
+    """(name, wrapper) of the draw kernels' launch counters (csrc/hdp.cu,
+    polya_urn.cu, vs_dirichlet.cu)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import (cuda_gamma, cuda_hdp,
+                                                      cuda_polya_urn)
+    return (("table_counts", cuda_hdp.table_counts),
+            ("psi_step", cuda_hdp.psi_step),
+            ("polya_urn", cuda_polya_urn.polya_urn),
+            ("vs_dirichlet", cuda_gamma.vs_dirichlet),
+            ("binomial", cuda_hdp.binomial),
+            ("poisson", cuda_polya_urn.poisson))
+
+
+def expected_draws(scheme: str, iters: int) -> dict:
+    """The draw kernels' launches in `iters` iterations of a scheme
+    from set-up: the table counts and Polya-Urn rows two an iteration and
+    psi one (all topics: one more at set-up, its GEM prior draw); the VS
+    rows one an iteration and one at set-up; polyaurn's rows two an
+    iteration and two at set-up. Every other counter stays 0."""
+    hdp_step = dict(table_counts=2 * iters, psi_step=iters,
+                    polya_urn=2 * iters)
+    return {"ppu_hdplda": hdp_step, "ppu_hlda": hdp_step,
+            "ppu_hdplda_all_topics": hdp_step | dict(psi_step=iters + 1),
+            "nzvsspalias": dict(vs_dirichlet=iters + 1),
+            "polyaurn": dict(polya_urn=2 * (iters + 1))}.get(scheme, {})
+
+
+def zero_draw_launches():
+    for _, fn in draw_wrappers():
+        fn.launches = 0
+
+
+def draw_launches() -> dict:
+    return {name: fn.launches for name, fn in draw_wrappers()}
+
+
+def library_draw_kernels(rows) -> list:
+    """Profile rows of PyTorch's own Binomial or Poisson kernels
+    (torch.binomial, torch.poisson; the port's are `binomial_kernel`,
+    `poisson_kernel` and the fused draws)."""
+    return sorted({name[:70] for _, name, _ in rows
+                   if ("binomial" in name.lower() or "poisson" in name.lower())
+                   and "binomial_kernel" not in name
+                   and "poisson_kernel" not in name})
+
+
+def eager_polya_urn(torch, counts, beta, generator, zero_mask=True):
+    """The Polya-Urn draw the port ran on the card before its kernel:
+    torch.poisson and the normalisation, eager."""
+    lam = torch.as_tensor(counts).to(torch.float32) + beta
+    c = torch.poisson(lam, generator=generator)
+    total = c.sum(dim=-1, keepdim=True)
+    safe = torch.where(total > 0, c / total.clamp_min(1.0),
+                       1.0 / c.shape[-1])
+    return safe, (c == 0 if zero_mask else None)
+
+
+def eager_vs_dirichlet(torch, rnd, counts, beta, vs_prior, generator,
+                       previous_phi=None, sequential=False):
+    """The vectorised VS-Dirichlet draw the port ran on the card before
+    its kernel: the Gamma kernel, then ~40 eager launches."""
+    counts = torch.as_tensor(counts).to(torch.float32)
+    dev = counts.device
+    n_k = counts.sum(dim=-1, keepdim=True)
+    prev_zero = (torch.zeros(counts.shape, dtype=torch.bool, device=dev)
+                 if previous_phi is None else previous_phi.to(dev) == 0.0)
+    zero_phi = prev_zero.sum(dim=-1, keepdim=True).to(torch.float32)
+    g = rnd._gamma_marsaglia(counts + beta, generator)
+    u = torch.rand(counts.shape, generator=generator, device=dev)
+    include = (counts > 0) | (u <= rnd.vs_inclusion_prob(zero_phi, n_k, beta,
+                                                         vs_prior))
+    g = torch.where(include, g.clamp_min(rnd.DIRICHLET_FLOOR), 0.0)
+    return (g / g.sum(dim=-1, keepdim=True).clamp_min(rnd.DIRICHLET_FLOOR),
+            ~include)
+
+
+def eager_binomial(torch, n, p, generator):
+    n = torch.as_tensor(n).to(torch.float32)
+    p = torch.as_tensor(p).to(torch.float32).to(n.device)
+    return torch.binomial(n, p.expand_as(n).contiguous(), generator=generator)
+
+
+class eager_discrete:
+    """Within the block, the HDP family's step after the sweep and
+    ops/random.py's Poisson, Binomial, Polya-Urn and VS draws run on the
+    card as they did before the draw kernels (torch.binomial,
+    torch.poisson and eager PyTorch; the Gamma draws stay the Gamma
+    kernel's, as they were): the "before" of the HDP, polyaurn and
+    nzvsspalias profiles."""
+
+    def __init__(self, torch, rnd):
+        self.torch, self.rnd = torch, rnd
+
+    def __enter__(self):
+        from ldagroupedgibbssampler_tpu_torch.models import hdp
+        torch, rnd = self.torch, self.rnd
+        self.cls = hdp.PoissonPolyaUrnHDPLDAInfiniteTopics
+        self.saved = (rnd.poisson, rnd.binomial, rnd.polya_urn_dirichlet,
+                      rnd.vs_dirichlet, self.cls._kernel_after_sweep)
+        rnd.poisson = lambda lam, gen: torch.poisson(
+            torch.as_tensor(lam).to(torch.float32), generator=gen)
+        rnd.binomial = lambda n, p, gen: eager_binomial(torch, n, p, gen)
+        rnd.polya_urn_dirichlet = (
+            lambda counts, beta, gen, zero_mask=True: eager_polya_urn(
+                torch, counts, beta, gen, zero_mask))
+        rnd.vs_dirichlet = lambda *a, **kw: eager_vs_dirichlet(torch, rnd,
+                                                                *a, **kw)
+        self.cls._kernel_after_sweep = self.cls._eager_after_sweep
+
+    def __exit__(self, *exc):
+        (self.rnd.poisson, self.rnd.binomial, self.rnd.polya_urn_dirichlet,
+         self.rnd.vs_dirichlet, self.cls._kernel_after_sweep) = self.saved
+
+
+def profile_against_eager(torch, rnd, model, label: str, n: int = 5,
+                          eager_draws: bool = True):
+    """`label`'s profile line: n iterations with the draw kernels (no
+    torch.binomial or torch.poisson kernel may run) beside n more with the
+    eager path they replaced, in one run; where that path drew with
+    torch.binomial or torch.poisson (`eager_draws`: all but
+    nzvsspalias'), it must show them, or the name check would see
+    nothing. Ends with every kernel of the kernels' iterations and its
+    launches an iteration. Returns (the line, profile_numbers of the
+    kernels' iterations)."""
+    after = profile_numbers(torch, lambda: model.sample(n), n)
+    lib = library_draw_kernels(after[2])
+    check(not lib, f"{label}: PyTorch's draw kernels ran: {lib}")
+    with eager_discrete(torch, rnd):
+        before = profile_numbers(torch, lambda: model.sample(n), n)
+    lib_before = library_draw_kernels(before[2])
+    check(bool(lib_before) == eager_draws, f"{label}: the eager path's "
+          f"torch.binomial / torch.poisson kernels: {lib_before}")
+    every = "; ".join(f"{c:g} {name[:48]}" for _, name, c in
+                      sorted(after[2], key=lambda r: (-r[2], r[1])))
+    text = (f"{profile_text(*after, n, 'iteration')}; no torch.binomial or "
+            f"torch.poisson kernel; the same iterations on the eager path "
+            f"before the draw kernels: "
+            f"{profile_summary(*before, 'iteration')}"
+            + (f" ({', '.join(lib_before)[:100]})" if lib_before else "")
+            + f"; every kernel, launches an iteration: {every}")
+    return text, after
+
+
+def hdp_state(torch, corpus, LDAConfig, create_model,
+              iters=HDP_STATE_ITERS):
+    """A ppu_hdplda K_max=100 chain on the corpus after `iters`
+    iterations: [3 hdp]'s operands (also tools/time_kernel_builds.py's)."""
+    model = create_model(pcgs_config(LDAConfig, "ppu_hdplda", K))
+    model.add_instances(corpus)
+    model.sample(iters)
+    torch.cuda.synchronize()
+    return model
+
+
+def psi_operands(torch, k, dev, seed=0):
+    """Synthetic inputs of the psi kernel at K_max = k: 30% of the topics
+    in the data (tables 1-60, n_k above them), 5% more active but empty
+    (they die), the rest inactive."""
+    rng = np.random.default_rng(seed)
+    in_data = rng.random(k) < 0.3
+    tables = np.where(in_data, rng.integers(1, 61, k), 0)
+    nk = np.where(in_data, tables * rng.integers(1, 30, k), 0)
+    active = in_data | (rng.random(k) < 0.05)
+    return (torch.as_tensor(tables.astype(np.float32), device=dev),
+            torch.as_tensor(nk.astype(np.int32), device=dev),
+            torch.as_tensor(active, device=dev))
+
+
+def psi_check(torch, cuda_hdp, tables, nk, active, seed, label, **kw):
+    """The psi kernel against psi_reference on the same words: the active
+    mask and the births exact, psi and alpha within PSI_RTOL (relative,
+    zeros exact), psi summing to 1 within 1e-5. Returns (the largest
+    relative difference, the births)."""
+    got = cuda_hdp.psi_step(tables, nk, active, seed, **kw)
+    want = cuda_hdp.psi_reference(tables, nk, active, seed, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]) and torch.equal(got[3], want[3]),
+          f"{label}: the active mask or the births differ from the plain "
+          "version")
+    rel = 0.0
+    for a, b, name in ((got[0], want[0], "psi"), (got[2], want[2], "alpha")):
+        check(torch.equal(a == 0, b == 0), f"{label}: {name}'s zeros differ")
+        nz = b != 0
+        r = float(((a - b).abs()[nz] / b[nz]).max()) if bool(nz.any()) \
+            else 0.0
+        check(r <= PSI_RTOL, f"{label}: {name} differs from the plain "
+              f"version by {r:.3g} (relative)")
+        rel = max(rel, r)
+    total = float(got[0].sum())
+    check(abs(total - 1.0) <= 1e-5, f"{label}: psi sums to {total}")
+    return rel, int(got[3].sum())
+
+
+def ks_against(torch, mine, library) -> float:
+    """Two-sample KS p of the kernel's draws against the library's."""
+    from scipy import stats as sps
+    return float(sps.ks_2samp(mine.cpu().numpy(),
+                              library.cpu().numpy()).pvalue)
+
+
+def hdp_phase(torch, model, rnd, smi):
+    """[3 hdp]: the table-count kernels (two launches) and the psi kernel
+    (one) of csrc/hdp.cu. On a ppu_hdplda K_max=100 chain after
+    HDP_STATE_ITERS iterations: the table counts (alpha0 psi, and hlda's
+    scalar gamma) equal to table_counts_reference on the same Philox words
+    in both instances of the first launch, and ge equal to the eager
+    bincount path (models/hdp.py::doc_count_ge_histogram); the psi kernel
+    on that chain's tables against its plain version; on synthetic inputs
+    at K_max=4096 every birth rule x psi sampler x index prior (psi_check).
+    The elementwise Binomial kernel equal to its plain version, and KS
+    against torch.binomial at BINOMIAL_KS. Times by CUDA events beside the
+    plain versions, the eager path they replaced and the bound. Returns
+    the kernels-JSON entries of the table counts and of psi."""
+    from ldagroupedgibbssampler_tpu_torch.models import hdp
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_hdp
+    dev = torch.device("cuda", 0)
+    cfg, st = model.config, model.state
+    ndk, alpha, m = st.ndk, st.alpha, model._max_count
+    d_, k_ = ndk.shape
+    seed = torch.tensor([0x0DDC_0FFE_E123], dtype=torch.int64, device=dev)
+    ge_eager = hdp.doc_count_ge_histogram(ndk, m)
+    instance = cuda_hdp.hist_instance(k_, m, dev)
+    for label, a in (("alpha0 psi", alpha), ("hlda gamma", cfg.hdp_gamma)):
+        want = cuda_hdp.table_counts_reference(ndk, a, m, seed)
+        for inst in ("shared", "global"):
+            ge = torch.empty((k_, m), dtype=torch.int32, device=dev)
+            got = cuda_hdp.table_counts(ndk, a, m, seed, ge=ge, instance=inst)
+            torch.cuda.synchronize()
+            check(torch.equal(ge, ge_eager), f"[3 hdp] ge ({label}, {inst}) "
+                  "differs from the eager bincount path")
+            check(torch.equal(got, want), f"[3 hdp] table counts ({label}, "
+                  f"{inst}) differ from the plain version on "
+                  f"{int((got != want).sum())} topics")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    p = cuda_hdp.table_probs(alpha, m, dev)
+    ge_f = ge_eager.to(torch.float32)
+    hist = torch.zeros((k_, m), dtype=torch.int32, device=dev)
+    tab_ms = time_ms(torch, lambda: cuda_hdp.table_counts(ndk, alpha, m,
+                                                          seed, hist=hist))
+    tab_global_ms = time_ms(torch, lambda: cuda_hdp.table_counts(
+        ndk, alpha, m, seed, instance="global", hist=hist))
+    tab_plain_ms = once_ms(torch, lambda: cuda_hdp.table_counts_reference(
+        ndk, alpha, m, seed))
+    with eager_discrete(torch, rnd):
+        tab_eager_ms = time_ms(torch, lambda: hdp.sample_table_counts(
+            ndk, alpha, m, gen), reps=5, calls=3)
+    tab_binomial_ms = time_ms(torch, lambda: torch.binomial(
+        ge_f, p, generator=gen))
+    draws = int(((ge_eager > 0) & (p > 0) & (p < 1)).sum())
+    tab_bytes = 4 * d_ * k_ + 8 * k_
+    tab_bound, tab_by = bound(tab_bytes, 0.0, draws * PHILOX_MULTIPLIES,
+                              2 * draws)
+    # psi at K_max = 100 on the chain's own table counts
+    tables = cuda_hdp.table_counts(ndk, alpha, m, seed)
+    kw = dict(gamma=cfg.hdp_gamma, budget=cfg.hdp_birth_budget,
+              births="candidates", sampler=cfg.hdp_psi_sampler,
+              dist=cfg.hdp_gamma_dist, alpha0=float(cfg.alpha))
+    rel100, _ = psi_check(torch, cuda_hdp, tables, st.nk, st.active, seed,
+                          "[3 hdp] psi K=100", **kw)
+    psi_ms = time_ms(torch, lambda: cuda_hdp.psi_step(tables, st.nk,
+                                                      st.active, seed, **kw))
+    psi_plain_ms = once_ms(torch, lambda: cuda_hdp.psi_reference(
+        tables, st.nk, st.active, seed, **kw))
+
+    def eager_psi():
+        active, _births = model._update_active(st, st.nk)
+        psi = hdp.gem_psi(tables, cfg.hdp_gamma, gen)
+        return float(cfg.alpha) * psi * active
+    with eager_discrete(torch, rnd):
+        psi_eager_ms = time_ms(torch, eager_psi, reps=5, calls=3)
+    psi_bytes = 22 * k_
+    # two Gamma draws a topic, a Philox block each at least, ~5 special
+    # functions a round
+    psi_bound, psi_by = bound(psi_bytes, 0.0, 2 * k_ * PHILOX_MULTIPLIES,
+                              10 * k_)
+    # K_max = 4096: every birth rule, psi sampler and index prior
+    rel4096, born = 0.0, {}
+    t4, n4, a4 = psi_operands(torch, HDP_PSI_K, dev)
+    for births, sampler, dist in PSI_CASES:
+        r, b = psi_check(torch, cuda_hdp, t4, n4, a4, seed,
+                         f"[3 hdp] psi K={HDP_PSI_K} {births} {sampler} "
+                         f"{dist}", gamma=3.0, budget=32, births=births,
+                         sampler=sampler, dist=dist, alpha0=0.5)
+        rel4096 = max(rel4096, r)
+        born[f"{births} {dist}"] = b
+    psi4096_ms = {s: time_ms(torch, lambda s=s: cuda_hdp.psi_step(
+        t4, n4, a4, seed, gamma=3.0, budget=32, births=b_, sampler=s,
+        alpha0=0.5)) for s, b_ in (("gem", "candidates"),
+                                   ("poisson", "lowest"))}
+    psi4096_plain_ms = once_ms(torch, lambda: cuda_hdp.psi_reference(
+        t4, n4, a4, seed, gamma=3.0, budget=32, births="candidates",
+        sampler="gem", alpha0=0.5))
+    # the elementwise Binomial: plain-version agreement, KS, time
+    n_all = torch.cat([torch.full((DRAW_KS,), float(n)) for n, _ in
+                       BINOMIAL_KS]).to(dev)
+    p_all = torch.cat([torch.full((DRAW_KS,), q) for _, q in
+                       BINOMIAL_KS]).to(dev)
+    got = cuda_hdp.binomial(n_all, p_all, seed)
+    want = cuda_hdp.binomial_reference(n_all, p_all, seed)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"[3 hdp] Binomial kernel differs from "
+          f"its plain version on {int((got != want).sum())} of "
+          f"{got.numel()} draws")
+    lib = torch.binomial(n_all, p_all, generator=gen)
+    ks = {}
+    for i, (n, q) in enumerate(BINOMIAL_KS):
+        sl = slice(i * DRAW_KS, (i + 1) * DRAW_KS)
+        ks[f"{n},{q}"] = ks_against(torch, got[sl], lib[sl])
+        check(ks[f"{n},{q}"] > 1e-4, f"[3 hdp] Binomial({n}, {q}) KS "
+              f"against torch.binomial p={ks[f'{n},{q}']:.2e}")
+    bin_ms = time_ms(torch, lambda: cuda_hdp.binomial(n_all, p_all, seed))
+    bin_lib_ms = time_ms(torch, lambda: torch.binomial(n_all, p_all,
+                                                       generator=gen))
+    print(f"[3 hdp] {smi}: ppu_hdplda K_max=100 after {HDP_STATE_ITERS} "
+          f"iterations, D={d_}, M={m} (longest document): table counts "
+          f"equal to the plain version on the same Philox words (alpha0 psi "
+          f"and hlda's gamma, shared and global instances; first launch "
+          f"{instance} here, {4 * k_ * m} B of histogram), ge equal to the "
+          f"eager bincount path; {tab_ms:.4f} ms (2 launches), global "
+          f"instance {tab_global_ms:.4f} ms, plain {tab_plain_ms:.2f} ms, "
+          f"eager path (bincount + torch.binomial) {tab_eager_ms:.4f} ms, "
+          f"torch.binomial of the draws alone {tab_binomial_ms:.4f} ms, "
+          f"bound {tab_bound:.4f} ms ({tab_by}: {tab_bytes / 1e6:.2f} MB, "
+          f"{draws} draws); psi K=100 (births, GEM) within "
+          f"{rel100:.2g} of the plain version, births and active exact, "
+          f"{psi_ms:.4f} ms (1 launch), plain {psi_plain_ms:.2f} ms, eager "
+          f"path (births + GEM + alpha) {psi_eager_ms:.4f} ms, bound "
+          f"{psi_bound:.5f} ms ({psi_by})", flush=True)
+    print(f"[3 hdp] K_max={HDP_PSI_K} synthetic: psi kernel against the "
+          f"plain version for {len(PSI_CASES)} cases (birth rules x "
+          f"samplers x index priors): births and active exact, psi and "
+          f"alpha within {rel4096:.2g} (bar {PSI_RTOL}), births "
+          f"{json.dumps(born)}; gem {psi4096_ms['gem']:.4f} ms, poisson "
+          f"{psi4096_ms['poisson']:.4f} ms, plain {psi4096_plain_ms:.2f} ms; "
+          f"Binomial kernel equal to its plain version on {got.numel()} "
+          f"draws, KS against torch.binomial {json.dumps(ks)}, "
+          f"{bin_ms:.4f} ms against torch.binomial {bin_lib_ms:.4f} ms",
+          flush=True)
+    src = "ldagroupedgibbssampler_tpu_torch/csrc/hdp.cu"
+    tab_entry = {
+        "name": "hdp_table_counts", "route": "cuda", "source": src,
+        "replaces": "ldagroupedgibbssampler_tpu/models/hdp.py:96",
+        "max_abs_err": 0.0, "ms": tab_ms, "global_ms": tab_global_ms,
+        "instance": instance, "plain_ms": tab_plain_ms,
+        "eager_ms": tab_eager_ms, "bound_ms": tab_bound, "bound_by": tab_by,
+        "library_ms": None, "torch_binomial_ms": tab_binomial_ms,
+        "draws": draws, "M": m,
+        "binomial": {"ms": bin_ms, "library_ms": bin_lib_ms, "ks": ks,
+                     "draws": got.numel()}}
+    psi_entry = {
+        "name": "hdp_psi", "route": "cuda", "source": src,
+        "replaces": "ldagroupedgibbssampler_tpu/models/hdp.py:129",
+        "max_abs_err": 0.0, "max_rel_err": max(rel100, rel4096),
+        "ms": psi_ms, "plain_ms": psi_plain_ms, "eager_ms": psi_eager_ms,
+        "bound_ms": psi_bound, "bound_by": psi_by, "library_ms": None,
+        "k4096": {"ms": psi4096_ms, "plain_ms": psi4096_plain_ms,
+                  "births": born}}
+    return tab_entry, psi_entry
+
+
+def urn_operands(torch, corpus, dev):
+    """The K=200 case of [3 polya-urn] and [3 vs-dirichlet]: N_kw [200,
+    V] int32, a recount of a uniform z."""
+    z = np.random.default_rng(11).integers(0, 200, corpus.num_tokens)
+    nkw200 = recount(corpus, z, 200)[0].T.astype(np.int32)
+    return torch.as_tensor(np.ascontiguousarray(nkw200), device=dev)
+
+
+def polya_urn_phase(torch, corpus, model, smi):
+    """[3 polya-urn]: the Polya-Urn kernels (csrc/polya_urn.cu, two
+    launches) at [100, 20,000] (a ppu_hdplda chain's N_kw, with and without
+    its active mask) and [200, 20,000] (a uniform z's): phi and the zero
+    mask equal to polya_urn_reference on the same words, phi equal to the
+    elementwise Poisson kernel's counts normalised, those counts against
+    torch.poisson on the same rates (a chi-square of the values 0, 1 and 2+
+    where lam < 10, KS of the standardised counts where lam >= 10); the
+    elementwise Poisson kernel equal to its plain version on POISSON_GRID
+    and KS against torch.poisson there. Times beside the plain version,
+    the eager path it replaced and torch.poisson. Returns the kernels-JSON
+    entry."""
+    from scipy import stats as sps
+
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_polya_urn
+    dev = torch.device("cuda", 0)
+    nkw100, active = model.state.nkw, model.state.active
+    seed = torch.tensor([0x0CAB_BA6E_5EED], dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    beta = 0.01
+    cases = {"K=100": (nkw100, None), "K=100 active": (nkw100, active),
+             "K=200": (urn_operands(torch, corpus, dev), None)}
+    res = {}
+    for label, (nkw, act) in cases.items():
+        phi, zero = cuda_polya_urn.polya_urn(nkw, beta, seed, act,
+                                             zero_mask=True)
+        want, want_zero = cuda_polya_urn.polya_urn_reference(nkw, beta, seed,
+                                                             act, True)
+        torch.cuda.synchronize()
+        check(torch.equal(phi, want) and torch.equal(zero, want_zero),
+              f"[3 polya-urn] {label}: phi or its zeros differ from the plain "
+              f"version ({int((phi != want).sum())} values)")
+        if act is not None:
+            check(bool((phi[~act] == 0).all()), f"[3 polya-urn] {label}: an "
+                  "inactive row is not zero")
+            continue
+        lam = nkw.to(torch.float32) + beta
+        c = cuda_polya_urn.poisson(lam, seed)
+        total = c.double().sum(dim=-1, keepdim=True).to(torch.float32)
+        check(torch.equal(phi, torch.where(total > 0, c / total.clamp_min(1.0),
+                                           1.0 / c.shape[-1])),
+              f"[3 polya-urn] {label}: phi is not the Poisson kernel's counts "
+              "normalised")
+        lib = torch.poisson(lam, generator=gen)
+        small = lam < 10
+        rows = [[int(((x == 0) & small).sum()), int(((x == 1) & small).sum()),
+                 int(((x >= 2) & small).sum())] for x in (c, lib)]
+        chi_p = float(sps.chi2_contingency(np.array(rows))[1])
+        big = ~small
+        sd = lam[big].sqrt()
+        ks_p = ks_against(torch, (c[big] - lam[big]) / sd,
+                          (lib[big] - lam[big]) / sd)
+        check(chi_p > 1e-4 and ks_p > 1e-4, f"[3 polya-urn] {label}: counts "
+              f"against torch.poisson chi2 p={chi_p:.2e}, KS p={ks_p:.2e}")
+        ms = time_ms(torch, lambda: cuda_polya_urn.polya_urn(nkw, beta,
+                                                             seed))
+        plain_ms = once_ms(torch, lambda: cuda_polya_urn.polya_urn_reference(
+            nkw, beta, seed))
+        eager_ms = time_ms(torch, lambda: eager_polya_urn(torch, nkw, beta,
+                                                          gen))
+        torch_poisson_ms = time_ms(torch, lambda: torch.poisson(
+            lam, generator=gen))
+        n_el, n_big = nkw.numel(), int(big.sum())
+        nbytes = 8 * n_el
+        # a Philox block an element (PTRS: ~1.2 rounds), one exp or log
+        int_ops = (n_el + 0.2 * n_big) * PHILOX_MULTIPLIES
+        b_ms, by = bound(nbytes, 0.0, int_ops, n_el + 4 * n_big)
+        res[label] = dict(ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                          torch_poisson_ms=torch_poisson_ms, bound_ms=b_ms,
+                          bound_by=by, chi_p=chi_p, ks_p=ks_p,
+                          zeros=float(zero.float().mean()), big=n_big)
+    # the elementwise Poisson kernel on the grid
+    lam_all = torch.cat([torch.full((DRAW_KS,), v) for v in
+                         POISSON_GRID]).to(dev)
+    got = cuda_polya_urn.poisson(lam_all, seed)
+    want = cuda_polya_urn.poisson_reference(lam_all, seed)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"[3 polya-urn] Poisson kernel differs "
+          f"from its plain version on {int((got != want).sum())} draws")
+    lib = torch.poisson(lam_all, generator=gen)
+    ks = {}
+    for i, v in enumerate(POISSON_GRID):
+        sl = slice(i * DRAW_KS, (i + 1) * DRAW_KS)
+        ks[str(v)] = ks_against(torch, got[sl], lib[sl])
+        check(ks[str(v)] > 1e-4, f"[3 polya-urn] Poisson({v}) KS against "
+              f"torch.poisson p={ks[str(v)]:.2e}")
+    pois_ms = time_ms(torch, lambda: cuda_polya_urn.poisson(lam_all, seed))
+    pois_lib_ms = time_ms(torch, lambda: torch.poisson(lam_all,
+                                                       generator=gen))
+    for label, r in res.items():
+        print(f"[3 polya-urn] {label} {smi}: phi and its zeros equal to the "
+              f"plain version (with the active mask too, inactive rows 0), "
+              f"phi the Poisson kernel's counts normalised, "
+              f"{100 * r['zeros']:.2f}% exact zeros; counts against "
+              f"torch.poisson: chi2 p={r['chi_p']:.3g} (0, 1, 2+ where lam < "
+              f"10), KS p={r['ks_p']:.3g} ({r['big']} rates >= 10); "
+              f"{r['ms']:.4f} ms (2 launches), plain {r['plain_ms']:.2f} ms, "
+              f"eager path {r['eager_ms']:.4f} ms, torch.poisson alone "
+              f"{r['torch_poisson_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    print(f"[3 polya-urn] Poisson kernel equal to its plain version on "
+          f"{got.numel()} draws at {POISSON_GRID}, KS against torch.poisson "
+          f"{json.dumps(ks)}; {pois_ms:.4f} ms against torch.poisson "
+          f"{pois_lib_ms:.4f} ms", flush=True)
+    main = res["K=100"]
+    return {"name": "polya_urn", "route": "cuda",
+            "source": "ldagroupedgibbssampler_tpu_torch/csrc/polya_urn.cu",
+            "replaces": "ldagroupedgibbssampler_tpu/ops/random.py:185",
+            "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "eager_ms": main["eager_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "torch_poisson_ms": main["torch_poisson_ms"],
+            "cases": res, "poisson": {"ms": pois_ms,
+                                      "library_ms": pois_lib_ms, "ks": ks,
+                                      "draws": got.numel()}}
+
+
+def vs_dirichlet_phase(torch, corpus, model, rnd, smi):
+    """[3 vs-dirichlet]: the VS-Dirichlet kernel (csrc/vs_dirichlet.cu,
+    one launch) at [100, 20,000] (a ppu_hdplda chain's N_kw, its Polya-Urn
+    phi as the previous draw) and [200, 20,000] (a uniform z's N_kw, a
+    Polya-Urn draw of it as the previous phi), and without a previous
+    draw: the inclusion pattern equal to vs_dirichlet_reference's on the
+    same words but proven ties (|u - p| <= VS_TIE), the values within
+    GAMMA_RTOL (relative), rows summing to 1. Times beside the plain
+    version and the eager path it replaced (no PyTorch call computes it).
+    Returns the kernels-JSON entry."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma, cuda_polya_urn
+    dev = torch.device("cuda", 0)
+    nkw100, phi100 = model.state.nkw, model.state.phi
+    seed = torch.tensor([0x05EE_D0F0_0D42], dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    beta, prior = 0.01, 0.5
+    nkw200 = urn_operands(torch, corpus, dev)
+    phi200 = cuda_polya_urn.polya_urn(nkw200, beta, seed)[0]
+    res = {}
+    for label, nkw, prev in (("K=100", nkw100, phi100),
+                             ("K=200", nkw200, phi200),
+                             ("K=100 dense previous", nkw100, None)):
+        phi, excl = cuda_gamma.vs_dirichlet(nkw, beta, prior, seed, prev,
+                                            zero_mask=True)
+        want, want_excl = cuda_gamma.vs_dirichlet_reference(nkw, beta, prior,
+                                                            seed, prev, True)
+        torch.cuda.synchronize()
+        differ = excl != want_excl
+        ties = int(differ.sum())
+        if ties:
+            counts = nkw.to(torch.float32)
+            n_k = counts.double().sum(-1, keepdim=True).to(torch.float32)
+            zp = (torch.zeros_like(n_k) if prev is None else
+                  (prev == 0).sum(-1, keepdim=True).to(torch.float32))
+            p = rnd.vs_inclusion_prob(zp, n_k, beta, prior).expand_as(counts)
+            u = cuda_gamma.vs_uniforms(counts.shape, seed, dev)
+            gap = (u - p).abs()[differ]
+            check(bool((counts[differ] == 0).all())
+                  and float(gap.max()) <= VS_TIE, f"[3 vs-dirichlet] "
+                  f"{label}: {ties} inclusions differ, not proven ties")
+        same = ~differ & ~want_excl
+        err = (phi - want).abs()[same]
+        rel = float((err / want[same]).max())
+        check(rel <= GAMMA_RTOL, f"[3 vs-dirichlet] {label}: values differ "
+              f"by {rel:.3g} (relative)")
+        sums = phi.double().sum(-1)
+        check(bool(((sums - 1).abs() <= 1e-5).all()), f"[3 vs-dirichlet] "
+              f"{label}: a row does not sum to 1")
+        ms = time_ms(torch, lambda: cuda_gamma.vs_dirichlet(nkw, beta, prior,
+                                                            seed, prev))
+        plain_ms = once_ms(torch, lambda: cuda_gamma.vs_dirichlet_reference(
+            nkw, beta, prior, seed, prev))
+        eager_ms = time_ms(torch, lambda: eager_vs_dirichlet(
+            torch, rnd, nkw, beta, prior, gen, prev))
+        n_el = nkw.numel()
+        nbytes = (12 if prev is not None else 8) * n_el
+        # a Gamma round, the boost where count + beta < 1 and the uniform:
+        # Philox blocks; ~5 special functions a round, 2 for the boost
+        boosted = int((nkw == 0).sum())
+        blocks = 2 * n_el + boosted
+        b_ms, by = bound(nbytes, 0.0, blocks * PHILOX_MULTIPLIES,
+                         5 * n_el + 2 * boosted)
+        res[label] = dict(ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                          bound_ms=b_ms, bound_by=by, ties=ties,
+                          max_rel_err=rel, max_abs_err=float(err.max()),
+                          included=float((~excl).float().mean()))
+        print(f"[3 vs-dirichlet] {label} {smi}: inclusion pattern equal to "
+              f"the plain version's but {ties} proven ties, "
+              f"{100 * res[label]['included']:.2f}% of the coordinates "
+              f"included, values within {rel:.2g} (bar {GAMMA_RTOL}), rows "
+              f"sum to 1; {ms:.4f} ms (1 launch, a block a row), plain "
+              f"{plain_ms:.2f} ms, eager path {eager_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by})", flush=True)
+    main = res["K=100"]
+    return {"name": "vs_dirichlet", "route": "cuda",
+            "source": "ldagroupedgibbssampler_tpu_torch/csrc/vs_dirichlet.cu",
+            "replaces": "ldagroupedgibbssampler_tpu/ops/random.py:262",
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "max_rel_err": max(r["max_rel_err"] for r in res.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "eager_ms": main["eager_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "cases": res}
 
 
 def first_docs(Corpus, corpus, num_docs):
@@ -6270,6 +6921,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     mh_rounds_entry, mh_pack_entry = alias_mh_phase(
         torch, corpus, Corpus, LDAConfig, create_model, cuda_alias_mh, smi)
+    torch.cuda.empty_cache()
+    hdp_model = hdp_state(torch, corpus, LDAConfig, create_model)
+    tables_entry, psi_entry = hdp_phase(torch, hdp_model, rnd, smi)
+    urn_entry = polya_urn_phase(torch, corpus, hdp_model, smi)
+    vs_entry = vs_dirichlet_phase(torch, corpus, hdp_model, rnd, smi)
+    del hdp_model
+    torch.cuda.empty_cache()
 
     # ---- 4. main path: the library entry point -------------------------
     cuda_counts.blocked_label_counts.launches = 0
@@ -6485,6 +7143,18 @@ def main() -> int:
         {**mh_pack_entry, "launches": aliasmh_launches["pack_tables"],
          "launches_chunked": chunked_aliasmh["pack_tables"]},
     ]
+    # the draw kernels: launches on the ppu_hdplda K_max=100 main path
+    # (the VS rows: nzvsspalias K=100), and in every run of phase 4
+    draws = {**new_launches["draws"],
+             "polyaurn K=100": pcgs_launches["draws polyaurn"]}
+    for entry, key, main_run in (
+            (tables_entry, "table_counts", "ppu_hdplda K=100"),
+            (psi_entry, "psi_step", "ppu_hdplda K=100"),
+            (urn_entry, "polya_urn", "ppu_hdplda K=100"),
+            (vs_entry, "vs_dirichlet", "nzvsspalias K=100")):
+        kernels.append({**entry, "launches": draws[main_run][key],
+                        "launches_by_run": {run: d[key] for run, d in
+                                            draws.items() if d[key]}})
     for entry in kernels:
         key = entry["name"] + (" collapsed" if entry.get("mode")
                                == "collapsed" else "")

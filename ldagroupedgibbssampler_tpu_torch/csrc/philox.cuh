@@ -1,6 +1,7 @@
-// Device helpers shared by the port's kernels: Philox4x32-10 and bf16
-// rounding. Included by each .cu; everything here is internal linkage, so
-// the sources still compile and link as separate units.
+// Device helpers shared by the port's kernels: Philox4x32-10, its words as
+// uniforms, and bf16 rounding. Included by each .cu; everything here is
+// internal linkage, so the sources still compile and link as separate
+// units.
 //
 // ops/philox.py is the same generator in PyTorch tensor arithmetic (the
 // plain versions draw identical words).
@@ -12,6 +13,13 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kInv23 = 1.1920928955078125e-7f;      // 2^-23
+
+// (top 23 bits + 1/2) * 2^-23 of a Philox word: in (0, 1), exact in f32
+// (ops/cuda_gamma.py::_unit23)
+__device__ __forceinline__ float unit23(unsigned w) {
+  return __fmul_rn(__fadd_rn(static_cast<float>(w >> 9), 0.5f), kInv23);
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

@@ -68,9 +68,10 @@ import torch
 
 from ldagroupedgibbssampler_tpu_torch.ops import (cuda_alias_mh,
                                                   cuda_counts, cuda_gamma,
+                                                  cuda_hdp,
                                                   cuda_left_to_right,
                                                   cuda_lightlda, cuda_pcgs,
-                                                  cuda_zdraw)
+                                                  cuda_polya_urn, cuda_zdraw)
 
 # the state's fields that a step replaces
 FIELDS = ("z", "ndk", "nkw", "nk", "phi", "theta")
@@ -86,7 +87,13 @@ def launch_counters() -> list:
             (cuda_left_to_right.left_to_right, "launches"),
             (cuda_alias_mh.entry_topics, "launches"),
             (cuda_alias_mh.mh_rounds, "launches"),
-            (cuda_alias_mh.pack_tables, "launches")] + [
+            (cuda_alias_mh.pack_tables, "launches"),
+            (cuda_gamma.vs_dirichlet, "launches"),
+            (cuda_hdp.binomial, "launches"),
+            (cuda_hdp.table_counts, "launches"),
+            (cuda_hdp.psi_step, "launches"),
+            (cuda_polya_urn.poisson, "launches"),
+            (cuda_polya_urn.polya_urn, "launches")] + [
         (fn, attr) for fn in (cuda_pcgs.fused_pcgs_sweep,
                               cuda_pcgs.fused_pcgs_sweep_streamed)
         for attr in ("launches", "collapsed_launches")]

@@ -36,9 +36,15 @@ does not change the chain. One iteration:
   5. phi: Polya-Urn rows (normalised Poisson(beta + n_kw)); inactive rows
      zeroed.
 
-Nothing in `_step` reads a value back to the host; `post_iteration` reads
-n_k once an iteration for the active-topic statistics, as the JAX class
-does.
+On the card, steps 2-5 are the hand-written kernels of `ops/cuda_hdp.py`
+(csrc/hdp.cu: the table counts in two launches; births, the active mask,
+psi and alpha in one) and `ops/cuda_polya_urn.py` (csrc/polya_urn.cu: the
+Polya-Urn rows with the inactive rows zeroed, two launches), each keyed by
+one int64 drawn from the chain's generator (`ops/random.py::kernel_seed`);
+on the CPU they are the plain PyTorch functions below, drawing from the
+generator. Nothing in `_step` reads a value back to the host;
+`post_iteration` reads n_k once an iteration for the active-topic
+statistics, as the JAX class does.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ from ldagroupedgibbssampler_tpu_torch.models.base import (LDAState,
                                                           _np)
 from ldagroupedgibbssampler_tpu_torch.models.fused_sweep import (
     FusedPCGSSweepMixin)
-from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
+from ldagroupedgibbssampler_tpu_torch.ops import (cuda_hdp, cuda_polya_urn,
+                                                  random as rnd)
 
 _EPS = 1e-30
 
@@ -76,15 +83,9 @@ class HDPState(LDAState):
 def doc_count_ge_histogram(ndk, max_count: int) -> torch.Tensor:
     """D(j, k) = #docs with n_dk >= j for j = 1..max_count, as int32
     [K, M]: the reverse cumulative sum of a per-topic histogram of the n_dk
-    values (DocTopicTokenFreqTable.java:130-150)."""
-    _d, k = ndk.shape
-    clipped = ndk.clamp(0, max_count).to(torch.int64)
-    flat = (torch.arange(k, device=ndk.device)[None, :] * (max_count + 1)
-            + clipped).reshape(-1)
-    hist = torch.bincount(flat, minlength=k * (max_count + 1))
-    hist = hist.reshape(k, max_count + 1)
-    ge_all = hist.flip(1).cumsum(dim=1).flip(1)
-    return ge_all[:, 1:].to(torch.int32)
+    values (DocTopicTokenFreqTable.java:130-150); the table-count kernels'
+    plain version (ops/cuda_hdp.py::ge_reference)."""
+    return cuda_hdp.ge_reference(ndk, max_count)
 
 
 def sample_table_counts(ndk, a, max_count: int,
@@ -93,12 +94,14 @@ def sample_table_counts(ndk, a, max_count: int,
     f32 [K] (DocTopicTokenFreqTable + sampleL,
     PoissonPolyaUrnHDPLDA.java:1112-1160; at j = 1 with a_k = 0 the
     probability is 1, as written). `a` is alpha0 * psi_k (hdplda) or the
-    concentration gamma on every topic (hlda). `max_count` may exceed the
-    longest document: a j beyond every n_dk draws Binomial(0, p) = 0."""
+    concentration gamma, one float for every topic (hlda). `max_count` may
+    exceed the longest document: a j beyond every n_dk draws Binomial(0,
+    p) = 0."""
     j = torch.arange(1, max_count + 1, dtype=torch.float32,
                      device=ndk.device)
     ge = doc_count_ge_histogram(ndk, max_count)
-    a = torch.as_tensor(a).to(torch.float32)
+    a = torch.as_tensor(a, dtype=torch.float32,
+                        device=ndk.device).expand(ndk.shape[1])
     denom = a[:, None] + j[None, :] - 1.0
     p = torch.where(denom > 0, a[:, None] / denom.clamp_min(_EPS), 1.0)
     return rnd.binomial(ge, p.clamp(0.0, 1.0), generator).sum(dim=1)
@@ -184,6 +187,8 @@ class PoissonPolyaUrnHDPLDAInfiniteTopics(FusedPCGSSweepMixin,
     fused_positive_support = False
     # birth and death (postZ, PoissonPolyaUrnHDPLDA.java:565-625)
     use_active_mask = False
+    # the births of the card's psi kernel (ops/cuda_hdp.py::psi_step)
+    birth_rule = "none"
 
     def __init__(self, config, logger=None):
         super().__init__(config, logger=logger)
@@ -201,8 +206,11 @@ class PoissonPolyaUrnHDPLDAInfiniteTopics(FusedPCGSSweepMixin,
     # -- state -------------------------------------------------------------
     def _prepare_device_data(self, corpus):
         super()._prepare_device_data(corpus)
-        # the table counts' j range: the longest document
+        # the table counts' j range: the longest document; the card's
+        # table-count kernels keep their [K, M] scratch histogram zeroed
+        # between calls (made at the first step)
         self._max_count = max(1, int(corpus.doc_lengths().max()))
+        self._table_hist = None
 
     def _init_state(self) -> HDPState:
         """The base draw (uniform z, phi ~ Dir(N_kw + beta) from its
@@ -221,8 +229,14 @@ class PoissonPolyaUrnHDPLDAInfiniteTopics(FusedPCGSSweepMixin,
         else:
             # a GEM prior draw over all sticks (…InfiniteTopics.java:223-227)
             active = torch.ones(k_max, dtype=torch.bool, device=dev)
-            psi = gem_psi(torch.zeros(k_max, device=dev), cfg.hdp_gamma,
-                          self.generator)
+            zeros = torch.zeros(k_max, device=dev)
+            if dev.type == "cpu":
+                psi = gem_psi(zeros, cfg.hdp_gamma, self.generator)
+            else:
+                psi = cuda_hdp.psi_step(
+                    zeros, None, active, rnd.kernel_seed(self.generator, dev),
+                    gamma=cfg.hdp_gamma, budget=cfg.hdp_birth_budget,
+                    births="none", sampler="gem")[0]
         # initial z uniform over the start set (initialDrawTopicIndicator,
         # PoissonPolyaUrnHDPLDA.java:142)
         z = torch.where(self._slot_mask, base.z % start, 0)
@@ -248,10 +262,20 @@ class PoissonPolyaUrnHDPLDAInfiniteTopics(FusedPCGSSweepMixin,
         """One iteration, replacing the fields of `state` in place. The
         Polya-Urn phi draw ignores a type mask, as the JAX package's
         does."""
-        cfg = self.config
         z, ndk, nkw = self._fused_zsweep(state.z, state.ndk, state.alpha,
                                          state.phi.T.contiguous(), doc_mask)
         nk = self._nk(nkw)
+        if self.device.type == "cpu":
+            self._eager_after_sweep(state, ndk, nkw, nk)
+        else:
+            self._kernel_after_sweep(state, ndk, nkw, nk)
+        state.z, state.ndk, state.nkw, state.nk = z, ndk, nkw, nk
+        state.iteration += 1
+
+    def _eager_after_sweep(self, state: HDPState, ndk, nkw, nk):
+        """Steps 2-5 on the CPU, in plain PyTorch from the generator. Sets
+        tables, psi, active, alpha and phi of `state`."""
+        cfg = self.config
         tables = sample_table_counts(ndk, self._table_concentration(state),
                                      self._max_count, self.generator)
         if self.use_active_mask:
@@ -270,11 +294,34 @@ class PoissonPolyaUrnHDPLDAInfiniteTopics(FusedPCGSSweepMixin,
                                              self.generator)
         if self.use_active_mask:
             phi = phi * active[:, None]
-        state.z, state.ndk, state.nkw, state.nk = z, ndk, nkw, nk
         state.phi, state.psi, state.tables, state.active = (phi, psi,
                                                             tables, active)
         state.alpha = float(cfg.alpha) * psi * active
-        state.iteration += 1
+
+    def _kernel_after_sweep(self, state: HDPState, ndk, nkw, nk):
+        """Steps 2-5 on the card: the table counts (two launches), births,
+        the active mask, psi and alpha (one), the Polya-Urn phi with the
+        inactive rows zeroed (two), each from its own kernel seed. Sets
+        tables, psi, active, alpha and phi of `state`."""
+        cfg, gen, dev = self.config, self.generator, self.device
+        if self._table_hist is None:
+            self._table_hist = torch.zeros((cfg.topics, self._max_count),
+                                           dtype=torch.int32, device=dev)
+        tables = cuda_hdp.table_counts(ndk, self._table_concentration(state),
+                                       self._max_count,
+                                       rnd.kernel_seed(gen, dev),
+                                       hist=self._table_hist)
+        psi, active, alpha, _births = cuda_hdp.psi_step(
+            tables, nk, state.active, rnd.kernel_seed(gen, dev),
+            gamma=cfg.hdp_gamma, budget=cfg.hdp_birth_budget,
+            births=self.birth_rule, sampler=self._psi_sampler_name(),
+            dist=cfg.hdp_gamma_dist, alpha0=float(cfg.alpha))
+        phi, _zero = cuda_polya_urn.polya_urn(
+            nkw, float(cfg.beta), rnd.kernel_seed(gen, dev),
+            active=active if self.use_active_mask else None)
+        state.phi, state.psi, state.tables, state.active = (phi, psi,
+                                                            tables, active)
+        state.alpha = alpha
 
     # -- HDPSamplerWithPhi extras (topics/HDPSamplerWithPhi.java:5-10) -------
     def post_iteration(self):
@@ -342,6 +389,7 @@ class PoissonPolyaUrnHDPLDA(PoissonPolyaUrnHDPLDAInfiniteTopics):
     (GEM by default, :116; Poisson :115/342-400)."""
 
     use_active_mask = True
+    birth_rule = "candidates"
 
     def _psi_sampler_name(self) -> str:
         return self.config.hdp_psi_sampler
@@ -357,13 +405,13 @@ class PoissonPolyaUrnHLDA(PoissonPolyaUrnHDPLDAInfiniteTopics):
     (the reference's psi[i] = 1 init, :108-110)."""
 
     use_active_mask = True
+    birth_rule = "lowest"
 
     def _psi_sampler_name(self) -> str:
         return "poisson"
 
     def _table_concentration(self, state: HDPState):
-        return torch.full((self.config.topics,), self.config.hdp_gamma,
-                          dtype=torch.float32, device=self.device)
+        return self.config.hdp_gamma
 
     def _update_active(self, state: HDPState, nk):
         cfg = self.config

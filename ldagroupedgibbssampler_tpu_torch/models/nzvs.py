@@ -23,7 +23,7 @@ class NZVSSpaliasUncollapsedParallelLDA(PolyaUrnSpaliasLDA):
     vs_prior = 0.5
     # True: the reference's sequential zeroPhi chain (a Python loop over
     # the V columns), the parity knob of the Geweke tests; the chain runs
-    # the vectorised form
+    # the vectorised form (on the card the kernel of csrc/vs_dirichlet.cu)
     vs_sequential = False
 
     def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):

@@ -5,8 +5,10 @@ Reference: topics/PolyaUrnSpaliasLDA.java — phi rows are normalised Poisson
 counts c_kw ~ Poisson(beta + n_kw) (types/PolyaUrnDirichlet.java:23-48),
 so phi has exact zeros wherever the draw is zero, and the z-step proposes
 only topics with phi > 0 (sparse alias tables over the support, :67-70,
-180). Here phi is one whole-matrix `torch.poisson` draw, and the PCGS sweep
-kernel gives a zero-phi topic exactly zero probability: with
+180). Here phi is one whole-matrix Polya-Urn draw (`ops/random.py::
+polya_urn_dirichlet`: on the card the kernel of csrc/polya_urn.cu, two
+launches; on the CPU `torch.poisson` from the generator), and the PCGS
+sweep kernel gives a zero-phi topic exactly zero probability: with
 `fused_positive_support = False` it clamps each draw to the last topic
 whose mass is nonzero.
 """
@@ -41,7 +43,7 @@ class PolyaUrnSpaliasLDA(UncollapsedParallelLDA):
 
     def _sample_phi(self, nkw, beta, type_mask=None, prev_phi=None):
         phi, _zero = rnd.polya_urn_dirichlet(nkw, float(self.config.beta),
-                                             self.generator)
+                                             self.generator, zero_mask=False)
         return keep_unmasked_columns(phi, type_mask, prev_phi)
 
     _initial_phi = _sample_phi

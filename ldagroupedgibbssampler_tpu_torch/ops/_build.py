@@ -42,6 +42,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_i64 = ctypes.c_longlong
+_c_f32 = ctypes.c_float
 
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t)
 _SIGNATURES = {
@@ -86,6 +87,20 @@ _SIGNATURES = {
     "lda_alias_mh_pack": [_c_ptr, _c_ptr, ctypes.c_float, _c_ptr, _c_i64,
                           _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int,
                           _c_ptr],
+    # hdp.cu
+    "lda_binomial": [_c_ptr] * 4 + [_c_i64, _c_int, _c_ptr],
+    "lda_hdp_hist_shared": [_c_int, _c_int, _c_int],
+    "lda_hdp_table_counts": [_c_ptr, _c_ptr, _c_f32] + [_c_ptr] * 4
+    + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
+    "lda_hdp_psi": [_c_ptr] * 8 + [_c_int, _c_int, _c_int, _c_f32, _c_int,
+                                   _c_int, _c_f32, _c_f32, _c_int, _c_ptr],
+    # polya_urn.cu
+    "lda_poisson": [_c_ptr] * 3 + [_c_i64, _c_int, _c_ptr],
+    "lda_polya_urn": [_c_ptr, _c_int, _c_f32] + [_c_ptr] * 5
+    + [_c_i64, _c_int, _c_int, _c_ptr],
+    # vs_dirichlet.cu
+    "lda_vs_dirichlet": [_c_ptr, _c_int, _c_f32] + [_c_ptr] * 4
+    + [_c_i64, _c_int, _c_f32, _c_f32, _c_int, _c_ptr],
 }
 
 

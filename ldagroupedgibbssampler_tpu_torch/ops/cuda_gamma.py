@@ -30,6 +30,12 @@ CPU (`ops/random.py`) keep their generator path and never call them.
 On a CUDA tensor each wrapper launches its kernel or raises: a failed
 build, a failed launch and an operand the kernel does not take all raise.
 Nothing here syncs with the host, so the draws can be captured.
+
+`vs_dirichlet` (csrc/vs_dirichlet.cu) is the variable-selection Dirichlet
+of `nzvsspalias` on the same draws: element i's Gamma at gamma.cu's
+counters and its inclusion uniform from the block 8 i + 7 that the Gamma
+leaves, one launch, a block a row; `vs_dirichlet_reference` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -65,7 +71,10 @@ def _unit23(word: torch.Tensor) -> torch.Tensor:
 
 
 def _words(seed: torch.Tensor, counter: torch.Tensor):
-    s = seed.reshape(1).to(torch.int64)
+    """Philox words at `counter` under `seed`: one key, or keys broadcast
+    against the counters (a batch of rows, each its own draw)."""
+    s = seed.to(torch.int64)
+    s = s.reshape(1) if s.numel() == 1 else s
     return philox4x32_10(counter, counter >> 32, s & _MASK32,
                          (s >> 32) & _MASK32)
 
@@ -258,8 +267,87 @@ def _dirichlet_kernel(x, seed, dim, prior):
     return out
 
 
+def vs_uniforms(shape, seed, device=None) -> torch.Tensor:
+    """The VS-Dirichlet's inclusion uniforms: element i's is unit23 of
+    word x of Philox block 8 i + 7, the one its Gamma draw leaves."""
+    n = math.prod(shape)
+    base = torch.arange(n, dtype=torch.int64, device=device)
+    return _unit23(_words(seed.to(device), base * BLOCKS_PER_ELEMENT
+                          + ROUNDS + 1)[0]).reshape(shape)
+
+
+def vs_dirichlet_reference(counts, beta: float, vs_prior: float, seed,
+                           previous_phi=None, zero_mask: bool = False):
+    """Plain PyTorch version of the VS-Dirichlet kernel: per row, n_k
+    (summed in f64) and zeroPhi (the exact zeros of `previous_phi`, none
+    without it) give p = ops/random.py::vs_inclusion_prob; element i draws
+    g = gamma_reference's Gamma(count + beta), floored, and is kept where
+    count > 0 or its uniform (`vs_uniforms`) is at most p; the kept ones
+    are divided by max(their f64 sum, DIRICHLET_FLOOR). Returns (phi, the
+    mask of excluded coordinates, or None)."""
+    from ldagroupedgibbssampler_tpu_torch.ops.random import vs_inclusion_prob
+    counts = torch.as_tensor(counts).to(torch.float32)
+    dev = counts.device
+    n_k = counts.double().sum(dim=-1, keepdim=True).to(torch.float32)
+    if previous_phi is None:
+        zero_phi = torch.zeros_like(n_k)
+    else:
+        zero_phi = (torch.as_tensor(previous_phi).to(dev) == 0.0).sum(
+            dim=-1, keepdim=True).to(torch.float32)
+    p = vs_inclusion_prob(zero_phi, n_k, beta, vs_prior)
+    g = gamma_reference(counts + beta, seed).clamp_min(DIRICHLET_FLOOR)
+    include = (counts > 0) | (vs_uniforms(counts.shape, seed, dev) <= p)
+    g = torch.where(include, g, 0.0)
+    total = g.double().sum(dim=-1, keepdim=True).to(torch.float32)
+    return (g / total.clamp_min(DIRICHLET_FLOOR),
+            ~include if zero_mask else None)
+
+
+def vs_dirichlet(counts: torch.Tensor, beta: float, vs_prior: float,
+                 seed: torch.Tensor, previous_phi: torch.Tensor | None = None,
+                 zero_mask: bool = False):
+    """VS-Dirichlet rows over the last axis of counts (int32 counts, or
+    floats): the vectorised form of ops/random.py::vs_dirichlet, zeroPhi
+    from `previous_phi` (f32 of counts' shape; None: no zeros). One
+    launch, a block a row. Returns (phi f32 of counts' shape, the bool
+    mask of excluded coordinates where `zero_mask`, else None)."""
+    if counts.device.type == "cpu":
+        return vs_dirichlet_reference(counts, beta, vs_prior, seed,
+                                      previous_phi, zero_mask)
+    lib = _build.library()
+    dev = counts.device
+    if counts.dim() == 0:
+        raise ValueError("vs_dirichlet draws rows: counts needs an axis")
+    ints = not counts.dtype.is_floating_point
+    x = (counts.to(torch.int32) if ints
+         else counts.to(torch.float32)).contiguous()
+    _check_seed(seed, dev)
+    if previous_phi is not None:
+        previous_phi = previous_phi.to(torch.float32).contiguous()
+        _build.check_tensor("previous_phi", previous_phi, x.shape,
+                            torch.float32, dev)
+    last = x.shape[-1]
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    zero = (torch.empty(x.shape, dtype=torch.bool, device=dev)
+            if zero_mask else None)
+    if x.numel() == 0:
+        return out, zero
+    log_odds = float(torch.tensor(math.log(vs_prior) - math.log1p(-vs_prior),
+                                  dtype=torch.float32))
+    err = lib.lda_vs_dirichlet(
+        x.data_ptr(), int(ints), float(beta),
+        None if previous_phi is None else previous_phi.data_ptr(),
+        seed.data_ptr(), out.data_ptr(),
+        None if zero is None else zero.data_ptr(), x.numel() // last, last,
+        float(vs_prior), log_odds, dev.index, _build.stream(dev))
+    _build.check(err, "lda_vs_dirichlet")
+    vs_dirichlet.launches += 1
+    return out, zero
+
+
 # launches of the kernels (added where they launch, nowhere else; the
 # axis-0 Dirichlet is two launches); chip_smoke.py reads them to show that
 # the main path ran the kernels
 gamma.launches = 0
 dirichlet.launches = 0
+vs_dirichlet.launches = 0

@@ -8,6 +8,10 @@ first word (`philox_u24`: the z-draw and PCGS kernels), or of all four
 (`philox_u24x4`: the LightLDA MH kernel, four uniforms per token). So the
 draws do not depend on the launch configuration, and these functions
 reproduce them word for word on any device.
+
+The discrete samplers (csrc/discrete.cuh: Poisson, Binomial) take the
+Philox block of element e and round r at counter (e << 24) | r
+(`element_words`), so a draw depends on its element and round alone.
 """
 
 from __future__ import annotations
@@ -65,3 +69,17 @@ def philox_u24x4(seed: torch.Tensor, num: int) -> torch.Tensor:
     words at counter = slot index. int32 [num, 4]; column 0 is
     `philox_u24`."""
     return (torch.stack(_slot_words(seed, num), dim=1) >> 8).to(torch.int32)
+
+
+ROUND_BITS = 24     # csrc/discrete.cuh's kRoundBits
+
+
+def element_words(seed: torch.Tensor, element: torch.Tensor, round_):
+    """The four words of element `element`'s round-`round_` Philox block
+    in the discrete samplers of csrc/discrete.cuh: counter (element <<
+    24) | round_, key `seed` (int64: one key, or one broadcast against
+    `element`). int64 tensors holding uint32 words."""
+    ctr = (element.to(torch.int64) << ROUND_BITS) | round_
+    s = seed.to(torch.int64)
+    s = s.reshape(1) if s.numel() == 1 else s
+    return philox4x32_10(ctr, ctr >> 32, s & _MASK32, (s >> 32) & _MASK32)

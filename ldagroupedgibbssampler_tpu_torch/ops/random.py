@@ -16,9 +16,13 @@ the draws differ from the JAX package's bit for bit (another PRNG) but not
 in distribution. On a CUDA tensor every Gamma draw, and the Dirichlet's
 floor and normalisation with it, is the hand-written kernel of
 `ops/cuda_gamma.py` (csrc/gamma.cu), where the JAX package has XLA fuse
-the rounds into one program: its Philox key is one int64 drawn from the
-generator, so a captured CUDA graph replays new draws. On a CPU tensor the
-draws are the plain PyTorch code below.
+the rounds into one program; so are the Poisson and Binomial draws
+(`ops/cuda_polya_urn.py`, `ops/cuda_hdp.py`), the Polya-Urn rows
+(csrc/polya_urn.cu) and the vectorised VS-Dirichlet rows
+(csrc/vs_dirichlet.cu). Each kernel draw's Philox key is one int64 drawn
+from the generator (`kernel_seed`), so a captured CUDA graph replays new
+draws. On a CPU tensor the draws are the plain PyTorch code below, from
+the generator.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import math
 
 import torch
 
-from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma
+from ldagroupedgibbssampler_tpu_torch.ops import (cuda_gamma, cuda_hdp,
+                                                  cuda_polya_urn)
 
 # Floor applied to Dirichlet coordinates, mirroring the Double.MIN_VALUE floor
 # the reference applies to avoid exact zeros in phi/theta
@@ -168,23 +173,31 @@ def conditional_dirichlet(previous, concentration, mask,
     return torch.where(mask.all(dim=-1, keepdim=True), sub, out)
 
 
-def polya_urn_dirichlet(counts, beta: float, generator: torch.Generator):
+def polya_urn_dirichlet(counts, beta: float, generator: torch.Generator,
+                        zero_mask: bool = True):
     """Polya-Urn phi rows: normalised Poisson(beta + n) counts.
 
     The port's copy of the JAX package's `polya_urn_dirichlet`, after
     types/PolyaUrnDirichlet.java:23-48 (`nextDistributionWithSparseness`):
     each coordinate draws c ~ Poisson(beta + n_kw), rows are normalised by
     their total, and coordinates with c == 0 stay exactly zero. A row whose
-    draws are all zero falls back to uniform.
+    draws are all zero falls back to uniform. On a CUDA tensor: the
+    Polya-Urn kernel, two launches.
 
-    Returns (phi rows, zero mask marking the exact zeros).
+    Returns (phi rows, zero mask marking the exact zeros; None unless
+    `zero_mask`).
     """
-    lam = torch.as_tensor(counts).to(torch.float32) + beta
+    counts = torch.as_tensor(counts)
+    if counts.device.type != "cpu":
+        return cuda_polya_urn.polya_urn(
+            counts, beta, kernel_seed(generator, counts.device),
+            zero_mask=zero_mask)
+    lam = counts.to(torch.float32) + beta
     c = torch.poisson(lam, generator=generator)
     total = c.sum(dim=-1, keepdim=True)
     safe = torch.where(total > 0, c / total.clamp_min(1.0),
                        1.0 / c.shape[-1])
-    return safe, c == 0
+    return safe, (c == 0 if zero_mask else None)
 
 
 def _lgamma_ratio(x, b):
@@ -247,10 +260,19 @@ def vs_dirichlet(counts, beta: float, vs_prior: float,
     The default holds zeroPhi fixed over the row, so every indicator draws
     at once. `sequential=True` is the reference's chain, which updates
     zeroPhi after every coordinate: a Python loop over the columns,
-    vectorised over the rows, for the parity tests only.
+    vectorised over the rows, for the parity tests only. On a CUDA tensor
+    the default form is the VS-Dirichlet kernel, one launch; the
+    sequential chain stays this plain PyTorch on any device.
 
     Returns (row probabilities, zero mask)."""
-    counts = torch.as_tensor(counts).to(torch.float32)
+    counts = torch.as_tensor(counts)
+    if counts.device.type != "cpu" and not sequential:
+        prev = (None if previous_phi is None
+                else torch.as_tensor(previous_phi).to(counts.device))
+        return cuda_gamma.vs_dirichlet(
+            counts, beta, vs_prior, kernel_seed(generator, counts.device),
+            prev, zero_mask=True)
+    counts = counts.to(torch.float32)
     dev = counts.device
     n_k = counts.sum(dim=-1, keepdim=True)
     if previous_phi is None:
@@ -282,16 +304,22 @@ def vs_dirichlet(counts, beta: float, vs_prior: float,
 
 def poisson(lam, generator: torch.Generator) -> torch.Tensor:
     """Poisson(lam) draws, elementwise, float32 (types/PolyaUrnDirichlet.
-    java:96-, types/PoissonFixedCoeffSampler.java)."""
-    return torch.poisson(torch.as_tensor(lam).to(torch.float32),
-                         generator=generator)
+    java:96-, types/PoissonFixedCoeffSampler.java). On a CUDA tensor: the
+    Poisson kernel (csrc/polya_urn.cu)."""
+    lam = torch.as_tensor(lam).to(torch.float32)
+    if lam.device.type != "cpu":
+        return cuda_polya_urn.poisson(lam, kernel_seed(generator, lam.device))
+    return torch.poisson(lam, generator=generator)
 
 
 def binomial(n, p, generator: torch.Generator) -> torch.Tensor:
     """Binomial(n, p) draws, elementwise, float32 (types/BinomialSampler.
-    java)."""
+    java). On a CUDA tensor: the Binomial kernel (csrc/hdp.cu)."""
     n = torch.as_tensor(n).to(torch.float32)
     p = torch.as_tensor(p).to(torch.float32).to(n.device)
+    if n.device.type != "cpu":
+        return cuda_hdp.binomial(n, p.expand_as(n),
+                                 kernel_seed(generator, n.device))
     return torch.binomial(n, p.expand_as(n).contiguous(),
                           generator=generator)
 

@@ -5,15 +5,17 @@ card, in turns.
 Run from the repository root on a machine with one card and nvcc:
 
     python3 tools/time_kernel_builds.py \
-        --kernel pcgs|lightlda|zdraw|counts|gamma|left_to_right|alias_mh \
+        --kernel pcgs|lightlda|zdraw|counts|gamma|left_to_right|alias_mh|
+                 hdp|polya_urn|vs_dirichlet \
         NAME=PATH [NAME=PATH ...] [--root DIR] [--cases CASE,...] \
         [--rounds 2] [--json out.json]
 
 Each PATH is either
   - a source of the kernel (`csrc/pcgs.cu`, `csrc/lightlda.cu`,
     `csrc/zdraw.cu`, `csrc/label_counts.cu`, `csrc/gamma.cu`,
-    `csrc/left_to_right.cu`, `csrc/alias_mh.cu`, or a copy of one beside
-    the `philox.cuh` it includes), timed under the wrappers of the
+    `csrc/left_to_right.cu`, `csrc/alias_mh.cu`, `csrc/hdp.cu`,
+    `csrc/polya_urn.cu`, `csrc/vs_dirichlet.cu`, or a copy of one beside
+    the headers it includes), timed under the wrappers of the
     checkout `--root` (default: this one), so it must keep that
     checkout's C interface; or
   - a directory holding a checkout of the repository (the parent commit
@@ -50,7 +52,17 @@ and
     runs them: the rounds kernel alone at K=100 and K=4096 in both table
     modes, 2 rounds; at K=100 packed also at 1 and 4 rounds, and at 1, 2
     and 4 rounds with no document selected (what a token costs without
-    its draws and gathers); the pack at both K.
+    its draws and gathers); the pack at both K;
+  - hdp: `[3 hdp]`'s operands (`chip_smoke.py::hdp_state` and
+    `psi_operands` of this checkout): the table counts of a ppu_hdplda
+    K_max=100 chain after 10 iterations in both instances of the first
+    launch, psi on its tables, and psi at K_max=4096 (GEM with the
+    hdplda births, Poisson with the hlda ones);
+  - polya_urn: `[3 polya-urn]`'s rows, that chain's N_kw [100, V] with
+    and without its active mask and a uniform z's [200, V], and the
+    elementwise Poisson at its rates;
+  - vs_dirichlet: `[3 vs-dirichlet]`'s rows at [100, V] and [200, V],
+    the previous phi a Polya-Urn draw.
 The workers start together, so builds and set-up run in parallel; then
 each case is timed with `chip_smoke.time_ms`, one worker at a time, the
 names first to last and back, `--rounds` times, so each has as many early
@@ -81,7 +93,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCES = {"pcgs": "pcgs.cu", "lightlda": "lightlda.cu",
                   "zdraw": "zdraw.cu", "counts": "label_counts.cu",
                   "gamma": "gamma.cu", "left_to_right": "left_to_right.cu",
-                  "alias_mh": "alias_mh.cu"}
+                  "alias_mh": "alias_mh.cu", "hdp": "hdp.cu",
+                  "polya_urn": "polya_urn.cu",
+                  "vs_dirichlet": "vs_dirichlet.cu"}
 TAG = "@@ "                       # prefix of the worker's protocol lines
 
 
@@ -300,9 +314,78 @@ def alias_mh_cases(torch, cs, corpus, LDAConfig, create_model):
     return cases
 
 
+def _hdp_chain(torch, corpus, LDAConfig, create_model):
+    """This checkout's [3 hdp] chain (ppu_hdplda K_max=100, 10
+    iterations) and its seed."""
+    own = _own_chip_smoke()
+    model = own.hdp_state(torch, corpus, LDAConfig, create_model)
+    seed = torch.tensor([0x0DDC_0FFE_E123], dtype=torch.int64,
+                        device=model.device)
+    return own, model, seed
+
+
+def hdp_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 hdp]'s timed calls: the table counts in both instances, psi at
+    K_max=100 on the chain's tables and at K_max=4096 on synthetic ones."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_hdp
+    own, model, seed = _hdp_chain(torch, corpus, LDAConfig, create_model)
+    cfg, st = model.config, model.state
+    m = model._max_count
+    tables = cuda_hdp.table_counts(st.ndk, st.alpha, m, seed)
+    kw = dict(gamma=cfg.hdp_gamma, budget=cfg.hdp_birth_budget,
+              births="candidates", sampler=cfg.hdp_psi_sampler,
+              dist=cfg.hdp_gamma_dist, alpha0=float(cfg.alpha))
+    t4, n4, a4 = own.psi_operands(torch, 4096, model.device)
+    fn, psi = cuda_hdp.table_counts, cuda_hdp.psi_step
+    hist = torch.zeros((cfg.topics, m), dtype=torch.int32,
+                       device=model.device)
+    return {"tables K=100": (fn, (st.ndk, st.alpha, m, seed),
+                             {"hist": hist}),
+            "tables K=100 global": (fn, (st.ndk, st.alpha, m, seed),
+                                    {"instance": "global", "hist": hist}),
+            "psi K=100": (psi, (tables, st.nk, st.active, seed), kw),
+            "psi K=4096 gem": (psi, (t4, n4, a4, seed),
+                               dict(gamma=3.0, budget=32,
+                                    births="candidates", sampler="gem",
+                                    alpha0=0.5)),
+            "psi K=4096 poisson": (psi, (t4, n4, a4, seed),
+                                   dict(gamma=3.0, budget=32,
+                                        births="lowest", sampler="poisson",
+                                        alpha0=0.5))}
+
+
+def polya_urn_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 polya-urn]'s timed calls."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_polya_urn
+    own, model, seed = _hdp_chain(torch, corpus, LDAConfig, create_model)
+    st = model.state
+    nkw200 = own.urn_operands(torch, corpus, model.device)
+    fn = cuda_polya_urn.polya_urn
+    return {"rows K=100": (fn, (st.nkw, 0.01, seed), {}),
+            "rows K=100 active": (fn, (st.nkw, 0.01, seed, st.active), {}),
+            "rows K=200": (fn, (nkw200, 0.01, seed), {}),
+            "poisson K=100": (cuda_polya_urn.poisson,
+                              (st.nkw.to(torch.float32) + 0.01, seed), {})}
+
+
+def vs_dirichlet_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 vs-dirichlet]'s timed calls."""
+    from ldagroupedgibbssampler_tpu_torch.ops import (cuda_gamma,
+                                                      cuda_polya_urn)
+    own, model, seed = _hdp_chain(torch, corpus, LDAConfig, create_model)
+    st = model.state
+    nkw200 = own.urn_operands(torch, corpus, model.device)
+    phi200 = cuda_polya_urn.polya_urn(nkw200, 0.01, seed)[0]
+    fn = cuda_gamma.vs_dirichlet
+    return {"rows K=100": (fn, (st.nkw, 0.01, 0.5, seed, st.phi), {}),
+            "rows K=200": (fn, (nkw200, 0.01, 0.5, seed, phi200), {})}
+
+
 CASES = {"pcgs": pcgs_cases, "lightlda": lightlda_cases,
          "zdraw": zdraw_cases, "counts": counts_cases, "gamma": gamma_cases,
-         "left_to_right": left_to_right_cases, "alias_mh": alias_mh_cases}
+         "left_to_right": left_to_right_cases, "alias_mh": alias_mh_cases,
+         "hdp": hdp_cases, "polya_urn": polya_urn_cases,
+         "vs_dirichlet": vs_dirichlet_cases}
 
 
 def worker(kernel: str, root: str, source: str, out_dir: str) -> int:
