@@ -95,7 +95,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      `[3 vs-dirichlet]` (csrc/vs_dirichlet.cu): the inclusion pattern
      equal to the plain version's but proven ties, values within 1e-5;
      each timed beside its plain version, the eager path it replaced and
-     its bound;
+     its bound; `[3 pairwise]` (csrc/pairwise.cu): the seven elementwise
+     metrics (manhattan, chebychev, canberra, jaccard, js, ks, uber) on
+     Dirichlet(0.1) rows with ~30% exact zeros against their plain
+     versions (the tiled blocks of similarity/distances.py) on the card,
+     chebychev and ks bit-equal, the rest within 1e-5, at 5,635 x 5,634 x
+     100 (the 20NG test x train matrix), 512 x 512 x 4096, 301 x 203 x 37
+     and edge rows (identical, disjoint, all-zero and tied pairs, a 1 x 1
+     Distance.calculate); at the first shape and on its first 256 rows
+     each kernel's time alone and with its call, its plain version's, the
+     torch.cdist time for manhattan and chebychev, the bound, the peak
+     memory a call adds, and ptxas's registers;
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
@@ -185,7 +195,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      rows 1-3 checked (201 counts, 200 z-draws, 30 PCGS sweeps), the kl
      matrix against the CPU on its first 256 rows, every metric against
      the CPU on 32 rows and timed on 256, the products with TF32 on and
-     off; `[6 bm25]`, BM25Searcher on the train half searched against
+     off, then the 5,635 x 5,634 matrix of each of the seven elementwise
+     metrics through Distance(name).pairwise, timed, one launch of its
+     pairwise kernel a call (the counters set to 0 just before, read just
+     after), and distance() with ks through the whole app, timed (201
+     counts, 200 z-draws, 1 KS launch); `[6 bm25]`, BM25Searcher on the train half searched against
      itself (top 2), the first 256 rows against the CPU; `[6 classify]`,
      KLDivergenceClassifier.cross_validate (2 folds, 30 training and 300
      fold-in iterations) on the corpus labelled d % 20, its launches
@@ -236,7 +250,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
 Then one JSON line describing every kernel (gamma, left_to_right,
 alias_mh_rounds, alias_mh_pack, hdp_table_counts, hdp_psi, polya_urn and
 vs_dirichlet among them, the last four with their launches in every run
-of phase 4 as `launches_by_run`; the counts, z-draw and gamma entries
+of phase 4 as `launches_by_run`; pairwise_elementwise and pairwise_ks
+with `[3 pairwise]`'s numbers at the 20NG shape (the elementwise entry
+manhattan's, every metric under `metrics`) and their launches in `[6
+similarity]` by part as `launches_apps`; the counts, z-draw and gamma entries
 with the launches of
 `[4 sample_chunked]`'s ggs K=100 run as `launches_chunked`, the gamma
 entry its capture and replay numbers as `chunked`; the counts, z-draw and PCGS
@@ -3570,6 +3587,249 @@ def vs_dirichlet_phase(torch, corpus, model, rnd, smi):
             "bound_by": main["bound_by"], "library_ms": None, "cases": res}
 
 
+# ---- [3 pairwise]: the elementwise pairwise metrics and the KS merge ----
+PAIRWISE_METRICS = ("manhattan", "chebychev", "canberra", "jaccard", "js",
+                    "ks", "uber")
+PAIRWISE_EXACT = ("chebychev", "ks")     # a max, integer gaps: bit-equal
+PAIRWISE_TOL = 1e-5                      # rtol and atol of the other five
+PAIRWISE_TEST, PAIRWISE_TRAIN = 5635, 5634   # the 2-fold 20NG halves
+PAIRWISE_SHAPES = (("a", PAIRWISE_TEST, PAIRWISE_TRAIN, K),
+                   ("b", 512, 512, 4096), ("c", 301, 203, 37))
+# f32 operations and special-function calls a (pair, coordinate), as
+# csrc/pairwise.cu's header counts them; KS: operations a merge step, 2K
+# steps a pair
+PAIRWISE_OPS = {"manhattan": (3, 0), "chebychev": (3, 0),
+                "canberra": (7, 0), "jaccard": (4, 0), "js": (12, 1),
+                "uber": (13, 0)}
+KS_STEP_OPS = 6
+PAIRWISE_LIBRARY = {"manhattan": 1.0, "chebychev": float("inf")}
+PAIRWISE_JAX_LINE = {"js": 69, "manhattan": 113, "chebychev": 118,
+                     "canberra": 123, "jaccard": 138, "ks": 169, "uber": 198}
+
+
+def pairwise_rows(n: int, k: int, seed: int) -> np.ndarray:
+    """n Dirichlet(0.1) rows over k with ~30% of the coordinates set to an
+    exact 0 and renormalised (a row left empty stays all zero), float32."""
+    rng = np.random.default_rng(seed)
+    x = rng.dirichlet(np.full(k, 0.1), n)
+    x[rng.random((n, k)) < 0.3] = 0.0
+    s = x.sum(axis=1, keepdims=True)
+    return (x / np.where(s > 0, s, 1.0)).astype(np.float32)
+
+
+def pairwise_edge_rows(k: int) -> tuple:
+    """Edge rows, x row i against y row i: an identical pair, disjoint
+    supports, all-zero rows, and a heavily tied pair (the values 0 and
+    2 / k only, shifted by one coordinate)."""
+    base = pairwise_rows(1, k, 11)[0]
+    low = np.where(np.arange(k) < k // 2, 1.0 / (k // 2), 0.0)
+    tied = np.where(np.arange(k) % 2 == 0, 2.0 / k, 0.0)
+    X = np.stack([base, low, np.zeros(k), tied]).astype(np.float32)
+    Y = np.stack([base, low[::-1], np.zeros(k), np.roll(tied, 1)]
+                 ).astype(np.float32)
+    return X, Y
+
+
+def pairwise_call(torch, name, X, Y):
+    """The metric as a user calls it on the card (distances.py dispatches
+    to the kernels: ks with its rows' sort, uber with its products)."""
+    from ldagroupedgibbssampler_tpu_torch.similarity import distances
+    return distances.DISTANCES[name](X, Y)
+
+
+def pairwise_plain(torch, name, X, Y):
+    """The metric's plain version on X's device: the tiled blocks."""
+    from ldagroupedgibbssampler_tpu_torch.similarity import distances
+    return distances.DISTANCES[name].tiled(X, Y)
+
+
+def pairwise_agree(torch, name, got, want, label) -> float:
+    """Hold a kernel's result to its plain version: chebychev and ks bit
+    for bit, the rest within PAIRWISE_TOL, NaN where the plain version has
+    it (uber's cosine of an all-zero row). Returns max |got - want| over
+    the finite entries."""
+    fin = torch.isfinite(want)
+    check(got.shape == want.shape
+          and torch.equal(torch.isfinite(got), fin),
+          f"[3 pairwise] {name} {label}: shape {tuple(got.shape)}, or "
+          "finite where the plain version is not")
+    err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    if name in PAIRWISE_EXACT:
+        check(torch.equal(got, want), f"[3 pairwise] {name} {label}: not "
+              f"bit-equal to the plain version (max |diff| {err:.3g}, "
+              f"{int((got != want).sum())} entries)")
+    else:
+        check(torch.allclose(got, want, rtol=PAIRWISE_TOL,
+                             atol=PAIRWISE_TOL, equal_nan=True),
+              f"[3 pairwise] {name} {label}: max |diff| {err:.3g} against "
+              f"the plain version")
+    return err
+
+
+def pairwise_bound(name, m, n, k):
+    """(bound ms, bound_by) of the kernel alone at (m, n, k): the rows read
+    once and the output written once (uber also reads its three product
+    matrices), against its operations."""
+    nbytes = 4 * (m + n) * k + 4 * m * n * (4 if name == "uber" else 1)
+    if name == "ks":
+        return bound(nbytes, KS_STEP_OPS * 2.0 * k * m * n)
+    ops, sfu = PAIRWISE_OPS[name]
+    return bound(nbytes, ops * float(m) * n * k, sfu_ops=sfu * float(m) * n * k)
+
+
+def pairwise_kernel_fns(torch, name, X, Y):
+    """(the kernel's wrapper, the whole call) as callables: uber's wrapper
+    on its products computed beforehand; the others' wrapper is the call
+    (ks's with its rows' sort, ~0.1 ms of it at the 20NG shape)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_pairwise as cp
+    from ldagroupedgibbssampler_tpu_torch.similarity import distances
+    whole = (lambda: pairwise_call(torch, name, X, Y))
+    if name == "uber":
+        parts = tuple(distances.DISTANCES[p](X, Y)
+                      for p in cp.UBER_PRODUCTS)
+        return (lambda: cp.pairwise_elementwise("uber", X, Y, parts=parts)
+                ), whole
+    return whole, whole
+
+
+def pairwise_timing(torch, name, X, Y):
+    """Times at one shape: the kernel's wrapper and the whole call (CUDA
+    events), the plain version (one call), the library call where one
+    computes the same function, the bound, the peak memory the whole call
+    adds."""
+    kernel, whole = pairwise_kernel_fns(torch, name, X, Y)
+    m, n, k = X.shape[0], Y.shape[0], X.shape[1]
+    out = dict(ms=time_ms(torch, kernel, reps=5, calls=5))
+    out["call_ms"] = (out["ms"] if whole is kernel
+                      else time_ms(torch, whole, reps=5, calls=5))
+    out["plain_ms"] = once_ms(torch, lambda: pairwise_plain(
+        torch, name, X, Y))
+    p = PAIRWISE_LIBRARY.get(name)
+    out["library_ms"] = (time_ms(torch, lambda: torch.cdist(X, Y, p=p),
+                                 reps=5, calls=5) if p else None)
+    out["bound_ms"], out["bound_by"] = pairwise_bound(name, m, n, k)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res = whole()
+    torch.cuda.synchronize()
+    out["peak_added_bytes"] = torch.cuda.max_memory_allocated() - held
+    out["output_bytes"] = res.numel() * 4
+    del res
+    return out
+
+
+def pairwise_phase(torch, _build, smi, dev="cuda"):
+    """[3 pairwise]: the kernels of csrc/pairwise.cu (the elementwise
+    metrics; the KS merge) against their plain versions (the tiled blocks
+    of similarity/distances.py) on the card, chebychev and ks bit-equal,
+    the other five within PAIRWISE_TOL, on Dirichlet(0.1) rows with ~30%
+    exact zeros at (a) the 20NG test x train shape, (b) 512 x 512 x 4096,
+    (c) 301 x 203 x 37 (ragged tiles), and (d) edge rows with a 1 x 1
+    Distance.calculate; ks also equal to ks_merge_reference at (c) and
+    (d). At (a) and on its first 256 rows: each kernel's time alone and
+    with its call (ks's sort, uber's products), the plain version, the
+    library call, the bound, the peak memory a call adds (at most twice
+    its output at (a); ks also its rows' sort; uber its three product
+    matrices and their temporaries); ptxas's registers and spills. Returns the two
+    kernels-JSON entries (manhattan's numbers at (a) for the elementwise
+    kernel, every metric under `metrics`)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_pairwise as cp
+    from ldagroupedgibbssampler_tpu_torch.similarity import Distance
+    t0 = time.perf_counter()
+    errs = {name: {} for name in PAIRWISE_METRICS}
+    timing = {name: {} for name in PAIRWISE_METRICS}
+    for label, m, n, k in PAIRWISE_SHAPES:
+        X = torch.as_tensor(pairwise_rows(m, k, 1), device=dev)
+        Y = torch.as_tensor(pairwise_rows(n, k, 2), device=dev)
+        for name in PAIRWISE_METRICS:
+            got = pairwise_call(torch, name, X, Y)
+            want = pairwise_plain(torch, name, X, Y)
+            errs[name][label] = pairwise_agree(torch, name, got, want,
+                                               f"({label}) {m}x{n}x{k}")
+            if name == "ks" and label == "c":
+                check(torch.equal(got, cp.ks_merge_reference(X, Y)),
+                      "[3 pairwise] ks (c): not ks_merge_reference's")
+            del got, want
+        if label == "a":
+            for name in PAIRWISE_METRICS:
+                timing[name]["a"] = pairwise_timing(torch, name, X, Y)
+                timing[name]["block"] = pairwise_timing(
+                    torch, name, X[:APPS_BLOCK], Y)
+        del X, Y
+        torch.cuda.empty_cache()
+    ex, ey = (torch.as_tensor(a, device=dev) for a in pairwise_edge_rows(K))
+    for name in PAIRWISE_METRICS:
+        got = pairwise_call(torch, name, ex, ey)
+        errs[name]["d"] = pairwise_agree(torch, name, got,
+                                         pairwise_plain(torch, name, ex, ey),
+                                         "(d) edge rows")
+        one = Distance(name, device=dev).calculate(ex[3].cpu().numpy(),
+                                                   ey[3].cpu().numpy())
+        errs[name]["d 1x1"] = pairwise_agree(
+            torch, name, torch.tensor([[one]], device=dev),
+            pairwise_plain(torch, name, ex[3:4], ey[3:4]), "(d) 1 x 1")
+    diag = cp.pairwise_ks(ex, ey).diagonal()
+    check(torch.equal(cp.pairwise_ks(ex, ey), cp.ks_merge_reference(ex, ey))
+          and diag[0] == 0 and diag[2] == 0,
+          f"[3 pairwise] ks (d): identical and all-zero pairs {diag}")
+    # at (a) a call adds at most twice its output; ks also its rows'
+    # sort (values, int64 indices and the sort's scratch, 16 B a value);
+    # uber also its three product matrices and their temporaries
+    for name in PAIRWISE_METRICS:
+        a = timing[name]["a"]
+        limit = 2 * a["output_bytes"] + (
+            16 * (PAIRWISE_TEST + PAIRWISE_TRAIN) * K if name == "ks"
+            else 8 * a["output_bytes"] if name == "uber" else 0)
+        check(a["peak_added_bytes"] <= limit,
+              f"[3 pairwise] {name} (a): a call adds "
+              f"{a['peak_added_bytes']} B, above {limit}")
+    regs = {**{f"metric,vec {key}": v for key, v in
+               ptxas_registers(_build, "pairwise_kernel").items()},
+            **{f"ks shared {key}": v for key, v in
+               ptxas_registers(_build, "ks_kernel").items()}}
+    seconds = time.perf_counter() - t0
+
+    def short(r):
+        return {key: (round(v, 4) if isinstance(v, float) else v)
+                for key, v in r.items()}
+    shapes = ", ".join(f"({label}) {m}x{n}x{k}"
+                       for label, m, n, k in PAIRWISE_SHAPES)
+    print(f"[3 pairwise] csrc/pairwise.cu on {torch.cuda.get_device_name(0)}"
+          f" ({smi}): every metric against its plain version (tiled "
+          f"blocks), chebychev and ks bit-equal, the rest within "
+          f"{PAIRWISE_TOL}, at {shapes}, (d) edge rows and 1 x 1: max "
+          f"|diff| {json.dumps(errs)}; ms (the wrapper; call_ms with uber's "
+          f"products; plain one call; library torch.cdist; "
+          f"peak bytes a call adds) at (a) "
+          f"{json.dumps({n: short(t['a']) for n, t in timing.items()})}; on "
+          f"its first {APPS_BLOCK} rows "
+          f"{json.dumps({n: short(t['block']) for n, t in timing.items()})}"
+          f"; ptxas {json.dumps(regs)}; {seconds:.1f} s", flush=True)
+
+    def entry(name, kernel, main):
+        a = timing[main]["a"]
+        return {"name": name, "route": "cuda",
+                "source": "ldagroupedgibbssampler_tpu_torch/csrc/pairwise.cu",
+                "replaces": "ldagroupedgibbssampler_tpu/similarity/"
+                            f"distances.py:{PAIRWISE_JAX_LINE[main]}",
+                "max_abs_err": max(max(errs[m].values()) for m in kernel),
+                "ms": a["ms"], "plain_ms": a["plain_ms"],
+                "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+                "library_ms": a["library_ms"], "shape": [
+                    PAIRWISE_TEST, PAIRWISE_TRAIN, K],
+                "metrics": {m: {"replaces": "ldagroupedgibbssampler_tpu/"
+                                f"similarity/distances.py:"
+                                f"{PAIRWISE_JAX_LINE[m]}",
+                                "max_abs_err": errs[m], **timing[m]}
+                            for m in kernel},
+                "ptxas": regs}
+    elementwise = [m for m in PAIRWISE_METRICS if m != "ks"]
+    return (entry("pairwise_elementwise", elementwise, "manhattan"),
+            entry("pairwise_ks", ["ks"], "ks"))
+
+
 def first_docs(Corpus, corpus, num_docs):
     """The corpus cut to its first `num_docs` documents (same vocabulary)."""
     end = int(corpus.doc_offsets[num_docs])
@@ -5556,9 +5816,68 @@ def apps_similarity(torch, corpus, LDAConfig, counters, smi, dev):
           f"block ms {json.dumps(metric_ms)}; working set "
           f"{gib(distances.WORKING_SET_BYTES)} a tile; peak memory "
           f"{gib(peak)}", flush=True)
+    pair_launches, pair_s = apps_pairwise(torch, distancer, test, counters,
+                                          smi, dev)
     return train, launches, dict(
         fold_in_ms=fold["s"] * 1e3 / APPS_FOLD_IN, kl_ms=kl_ms,
-        metric_ms=metric_ms, peak=peak)
+        metric_ms=metric_ms, peak=peak, pairwise_launches=pair_launches,
+        pairwise_s=pair_s)
+
+
+def apps_pairwise(torch, distancer, test, counters, smi, dev):
+    """The seven elementwise metrics' whole test x train matrices through
+    `Distance(name).pairwise` (the matrix copied to the host, as the
+    distancer takes it), each call one launch of its kernel (uber's beside
+    its products); then `set_dist("ks")` and `distance(test)` through the
+    whole app (200 fold-in iterations on rows 1-2, then one KS launch).
+    The launch counters are set to 0 just before and read just after.
+    Returns (launches by part, seconds)."""
+    from ldagroupedgibbssampler_tpu_torch.similarity import Distance
+    theta_test = torch.as_tensor(distancer.sampled_test_topics, device=dev)
+    theta_train = torch.as_tensor(distancer.train_thetas,
+                                  dtype=torch.float32, device=dev)
+    shape = (theta_test.shape[0], theta_train.shape[0])
+    pair = ("pairwise_elementwise", "pairwise_ks")
+    zero_launches(counters)
+    seconds, parts = {}, {}
+    for name in PAIRWISE_METRICS:
+        before = read_launches(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D = Distance(name, device=dev).pairwise(theta_test, theta_train)
+        seconds[name] = time.perf_counter() - t0
+        after = read_launches(counters)
+        added = tuple(after[k] - before[k] for k in pair)
+        check(added == ((0, 1) if name == "ks" else (1, 0)),
+              f"[6 similarity] {name}: launches of the pairwise kernels "
+              f"{added}")
+        check(D.shape == shape and bool(np.isfinite(D).all()),
+              f"[6 similarity] {name} matrix {D.shape}, not finite")
+    parts["whole matrices"] = read_launches(counters)
+    zero_launches(counters)
+    distancer.set_dist("ks")
+    t0 = time.perf_counter()
+    D = distancer.distance(test)
+    seconds["distance ks"] = time.perf_counter() - t0
+    parts["distance ks"] = got = read_launches(counters)
+    check(rows_123(got)[:2] == (APPS_FOLD_IN + 1, APPS_FOLD_IN)
+          and (got["pairwise_elementwise"], got["pairwise_ks"]) == (0, 1),
+          f"[6 similarity] distance() with ks: launches of rows 1-2 "
+          f"{rows_123(got)[:2]}, pairwise {got['pairwise_ks']}")
+    check(D.shape == shape and bool(((D >= 0) & (D <= 1)).all()),
+          f"[6 similarity] distance() with ks: {D.shape}, outside [0, 1]")
+    distancer.set_dist("kl")
+    launches = {k: {part: got[k] for part, got in parts.items()}
+                for k in pair}
+    print(f"[6 similarity] the {shape[0]} x {shape[1]} matrix of each "
+          f"elementwise metric through Distance(name).pairwise on "
+          f"{torch.cuda.get_device_name(0)} ({smi}), s (host clock, the "
+          f"matrix's copy to the host included) "
+          f"{json.dumps({k: round(v, 4) for k, v in seconds.items()})}; "
+          f"launches of the pairwise kernels {json.dumps(launches)} (one a "
+          f"call; distance ks: 200 fold-in iterations, then the KS kernel)",
+          flush=True)
+    return launches, seconds
 
 
 def apps_bm25(torch, train, smi, dev):
@@ -5770,7 +6089,9 @@ def apps_cli(torch, work, counters, smi, dev):
 def apps_phase(torch, corpus, Corpus, LDAConfig, counters, smi, work,
                dev="cuda"):
     """[6 apps]: similarity, BM25, classification and the seven secondary
-    drivers on the card. Returns the launches of rows 1-3 of each part."""
+    drivers on the card. Returns the launches of rows 1-3 of each part and
+    those of the pairwise kernels in `[6 similarity]`'s whole matrices and
+    distance() with ks."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()      # earlier phases' tensors
@@ -5791,7 +6112,8 @@ def apps_phase(torch, corpus, Corpus, LDAConfig, counters, smi, work,
     return {name: {part: launches[name] for part, launches in parts.items()}
             | {"cli": sum(e["launches"][i] for e in cli.values())}
             for i, name in enumerate(("blocked_label_counts",
-                                      "fused_zdraw_nkw", "fused_pcgs_sweep"))}
+                                      "fused_zdraw_nkw", "fused_pcgs_sweep"))
+            } | sim["pairwise_launches"]
 
 
 # ---- 7. the sharded schemes on torch.distributed -------------------------
@@ -6928,6 +7250,8 @@ def main() -> int:
     vs_entry = vs_dirichlet_phase(torch, corpus, hdp_model, rnd, smi)
     del hdp_model
     torch.cuda.empty_cache()
+    pairwise_entries = pairwise_phase(torch, _build, smi)
+    torch.cuda.empty_cache()
 
     # ---- 4. main path: the library entry point -------------------------
     cuda_counts.blocked_label_counts.launches = 0
@@ -7098,6 +7422,11 @@ def main() -> int:
     for entry in pcgs_entries:
         if entry["name"] == "fused_pcgs_sweep":
             entry["launches_apps"] = apps_launches["fused_pcgs_sweep"]
+    # the pairwise kernels' main path: the apps' whole matrices and
+    # distance() with ks in [6 similarity]
+    for entry in pairwise_entries:
+        entry["launches_apps"] = apps_launches[entry["name"]]
+        entry["launches"] = sum(entry["launches_apps"].values())
 
     # ---- 7. the sharded schemes on torch.distributed --------------------
     parallel_launches = parallel_phase(torch, smi, serial_lls)
@@ -7142,6 +7471,7 @@ def main() -> int:
          "launches_chunked": chunked_aliasmh["mh_rounds"]},
         {**mh_pack_entry, "launches": aliasmh_launches["pack_tables"],
          "launches_chunked": chunked_aliasmh["pack_tables"]},
+        *pairwise_entries,
     ]
     # the draw kernels: launches on the ppu_hdplda K_max=100 main path
     # (the VS rows: nzvsspalias K=100), and in every run of phase 4

@@ -70,7 +70,8 @@ from ldagroupedgibbssampler_tpu_torch.ops import (cuda_alias_mh,
                                                   cuda_counts, cuda_gamma,
                                                   cuda_hdp,
                                                   cuda_left_to_right,
-                                                  cuda_lightlda, cuda_pcgs,
+                                                  cuda_lightlda,
+                                                  cuda_pairwise, cuda_pcgs,
                                                   cuda_polya_urn, cuda_zdraw)
 
 # the state's fields that a step replaces
@@ -93,7 +94,9 @@ def launch_counters() -> list:
             (cuda_hdp.table_counts, "launches"),
             (cuda_hdp.psi_step, "launches"),
             (cuda_polya_urn.poisson, "launches"),
-            (cuda_polya_urn.polya_urn, "launches")] + [
+            (cuda_polya_urn.polya_urn, "launches"),
+            (cuda_pairwise.pairwise_elementwise, "launches"),
+            (cuda_pairwise.pairwise_ks, "launches")] + [
         (fn, attr) for fn in (cuda_pcgs.fused_pcgs_sweep,
                               cuda_pcgs.fused_pcgs_sweep_streamed)
         for attr in ("launches", "collapsed_launches")]

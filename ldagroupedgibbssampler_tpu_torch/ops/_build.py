@@ -94,6 +94,11 @@ _SIGNATURES = {
     + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
     "lda_hdp_psi": [_c_ptr] * 8 + [_c_int, _c_int, _c_int, _c_f32, _c_int,
                                    _c_int, _c_f32, _c_f32, _c_int, _c_ptr],
+    # pairwise.cu
+    "lda_pairwise_elementwise": [_c_ptr] * 6 + [_c_i64, _c_i64, _c_int,
+                                                _c_int, _c_int, _c_ptr],
+    "lda_pairwise_ks": [_c_ptr] * 3 + [_c_i64, _c_i64, _c_int, _c_int,
+                                       _c_ptr],
     # polya_urn.cu
     "lda_poisson": [_c_ptr] * 3 + [_c_i64, _c_int, _c_ptr],
     "lda_polya_urn": [_c_ptr, _c_int, _c_f32] + [_c_ptr] * 5

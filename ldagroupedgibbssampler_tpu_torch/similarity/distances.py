@@ -32,11 +32,16 @@ compute them (`torch.var` defaults to 1).
 
 Memory. The JAX package writes the elementwise metrics as (M, N, K)
 broadcasts that XLA fuses away; eager PyTorch would materialise them, and
-at 5,635 × 5,634 × 100 one float32 intermediate is 12.7 GB. So each metric
-runs over tiles of X's rows × Y's rows whose (m, n, K) intermediates stay
-within `WORKING_SET_BYTES`; an output entry depends only on its own pair of
-rows, so the tiles give the untiled result. `kl` needs no tile: it is two
-matrix products,
+at 5,635 × 5,634 × 100 one float32 intermediate is 12.7 GB. On a tensor
+off the CPU the seven elementwise metrics (js, manhattan, chebychev,
+canberra, jaccard, ks and uber's elementwise parts) are hand-written
+kernels (`ops/cuda_pairwise.py`, `csrc/pairwise.cu`): one launch for the
+whole (M, N) result, no tile and no (m, n, K) intermediate. On the CPU
+each runs over tiles of X's rows × Y's rows whose (m, n, K)
+intermediates stay within `WORKING_SET_BYTES`; an output entry depends
+only on its own pair of rows, so the tiles give the untiled result, and
+the tiles are the kernels' plain version (`metric.tiled`). `kl` needs no
+tile: it is two matrix products,
 
     D(P || Q) = ((P · log'P) @ [Q > 0]ᵀ − P @ log'Qᵀ) / ln 2,
     log'x = log x for x > 0, else 0,
@@ -61,15 +66,16 @@ import functools
 import numpy as np
 import torch
 
+from ldagroupedgibbssampler_tpu_torch.ops import cuda_pairwise
 from ldagroupedgibbssampler_tpu_torch.utils.device import resolve_device
 
 _LOG2 = float(np.log(2.0))
 
 # The most bytes of (m, n, K) float32 intermediates one tile of a metric
-# holds at once (a metric declares how many such intermediates it keeps
-# alive). 1 GiB keeps the 20NG-scale test × train matrix (5,635 × 5,634,
-# K=100) at ~60 rows a tile for `js`, next to the fold-in's and the
-# sampler's own device memory.
+# holds at once on the CPU (a metric declares how many such intermediates
+# it keeps alive); the card's kernels make none. 1 GiB keeps the
+# 20NG-scale test × train matrix (5,635 × 5,634, K=100) at ~60 rows a tile
+# for `js`.
 WORKING_SET_BYTES = 1 << 30
 
 
@@ -96,16 +102,18 @@ def _dot(a, b):
         return a @ b.T
 
 
-def _tiled(temps: int):
+def _tiled(temps: int, kernel=None):
     """Make `block(x [m, K], y [n, K]) -> [m, n]` a metric over whole
     inputs, run over tiles whose `temps` (m, n, K) float32 intermediates
     fit WORKING_SET_BYTES (`temps` 0: one call, no intermediate of that
-    shape). The block stays reachable as `metric.block`."""
+    shape). The block stays reachable as `metric.block`, the tiled
+    evaluation of two 2-D tensors on one device as `metric.tiled`. With a
+    `kernel`, a tensor off the CPU goes to it instead
+    (`ops/cuda_pairwise.py`: one launch, no tile, no (m, n, K)
+    intermediate); the tiles are the CPU's path and the kernel's plain
+    version."""
     def wrap(block):
-        @functools.wraps(block)
-        def metric(X, Y):
-            X = _as2d(X)
-            Y = _as2d(Y, X.device)
+        def tiled(X, Y):
             if temps == 0:
                 return metric.block(X, Y)
             M, N, K = X.shape[0], Y.shape[0], X.shape[1]
@@ -118,10 +126,24 @@ def _tiled(temps: int):
                     out[i:i + m, j:j + n] = metric.block(X[i:i + m],
                                                          Y[j:j + n])
             return out
+
+        @functools.wraps(block)
+        def metric(X, Y):
+            X = _as2d(X)
+            Y = _as2d(Y, X.device)
+            if kernel is not None and X.device.type != "cpu":
+                return kernel(X.contiguous(), Y.contiguous())
+            return tiled(X, Y)
         metric.block = block
         metric.temps = temps
+        metric.tiled = tiled
         return metric
     return wrap
+
+
+def _on_card(name: str):
+    """The elementwise kernel of metric `name` (csrc/pairwise.cu)."""
+    return lambda X, Y: cuda_pairwise.pairwise_elementwise(name, X, Y)
 
 
 def _log0(v):
@@ -149,7 +171,7 @@ def kl(X, Y):
             + kl_divergence_pairwise(Y, X).T) / 2.0
 
 
-@_tiled(temps=6)
+@_tiled(temps=6, kernel=_on_card("js"))
 def js(X, Y):
     """Jensen-Shannon built from the symmetrised KL against the average a,
     exactly as JensenShannonDistance.java:6-13: (skl(p, a) + skl(q, a)) / 2,
@@ -179,17 +201,17 @@ def euclidean(X, Y):
     return sq.clamp_min(0.0).sqrt()
 
 
-@_tiled(temps=2)
+@_tiled(temps=2, kernel=_on_card("manhattan"))
 def manhattan(X, Y):
     return (X[:, None, :] - Y[None, :, :]).abs().sum(-1)
 
 
-@_tiled(temps=2)
+@_tiled(temps=2, kernel=_on_card("chebychev"))
 def chebychev(X, Y):
     return (X[:, None, :] - Y[None, :, :]).abs().amax(-1)
 
 
-@_tiled(temps=5)
+@_tiled(temps=5, kernel=_on_card("canberra"))
 def canberra(X, Y):
     num = (X[:, None, :] - Y[None, :, :]).abs()
     den = X.abs()[:, None, :] + Y.abs()[None, :, :]
@@ -203,7 +225,7 @@ def cosine(X, Y):
     return 1.0 - _dot(X, Y) / (nx * ny)
 
 
-@_tiled(temps=3)
+@_tiled(temps=3, kernel=_on_card("jaccard"))
 def jaccard(X, Y):
     inter = torch.minimum(X[:, None, :], Y[None, :, :]).sum(-1)
     union = torch.maximum(X[:, None, :], Y[None, :, :]).sum(-1)
@@ -233,7 +255,8 @@ def statistical(X, Y):
     return 1.0 - cov / (sx * sy)
 
 
-@_tiled(temps=12)
+@_tiled(temps=12,
+        kernel=lambda X, Y: cuda_pairwise.pairwise_ks(X, Y))
 def ks(X, Y):
     """Two-sample KS statistic treating coordinates as samples
     (KolmogorovSmirnovDistance.java via commons-math): the largest
@@ -268,7 +291,14 @@ _UBER_PARTS = (canberra, chebychev, cosine, euclidean, jaccard, kl,
                manhattan)
 
 
-@_tiled(temps=max(p.temps for p in _UBER_PARTS))
+def _uber_on_card(X, Y):
+    """uber off the CPU: cosine, euclidean and kl as the exact products,
+    then one launch for the four elementwise parts and the mean."""
+    return cuda_pairwise.pairwise_elementwise(
+        "uber", X, Y, parts=(cosine(X, Y), euclidean(X, Y), kl(X, Y)))
+
+
+@_tiled(temps=max(p.temps for p in _UBER_PARTS), kernel=_uber_on_card)
 def uber(X, Y):
     """Mean of 7 metrics (UberDistance.java:5-19)."""
     parts = [p.block(X, Y) for p in _UBER_PARTS]

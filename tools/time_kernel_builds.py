@@ -6,7 +6,7 @@ Run from the repository root on a machine with one card and nvcc:
 
     python3 tools/time_kernel_builds.py \
         --kernel pcgs|lightlda|zdraw|counts|gamma|left_to_right|alias_mh|
-                 hdp|polya_urn|vs_dirichlet \
+                 hdp|polya_urn|vs_dirichlet|pairwise \
         NAME=PATH [NAME=PATH ...] [--root DIR] [--cases CASE,...] \
         [--rounds 2] [--json out.json]
 
@@ -14,7 +14,8 @@ Each PATH is either
   - a source of the kernel (`csrc/pcgs.cu`, `csrc/lightlda.cu`,
     `csrc/zdraw.cu`, `csrc/label_counts.cu`, `csrc/gamma.cu`,
     `csrc/left_to_right.cu`, `csrc/alias_mh.cu`, `csrc/hdp.cu`,
-    `csrc/polya_urn.cu`, `csrc/vs_dirichlet.cu`, or a copy of one beside
+    `csrc/polya_urn.cu`, `csrc/vs_dirichlet.cu`, `csrc/pairwise.cu`, or a
+    copy of one beside
     the headers it includes), timed under the wrappers of the
     checkout `--root` (default: this one), so it must keep that
     checkout's C interface; or
@@ -62,7 +63,12 @@ and
     and without its active mask and a uniform z's [200, V], and the
     elementwise Poisson at its rates;
   - vs_dirichlet: `[3 vs-dirichlet]`'s rows at [100, V] and [200, V],
-    the previous phi a Polya-Urn draw.
+    the previous phi a Polya-Urn draw;
+  - pairwise: `[3 pairwise]`'s kernels' wrappers (`chip_smoke.py::
+    pairwise_rows` and `pairwise_kernel_fns` of this checkout: ks with its
+    rows' sort, uber on its products computed beforehand), each of
+    the seven metrics at the 20NG test x train shape (5,635 x 5,634 x 100)
+    and on its first 256 rows, and at 512 x 512 x 4096.
 The workers start together, so builds and set-up run in parallel; then
 each case is timed with `chip_smoke.time_ms`, one worker at a time, the
 names first to last and back, `--rounds` times, so each has as many early
@@ -95,7 +101,8 @@ KERNEL_SOURCES = {"pcgs": "pcgs.cu", "lightlda": "lightlda.cu",
                   "gamma": "gamma.cu", "left_to_right": "left_to_right.cu",
                   "alias_mh": "alias_mh.cu", "hdp": "hdp.cu",
                   "polya_urn": "polya_urn.cu",
-                  "vs_dirichlet": "vs_dirichlet.cu"}
+                  "vs_dirichlet": "vs_dirichlet.cu",
+                  "pairwise": "pairwise.cu"}
 TAG = "@@ "                       # prefix of the worker's protocol lines
 
 
@@ -381,11 +388,29 @@ def vs_dirichlet_cases(torch, cs, corpus, LDAConfig, create_model):
             "rows K=200": (fn, (nkw200, 0.01, 0.5, seed, phi200), {})}
 
 
+def pairwise_cases(torch, cs, corpus, LDAConfig, create_model):
+    """[3 pairwise]'s kernels' wrappers, every metric at each shape."""
+    own = _own_chip_smoke()
+    dev = torch.device("cuda", 0)
+    out = {}
+    for label, m, n, k in (("a", own.PAIRWISE_TEST, own.PAIRWISE_TRAIN,
+                            own.K),
+                           ("block", own.APPS_BLOCK, own.PAIRWISE_TRAIN,
+                            own.K),
+                           ("K=4096", 512, 512, 4096)):
+        X = torch.as_tensor(own.pairwise_rows(m, k, 1), device=dev)
+        Y = torch.as_tensor(own.pairwise_rows(n, k, 2), device=dev)
+        for name in own.PAIRWISE_METRICS:
+            kernel, _ = own.pairwise_kernel_fns(torch, name, X, Y)
+            out[f"{name} {label}"] = (kernel, (), {})
+    return out
+
+
 CASES = {"pcgs": pcgs_cases, "lightlda": lightlda_cases,
          "zdraw": zdraw_cases, "counts": counts_cases, "gamma": gamma_cases,
          "left_to_right": left_to_right_cases, "alias_mh": alias_mh_cases,
          "hdp": hdp_cases, "polya_urn": polya_urn_cases,
-         "vs_dirichlet": vs_dirichlet_cases}
+         "vs_dirichlet": vs_dirichlet_cases, "pairwise": pairwise_cases}
 
 
 def worker(kernel: str, root: str, source: str, out_dir: str) -> int:
