@@ -4,7 +4,11 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(--parent: a checkout of another commit, e.g. the parent unpacked with
+`git archive`; `[3 pairwise]` then also times its uber and ks kernels
+beside this checkout's, in turns, with tools/time_kernel_builds.py.)
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. environment: card name and power limit (nvidia-smi), torch and CUDA;
@@ -102,10 +106,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      chebychev and ks bit-equal, the rest within 1e-5, at 5,635 x 5,634 x
      100 (the 20NG test x train matrix), 512 x 512 x 4096, 301 x 203 x 37
      and edge rows (identical, disjoint, all-zero and tied pairs, a 1 x 1
-     Distance.calculate); at the first shape and on its first 256 rows
-     each kernel's time alone and with its call, its plain version's, the
-     torch.cdist time for manhattan and chebychev, the bound, the peak
-     memory a call adds, and ptxas's registers;
+     Distance.calculate), ks also on the early end's edge rows at K=100
+     and 4096 and uber's division bit-equal to __fdiv_rn on every term;
+     at the first shape and on its first 256 rows (uber and ks also at
+     512 x 512 x 4096) each kernel's time alone and with its call, its
+     plain version's, the torch.cdist time for manhattan and chebychev,
+     the bound (ks's from the merge steps the rows need), the peak memory
+     a call adds, ptxas's registers and spills and uber's blocks an SM;
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
@@ -3596,11 +3603,12 @@ PAIRWISE_TEST, PAIRWISE_TRAIN = 5635, 5634   # the 2-fold 20NG halves
 PAIRWISE_SHAPES = (("a", PAIRWISE_TEST, PAIRWISE_TRAIN, K),
                    ("b", 512, 512, 4096), ("c", 301, 203, 37))
 # f32 operations and special-function calls a (pair, coordinate), as
-# csrc/pairwise.cu's header counts them; KS: operations a merge step, 2K
-# steps a pair
+# csrc/pairwise.cu's header counts them (a division's reciprocal is one
+# special-function call); KS: operations a merge step, the steps that
+# these rows need (ks_merge_steps)
 PAIRWISE_OPS = {"manhattan": (3, 0), "chebychev": (3, 0),
-                "canberra": (7, 0), "jaccard": (4, 0), "js": (12, 1),
-                "uber": (13, 0)}
+                "canberra": (7, 1), "jaccard": (4, 0), "js": (12, 1),
+                "uber": (13, 1)}
 KS_STEP_OPS = 6
 PAIRWISE_LIBRARY = {"manhattan": 1.0, "chebychev": float("inf")}
 PAIRWISE_JAX_LINE = {"js": 69, "manhattan": 113, "chebychev": 118,
@@ -3628,6 +3636,56 @@ def pairwise_edge_rows(k: int) -> tuple:
     Y = np.stack([base, low[::-1], np.zeros(k), np.roll(tied, 1)]
                  ).astype(np.float32)
     return X, Y
+
+
+def ks_end_rows(k: int) -> tuple:
+    """Rows at the edges of the KS walk's end at a row's exhaustion (k >=
+    8), x row i against y row i and every other pair of the two sets: x's
+    largest value tied into a run of y where x is exhausted, with larger
+    y values after it; the mirror case; equal rows; equal maxima in runs
+    of both rows; x all -0.0 against y's +0.0 and larger values; x
+    exhausted before a larger y with no tie."""
+    h = k // 2
+    tied = np.array([0.1] * (k - 1) + [0.5])
+    run = np.array([0.1] * h + [0.5] * 3 + [0.9] * (k - h - 3))
+    X = np.stack([tied, run, np.full(k, 0.25),
+                  np.array([0.0] * (k - 2) + [0.5] * 2), np.full(k, -0.0),
+                  np.full(k, 0.1)])
+    Y = np.stack([run, tied, np.full(k, 0.25),
+                  np.array([0.0] * (k - 3) + [0.5] * 3),
+                  np.array([0.0] * h + [0.3] * (k - h)), np.full(k, 0.2)])
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+def ks_merge_steps(torch, X, Y, block: int = 1024) -> int:
+    """The merge steps of the KS kernel's walks on X and Y, summed over
+    the pairs: a step takes the smaller head of the two sorted rows, or
+    both heads where they are equal, and a walk ends once a row is
+    exhausted. Run for all pairs at once, `block` rows of X at a time."""
+    inf = torch.full((1,), float("inf"), device=X.device)
+
+    def rows(A):
+        a = torch.sort(A, dim=1).values
+        a = torch.where(torch.isnan(a), inf, a)
+        return torch.cat([a, inf.expand(a.shape[0], 1)], dim=1)
+    xs, ysT = rows(X), rows(Y).T.contiguous()          # [m, k+1], [k+1, n]
+    m, k, n = X.shape[0], X.shape[1], Y.shape[0]
+    total = 0
+    for r0 in range(0, m, block):
+        xb = xs[r0:r0 + block]
+        i = torch.zeros((xb.shape[0], n), dtype=torch.int64, device=X.device)
+        j = torch.zeros_like(i)
+        steps = torch.zeros_like(i)
+        for _ in range(2 * k):
+            live = (i < k) & (j < k)
+            if not bool(live.any()):
+                break
+            xi, yj = xb.gather(1, i), ysT.gather(0, j)
+            i += (xi <= yj) & live
+            j += (yj <= xi) & live
+            steps += live
+        total += int(steps.sum())
+    return total
 
 
 def pairwise_call(torch, name, X, Y):
@@ -3666,15 +3724,20 @@ def pairwise_agree(torch, name, got, want, label) -> float:
     return err
 
 
-def pairwise_bound(name, m, n, k):
+def pairwise_bound(name, m, n, k, ks_steps=None, sfu=None):
     """(bound ms, bound_by) of the kernel alone at (m, n, k): the rows read
     once and the output written once (uber also reads its three product
-    matrices), against its operations."""
+    matrices), against its operations: for ks KS_STEP_OPS a merge step,
+    `ks_steps` steps in all (default 2K a pair); for the others
+    PAIRWISE_OPS (`sfu` overrides its special-function calls a term)."""
     nbytes = 4 * (m + n) * k + 4 * m * n * (4 if name == "uber" else 1)
     if name == "ks":
-        return bound(nbytes, KS_STEP_OPS * 2.0 * k * m * n)
-    ops, sfu = PAIRWISE_OPS[name]
-    return bound(nbytes, ops * float(m) * n * k, sfu_ops=sfu * float(m) * n * k)
+        steps = 2.0 * k * m * n if ks_steps is None else float(ks_steps)
+        return bound(nbytes, KS_STEP_OPS * steps)
+    ops, calls = PAIRWISE_OPS[name]
+    calls = calls if sfu is None else sfu
+    return bound(nbytes, ops * float(m) * n * k,
+                 sfu_ops=calls * float(m) * n * k)
 
 
 def pairwise_kernel_fns(torch, name, X, Y):
@@ -3707,7 +3770,15 @@ def pairwise_timing(torch, name, X, Y):
     p = PAIRWISE_LIBRARY.get(name)
     out["library_ms"] = (time_ms(torch, lambda: torch.cdist(X, Y, p=p),
                                  reps=5, calls=5) if p else None)
-    out["bound_ms"], out["bound_by"] = pairwise_bound(name, m, n, k)
+    if name == "ks":
+        out["merge_steps"] = ks_merge_steps(torch, X, Y)
+        out["bound_ms"], out["bound_by"] = pairwise_bound(
+            name, m, n, k, ks_steps=out["merge_steps"])
+        out["bound_2k_ms"] = pairwise_bound(name, m, n, k)[0]
+    else:
+        out["bound_ms"], out["bound_by"] = pairwise_bound(name, m, n, k)
+        if name in ("canberra", "uber"):
+            out["bound_no_rcp_ms"] = pairwise_bound(name, m, n, k, sfu=0)[0]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3720,29 +3791,68 @@ def pairwise_timing(torch, name, X, Y):
     return out
 
 
-def pairwise_phase(torch, _build, smi, dev="cuda"):
+def pairwise_division_check(torch, cp, X, Y, label) -> int:
+    """uber's division (csrc/pairwise.cu div_rn_scaled) bit-equal to
+    __fdiv_rn on every (pair, coordinate) term of X and Y; returns the
+    terms checked."""
+    checked, differ = (int(v) for v in cp.division_check(X, Y).cpu())
+    check(checked == X.shape[0] * Y.shape[0] * X.shape[1] and differ == 0,
+          f"[3 pairwise] uber's division {label}: {differ} of {checked} "
+          "terms differ from __fdiv_rn")
+    return checked
+
+
+def pairwise_parent_times(torch, parent: str) -> dict:
+    """uber's and ks's kernel times of the checkout `parent` (a git
+    archive of the parent commit, say) and of this one, in turns, by
+    tools/time_kernel_builds.py in a process of its own: {case: {name:
+    median ms}}."""
+    out = os.path.join(ROOT, "build", "pairwise_parent_times.json")
+    subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "time_kernel_builds.py"),
+         "--kernel", "pairwise", f"parent={parent}", f"new={ROOT}",
+         "--cases", "uber a,ks a,uber K=4096,ks K=4096", "--json", out],
+        check=True, timeout=900, stdout=subprocess.DEVNULL)
+    with open(out) as f:
+        return {r["case"]: r["median_ms"] for r in json.load(f)["results"]}
+
+
+def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     """[3 pairwise]: the kernels of csrc/pairwise.cu (the elementwise
     metrics; the KS merge) against their plain versions (the tiled blocks
     of similarity/distances.py) on the card, chebychev and ks bit-equal,
     the other five within PAIRWISE_TOL, on Dirichlet(0.1) rows with ~30%
     exact zeros at (a) the 20NG test x train shape, (b) 512 x 512 x 4096,
     (c) 301 x 203 x 37 (ragged tiles), and (d) edge rows with a 1 x 1
-    Distance.calculate; ks also equal to ks_merge_reference at (c) and
-    (d). At (a) and on its first 256 rows: each kernel's time alone and
-    with its call (ks's sort, uber's products), the plain version, the
-    library call, the bound, the peak memory a call adds (at most twice
-    its output at (a); ks also its rows' sort; uber its three product
-    matrices and their temporaries); ptxas's registers and spills. Returns the two
-    kernels-JSON entries (manhattan's numbers at (a) for the elementwise
-    kernel, every metric under `metrics`)."""
+    Distance.calculate; ks also equal to ks_merge_reference at (c), (d)
+    and on ks_end_rows at K and at 4096 (the global-memory walk); uber
+    also at (c) with a value of 2^40 (the unscaled path in the blocks that
+    hold it); uber's division bit-equal to __fdiv_rn on every term of
+    (a)-(d). At (a) and
+    on its first 256 rows: each kernel's time alone and with its call
+    (ks's sort, uber's products), the plain version, the library call,
+    the bound (ks's from the merge steps these rows need, beside the 2K
+    steps a pair; canberra's and uber's with and without the division's
+    reciprocal), the peak memory a call adds (at most twice its output at
+    (a); ks also its rows' sort; uber its three product matrices and
+    their temporaries); uber and ks timed at (b) too; ptxas's registers
+    and spills; the blocks an SM of uber's kernel and of the shared KS
+    kernel. With `parent` (a checkout), also uber's and ks's times of that
+    checkout and of this one at (a) and (b), in turns
+    (pairwise_parent_times). Returns the two kernels-JSON entries
+    (manhattan's numbers at (a) for the elementwise kernel, every metric
+    under `metrics`)."""
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_pairwise as cp
     from ldagroupedgibbssampler_tpu_torch.similarity import Distance
     t0 = time.perf_counter()
     errs = {name: {} for name in PAIRWISE_METRICS}
     timing = {name: {} for name in PAIRWISE_METRICS}
+    division = {}
     for label, m, n, k in PAIRWISE_SHAPES:
         X = torch.as_tensor(pairwise_rows(m, k, 1), device=dev)
         Y = torch.as_tensor(pairwise_rows(n, k, 2), device=dev)
+        division[label] = pairwise_division_check(torch, cp, X, Y,
+                                                  f"({label})")
         for name in PAIRWISE_METRICS:
             got = pairwise_call(torch, name, X, Y)
             want = pairwise_plain(torch, name, X, Y)
@@ -3751,12 +3861,24 @@ def pairwise_phase(torch, _build, smi, dev="cuda"):
             if name == "ks" and label == "c":
                 check(torch.equal(got, cp.ks_merge_reference(X, Y)),
                       "[3 pairwise] ks (c): not ks_merge_reference's")
+            if name == "uber" and label == "c":
+                # a value beyond 2^32 sends the blocks of X's first rows
+                # down uber's unscaled path with __fdiv_rn
+                Xw = X.clone()
+                Xw[0, 0] = 2.0 ** 40
+                errs[name]["c unscaled blocks"] = pairwise_agree(
+                    torch, name, pairwise_call(torch, name, Xw, Y),
+                    pairwise_plain(torch, name, Xw, Y),
+                    f"(c) {m}x{n}x{k} with a value of 2^40")
             del got, want
         if label == "a":
             for name in PAIRWISE_METRICS:
                 timing[name]["a"] = pairwise_timing(torch, name, X, Y)
                 timing[name]["block"] = pairwise_timing(
                     torch, name, X[:APPS_BLOCK], Y)
+        if label == "b":
+            for name in ("ks", "uber"):
+                timing[name]["b"] = pairwise_timing(torch, name, X, Y)
         del X, Y
         torch.cuda.empty_cache()
     ex, ey = (torch.as_tensor(a, device=dev) for a in pairwise_edge_rows(K))
@@ -3774,6 +3896,17 @@ def pairwise_phase(torch, _build, smi, dev="cuda"):
     check(torch.equal(cp.pairwise_ks(ex, ey), cp.ks_merge_reference(ex, ey))
           and diag[0] == 0 and diag[2] == 0,
           f"[3 pairwise] ks (d): identical and all-zero pairs {diag}")
+    division["d"] = pairwise_division_check(torch, cp, ex, ey, "(d)")
+    # the early end's edges, on both instances of the walk
+    for k in (K, 4096):
+        ex, ey = (torch.as_tensor(a, device=dev) for a in ks_end_rows(k))
+        got = cp.pairwise_ks(ex, ey)
+        check(torch.equal(got, cp.ks_merge_reference(ex, ey))
+              and torch.equal(got, pairwise_plain(torch, "ks", ex, ey)),
+              f"[3 pairwise] ks on ks_end_rows({k}): {got.tolist()} is not "
+              f"ks_merge_reference's "
+              f"{cp.ks_merge_reference(ex, ey).tolist()}")
+        errs["ks"][f"end rows K={k}"] = 0.0
     # at (a) a call adds at most twice its output; ks also its rows'
     # sort (values, int64 indices and the sort's scratch, 16 B a value);
     # uber also its three product matrices and their temporaries
@@ -3787,8 +3920,16 @@ def pairwise_phase(torch, _build, smi, dev="cuda"):
               f"{a['peak_added_bytes']} B, above {limit}")
     regs = {**{f"metric,vec {key}": v for key, v in
                ptxas_registers(_build, "pairwise_kernel").items()},
+            **{f"uber vec {key}": v for key, v in
+               ptxas_registers(_build, "uber_kernel").items()},
             **{f"ks shared {key}": v for key, v in
                ptxas_registers(_build, "ks_kernel").items()}}
+    uber_blocks, ks_blocks = cp.blocks_per_sm(K, dev)
+    check(uber_blocks >= 2, f"[3 pairwise] uber's kernel: {uber_blocks} "
+          "block(s) an SM, fewer than 2")
+    occupancy = {"uber blocks an SM": uber_blocks,
+                 f"ks shared blocks an SM at K={K}": ks_blocks}
+    parents = pairwise_parent_times(torch, parent) if parent else None
     seconds = time.perf_counter() - t0
 
     def short(r):
@@ -3806,7 +3947,13 @@ def pairwise_phase(torch, _build, smi, dev="cuda"):
           f"{json.dumps({n: short(t['a']) for n, t in timing.items()})}; on "
           f"its first {APPS_BLOCK} rows "
           f"{json.dumps({n: short(t['block']) for n, t in timing.items()})}"
-          f"; ptxas {json.dumps(regs)}; {seconds:.1f} s", flush=True)
+          f"; at (b) "
+          f"{json.dumps({n: short(timing[n]['b']) for n in ('ks', 'uber')})}"
+          f"; uber's division bit-equal to __fdiv_rn on "
+          f"{json.dumps(division)} terms; ptxas {json.dumps(regs)}; "
+          f"{json.dumps(occupancy)}; parent and this checkout in turns "
+          f"(ms, medians) {json.dumps(parents)}; {seconds:.1f} s",
+          flush=True)
 
     def entry(name, kernel, main):
         a = timing[main]["a"]
@@ -3824,7 +3971,9 @@ def pairwise_phase(torch, _build, smi, dev="cuda"):
                                 f"{PAIRWISE_JAX_LINE[m]}",
                                 "max_abs_err": errs[m], **timing[m]}
                             for m in kernel},
-                "ptxas": regs}
+                "ptxas": regs, "occupancy": occupancy,
+                "division_terms_checked": division,
+                "parent_times": parents}
     elementwise = [m for m in PAIRWISE_METRICS if m != "ks"]
     return (entry("pairwise_elementwise", elementwise, "manhattan"),
             entry("pairwise_ks", ["ks"], "ks"))
@@ -7014,7 +7163,12 @@ def ingest_phase(torch, smi, LDAConfig, create_model, cuda_counts,
     return launches, kernels
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--parent", default=None, help="a checkout whose "
+                    "pairwise kernels [3 pairwise] times beside these")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False: needs a CUDA card")
@@ -7250,7 +7404,8 @@ def main() -> int:
     vs_entry = vs_dirichlet_phase(torch, corpus, hdp_model, rnd, smi)
     del hdp_model
     torch.cuda.empty_cache()
-    pairwise_entries = pairwise_phase(torch, _build, smi)
+    pairwise_entries = pairwise_phase(torch, _build, smi,
+                                      parent=args.parent)
     torch.cuda.empty_cache()
 
     # ---- 4. main path: the library entry point -------------------------

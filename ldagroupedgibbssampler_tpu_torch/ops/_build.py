@@ -99,6 +99,9 @@ _SIGNATURES = {
                                                 _c_int, _c_int, _c_ptr],
     "lda_pairwise_ks": [_c_ptr] * 3 + [_c_i64, _c_i64, _c_int, _c_int,
                                        _c_ptr],
+    "lda_pairwise_division_check": [_c_ptr] * 3 + [_c_i64, _c_i64, _c_int,
+                                                   _c_int, _c_ptr],
+    "lda_pairwise_blocks_per_sm": [_c_int, _c_int, _c_ptr],
     # polya_urn.cu
     "lda_poisson": [_c_ptr] * 3 + [_c_i64, _c_int, _c_ptr],
     "lda_polya_urn": [_c_ptr, _c_int, _c_f32] + [_c_ptr] * 5

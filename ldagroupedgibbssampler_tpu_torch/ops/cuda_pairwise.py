@@ -10,19 +10,25 @@ bounds it on the H100 and the design):
 
   - `pairwise_elementwise(metric, X, Y, parts=None)`: one launch of a
     64 x 64 tile of pairs a block for `manhattan`, `chebychev`,
-    `canberra`, `jaccard`, `js` or `uber`; for `uber`, `parts` are the
-    exact products' (M, N) matrices (cosine, euclidean, kl), and the
-    launch adds them to its four elementwise parts in the plain version's
-    order and divides by 7;
+    `canberra`, `jaccard` or `js`, or of a 64 x 32 tile for `uber`, whose
+    `parts` are the exact products' (M, N) matrices (cosine, euclidean,
+    kl): the launch adds them to its four elementwise parts in the plain
+    version's order and divides by 7;
   - `pairwise_ks(X, Y)`: X's and Y's rows sorted along K by `torch.sort`,
-    then one launch of the merge walk, one thread a pair.
+    then one launch of the merge walk, one thread a pair, ties taken in
+    pairs, which ends once a row is exhausted;
+  - `division_check(X, Y)`: not on any path; the terms on which uber's
+    division (csrc/pairwise.cu `div_rn_scaled`) would differ from an IEEE
+    division, counted, for chip_smoke.py to hold it bit-equal.
 
 Both take X [M, K] and Y [N, K], float32, contiguous, on one device, and
 return float32 [M, N]; an empty M or N gives an empty [M, N] with no
 launch. The plain versions: for the elementwise metrics the tiled blocks
 of `similarity/distances.py` (`elementwise_reference`, the CPU's own
 path), for `ks` `ks_merge_reference`, which repeats the kernel's merge on
-sorted rows in PyTorch, a step for all pairs at a time.
+sorted rows in PyTorch, a step for all pairs at a time, every pair for
+all 2K steps; for `division_check` `division_check_reference`, the
+division's arithmetic in float32, each fused multiply-add rounded once.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version. `similarity/distances.py` calls the
@@ -30,6 +36,8 @@ wrappers only for tensors off the CPU. Nothing here syncs with the host.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -156,7 +164,94 @@ def pairwise_ks(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# uber's scaled path (csrc/pairwise.cu): values within TAME_MAX are
+# multiplied by UBER_SCALE, and |x| + |y| is raised to DEN_FLOOR
+UBER_SCALE = 2.0 ** 64
+TAME_MAX = 2.0 ** 32
+DEN_FLOOR = 2.0 ** -100
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """a * b + c of float32 tensors rounded once to float32: the product
+    exact in float64, the sum's rounding error by TwoSum, and a float64
+    sum that falls exactly midway between two float32 values settled by
+    that error's sign."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.float()
+    inf = torch.full_like(r, float("inf"))
+    nb = torch.nextafter(r, torch.where(s > r.double(), inf, -inf))
+    tie = (s == (r.double() + nb.double()) / 2) & (err != 0)
+    return torch.where(tie, torch.where(err > 0, torch.maximum(r, nb),
+                                        torch.minimum(r, nb)), r)
+
+
+def division_reference(a, b, seed=None) -> torch.Tensor:
+    """csrc/pairwise.cu's `div_rn_scaled(a, b)` in float32: the reciprocal
+    `seed` (default 1 / b rounded to nearest; the card's approximate
+    reciprocal is within an ulp of it), one Newton step, the quotient,
+    its remainder and one correction."""
+    r = (1.0 / b.double()).float() if seed is None else seed
+    r = fma_f32(r, fma_f32(-b, r, torch.ones_like(b)), r)
+    q = (a.double() * r.double()).float()
+    return fma_f32(r, fma_f32(-b, q, a), q)
+
+
+def division_check_reference(X, Y) -> torch.Tensor:
+    """Plain version of `division_check`: int64 [2], the (pair,
+    coordinate) terms with both values within TAME_MAX, and those on which
+    `division_reference` of uber's scaled operands differs in any bit from
+    the IEEE quotient of the values (0 where |x| + |y| == 0)."""
+    x = torch.as_tensor(X, dtype=torch.float32)[:, None, :]
+    y = torch.as_tensor(Y, dtype=torch.float32, device=x.device)[None]
+    tame = (x.abs() <= TAME_MAX) & (y.abs() <= TAME_MAX)
+    den = x.abs() + y.abs()
+    want = torch.where(den == 0, 0.0, (x - y).abs() / den)
+    xs, ys = x * UBER_SCALE, y * UBER_SCALE
+    got = division_reference((xs - ys).abs(),
+                             (xs.abs() + ys.abs()).clamp_min(DEN_FLOOR))
+    differ = tame & (got.view(torch.int32) != want.view(torch.int32))
+    return torch.stack([tame.sum(), differ.sum()]).to(torch.int64)
+
+
+def division_check(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """int64 [2]: the terms of X [M, K] and Y [N, K] with both values
+    within TAME_MAX, and those on which uber's division differs from an
+    IEEE division (both 0 for an empty M or N)."""
+    M, N, K = _shapes(X, Y)
+    if X.device.type == "cpu":
+        return division_check_reference(X, Y)
+    lib = _build.library()
+    _check(X, Y, M, N, K)
+    dev = X.device
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    if M == 0 or N == 0:
+        return counts
+    err = lib.lda_pairwise_division_check(
+        X.data_ptr(), Y.data_ptr(), counts.data_ptr(), M, N, K, dev.index,
+        _build.stream(dev))
+    _build.check(err, "lda_pairwise_division_check")
+    division_check.launches += 1
+    return counts
+
+
+def blocks_per_sm(K: int, device) -> tuple[int, int]:
+    """(uber's kernel, the shared-memory KS kernel at this K, 0 above its
+    largest K): the blocks an SM of `device` can hold, from the CUDA
+    occupancy calculator."""
+    dev = torch.device(device)
+    out = (ctypes.c_int * 2)()
+    err = _build.library().lda_pairwise_blocks_per_sm(
+        int(K), dev.index or 0, ctypes.addressof(out))
+    _build.check(err, "lda_pairwise_blocks_per_sm")
+    return out[0], out[1]
+
+
 # launches of the kernels (added where they launch, nowhere else);
 # chip_smoke.py reads them to show that the apps ran the kernels
 pairwise_elementwise.launches = 0
 pairwise_ks.launches = 0
+division_check.launches = 0

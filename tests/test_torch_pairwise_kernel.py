@@ -414,19 +414,23 @@ def test_every_entry_point_has_its_signature():
     text = open(SOURCE, encoding="utf-8").read()
     found = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text)
     assert [name for name, _ in found] == [
-        "lda_pairwise_elementwise", "lda_pairwise_ks"]
+        "lda_pairwise_elementwise", "lda_pairwise_division_check",
+        "lda_pairwise_blocks_per_sm", "lda_pairwise_ks"]
     for name, params in found:
         assert len(_build._SIGNATURES[name]) == len(params.split(",")), name
     enum = dict((name, int(v)) for name, v in re.findall(
         r"\bk(Manhattan|Chebychev|Canberra|Jaccard|Js|Uber) = (\d+)", text))
     assert {k.lower(): v for k, v in enum.items()} == cp.METRICS
-    # the shared rows of a KS block, [K + 1][32] of x and of y, fit the
-    # opt-in shared memory up to the largest K sent to that instance
+    # the shared rows of a KS block, [K + kKsUnroll][32] of x and of y,
+    # and its [32][33] result tile fit the opt-in shared memory up to the
+    # largest K sent to that instance
     const = dict((name, int(v)) for name, v in re.findall(
-        r"constexpr int (kKsSharedMaxK|kKsTile) = (\d+);", text))
+        r"constexpr int (kKsSharedMaxK|kKsTile|kKsUnroll) = (\d+);", text))
     max_k, tile = const["kKsSharedMaxK"], const["kKsTile"]
-    assert 2 * (max_k + 1) * tile * 4 <= 232_448
-    assert 2 * (max_k + 2) * tile * 4 > 232_448
+    unroll = const["kKsUnroll"]
+    result = tile * (tile + 1) * 4
+    assert 2 * (max_k + unroll) * tile * 4 + result <= 232_448
+    assert 2 * (max_k + 1 + unroll) * tile * 4 + result > 232_448
 
 
 def test_launch_counters_include_the_pairwise_kernels():
