@@ -107,12 +107,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      100 (the 20NG test x train matrix), 512 x 512 x 4096, 301 x 203 x 37
      and edge rows (identical, disjoint, all-zero and tied pairs, a 1 x 1
      Distance.calculate), ks also on the early end's edge rows at K=100
-     and 4096 and uber's division bit-equal to __fdiv_rn on every term;
-     at the first shape and on its first 256 rows (uber and ks also at
+     and 4096, canberra and js also on rows that send some blocks off
+     their fast paths (a negative value, NaN, inf, 2^40) beside blocks
+     on them with subnormal values, and the scaled division (uber's and
+     canberra's) bit-equal to __fdiv_rn on every tame term; at the first
+     shape and on its first 256 rows (uber, ks, js and canberra also at
      512 x 512 x 4096) each kernel's time alone and with its call, its
      plain version's, the torch.cdist time for manhattan and chebychev,
-     the bound (ks's from the merge steps the rows need), the peak memory
-     a call adds, ptxas's registers and spills and uber's blocks an SM;
+     the bound (ks's from the merge steps the rows need, js's closed form
+     beside its logf a term), the peak memory a call adds, ptxas's
+     registers and spills and uber's blocks an SM;
   4. the main paths on that corpus on cuda, each with its launch counters
      set to 0 just before it and read just after: LDAGroupedGibbsSampler
      (ggs), schemes pcgs, lightpclda and adlda at K=100, 30 iterations
@@ -3607,9 +3611,13 @@ PAIRWISE_SHAPES = (("a", PAIRWISE_TEST, PAIRWISE_TRAIN, K),
 # special-function call); KS: operations a merge step, the steps that
 # these rows need (ks_merge_steps)
 PAIRWISE_OPS = {"manhattan": (3, 0), "chebychev": (3, 0),
-                "canberra": (7, 1), "jaccard": (4, 0), "js": (12, 1),
+                "canberra": (7, 1), "jaccard": (4, 0), "js": (7, 0),
                 "uber": (13, 1)}
+JS_OPS_LOGF = (12, 1)          # js before its closed form: logf a term
 KS_STEP_OPS = 6
+# the metrics whose kernels were redesigned, timed at (b) and against a
+# parent checkout (--parent)
+PAIRWISE_REDESIGNED = ("uber", "ks", "js", "canberra")
 PAIRWISE_LIBRARY = {"manhattan": 1.0, "chebychev": float("inf")}
 PAIRWISE_JAX_LINE = {"js": 69, "manhattan": 113, "chebychev": 118,
                      "canberra": 123, "jaccard": 138, "ks": 169, "uber": 198}
@@ -3635,6 +3643,25 @@ def pairwise_edge_rows(k: int) -> tuple:
     X = np.stack([base, low, np.zeros(k), tied]).astype(np.float32)
     Y = np.stack([base, low[::-1], np.zeros(k), np.roll(tied, 1)]
                  ).astype(np.float32)
+    return X, Y
+
+
+def pairwise_off_path_rows(X, Y) -> tuple:
+    """Copies of X and Y (numpy, K >= 8, M > 101, N > 70) with values that
+    send the blocks of X's first 64 rows off canberra's scaled division
+    and js's closed form to the general terms (csrc/pairwise.cu): in x row 0
+    a negative value, a NaN and a subnormal value, in row 1 an inf, in
+    row 2 a value of 2^40; and subnormal values in blocks that stay on
+    both paths: a few in x row 100 and y row 70, and x row 101 holding
+    only subnormal values (js about 16 against normalised rows)."""
+    X, Y = X.copy(), Y.copy()
+    X[0, :3] = np.array([-0.25, np.nan, 1e-40], np.float32)
+    X[1, 3] = np.inf
+    X[2, 4] = 2.0 ** 40
+    X[100, :4] = np.array([1e-40, 3e-39, 1e-45, 0.0], np.float32)
+    Y[70, 4:8] = np.array([2e-40, 0.0, 1e-44, 5e-39], np.float32)
+    X[101] = 0.0
+    X[101, 1:5] = np.array([1e-40, 2e-40, 3e-39, 5e-41], np.float32)
     return X, Y
 
 
@@ -3724,20 +3751,23 @@ def pairwise_agree(torch, name, got, want, label) -> float:
     return err
 
 
-def pairwise_bound(name, m, n, k, ks_steps=None, sfu=None):
+def pairwise_bound(name, m, n, k, ks_steps=None, sfu=None, ops=None):
     """(bound ms, bound_by) of the kernel alone at (m, n, k): the rows read
     once and the output written once (uber also reads its three product
     matrices), against its operations: for ks KS_STEP_OPS a merge step,
     `ks_steps` steps in all (default 2K a pair); for the others
-    PAIRWISE_OPS (`sfu` overrides its special-function calls a term)."""
+    PAIRWISE_OPS, or `ops` (operations, special-function calls) a term
+    (`sfu` overrides the calls); js's closed form also takes the log of
+    each value of its rows once."""
     nbytes = 4 * (m + n) * k + 4 * m * n * (4 if name == "uber" else 1)
     if name == "ks":
         steps = 2.0 * k * m * n if ks_steps is None else float(ks_steps)
         return bound(nbytes, KS_STEP_OPS * steps)
-    ops, calls = PAIRWISE_OPS[name]
+    per_term, calls = ops or PAIRWISE_OPS[name]
     calls = calls if sfu is None else sfu
-    return bound(nbytes, ops * float(m) * n * k,
-                 sfu_ops=calls * float(m) * n * k)
+    row_logs = float(m + n) * k if name == "js" and ops is None else 0.0
+    return bound(nbytes, per_term * float(m) * n * k,
+                 sfu_ops=calls * float(m) * n * k + row_logs)
 
 
 def pairwise_kernel_fns(torch, name, X, Y):
@@ -3779,6 +3809,9 @@ def pairwise_timing(torch, name, X, Y):
         out["bound_ms"], out["bound_by"] = pairwise_bound(name, m, n, k)
         if name in ("canberra", "uber"):
             out["bound_no_rcp_ms"] = pairwise_bound(name, m, n, k, sfu=0)[0]
+        if name == "js":
+            out["bound_logf_ms"] = pairwise_bound(name, m, n, k,
+                                                  ops=JS_OPS_LOGF)[0]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3792,18 +3825,23 @@ def pairwise_timing(torch, name, X, Y):
 
 
 def pairwise_division_check(torch, cp, X, Y, label) -> int:
-    """uber's division (csrc/pairwise.cu div_rn_scaled) bit-equal to
-    __fdiv_rn on every (pair, coordinate) term of X and Y; returns the
-    terms checked."""
+    """The division of uber's and canberra's scaled blocks (csrc/
+    pairwise.cu div_rn_scaled of the values times 2^64) bit-equal to
+    __fdiv_rn on every (pair, coordinate) term of X and Y whose two values
+    are within TAME_MAX (every term where all are); returns the terms
+    checked."""
     checked, differ = (int(v) for v in cp.division_check(X, Y).cpu())
-    check(checked == X.shape[0] * Y.shape[0] * X.shape[1] and differ == 0,
-          f"[3 pairwise] uber's division {label}: {differ} of {checked} "
-          "terms differ from __fdiv_rn")
+    tame_x = (X.abs() <= cp.TAME_MAX).sum(0, dtype=torch.float64)
+    tame_y = (Y.abs() <= cp.TAME_MAX).sum(0, dtype=torch.float64)
+    want = int((tame_x * tame_y).sum())
+    check(checked == want and differ == 0,
+          f"[3 pairwise] the scaled division {label}: {differ} of "
+          f"{checked} terms ({want} tame) differ from __fdiv_rn")
     return checked
 
 
 def pairwise_parent_times(torch, parent: str) -> dict:
-    """uber's and ks's kernel times of the checkout `parent` (a git
+    """The redesigned kernels' times of the checkout `parent` (a git
     archive of the parent commit, say) and of this one, in turns, by
     tools/time_kernel_builds.py in a process of its own: {case: {name:
     median ms}}."""
@@ -3811,7 +3849,8 @@ def pairwise_parent_times(torch, parent: str) -> dict:
     subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools", "time_kernel_builds.py"),
          "--kernel", "pairwise", f"parent={parent}", f"new={ROOT}",
-         "--cases", "uber a,ks a,uber K=4096,ks K=4096", "--json", out],
+         "--cases", ",".join(f"{name} {case}" for name in PAIRWISE_REDESIGNED
+                             for case in ("a", "K=4096")), "--json", out],
         check=True, timeout=900, stdout=subprocess.DEVNULL)
     with open(out) as f:
         return {r["case"]: r["median_ms"] for r in json.load(f)["results"]}
@@ -3827,17 +3866,20 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     Distance.calculate; ks also equal to ks_merge_reference at (c), (d)
     and on ks_end_rows at K and at 4096 (the global-memory walk); uber
     also at (c) with a value of 2^40 (the unscaled path in the blocks that
-    hold it); uber's division bit-equal to __fdiv_rn on every term of
-    (a)-(d). At (a) and
-    on its first 256 rows: each kernel's time alone and with its call
+    hold it); canberra and js also on the first 301 x 203 rows of (a) and
+    on (c) with pairwise_off_path_rows (blocks off their fast paths beside
+    blocks on them with subnormal values); the scaled division bit-equal
+    to __fdiv_rn on every tame term of (a)-(d) and of those rows. At (a)
+    and on its first 256 rows: each kernel's time alone and with its call
     (ks's sort, uber's products), the plain version, the library call,
     the bound (ks's from the merge steps these rows need, beside the 2K
     steps a pair; canberra's and uber's with and without the division's
-    reciprocal), the peak memory a call adds (at most twice its output at
-    (a); ks also its rows' sort; uber its three product matrices and
-    their temporaries); uber and ks timed at (b) too; ptxas's registers
-    and spills; the blocks an SM of uber's kernel and of the shared KS
-    kernel. With `parent` (a checkout), also uber's and ks's times of that
+    reciprocal; js's closed form beside its logf a term), the peak memory
+    a call adds (at most twice its output at (a); ks also its rows' sort;
+    uber its three product matrices and their temporaries); the kernels
+    of PAIRWISE_REDESIGNED timed at (b) too; ptxas's registers and
+    spills; the blocks an SM of uber's kernel and of the shared KS
+    kernel. With `parent` (a checkout), also those kernels' times of that
     checkout and of this one at (a) and (b), in turns
     (pairwise_parent_times). Returns the two kernels-JSON entries
     (manhattan's numbers at (a) for the elementwise kernel, every metric
@@ -3871,13 +3913,28 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
                     pairwise_plain(torch, name, Xw, Y),
                     f"(c) {m}x{n}x{k} with a value of 2^40")
             del got, want
+        if label in ("a", "c"):
+            # canberra's and js's blocks off their fast paths (a negative
+            # value, NaN, inf, 2^40) beside blocks on them with subnormal
+            # values, at K=100 (16-byte loads) and K=37
+            Xo, Yo = (torch.as_tensor(v, device=dev) for v in
+                      pairwise_off_path_rows(X[:301].cpu().numpy(),
+                                             Y[:203].cpu().numpy()))
+            for name in ("canberra", "js"):
+                errs[name][f"{label} off path"] = pairwise_agree(
+                    torch, name, pairwise_call(torch, name, Xo, Yo),
+                    pairwise_plain(torch, name, Xo, Yo),
+                    f"({label}) 301x203x{k} off the fast paths")
+            division[f"{label} off path"] = pairwise_division_check(
+                torch, cp, Xo, Yo, f"({label}) off the fast paths")
+            del Xo, Yo
         if label == "a":
             for name in PAIRWISE_METRICS:
                 timing[name]["a"] = pairwise_timing(torch, name, X, Y)
                 timing[name]["block"] = pairwise_timing(
                     torch, name, X[:APPS_BLOCK], Y)
         if label == "b":
-            for name in ("ks", "uber"):
+            for name in PAIRWISE_REDESIGNED:
                 timing[name]["b"] = pairwise_timing(torch, name, X, Y)
         del X, Y
         torch.cuda.empty_cache()
@@ -3918,8 +3975,14 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
         check(a["peak_added_bytes"] <= limit,
               f"[3 pairwise] {name} (a): a call adds "
               f"{a['peak_added_bytes']} B, above {limit}")
+    elementwise_regs = ptxas_registers(_build, "pairwise_kernel")
+    for name in ("canberra", "js"):
+        for vec, kind in (("1", "16-byte loads"), ("0", "4-byte loads")):
+            key = f"{cp.METRICS[name]},{vec}"
+            check(key in elementwise_regs, f"[3 pairwise] no ptxas line of "
+                  f"the {name} kernel with {kind}")
     regs = {**{f"metric,vec {key}": v for key, v in
-               ptxas_registers(_build, "pairwise_kernel").items()},
+               elementwise_regs.items()},
             **{f"uber vec {key}": v for key, v in
                ptxas_registers(_build, "uber_kernel").items()},
             **{f"ks shared {key}": v for key, v in
@@ -3935,6 +3998,7 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     def short(r):
         return {key: (round(v, 4) if isinstance(v, float) else v)
                 for key, v in r.items()}
+    at_b = {n: short(timing[n]["b"]) for n in PAIRWISE_REDESIGNED}
     shapes = ", ".join(f"({label}) {m}x{n}x{k}"
                        for label, m, n, k in PAIRWISE_SHAPES)
     print(f"[3 pairwise] csrc/pairwise.cu on {torch.cuda.get_device_name(0)}"
@@ -3947,10 +4011,11 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
           f"{json.dumps({n: short(t['a']) for n, t in timing.items()})}; on "
           f"its first {APPS_BLOCK} rows "
           f"{json.dumps({n: short(t['block']) for n, t in timing.items()})}"
-          f"; at (b) "
-          f"{json.dumps({n: short(timing[n]['b']) for n in ('ks', 'uber')})}"
-          f"; uber's division bit-equal to __fdiv_rn on "
-          f"{json.dumps(division)} terms; ptxas {json.dumps(regs)}; "
+          f"; at (b) {json.dumps(at_b)}"
+          f"; the scaled division (uber's and canberra's tame blocks) "
+          f"bit-equal to __fdiv_rn on {json.dumps(division)} terms; ptxas "
+          f"(canberra {cp.METRICS['canberra']}, js {cp.METRICS['js']}) "
+          f"{json.dumps(regs)}; "
           f"{json.dumps(occupancy)}; parent and this checkout in turns "
           f"(ms, medians) {json.dumps(parents)}; {seconds:.1f} s",
           flush=True)

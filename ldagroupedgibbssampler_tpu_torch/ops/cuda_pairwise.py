@@ -10,16 +10,19 @@ bounds it on the H100 and the design):
 
   - `pairwise_elementwise(metric, X, Y, parts=None)`: one launch of a
     64 x 64 tile of pairs a block for `manhattan`, `chebychev`,
-    `canberra`, `jaccard` or `js`, or of a 64 x 32 tile for `uber`, whose
-    `parts` are the exact products' (M, N) matrices (cosine, euclidean,
-    kl): the launch adds them to its four elementwise parts in the plain
-    version's order and divides by 7;
+    `canberra`, `jaccard` or `js` (a block whose values are all tame
+    takes canberra's scaled division or js's closed form, any other
+    the general terms), or of a 64 x 32 tile for `uber`, whose `parts` are
+    the exact products' (M, N) matrices (cosine, euclidean, kl): the
+    launch adds them to its four elementwise parts in the plain version's
+    order and divides by 7;
   - `pairwise_ks(X, Y)`: X's and Y's rows sorted along K by `torch.sort`,
     then one launch of the merge walk, one thread a pair, ties taken in
     pairs, which ends once a row is exhausted;
-  - `division_check(X, Y)`: not on any path; the terms on which uber's
-    division (csrc/pairwise.cu `div_rn_scaled`) would differ from an IEEE
-    division, counted, for chip_smoke.py to hold it bit-equal.
+  - `division_check(X, Y)`: not on any path; the terms on which the
+    division of uber's and canberra's scaled blocks (csrc/pairwise.cu
+    `div_rn_scaled`) would differ from an IEEE division, counted, for
+    chip_smoke.py to hold it bit-equal.
 
 Both take X [M, K] and Y [N, K], float32, contiguous, on one device, and
 return float32 [M, N]; an empty M or N gives an empty [M, N] with no
