@@ -7,8 +7,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--parent DIR]
 
 (--parent: a checkout of another commit, e.g. the parent unpacked with
-`git archive`; `[3 pairwise]` then also times its uber and ks kernels
-beside this checkout's, in turns, with tools/time_kernel_builds.py.)
+`git archive`; `[3 alias-mh]`, `[3 vs-dirichlet]` and `[3 pairwise]` then
+also time its z-step, its VS rows and its uber, ks, js and canberra
+kernels beside this checkout's, in turns, with
+tools/time_kernel_builds.py.)
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. environment: card name and power limit (nvidia-smi), torch and CUDA;
@@ -78,12 +80,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      plain generator= estimator on the whole split, times and peak
      memory; `[3 alias-mh]`, the alias-MH z-step kernels
      (csrc/alias_mh.cu) on a ggs_aliasmh state at K=100 and K=4096, 2
-     rounds, an asymmetric alpha and half the documents selected: z equal
-     to alias_mh_reference on every slot in both table modes but proven
-     ties, the rates from the kernel's acceptance counts equal, packed
-     equal to unpacked, the pack kernel bit-equal to pack_reference, an
-     MH-invariance chi-square, times beside the plain versions,
-     torch.stack and the bounds; `[3 hdp]`, the table-count and psi
+     rounds, an asymmetric alpha, the even documents selected and every
+     document: z equal to alias_mh_reference on every slot in both table
+     modes but proven ties, the rates from the kernel's acceptance counts
+     equal, the entry z untouched, packed equal to unpacked, the pack
+     kernel bit-equal to pack_reference, an MH-invariance chi-square,
+     times of both selections beside the plain versions, torch.stack and
+     the bounds, ptxas's registers; `[3 hdp]`, the table-count and psi
      kernels (csrc/hdp.cu) on a ppu_hdplda K_max=100 chain after 10
      iterations: the table counts equal to the plain version on the same
      Philox words in both instances of the histogram launch (and for
@@ -96,8 +99,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      [100, 20,000] (that chain's N_kw, with and without its active mask)
      and [200, 20,000] equal to the plain version, its counts against
      torch.poisson, the elementwise Poisson kernel on a grid of rates;
-     `[3 vs-dirichlet]` (csrc/vs_dirichlet.cu): the inclusion pattern
-     equal to the plain version's but proven ties, values within 1e-5;
+     `[3 vs-dirichlet]` (csrc/vs_dirichlet.cu, a row a cluster of 8
+     blocks): the inclusion pattern equal to the plain version's but
+     proven ties, values within 1e-5, the cluster geometry and ptxas's
+     registers;
      each timed beside its plain version, the eager path it replaced and
      its bound; `[3 pairwise]` (csrc/pairwise.cu): the seven elementwise
      metrics (manhattan, chebychev, canberra, jaccard, js, ks, uber) on
@@ -2685,7 +2690,8 @@ def alias_mh_touched(torch, cam, case, rounds):
     the packed ones) that the updatable tokens' current and proposed
     topics need: the bound counts each entry's 8 bytes once."""
     ops, k = case["ops"], case["phi"].shape[1]
-    sel = case["doc_mask"][ops.tok_d.long()]
+    sel = (torch.ones_like(ops.tok_d, dtype=torch.bool)
+           if case["doc_mask"] is None else case["doc_mask"][ops.tok_d.long()])
     z0, props = alias_mh_proposals(torch, cam, case, rounds)
     topics = torch.cat([z0[None], props])[:, sel]
     entries = sectors = packed = 0
@@ -2755,13 +2761,23 @@ def alias_mh_tie_gaps(torch, cam, case, rounds, packed, tokens):
     return gaps, ends
 
 
+ALIAS_MH_SELECTIONS = ("half", "all")   # even documents; every document
+
+
+def alias_mh_selected(case, sel):
+    """The case with `sel`'s documents selected: the even ones (the case's
+    own mask) or every one (doc_mask None, as the main path runs it)."""
+    return case if sel == "half" else {**case, "doc_mask": None}
+
+
 def alias_mh_agreement(torch, cam, case, label):
-    """The kernel against alias_mh_reference in both modes, with acceptance
-    counts: z equal on every slot but proven ties, padding slots 0,
-    unselected documents' z kept, the rates from the counts equal to the
-    reference's f32 rates, packed equal to unpacked (z and counts), the
-    pack kernel equal to pack_reference bit for bit. Returns (the pack
-    kernel's tables, {mode: numbers})."""
+    """The kernel against alias_mh_reference in both modes, with the even
+    documents selected and with every document, with acceptance counts: z
+    equal on every slot but proven ties, padding slots 0, unselected
+    documents' z kept and the entry z untouched, the rates from the counts
+    equal to the reference's f32 rates, packed equal to unpacked (z and
+    counts), the pack kernel equal to pack_reference bit for bit. Returns
+    (the pack kernel's tables, {"mode sel": numbers})."""
     dev = case["z_slot"].device
     rounds, ops = ALIAS_MH_ROUNDS, case["ops"]
     tables = [case[n] for n in ("phi", "nkw", "theta", "ndk", "beta", "au")]
@@ -2772,45 +2788,57 @@ def alias_mh_agreement(torch, cam, case, label):
     real = ops.slot_of_can.long()
     pad = torch.ones(case["z_slot"].shape, dtype=torch.bool, device=dev)
     pad[real] = False
-    unsel = ~case["doc_mask"][ops.tok_d.long()]
-    den = cam.updatable_tokens(ops, case["doc_mask"])
+    entry = case["z_slot"].clone()
     out = {}
-    for mode in ("unpacked", "packed"):
-        counts = torch.zeros((rounds, 2), dtype=torch.int32, device=dev)
-        zk = cam.alias_mh(**case, rounds=rounds,
-                          packed=packs if mode == "packed" else None,
-                          acc_counts=counts)
-        zr, rates = cam.alias_mh_reference(**case, rounds=rounds,
-                                           packed=mode == "packed")
-        diff = (zk[real] != zr[real]).nonzero().flatten()
-        # the proof's path is the plain version's: it ends on its z, here
-        # checked on the differing tokens and the first 16 tokens
-        probe = diff[:64].tolist() + list(range(16))
-        gaps, ends = alias_mh_tie_gaps(torch, cam, case, rounds,
-                                       mode == "packed", probe)
-        check(ends == zr[real[probe]].tolist(), f"{label} {mode}: the tie "
-              f"proof's path ends on {ends}, the plain version on "
-              f"{zr[real[probe]].tolist()}")
-        gaps = gaps[:min(diff.numel(), 64)]
-        check(diff.numel() <= 64 and all(g <= ALIAS_MH_TIE for g in gaps),
-              f"{label} {mode}: {diff.numel()} tokens differ from the plain "
-              f"version, accept-test gaps {gaps[:8]}")
-        got = cam.acceptance_rates(counts, den)
-        check(all(torch.equal(a, b) for a, b in zip(got, rates)),
-              f"{label} {mode}: rates {[a.tolist() for a in got]} from the "
-              f"counts, {[a.tolist() for a in rates]} by the plain version")
-        check(bool((zk[pad] == 0).all()), f"{label} {mode}: a padding slot "
-              "is not 0")
-        check(torch.equal(zk[real[unsel]], case["z_slot"][real[unsel]]),
-              f"{label} {mode}: an unselected document's z moved")
-        out[mode] = dict(z=zk, counts=counts, differ=int(diff.numel()),
-                         gap=max(gaps, default=None),
-                         moved=float((zk[real] != case["z_slot"][real])
-                                     .float().mean()),
-                         max_abs_err=int((zk - zr).abs().max()))
-    check(torch.equal(out["packed"]["z"], out["unpacked"]["z"])
-          and torch.equal(out["packed"]["counts"], out["unpacked"]["counts"]),
-          f"{label}: packed and unpacked kernels differ")
+    for sel in ALIAS_MH_SELECTIONS:
+        c = alias_mh_selected(case, sel)
+        mask = c["doc_mask"]
+        unsel = (torch.zeros_like(real, dtype=torch.bool) if mask is None
+                 else ~mask[ops.tok_d.long()])
+        den = cam.updatable_tokens(ops, mask)
+        for mode in ("unpacked", "packed"):
+            counts = torch.zeros((rounds, 2), dtype=torch.int32, device=dev)
+            zk = cam.alias_mh(**c, rounds=rounds,
+                              packed=packs if mode == "packed" else None,
+                              acc_counts=counts)
+            zr, rates = cam.alias_mh_reference(**c, rounds=rounds,
+                                               packed=mode == "packed")
+            what = f"{label} {mode} {sel}"
+            diff = (zk[real] != zr[real]).nonzero().flatten()
+            # the proof's path is the plain version's: it ends on its z,
+            # here checked on the differing tokens and the first 16 tokens
+            probe = diff[:64].tolist() + list(range(16))
+            gaps, ends = alias_mh_tie_gaps(torch, cam, c, rounds,
+                                           mode == "packed", probe)
+            check(ends == zr[real[probe]].tolist(), f"{what}: the tie "
+                  f"proof's path ends on {ends}, the plain version on "
+                  f"{zr[real[probe]].tolist()}")
+            gaps = gaps[:min(diff.numel(), 64)]
+            check(diff.numel() <= 64 and all(g <= ALIAS_MH_TIE for g in gaps),
+                  f"{what}: {diff.numel()} tokens differ from the plain "
+                  f"version, accept-test gaps {gaps[:8]}")
+            got = cam.acceptance_rates(counts, den)
+            check(all(torch.equal(a, b) for a, b in zip(got, rates)),
+                  f"{what}: rates {[a.tolist() for a in got]} from the "
+                  f"counts, {[a.tolist() for a in rates]} by the plain "
+                  "version")
+            check(bool((zk[pad] == 0).all()), f"{what}: a padding slot is "
+                  "not 0")
+            check(torch.equal(zk[real[unsel]], case["z_slot"][real[unsel]]),
+                  f"{what}: an unselected document's z moved")
+            check(torch.equal(case["z_slot"], entry), f"{what}: the entry z "
+                  "was written")
+            out[f"{mode} {sel}"] = dict(
+                z=zk, counts=counts, differ=int(diff.numel()),
+                gap=max(gaps, default=None),
+                moved=float((zk[real] != case["z_slot"][real]).float()
+                            .mean()),
+                max_abs_err=int((zk - zr).abs().max()))
+        check(torch.equal(out[f"packed {sel}"]["z"],
+                          out[f"unpacked {sel}"]["z"])
+              and torch.equal(out[f"packed {sel}"]["counts"],
+                              out[f"unpacked {sel}"]["counts"]),
+              f"{label} {sel}: packed and unpacked kernels differ")
     return packs, out
 
 
@@ -2870,23 +2898,31 @@ def alias_mh_chi_square(torch, cam, Corpus, dev):
     return chi2, dof, pval, moved
 
 
-def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
+def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi,
+                   _build, parent=None):
     """[3 alias-mh]: the alias-MH z-step kernels (csrc/alias_mh.cu) on the
     20NG corpus at K=100 and K=4096, each on a ggs_aliasmh model's state
-    after 2 iterations, with ALIAS_MH_ROUNDS rounds, an asymmetric alpha
-    and half the documents selected (alias_mh_case): the kernel against
-    alias_mh_reference in both modes (alias_mh_agreement); MH invariance by
-    chi-square on the card (alias_mh_chi_square); the z-step (pre-pass and
-    rounds) timed by CUDA events in both modes, the pre-pass alone, the
-    pack kernel, beside the plain versions, `torch.stack` of the same
-    tables (the pack's yardstick; no PyTorch call computes an MH round)
-    and the bounds: the rounds' bytes (the token operands, the slot array
-    written, each table entry the updatable tokens' current and proposed
-    topics need, 8 B once) against the Philox blocks' integer multiplies;
-    the pack's 16 B a table entry. Returns the two kernels-JSON entries."""
+    after 2 iterations, with ALIAS_MH_ROUNDS rounds, an asymmetric alpha,
+    the even documents selected and every document (alias_mh_case,
+    ALIAS_MH_SELECTIONS): the kernels against alias_mh_reference in both
+    modes (alias_mh_agreement); MH invariance by chi-square on the card
+    (alias_mh_chi_square); the z-step (pre-pass and rounds) timed by CUDA
+    events in both modes and both selections, the pre-pass alone, the pack
+    kernel, beside the plain versions, `torch.stack` of the same tables
+    (the pack's yardstick; no PyTorch call computes an MH round) and the
+    bounds: the z-step's bytes (its inputs read once, its output written
+    once: the token operands, z at the real slots, the new z over every
+    slot, the offsets, each table entry the updatable tokens' current and
+    proposed topics need, 8 B once) against
+    the Philox blocks' integer multiplies; the pack's 16 B a table entry;
+    ptxas's registers of the pre-pass and both rounds instances. With
+    `parent` (a checkout), also the parent's z-step and this one's in
+    turns (parent_times). Returns the two kernels-JSON entries."""
     rounds = ALIAS_MH_ROUNDS
     res = {}
     chi = None
+    regs = {"rounds_kernel<packed>": ptxas_registers(_build, "rounds_kernel"),
+            "entry_kernel": ptxas_registers(_build, "entry_kernel")}
     for k in ALIAS_MH_KS:
         label = f"[3 alias-mh] K={k}"
         model, case = alias_mh_case(torch, corpus, LDAConfig, create_model,
@@ -2895,17 +2931,40 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
         ops, n = case["ops"], case["ops"].num_tokens
         tables = [case[nm] for nm in ("phi", "nkw", "theta", "ndk", "beta",
                                       "au")]
-        ms = {mode: time_ms(torch, lambda p=p: cam.alias_mh(
-            **case, rounds=rounds, packed=p))
-            for mode, p in (("unpacked", None), ("packed", packs))}
+        ms, bounds = {}, {}
+        slots, d_, v_ = case["z_slot"].numel(), case["theta"].shape[0], \
+            case["phi"].shape[0]
+        for sel in ALIAS_MH_SELECTIONS:
+            c = alias_mh_selected(case, sel)
+            for mode, p in (("unpacked", None), ("packed", packs)):
+                ms[f"{mode} {sel}"] = time_ms(torch, lambda c=c, p=p: cam.
+                                              alias_mh(**c, rounds=rounds,
+                                                       packed=p))
+            entries, sectors, sectors_packed = alias_mh_touched(
+                torch, cam, c, rounds)
+            upd = int(cam.updatable_tokens(ops, c["doc_mask"]))
+            # the function's inputs read once, its output written once:
+            # slot, type, document and the type-order slot map, z at the
+            # real slots (5 x 4 B a token), the new z (4 B a slot), the
+            # document and type offsets and the mask
+            stream = (4 * 5 * n + 4 * slots + 4 * (d_ + v_ + 2)
+                      + (0 if c["doc_mask"] is None else d_))
+            nbytes = stream + 8 * entries
+            int_ops = upd * 4 * rounds * PHILOX_MULTIPLIES
+            b_ms, by = bound(nbytes, 0.0, int_ops)
+            bounds[sel] = dict(bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                               int_ops=int_ops, entries=entries,
+                               sector_bytes=32 * sectors,
+                               sector_bytes_packed=32 * sectors_packed,
+                               updatable=upd)
         prepass_ms = time_ms(torch, lambda: cam.entry_topics(case["z_slot"],
                                                              ops))
         pack_ms = time_ms(torch, lambda: cam.pack_tables(*tables))
-        plain_ms = {mode: once_ms(torch, lambda mode=mode: cam.
-                                  alias_mh_reference(
-                                      **case, rounds=rounds,
-                                      packed=mode == "packed"))
-                    for mode in ("unpacked", "packed")}
+        plain_ms = {f"{mode} {sel}": once_ms(
+            torch, lambda mode=mode, sel=sel: cam.alias_mh_reference(
+                **alias_mh_selected(case, sel), rounds=rounds,
+                packed=mode == "packed"))
+            for mode in ("unpacked", "packed") for sel in ALIAS_MH_SELECTIONS}
         pack_plain_ms = time_ms(torch, lambda: cam.pack_reference(*tables))
         f32 = torch.float32
         nkw_f = case["nkw"].to(f32) + case["beta"]
@@ -2914,15 +2973,6 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
             torch.stack([case["phi"].reshape(-1), nkw_f.reshape(-1)], 1),
             torch.stack([case["theta"].reshape(-1), ndk_f.reshape(-1)], 1)))
         del nkw_f, ndk_f
-        entries, sectors, sectors_packed = alias_mh_touched(torch, cam, case,
-                                                            rounds)
-        upd = int(cam.updatable_tokens(ops, case["doc_mask"]))
-        slots, d_, v_ = case["z_slot"].numel(), case["theta"].shape[0], \
-            case["phi"].shape[0]
-        stream = 4 * 5 * n + 4 * slots + 4 * (d_ + v_ + 2) + d_
-        nbytes = stream + 8 * entries
-        int_ops = upd * 4 * rounds * PHILOX_MULTIPLIES
-        bound_ms, by = bound(nbytes, 0.0, int_ops)
         pack_bytes = 16 * (v_ + d_) * k
         pack_bound, pack_by = bound(pack_bytes, 0.0)
         if k == K:
@@ -2931,36 +2981,43 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
                                                  "max_abs_err")}
                    | {"counts": agree[m]["counts"].tolist(), "ms": ms[m],
                       "plain_ms": plain_ms[m]} for m in agree}
-        res[k] = dict(numbers=numbers, prepass_ms=prepass_ms,
-                      pack_ms=pack_ms, pack_plain_ms=pack_plain_ms,
-                      stack_ms=stack_ms, bound_ms=bound_ms, bound_by=by,
-                      bytes=nbytes, int_ops=int_ops, entries=entries,
-                      sector_bytes=32 * sectors,
-                      sector_bytes_packed=32 * sectors_packed,
+        res[k] = dict(numbers=numbers, bounds=bounds, prepass_ms=prepass_ms,
+                      pack_ms=pack_ms,
+                      pack_plain_ms=pack_plain_ms, stack_ms=stack_ms,
                       pack_bound_ms=pack_bound, pack_bound_by=pack_by,
-                      updatable=upd, tokens=n)
-        print(f"{label} {smi}: {n} tokens, {upd} updatable (even "
-              f"documents), {rounds} rounds, alpha 0.05-0.95: z equal to "
-              f"alias_mh_reference on every slot but proven ties (unpacked "
-              f"{numbers['unpacked']['differ']}, packed "
-              f"{numbers['packed']['differ']} differing, largest accept-test "
-              f"gap {numbers['unpacked']['gap']} / "
-              f"{numbers['packed']['gap']}), padding slots 0, unselected "
-              f"documents' z kept, {numbers['packed']['moved']:.4f} of the "
-              f"tokens moved; acceptance counts (word, doc) by round "
-              f"{json.dumps(numbers['packed']['counts'])} give the plain "
+                      tokens=n)
+        differ = {m: numbers[m]["differ"] for m in numbers}
+        gap = max((numbers[m]["gap"] or 0.0) for m in numbers)
+        times = "; ".join(
+            f"{sel} ({bounds[sel]['updatable']} updatable) unpacked "
+            f"{ms['unpacked ' + sel]:.4f} ms, packed "
+            f"{ms['packed ' + sel]:.4f} ms, bound "
+            f"{bounds[sel]['bound_ms']:.4f} ms ({bounds[sel]['bound_by']}: "
+            f"{bounds[sel]['bytes'] / 1e6:.1f} MB with "
+            f"{bounds[sel]['entries']} table entries of 8 B, "
+            f"{bounds[sel]['int_ops'] / 1e6:.1f} M Philox multiplies; the "
+            f"entries' 32-byte sectors "
+            f"{bounds[sel]['sector_bytes'] / 1e6:.1f} MB unpacked, "
+            f"{bounds[sel]['sector_bytes_packed'] / 1e6:.1f} MB packed)"
+            for sel in ALIAS_MH_SELECTIONS)
+        print(f"{label} {smi}: {n} tokens, {rounds} rounds, alpha "
+              f"0.05-0.95, the even documents and every document selected: "
+              f"z equal to alias_mh_reference on every slot but proven ties "
+              f"(differing {json.dumps(differ)}, largest accept-test gap "
+              f"{gap}), padding slots 0, unselected documents' z kept, the "
+              f"entry z untouched, {numbers['packed all']['moved']:.4f} of "
+              f"the tokens moved with every document; acceptance counts "
+              f"(word, doc) by round "
+              f"{json.dumps(numbers['packed all']['counts'])} give the plain "
               f"version's rates; packed equal to unpacked; pack kernel equal "
-              f"to pack_reference; z-step (pre-pass + rounds) unpacked "
-              f"{ms['unpacked']:.4f} ms, packed {ms['packed']:.4f} ms, "
-              f"pre-pass alone {prepass_ms:.4f} ms; plain "
-              f"{plain_ms['unpacked']:.2f} / {plain_ms['packed']:.2f} ms; "
-              f"bound {bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB with "
-              f"{entries} table entries of 8 B, {int_ops / 1e6:.1f} M Philox "
-              f"multiplies; the entries' 32-byte sectors "
-              f"{32 * sectors / 1e6:.1f} MB unpacked, "
-              f"{32 * sectors_packed / 1e6:.1f} MB packed); pack "
-              f"{pack_ms:.4f} ms (1 launch), plain {pack_plain_ms:.4f} ms, "
-              f"torch.stack {stack_ms:.4f} ms, bound {pack_bound:.4f} ms "
+              f"to pack_reference; z-step (pre-pass + rounds): {times}; the "
+              f"pre-pass alone {prepass_ms:.4f} ms; plain (unpacked / "
+              f"packed) every document {plain_ms['unpacked all']:.2f} / "
+              f"{plain_ms['packed all']:.2f} ms, half "
+              f"{plain_ms['unpacked half']:.2f} / "
+              f"{plain_ms['packed half']:.2f} ms; "
+              f"pack {pack_ms:.4f} ms (1 launch), plain {pack_plain_ms:.4f} "
+              f"ms, torch.stack {stack_ms:.4f} ms, bound {pack_bound:.4f} ms "
               f"({pack_by}, {pack_bytes / 1e6:.1f} MB)", flush=True)
         del model, case, packs, agree
         torch.cuda.empty_cache()
@@ -2968,7 +3025,15 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
           f"{ALIAS_MH_CHI['docs']} documents of {ALIAS_MH_CHI['length']} "
           f"tokens, z drawn from theta phi, {ALIAS_MH_CHI['rounds']} rounds "
           f"of the kernel: chi2 {chi[0]:.1f} (dof {chi[1]}, p={chi[2]:.3g}), "
-          f"{chi[3]:.4f} of z moved", flush=True)
+          f"{chi[3]:.4f} of z moved; ptxas {json.dumps(regs)}", flush=True)
+    parents = parent_times("alias_mh", parent, [
+        f"zstep K={k} {mode} {sel}" for k in ALIAS_MH_KS
+        for mode in ("packed", "unpacked") for sel in ("all", "half")]
+    ) if parent else None
+    if parents:
+        print(f"[3 alias-mh] z-step (pre-pass + rounds), parent and this "
+              f"checkout in turns (ms, medians) {json.dumps(parents)}",
+              flush=True)
     main, big = res[ALIAS_MH_KS[0]], res[ALIAS_MH_KS[-1]]
     src = "ldagroupedgibbssampler_tpu_torch/csrc/alias_mh.cu"
     rounds_entry = {
@@ -2976,20 +3041,28 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi):
         "replaces": "ldagroupedgibbssampler_tpu/models/ggs_aliasmh.py:89",
         "max_abs_err": max(r["numbers"][m]["max_abs_err"]
                            for r in res.values() for m in r["numbers"]),
-        "ms": main["numbers"]["packed"]["ms"],
-        "unpacked_ms": main["numbers"]["unpacked"]["ms"],
+        "ms": main["numbers"]["packed all"]["ms"],
+        "unpacked_ms": main["numbers"]["unpacked all"]["ms"],
         "prepass_ms": main["prepass_ms"],
-        "plain_ms": main["numbers"]["packed"]["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": None, "chi_square": list(chi),
-        "cases": {str(k): r["numbers"] for k, r in res.items()},
-        "k4096": {"ms": big["numbers"]["packed"]["ms"],
-                  "unpacked_ms": big["numbers"]["unpacked"]["ms"],
+        "plain_ms": main["numbers"]["packed all"]["plain_ms"],
+        "bound_ms": main["bounds"]["all"]["bound_ms"],
+        "bound_by": main["bounds"]["all"]["bound_by"],
+        "half_ms": main["numbers"]["packed half"]["ms"],
+        "half_plain_ms": main["numbers"]["packed half"]["plain_ms"],
+        "half_bound_ms": main["bounds"]["half"]["bound_ms"],
+        "library_ms": None, "chi_square": list(chi), "ptxas": regs,
+        "cases": {str(k): {"numbers": r["numbers"], "bounds": r["bounds"]}
+                  for k, r in res.items()},
+        "k4096": {"ms": big["numbers"]["packed all"]["ms"],
+                  "unpacked_ms": big["numbers"]["unpacked all"]["ms"],
                   "prepass_ms": big["prepass_ms"],
-                  "plain_ms": big["numbers"]["packed"]["plain_ms"],
-                  "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-                  "sector_bytes": big["sector_bytes"],
-                  "sector_bytes_packed": big["sector_bytes_packed"]}}
+                  "plain_ms": big["numbers"]["packed all"]["plain_ms"],
+                  "bound_ms": big["bounds"]["all"]["bound_ms"],
+                  "bound_by": big["bounds"]["all"]["bound_by"],
+                  "half_ms": big["numbers"]["packed half"]["ms"],
+                  "half_plain_ms": big["numbers"]["packed half"]["plain_ms"],
+                  "half_bound_ms": big["bounds"]["half"]["bound_ms"]},
+        "parent_times": parents}
     pack_entry = {
         "name": "alias_mh_pack", "route": "cuda", "source": src,
         "replaces": "ldagroupedgibbssampler_tpu/models/ggs_aliasmh.py:247",
@@ -3023,6 +3096,7 @@ POISSON_GRID = (0.01, 0.5, 9.99, 10.0, 37.5, 5000.0)
 DRAW_KS = 200_000           # kernel and library draws of each KS case
 VS_TIE = 1e-6               # an inclusion that differs must have |u - p|
                             # below this (p's f32 rounding)
+VS_LONG_ROW = 450_000       # [3 vs-dirichlet]'s rows past shared memory
 
 
 def draw_wrappers():
@@ -3513,16 +3587,19 @@ def polya_urn_phase(torch, corpus, model, smi):
                                       "draws": got.numel()}}
 
 
-def vs_dirichlet_phase(torch, corpus, model, rnd, smi):
+def vs_dirichlet_phase(torch, corpus, model, rnd, smi, _build, parent=None):
     """[3 vs-dirichlet]: the VS-Dirichlet kernel (csrc/vs_dirichlet.cu,
-    one launch) at [100, 20,000] (a ppu_hdplda chain's N_kw, its Polya-Urn
-    phi as the previous draw) and [200, 20,000] (a uniform z's N_kw, a
-    Polya-Urn draw of it as the previous phi), and without a previous
-    draw: the inclusion pattern equal to vs_dirichlet_reference's on the
-    same words but proven ties (|u - p| <= VS_TIE), the values within
+    one launch, a row a thread-block cluster) at [100, 20,000] (a
+    ppu_hdplda chain's N_kw, its Polya-Urn phi as the previous draw) and [200, 20,000] (a uniform z's N_kw, a
+    Polya-Urn draw of it as the previous phi), without a previous draw,
+    and at [2, VS_LONG_ROW] (Poisson counts, a previous phi 40% zeros:
+    slices longer than the shared memory holds): the inclusion pattern
+    equal to vs_dirichlet_reference's on the same words but proven ties (|u - p| <= VS_TIE), the values within
     GAMMA_RTOL (relative), rows summing to 1. Times beside the plain
-    version and the eager path it replaced (no PyTorch call computes it).
-    Returns the kernels-JSON entry."""
+    version and the eager path it replaced (no PyTorch call computes it);
+    the cluster geometry (cuda_gamma.vs_launch_shape) and ptxas's
+    registers. With `parent` (a checkout), also the parent's rows and
+    these in turns (parent_times). Returns the kernels-JSON entry."""
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_gamma, cuda_polya_urn
     dev = torch.device("cuda", 0)
     nkw100, phi100 = model.state.nkw, model.state.phi
@@ -3532,10 +3609,21 @@ def vs_dirichlet_phase(torch, corpus, model, rnd, smi):
     beta, prior = 0.01, 0.5
     nkw200 = urn_operands(torch, corpus, dev)
     phi200 = cuda_polya_urn.polya_urn(nkw200, beta, seed)[0]
+    # rows longer than a cluster's shared memory holds: each slice keeps
+    # its first chunks there and the rest in the output
+    long_counts = torch.poisson(torch.full((2, VS_LONG_ROW), 0.3,
+                                           device=dev), generator=gen)
+    u_prev = torch.rand((2, VS_LONG_ROW), device=dev, generator=gen)
+    long_prev = torch.where(u_prev < 0.4, 0.0, u_prev)
+    check(cuda_gamma.vs_launch_shape(VS_LONG_ROW)[3]
+          < cuda_gamma.vs_launch_shape(VS_LONG_ROW)[1],
+          "[3 vs-dirichlet] the long rows fit the shared memory")
     res = {}
     for label, nkw, prev in (("K=100", nkw100, phi100),
                              ("K=200", nkw200, phi200),
-                             ("K=100 dense previous", nkw100, None)):
+                             ("K=100 dense previous", nkw100, None),
+                             (f"long rows [2, {VS_LONG_ROW}]",
+                              long_counts.to(torch.int32), long_prev)):
         phi, excl = cuda_gamma.vs_dirichlet(nkw, beta, prior, seed, prev,
                                             zero_mask=True)
         want, want_excl = cuda_gamma.vs_dirichlet_reference(nkw, beta, prior,
@@ -3570,23 +3658,42 @@ def vs_dirichlet_phase(torch, corpus, model, rnd, smi):
             torch, rnd, nkw, beta, prior, gen, prev))
         n_el = nkw.numel()
         nbytes = (12 if prev is not None else 8) * n_el
-        # a Gamma round, the boost where count + beta < 1 and the uniform:
-        # Philox blocks; ~5 special functions a round, 2 for the boost
-        boosted = int((nkw == 0).sum())
-        blocks = 2 * n_el + boosted
-        b_ms, by = bound(nbytes, 0.0, blocks * PHILOX_MULTIPLIES,
-                         5 * n_el + 2 * boosted)
+        # every value's uniform, and for the included ones (an excluded
+        # value draws no Gamma) a Gamma round and the boost where count +
+        # beta < 1: Philox blocks; ~5 special functions a round, 2 for the
+        # boost. bound_all_ms: with a Gamma for every value, as a kernel that
+        # draws them all needs
+        incl = ~excl
+        n_inc = int(incl.sum())
+        boosted = int((incl & (nkw == 0)).sum())
+        b_ms, by = bound(nbytes, 0.0,
+                         (n_el + n_inc + boosted) * PHILOX_MULTIPLIES,
+                         5 * n_inc + 2 * boosted)
+        zeros = int((nkw == 0).sum())
+        b_all, _ = bound(nbytes, 0.0, (2 * n_el + zeros) * PHILOX_MULTIPLIES,
+                         5 * n_el + 2 * zeros)
+        shape = dict(zip(("cluster", "slice", "chunk", "resident",
+                          "smem_bytes"),
+                         cuda_gamma.vs_launch_shape(nkw.shape[-1])))
         res[label] = dict(ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
-                          bound_ms=b_ms, bound_by=by, ties=ties,
+                          bound_ms=b_ms, bound_by=by, bound_all_ms=b_all,
+                          ties=ties,
                           max_rel_err=rel, max_abs_err=float(err.max()),
-                          included=float((~excl).float().mean()))
+                          included=float((~excl).float().mean()),
+                          launch_shape=shape)
         print(f"[3 vs-dirichlet] {label} {smi}: inclusion pattern equal to "
               f"the plain version's but {ties} proven ties, "
               f"{100 * res[label]['included']:.2f}% of the coordinates "
               f"included, values within {rel:.2g} (bar {GAMMA_RTOL}), rows "
-              f"sum to 1; {ms:.4f} ms (1 launch, a block a row), plain "
-              f"{plain_ms:.2f} ms, eager path {eager_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({by})", flush=True)
+              f"sum to 1; {ms:.4f} ms (1 launch, {nkw.shape[0]} clusters "
+              f"{json.dumps(shape)}), plain {plain_ms:.2f} ms, eager path "
+              f"{eager_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; with a Gamma "
+              f"for every value {b_all:.4f})", flush=True)
+    regs = ptxas_registers(_build, "vs_kernel")
+    parents = parent_times("vs_dirichlet", parent) if parent else None
+    print(f"[3 vs-dirichlet] ptxas vs_kernel {json.dumps(regs)}; parent "
+          f"and this checkout in turns (ms, medians) {json.dumps(parents)}",
+          flush=True)
     main = res["K=100"]
     return {"name": "vs_dirichlet", "route": "cuda",
             "source": "ldagroupedgibbssampler_tpu_torch/csrc/vs_dirichlet.cu",
@@ -3595,7 +3702,8 @@ def vs_dirichlet_phase(torch, corpus, model, rnd, smi):
             "max_rel_err": max(r["max_rel_err"] for r in res.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "eager_ms": main["eager_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None, "cases": res}
+            "bound_by": main["bound_by"], "library_ms": None, "cases": res,
+            "ptxas": regs, "parent_times": parents}
 
 
 # ---- [3 pairwise]: the elementwise pairwise metrics and the KS merge ----
@@ -3840,17 +3948,16 @@ def pairwise_division_check(torch, cp, X, Y, label) -> int:
     return checked
 
 
-def pairwise_parent_times(torch, parent: str) -> dict:
-    """The redesigned kernels' times of the checkout `parent` (a git
-    archive of the parent commit, say) and of this one, in turns, by
-    tools/time_kernel_builds.py in a process of its own: {case: {name:
-    median ms}}."""
-    out = os.path.join(ROOT, "build", "pairwise_parent_times.json")
+def parent_times(kernel: str, parent: str, cases=None) -> dict:
+    """The times of `kernel`'s cases (tools/time_kernel_builds.py's, all
+    or those named) of the checkout `parent` (a git archive of the parent
+    commit, say) and of this one, in turns, by that tool in a process of
+    its own: {case: {name: median ms}}."""
+    out = os.path.join(ROOT, "build", f"{kernel}_parent_times.json")
     subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools", "time_kernel_builds.py"),
-         "--kernel", "pairwise", f"parent={parent}", f"new={ROOT}",
-         "--cases", ",".join(f"{name} {case}" for name in PAIRWISE_REDESIGNED
-                             for case in ("a", "K=4096")), "--json", out],
+         "--kernel", kernel, f"parent={parent}", f"new={ROOT}",
+         *(["--cases", ",".join(cases)] if cases else []), "--json", out],
         check=True, timeout=900, stdout=subprocess.DEVNULL)
     with open(out) as f:
         return {r["case"]: r["median_ms"] for r in json.load(f)["results"]}
@@ -3881,7 +3988,7 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     spills; the blocks an SM of uber's kernel and of the shared KS
     kernel. With `parent` (a checkout), also those kernels' times of that
     checkout and of this one at (a) and (b), in turns
-    (pairwise_parent_times). Returns the two kernels-JSON entries
+    (parent_times). Returns the two kernels-JSON entries
     (manhattan's numbers at (a) for the elementwise kernel, every metric
     under `metrics`)."""
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_pairwise as cp
@@ -3992,7 +4099,9 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
           "block(s) an SM, fewer than 2")
     occupancy = {"uber blocks an SM": uber_blocks,
                  f"ks shared blocks an SM at K={K}": ks_blocks}
-    parents = pairwise_parent_times(torch, parent) if parent else None
+    parents = parent_times("pairwise", parent, [
+        f"{name} {case}" for name in PAIRWISE_REDESIGNED
+        for case in ("a", "K=4096")]) if parent else None
     seconds = time.perf_counter() - t0
 
     def short(r):
@@ -7461,12 +7570,14 @@ def main(argv=None) -> int:
     l2r_entry = left_to_right_phase(torch, corpus, cuda_left_to_right, smi)
     torch.cuda.empty_cache()
     mh_rounds_entry, mh_pack_entry = alias_mh_phase(
-        torch, corpus, Corpus, LDAConfig, create_model, cuda_alias_mh, smi)
+        torch, corpus, Corpus, LDAConfig, create_model, cuda_alias_mh, smi,
+        _build, parent=args.parent)
     torch.cuda.empty_cache()
     hdp_model = hdp_state(torch, corpus, LDAConfig, create_model)
     tables_entry, psi_entry = hdp_phase(torch, hdp_model, rnd, smi)
     urn_entry = polya_urn_phase(torch, corpus, hdp_model, smi)
-    vs_entry = vs_dirichlet_phase(torch, corpus, hdp_model, rnd, smi)
+    vs_entry = vs_dirichlet_phase(torch, corpus, hdp_model, rnd, smi,
+                                  _build, parent=args.parent)
     del hdp_model
     torch.cuda.empty_cache()
     pairwise_entries = pairwise_phase(torch, _build, smi,

@@ -29,8 +29,10 @@
 // the position's 62 bits (y, z) and the uniform topic's first word (w);
 // block 1 the topic's second word (x) and u_acc (y). A uniform is
 // (word >> 8) 2^-24; a position or a topic is 62 bits modulo its bound,
-// exact (bias under 2^-30), reduced by a Barrett step whose reciprocal is
-// taken once a token and bound, out of the rounds.
+// exact (bias under 2^-30), reduced by a Barrett step whose reciprocal,
+// floor((2^64 - 1) / bound), the corpus fixes: it is made once at set-up
+// into a record a document and a record a type (ops/cuda_alias_mh.py::
+// count_table: base, count, reciprocal), as the topics' is once a launch.
 //
 // Three launches an iteration, three entry points:
 //   lda_alias_mh_entry: the sweep-entry topics gathered into canonical
@@ -47,10 +49,15 @@
 // What bounds it on the H100: at K=100 the four tables (~25 MB) sit in
 // the 50 MB L2, and the bound is the Philox blocks' integer multiplies
 // (8 blocks a token at 2 rounds, 40 multiplies each, 64 a clock an SM:
-// ~0.026 ms for 1.35M tokens) beside the streamed token operands (~28 B
-// a token, ~0.011 ms). At K=4096 the tables are ~1 GB and every density
-// is a random 32-byte sector from HBM: 20 a token unpacked, 10 packed.
-// The design: the token operands are int32 and streamed once; a proposal
+// ~0.026 ms for 1.35M tokens with every document selected) beside the
+// streamed token operands (~28 B a token, ~0.011 ms). At K=4096 the
+// tables are ~1 GB and every density is a random 32-byte sector from
+// HBM: 20 a token unpacked, 10 packed. The rounds' pace follows the
+// scattered 32-byte sectors a token reads from L2, not the multiplies
+// (PERF.md §6 has the costs, timed one removed at a time).
+// The design: the token operands are int32 and streamed once; a token's
+// picks read the entry topics from the pre-pass's dense arrays, never
+// through a slot map (one gather a pick); a proposal
 // depends on the entry topics and the draws alone, not on which earlier
 // steps accepted, so each batch of kBatch steps draws its proposals and
 // issues their gathers together before its accept tests run in order on
@@ -85,9 +92,10 @@ __device__ __forceinline__ unsigned long long bits62(unsigned hi,
   return (static_cast<unsigned long long>(hi) << 30) | (lo >> 2);
 }
 
-// floor((2^64 - 1) / m), the reciprocal of mod_exact
-__device__ __forceinline__ unsigned long long reciprocal(unsigned m) {
-  return ~0ULL / m;
+// the reciprocal of a count_table record: inv low, inv high
+__device__ __forceinline__ unsigned long long inv_of(int4 rec) {
+  return (static_cast<unsigned long long>(static_cast<unsigned>(rec.w))
+          << 32) | static_cast<unsigned>(rec.z);
 }
 
 // x mod m, exactly: q = floor(x inv / 2^64) lies within 2 below
@@ -164,8 +172,8 @@ template <bool kPacked>
 __global__ void __launch_bounds__(kThreads) rounds_kernel(
     const int* __restrict__ z_can, const int* __restrict__ z_ty,
     const int* __restrict__ slot_of_can, const int* __restrict__ tok_w,
-    const int* __restrict__ tok_d, const int* __restrict__ doc_off,
-    const int* __restrict__ ty_off, Tables tb,
+    const int* __restrict__ tok_d, const int4* __restrict__ doc_tab,
+    const int4* __restrict__ ty_tab, Tables tb,
     const bool* __restrict__ doc_mask, const float* __restrict__ alpha_sum,
     const float* __restrict__ au_p, float beta, float kbeta,
     const long long* __restrict__ seed_p, int* __restrict__ z_out,
@@ -193,8 +201,10 @@ __global__ void __launch_bounds__(kThreads) rounds_kernel(
   const unsigned long long seed =
       upd ? static_cast<unsigned long long>(*seed_p) : 0ULL;
   const unsigned long long tok = static_cast<unsigned long long>(t);
-  // per-token operands of an updatable token, and the entry topic's
-  // densities (the carried state's start, and every proposal of it)
+  // per-token operands of an updatable token: its document's and type's
+  // records (base, count, reciprocal; a token's spans are never empty),
+  // and the entry topic's densities (the carried state's start, and every
+  // proposal of it)
   long long doc_base = 0, ty_base = 0;
   unsigned doc_hi = 1, ty_hi = 1;
   unsigned long long inv_doc = 0, inv_ty = 0;
@@ -202,21 +212,21 @@ __global__ void __launch_bounds__(kThreads) rounds_kernel(
   long long wK = 0, dK = 0;
   float ph0 = 0.f, th0 = 0.f, qw0 = 0.f, qd0 = 0.f;
   if (upd) {
-    doc_base = doc_off[d];
-    const int doc_len = doc_off[d + 1] - doc_off[d];
-    ty_base = ty_off[w];
-    const int ty_cnt = ty_off[w + 1] - ty_off[w];
+    const int4 dr = __ldg(doc_tab + d);
+    const int4 tr = __ldg(ty_tab + w);
+    doc_base = dr.x;
+    ty_base = tr.x;
+    doc_hi = static_cast<unsigned>(dr.y);
+    ty_hi = static_cast<unsigned>(tr.y);
+    inv_doc = inv_of(dr);
+    inv_ty = inv_of(tr);
     au = *au_p;
     wK = static_cast<long long>(w) * K;
     dK = static_cast<long long>(d) * K;
     word_density<kPacked>(tb, wK + z0, beta, &ph0, &qw0);
     doc_density<kPacked>(tb, dK + z0, au, &th0, &qd0);
-    doc_hi = static_cast<unsigned>(max(doc_len, 1));
-    ty_hi = static_cast<unsigned>(max(ty_cnt, 1));
-    inv_doc = reciprocal(doc_hi);
-    inv_ty = reciprocal(ty_hi);
-    const float cw = static_cast<float>(ty_cnt);
-    const float ld = static_cast<float>(doc_len);
+    const float cw = static_cast<float>(ty_hi);
+    const float ld = static_cast<float>(doc_hi);
     p_w = __fdiv_rn(cw, __fadd_rn(cw, kbeta));
     p_d = __fdiv_rn(ld, __fadd_rn(ld, *alpha_sum));
   }
@@ -338,8 +348,8 @@ template <bool kPacked>
 void launch_rounds(unsigned blocks, size_t smem, cudaStream_t st,
                    const void* z_can, const void* z_ty,
                    const void* slot_of_can, const void* tok_w,
-                   const void* tok_d, const void* doc_off,
-                   const void* ty_off, const Tables& tb,
+                   const void* tok_d, const void* doc_tab,
+                   const void* ty_tab, const Tables& tb,
                    const void* doc_mask, const void* alpha_sum,
                    const void* au, float beta, float kbeta, const void* seed,
                    void* z_out, void* acc_counts, long long n, int K,
@@ -347,8 +357,8 @@ void launch_rounds(unsigned blocks, size_t smem, cudaStream_t st,
   rounds_kernel<kPacked><<<blocks, kThreads, smem, st>>>(
       static_cast<const int*>(z_can), static_cast<const int*>(z_ty),
       static_cast<const int*>(slot_of_can), static_cast<const int*>(tok_w),
-      static_cast<const int*>(tok_d), static_cast<const int*>(doc_off),
-      static_cast<const int*>(ty_off), tb, static_cast<const bool*>(doc_mask),
+      static_cast<const int*>(tok_d), static_cast<const int4*>(doc_tab),
+      static_cast<const int4*>(ty_tab), tb, static_cast<const bool*>(doc_mask),
       static_cast<const float*>(alpha_sum), static_cast<const float*>(au),
       beta, kbeta, static_cast<const long long*>(seed),
       static_cast<int*>(z_out), static_cast<int*>(acc_counts), n, K, rounds,
@@ -381,7 +391,9 @@ extern "C" int lda_alias_mh_entry(const void* z_slot, const void* slot_of_can,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The rounds over n canonical tokens (n < 2^32). Unpacked (packed == 0):
+// The rounds over n canonical tokens (n < 2^32); doc_tab: int32 [D, 4],
+// ty_tab: int32 [V, 4], the records (base, count, inv low, inv high) of
+// ops/cuda_alias_mh.py::count_table. Unpacked (packed == 0):
 // phi f32 [V, K], nkw int32 [V, K], theta f32 [D, K], ndk int32 [D, K];
 // packed: wk float2 [V K], dk float2 [D K] (the others may be null).
 // doc_mask: bool [D] or null (every document selected); alpha_sum, au:
@@ -389,8 +401,8 @@ extern "C" int lda_alias_mh_entry(const void* z_slot, const void* slot_of_can,
 // acc_counts: int32 [rounds, 2], zeroed, or null.
 extern "C" int lda_alias_mh_rounds(
     const void* z_can, const void* z_ty, const void* slot_of_can,
-    const void* tok_w, const void* tok_d, const void* doc_off,
-    const void* ty_off, const void* phi, const void* nkw, const void* theta,
+    const void* tok_w, const void* tok_d, const void* doc_tab,
+    const void* ty_tab, const void* phi, const void* nkw, const void* theta,
     const void* ndk, const void* wk, const void* dk, const void* doc_mask,
     const void* alpha_sum, const void* au, float beta, float kbeta,
     const void* seed, void* z_out, void* acc_counts, long long n, int K,
@@ -410,12 +422,12 @@ extern "C" int lda_alias_mh_rounds(
   const auto st = static_cast<cudaStream_t>(stream);
   if (packed != 0)
     launch_rounds<true>(blocks, smem, st, z_can, z_ty, slot_of_can, tok_w,
-                        tok_d, doc_off, ty_off, tb, doc_mask, alpha_sum, au,
+                        tok_d, doc_tab, ty_tab, tb, doc_mask, alpha_sum, au,
                         beta, kbeta, seed, z_out, acc_counts, n, K, rounds,
                         inv_k);
   else
     launch_rounds<false>(blocks, smem, st, z_can, z_ty, slot_of_can, tok_w,
-                         tok_d, doc_off, ty_off, tb, doc_mask, alpha_sum, au,
+                         tok_d, doc_tab, ty_tab, tb, doc_mask, alpha_sum, au,
                          beta, kbeta, seed, z_out, acc_counts, n, K, rounds,
                          inv_k);
   return static_cast<int>(cudaGetLastError());

@@ -108,7 +108,7 @@ _SIGNATURES = {
     + [_c_i64, _c_int, _c_int, _c_ptr],
     # vs_dirichlet.cu
     "lda_vs_dirichlet": [_c_ptr, _c_int, _c_f32] + [_c_ptr] * 4
-    + [_c_i64, _c_int, _c_f32, _c_f32, _c_int, _c_ptr],
+    + [_c_i64] + [_c_int] * 6 + [_c_f32, _c_f32, _c_int, _c_ptr],
 }
 
 

@@ -15,6 +15,10 @@ what bounds it on the H100 and the design), three launches an iteration:
   - `pack_tables` (packed mode): the [., 2] tables (phi, f32(N_kw) + beta)
     and (theta, f32(n_dk) + alpha_sum / K) in one pass.
 
+The constants of a token that the corpus fixes (its document's and its
+type's base, count and the count's reciprocal for the exact modulo) are
+made once at set-up into a record a document and a record a type
+(`count_table`).
 `alias_mh` runs the first two, as `models/ggs_aliasmh.py::_step` calls
 them on the card. The random words are Philox4x32-10 blocks keyed by
 `seed`, an int64 [1] tensor on the device drawn from the chain's
@@ -44,6 +48,27 @@ from ldagroupedgibbssampler_tpu_torch.ops.philox import philox4x32_10
 
 _MASK32 = 0xFFFFFFFF
 _INV24 = 2.0 ** -24
+_M64 = (1 << 64) - 1
+
+
+def reciprocals(counts) -> np.ndarray:
+    """floor((2^64 - 1) / max(count, 1)), uint64: the reciprocal of the
+    kernel's exact modulo (`mod_exact`) for each bound."""
+    m = np.maximum(np.asarray(counts, np.int64), 1).astype(np.uint64)
+    return np.uint64(_M64) // m
+
+
+def count_table(offsets) -> np.ndarray:
+    """The records of the spans [offsets[i], offsets[i + 1]) (a document's
+    canonical tokens, or a type's tokens in type order), int32 [n, 4]:
+    base, count (at least 1: the bound of a position), and the count's
+    reciprocal (`reciprocals`) as its low and high 32 bits."""
+    off = np.asarray(offsets, np.int64)
+    hi = np.maximum(np.diff(off), 1)
+    inv = reciprocals(hi)
+    out = np.stack([off[:-1], hi, (inv & np.uint64(_MASK32)).astype(np.int64),
+                    (inv >> np.uint64(32)).astype(np.int64)], axis=1)
+    return out.astype(np.uint32).view(np.int32).reshape(-1, 4)
 
 
 @dataclasses.dataclass
@@ -54,8 +79,9 @@ class MHOperands:
     slot_of_can_ty: torch.Tensor  # [N] the slot of the t-th token by type
     tok_w: torch.Tensor           # [N] its type
     tok_d: torch.Tensor           # [N] its document
-    doc_off: torch.Tensor         # [D + 1] document offsets
-    ty_off: torch.Tensor          # [V + 1] type offsets in type order
+    doc_tab: torch.Tensor         # [D, 4] count_table(document offsets)
+    ty_tab: torch.Tensor          # [V, 4] count_table(type offsets in
+                                  # type order)
 
     @classmethod
     def build(cls, tokens, doc_offsets, flat_index, num_types,
@@ -75,17 +101,33 @@ class MHOperands:
         doc_offsets = np.asarray(doc_offsets, np.int64)
         doc_ids = np.repeat(np.arange(doc_offsets.shape[0] - 1),
                             np.diff(doc_offsets))
+        ty_off = np.concatenate([[0], np.cumsum(ty_cnt)])
 
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
         return cls(dev(slot_of_can),
                    dev(slot_of_can[np.argsort(tokens, kind="stable")]),
-                   dev(tokens), dev(doc_ids), dev(doc_offsets),
-                   dev(np.concatenate([[0], np.cumsum(ty_cnt)])))
+                   dev(tokens), dev(doc_ids), dev(count_table(doc_offsets)),
+                   dev(count_table(ty_off)))
 
     @property
     def num_tokens(self) -> int:
         return self.tok_w.shape[0]
+
+    def _offsets(self, tab):
+        end = torch.full((1,), self.num_tokens, dtype=tab.dtype,
+                         device=tab.device)
+        return torch.cat([tab[:, 0], end])
+
+    @property
+    def doc_off(self) -> torch.Tensor:
+        """[D + 1] document offsets, from the records' bases."""
+        return self._offsets(self.doc_tab)
+
+    @property
+    def ty_off(self) -> torch.Tensor:
+        """[V + 1] type offsets in type order, from the records' bases."""
+        return self._offsets(self.ty_tab)
 
 
 def updatable_tokens(ops: MHOperands, doc_mask=None) -> torch.Tensor:
@@ -233,10 +275,9 @@ def _check_ops(ops: MHOperands, dev):
     n = ops.num_tokens
     for name in ("slot_of_can", "slot_of_can_ty", "tok_w", "tok_d"):
         _build.check_tensor(name, getattr(ops, name), (n,), torch.int32, dev)
-    _build.check_tensor("doc_off", ops.doc_off, ops.doc_off.shape,
-                        torch.int32, dev)
-    _build.check_tensor("ty_off", ops.ty_off, ops.ty_off.shape, torch.int32,
-                        dev)
+    for name in ("doc_tab", "ty_tab"):
+        t = getattr(ops, name)
+        _build.check_tensor(name, t, (t.shape[0], 4), torch.int32, dev)
 
 
 def entry_topics(z_slot: torch.Tensor, ops: MHOperands):
@@ -301,9 +342,9 @@ def mh_rounds(z_can, z_ty, z_out, ops, phi, nkw, theta, ndk, beta: float,
         _build.check_tensor("wk_pack", wk, (v * k, 2), torch.float32, dev)
         _build.check_tensor("dk_pack", dk, (d * k, 2), torch.float32, dev)
         tables = (None, None, None, None, wk.data_ptr(), dk.data_ptr())
-    if ops.doc_off.shape != (d + 1,) or ops.ty_off.shape != (v + 1,):
-        raise ValueError(f"operands of {ops.doc_off.shape[0] - 1} documents "
-                         f"and {ops.ty_off.shape[0] - 1} types against "
+    if ops.doc_tab.shape[0] != d or ops.ty_tab.shape[0] != v:
+        raise ValueError(f"operands of {ops.doc_tab.shape[0]} documents "
+                         f"and {ops.ty_tab.shape[0]} types against "
                          f"tables of {d} and {v}")
     for name, t in (("alpha_sum", alpha_sum), ("au", au)):
         _build.check_tensor(name, t, (), torch.float32, dev)
@@ -316,8 +357,8 @@ def mh_rounds(z_can, z_ty, z_out, ops, phi, nkw, theta, ndk, beta: float,
     kbeta = float(np.float32(k * beta))     # `cw + K * beta`'s f32 scalar
     err = lib.lda_alias_mh_rounds(
         z_can.data_ptr(), z_ty.data_ptr(), ops.slot_of_can.data_ptr(),
-        ops.tok_w.data_ptr(), ops.tok_d.data_ptr(), ops.doc_off.data_ptr(),
-        ops.ty_off.data_ptr(), *tables,
+        ops.tok_w.data_ptr(), ops.tok_d.data_ptr(), ops.doc_tab.data_ptr(),
+        ops.ty_tab.data_ptr(), *tables,
         None if doc_mask is None else doc_mask.data_ptr(),
         alpha_sum.data_ptr(), au.data_ptr(), beta, kbeta, seed.data_ptr(),
         z_out.data_ptr(),

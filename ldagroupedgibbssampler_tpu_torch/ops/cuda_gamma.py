@@ -34,8 +34,9 @@ Nothing here syncs with the host, so the draws can be captured.
 `vs_dirichlet` (csrc/vs_dirichlet.cu) is the variable-selection Dirichlet
 of `nzvsspalias` on the same draws: element i's Gamma at gamma.cu's
 counters and its inclusion uniform from the block 8 i + 7 that the Gamma
-leaves, one launch, a block a row; `vs_dirichlet_reference` is its plain
-version.
+leaves, one launch, a row split over a thread-block cluster of up to
+VS_CLUSTER_MAX blocks (`vs_launch_shape`); `vs_dirichlet_reference` is its
+plain version.
 """
 
 from __future__ import annotations
@@ -60,6 +61,10 @@ COL_TILE_COLS = 128         # axis 0: columns of a block's tile (all of a
 COL_TILE = (2048, 4096)     # elements, the row count set so that there are
 COL_TILES = 1024            # at most COL_TILES tiles down the rows if it can
 DIRICHLET_FLOOR = 1e-30     # ops/random.py's (kFloor in csrc/gamma.cu)
+VS_CLUSTER_MAX = 8          # blocks a row of the VS kernel (a cluster)
+VS_SLICE_MIN = 2048         # values a block of it takes at least
+VS_CHUNK = 2560             # its slice's draws at most a chunk at a time
+VS_SMEM = 200 * 1024        # dynamic shared memory a block may take
 _TWO_PI = 2.0 * math.pi
 _MASK32 = 0xFFFFFFFF
 
@@ -267,6 +272,27 @@ def _dirichlet_kernel(x, seed, dim, prior):
     return out
 
 
+def vs_launch_shape(num_cols: int) -> tuple:
+    """The VS kernel's geometry for rows of num_cols values: (blocks a
+    cluster, slice length, values drawn together, values of a slice kept
+    in shared memory, bytes of dynamic shared memory a block). A row goes
+    to one cluster, a block a slice of at least VS_SLICE_MIN values (fewer
+    blocks for short rows, at most VS_CLUSTER_MAX); rank r takes [r
+    slice, min((r + 1) slice, L)), drawn a chunk of at most VS_CHUNK
+    values at a time (the whole slice where it fits: fewer barriers).
+    Beside the kept values a block holds a chunk's reject queue, draws
+    (int32, f32) and list of included values (uint16). A slice longer than
+    the shared memory holds keeps its first whole chunks there and the
+    rest in the output, read back for the division."""
+    cluster = max(1, min(VS_CLUSTER_MAX, -(-num_cols // VS_SLICE_MIN)))
+    slice_len = -(-num_cols // cluster)
+    chunk = min(slice_len, VS_CHUNK)
+    resident = min(slice_len, (VS_SMEM - 10 * chunk) // 4)
+    if resident < slice_len:
+        resident = resident // chunk * chunk
+    return cluster, slice_len, chunk, resident, 4 * resident + 10 * chunk
+
+
 def vs_uniforms(shape, seed, device=None) -> torch.Tensor:
     """The VS-Dirichlet's inclusion uniforms: element i's is unit23 of
     word x of Philox block 8 i + 7, the one its Gamma draw leaves."""
@@ -309,8 +335,9 @@ def vs_dirichlet(counts: torch.Tensor, beta: float, vs_prior: float,
     """VS-Dirichlet rows over the last axis of counts (int32 counts, or
     floats): the vectorised form of ops/random.py::vs_dirichlet, zeroPhi
     from `previous_phi` (f32 of counts' shape; None: no zeros). One
-    launch, a block a row. Returns (phi f32 of counts' shape, the bool
-    mask of excluded coordinates where `zero_mask`, else None)."""
+    launch, a row a cluster of blocks (`vs_launch_shape`). Returns (phi
+    f32 of counts' shape, the bool mask of excluded coordinates where
+    `zero_mask`, else None)."""
     if counts.device.type == "cpu":
         return vs_dirichlet_reference(counts, beta, vs_prior, seed,
                                       previous_phi, zero_mask)
@@ -339,7 +366,8 @@ def vs_dirichlet(counts: torch.Tensor, beta: float, vs_prior: float,
         None if previous_phi is None else previous_phi.data_ptr(),
         seed.data_ptr(), out.data_ptr(),
         None if zero is None else zero.data_ptr(), x.numel() // last, last,
-        float(vs_prior), log_odds, dev.index, _build.stream(dev))
+        *vs_launch_shape(last), float(vs_prior), log_odds, dev.index,
+        _build.stream(dev))
     _build.check(err, "lda_vs_dirichlet")
     vs_dirichlet.launches += 1
     return out, zero

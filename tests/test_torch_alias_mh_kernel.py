@@ -474,8 +474,8 @@ def test_wrappers_raise_when_the_build_or_the_launch_fails(model,
             for n, t in case.items()}
     meta["ops"] = cam.MHOperands(*(t.to("meta") for t in (
         case["ops"].slot_of_can, case["ops"].slot_of_can_ty,
-        case["ops"].tok_w, case["ops"].tok_d, case["ops"].doc_off,
-        case["ops"].ty_off)))
+        case["ops"].tok_w, case["ops"].tok_d, case["ops"].doc_tab,
+        case["ops"].ty_tab)))
     tables = [meta[n] for n in ("phi", "nkw", "theta", "ndk", "beta", "au")]
     calls = ((lambda: cam.alias_mh(**meta, rounds=2), "lda_alias_mh_entry"),
              (lambda: cam.mh_rounds(

@@ -49,11 +49,12 @@ and
     K=4096, 100 particles (`chip_smoke.py::l2r_operands` of this
     checkout);
   - alias_mh: `[3 alias-mh]`'s operands (`chip_smoke.py::alias_mh_case`
-    of this checkout) with every document selected, as the main path
-    runs them: the rounds kernel alone at K=100 and K=4096 in both table
-    modes, 2 rounds; at K=100 packed also at 1 and 4 rounds, and at 1, 2
-    and 4 rounds with no document selected (what a token costs without
-    its draws and gathers); the pack at both K;
+    of this checkout) at K=100 and K=4096 in both table modes, 2 rounds:
+    the z-step as the main path runs it (`alias_mh`: the pre-pass and the
+    rounds) with every document selected and with half of them; the
+    pre-pass alone and the rounds kernel alone, at K=100 packed also at 1
+    and 4 rounds and with no document selected (what a token costs
+    without its draws and gathers); the pack at both K;
   - hdp: `[3 hdp]`'s operands (`chip_smoke.py::hdp_state` and
     `psi_operands` of this checkout): the table counts of a ppu_hdplda
     K_max=100 chain after 10 iterations in both instances of the first
@@ -63,7 +64,9 @@ and
     and without its active mask and a uniform z's [200, V], and the
     elementwise Poisson at its rates;
   - vs_dirichlet: `[3 vs-dirichlet]`'s rows at [100, V] and [200, V],
-    the previous phi a Polya-Urn draw;
+    the previous phi a Polya-Urn draw, and a single-stepped nzvsspalias
+    iteration at K=100 and K=200 (ms by CUDA events, the host's gaps
+    between launches included);
   - pairwise: `[3 pairwise]`'s kernels' wrappers (`chip_smoke.py::
     pairwise_rows` and `pairwise_kernel_fns` of this checkout: ks with its
     rows' sort, uber on its products computed beforehand), each of
@@ -293,10 +296,13 @@ def left_to_right_cases(torch, cs, corpus, LDAConfig, create_model):
 
 
 def alias_mh_cases(torch, cs, corpus, LDAConfig, create_model):
-    """[3 alias-mh]'s operands at K=100 and K=4096, every document
-    selected: the rounds kernel after one pre-pass, both table modes, and
-    the pack; at K=100 packed the rounds at 1, 2 and 4, with no document
-    and with every document selected."""
+    """[3 alias-mh]'s operands at K=100 and K=4096: the z-step as the main
+    path runs it (`alias_mh`: the pre-pass and the rounds) in both table
+    modes with every document selected and with half of them (the even
+    ones); the pre-pass alone; the rounds kernel alone after one
+    pre-pass, 2 rounds, and at K=100 packed at 1 and 4 rounds and with no
+    document selected (what a token costs without its draws and gathers);
+    the pack at both K."""
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_alias_mh as cam
     own = _own_chip_smoke()
     cases = {}
@@ -305,18 +311,25 @@ def alias_mh_cases(torch, cs, corpus, LDAConfig, create_model):
                                          create_model, k)
         tables = [case[n] for n in ("phi", "nkw", "theta", "ndk", "beta",
                                     "au")]
-        head = (*cam.entry_topics(case["z_slot"], case["ops"]), case["ops"])
         args = {n: case[n] for n in ("phi", "nkw", "theta", "ndk", "beta",
                                      "alpha_sum", "au", "seed")}
-        none = torch.zeros_like(case["doc_mask"])
+        half, none = case["doc_mask"], torch.zeros_like(case["doc_mask"])
+        head = (*cam.entry_topics(case["z_slot"], case["ops"]), case["ops"])
         for mode, packed in (("packed", cam.pack_tables(*tables)),
                              ("unpacked", None)):
+            for sel, mask in (("all", None), ("half", half)):
+                cases[f"zstep K={k} {mode} {sel}"] = (
+                    cam.alias_mh, (case["z_slot"], case["ops"]),
+                    dict(args, rounds=2, doc_mask=mask, packed=packed))
             probe = k == own.K and mode == "packed"
-            for sel, mask in (("all", None), ("none", none))[:1 + probe]:
-                for r in (1, 2, 4) if probe else (2,):
+            for sel, mask in (("all", None), ("half", half),
+                              ("none", none))[:1 + 2 * probe]:
+                for r in (1, 2, 4) if probe and sel != "half" else (2,):
                     cases[f"rounds K={k} {mode} {sel} r{r}"] = (
                         cam.mh_rounds, head,
                         dict(args, rounds=r, doc_mask=mask, packed=packed))
+        cases[f"prepass K={k}"] = (cam.entry_topics,
+                                   (case["z_slot"], case["ops"]), {})
         cases[f"pack K={k}"] = (cam.pack_tables, tables, {})
     return cases
 
@@ -376,7 +389,9 @@ def polya_urn_cases(torch, cs, corpus, LDAConfig, create_model):
 
 
 def vs_dirichlet_cases(torch, cs, corpus, LDAConfig, create_model):
-    """[3 vs-dirichlet]'s timed calls."""
+    """[3 vs-dirichlet]'s timed calls, and a single-stepped iteration of
+    nzvsspalias at K=100 and K=200 after 2 (its ms by CUDA events, the
+    host's gaps between launches included)."""
     from ldagroupedgibbssampler_tpu_torch.ops import (cuda_gamma,
                                                       cuda_polya_urn)
     own, model, seed = _hdp_chain(torch, corpus, LDAConfig, create_model)
@@ -384,8 +399,14 @@ def vs_dirichlet_cases(torch, cs, corpus, LDAConfig, create_model):
     nkw200 = own.urn_operands(torch, corpus, model.device)
     phi200 = cuda_polya_urn.polya_urn(nkw200, 0.01, seed)[0]
     fn = cuda_gamma.vs_dirichlet
-    return {"rows K=100": (fn, (st.nkw, 0.01, 0.5, seed, st.phi), {}),
-            "rows K=200": (fn, (nkw200, 0.01, 0.5, seed, phi200), {})}
+    cases = {"rows K=100": (fn, (st.nkw, 0.01, 0.5, seed, st.phi), {}),
+             "rows K=200": (fn, (nkw200, 0.01, 0.5, seed, phi200), {})}
+    for k in (own.K, 200):
+        chain = create_model(own.pcgs_config(LDAConfig, "nzvsspalias", k))
+        chain.add_instances(corpus)
+        chain.sample(2)
+        cases[f"iteration nzvsspalias K={k}"] = (chain.sample, (1,), {})
+    return cases
 
 
 def pairwise_cases(torch, cs, corpus, LDAConfig, create_model):
