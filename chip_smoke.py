@@ -7,8 +7,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--parent DIR]
 
 (--parent: a checkout of another commit, e.g. the parent unpacked with
-`git archive`; `[3 alias-mh]`, `[3 vs-dirichlet]` and `[3 pairwise]` then
-also time its z-step, its VS rows and its uber, ks, js and canberra
+`git archive`; `[3 alias-mh]`, `[3 hdp]`, `[3 polya-urn]`, `[3
+vs-dirichlet]` and `[3 pairwise]` then also time its z-step, its table
+counts, its Polya-Urn rows, its VS rows and its uber, ks, js and canberra
 kernels beside this checkout's, in turns, with
 tools/time_kernel_builds.py.)
 
@@ -89,16 +90,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the bounds, ptxas's registers; `[3 hdp]`, the table-count and psi
      kernels (csrc/hdp.cu) on a ppu_hdplda K_max=100 chain after 10
      iterations: the table counts equal to the plain version on the same
-     Philox words in both instances of the histogram launch (and for
-     hlda's scalar concentration), ge equal to the eager bincount path,
+     Philox words in both instances (two launches each; and for hlda's
+     scalar concentration), ge equal to the eager bincount path, the
+     scratch left zero, the same at K=4096 (the global instance), the
+     first launch's blocks an SM and ptxas's registers,
      psi on the chain's tables and, at K_max=4096 on synthetic inputs,
      for every birth rule, psi sampler and index prior: births and the
      active mask exact, psi and alpha within 1e-5; the elementwise
      Binomial kernel equal to its plain version and KS against
-     torch.binomial; `[3 polya-urn]` (csrc/polya_urn.cu): the rows at
-     [100, 20,000] (that chain's N_kw, with and without its active mask)
-     and [200, 20,000] equal to the plain version, its counts against
-     torch.poisson, the elementwise Poisson kernel on a grid of rates;
+     torch.binomial; `[3 polya-urn]` (csrc/polya_urn.cu, two launches,
+     the draws' 32-column groups dealt over a one-wave grid): the rows at
+     [100, 20,000] (that chain's N_kw, with and without its active mask),
+     [200, 20,000], f32 counts on [13, 37] and [3, 4,100], and [2,
+     300,000] equal to the plain version, two launches each, the counts
+     against torch.poisson, the draw launch's grid with its blocks an SM,
+     ptxas's registers, the elementwise Poisson kernel on a grid of rates;
      `[3 vs-dirichlet]` (csrc/vs_dirichlet.cu, a row a cluster of 8
      blocks): the inclusion pattern equal to the plain version's but
      proven ties, values within 1e-5, the cluster geometry and ptxas's
@@ -3084,6 +3090,7 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi,
 
 HDP_STATE_ITERS = 10        # the ppu_hdplda chain [3 hdp] starts from
 HDP_PSI_K = 4096            # [3 hdp]'s synthetic psi inputs
+HDP_LARGE_K = 4096          # [3 hdp]'s table counts past shared memory
 # psi and alpha, kernel against plain: the Gamma draws' last bits and the
 # f64 scans taken in another order, each rounded once to f32
 PSI_RTOL = 1e-5
@@ -3097,6 +3104,7 @@ DRAW_KS = 200_000           # kernel and library draws of each KS case
 VS_TIE = 1e-6               # an inclusion that differs must have |u - p|
                             # below this (p's f32 rounding)
 VS_LONG_ROW = 450_000       # [3 vs-dirichlet]'s rows past shared memory
+URN_LONG_ROW = 300_000      # [3 polya-urn]'s long rows
 
 
 def draw_wrappers():
@@ -3299,19 +3307,37 @@ def ks_against(torch, mine, library) -> float:
                               library.cpu().numpy()).pvalue)
 
 
-def hdp_phase(torch, model, rnd, smi):
-    """[3 hdp]: the table-count kernels (two launches) and the psi kernel
-    (one) of csrc/hdp.cu. On a ppu_hdplda K_max=100 chain after
-    HDP_STATE_ITERS iterations: the table counts (alpha0 psi, and hlda's
-    scalar gamma) equal to table_counts_reference on the same Philox words
-    in both instances of the first launch, and ge equal to the eager
-    bincount path (models/hdp.py::doc_count_ge_histogram); the psi kernel
+def hdp_large_k_case(torch, corpus, dev, k=HDP_LARGE_K):
+    """[3 hdp]'s large-K operands: n_dk [D, k] int32, a recount of a
+    uniform z, and a concentration vector alpha0 psi (psi a normalised
+    Gamma(0.3) draw, alpha0 = 5) f32 [k]."""
+    z = np.random.default_rng(17).integers(0, k, corpus.num_tokens)
+    ndk = recount(corpus, z, k)[1].astype(np.int32)
+    rng = np.random.default_rng(18)
+    psi = rng.gamma(0.3, size=k)
+    return (torch.as_tensor(ndk, device=dev),
+            torch.as_tensor((5.0 * psi / psi.sum()).astype(np.float32),
+                            device=dev))
+
+
+def hdp_phase(torch, corpus, model, rnd, smi, _build, parent=None):
+    """[3 hdp]: the table counts (csrc/hdp.cu, two launches, the second a
+    programmatic dependent launch) and the psi kernel (one). On a
+    ppu_hdplda K_max=100 chain after HDP_STATE_ITERS iterations: the table
+    counts (alpha0 psi, and hlda's scalar gamma) equal to
+    table_counts_reference on the same Philox words in both instances,
+    each call's launches counted, and ge equal to the eager bincount path
+    (models/hdp.py::doc_count_ge_histogram); the same at K=HDP_LARGE_K
+    (the global instance) on a uniform z's n_dk; the psi kernel
     on that chain's tables against its plain version; on synthetic inputs
     at K_max=4096 every birth rule x psi sampler x index prior (psi_check).
     The elementwise Binomial kernel equal to its plain version, and KS
     against torch.binomial at BINOMIAL_KS. Times by CUDA events beside the
-    plain versions, the eager path they replaced and the bound. Returns
-    the kernels-JSON entries of the table counts and of psi."""
+    plain versions, the eager path they replaced and the bound; ptxas's
+    registers and the first launch's blocks an SM of each instance; with
+    `parent` (a checkout), the parent's table counts and these in turns
+    (parent_times). Returns the kernels-JSON entries of the table counts
+    and of psi."""
     from ldagroupedgibbssampler_tpu_torch.models import hdp
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_hdp
     dev = torch.device("cuda", 0)
@@ -3321,17 +3347,40 @@ def hdp_phase(torch, model, rnd, smi):
     seed = torch.tensor([0x0DDC_0FFE_E123], dtype=torch.int64, device=dev)
     ge_eager = hdp.doc_count_ge_histogram(ndk, m)
     instance = cuda_hdp.hist_instance(k_, m, dev)
-    for label, a in (("alpha0 psi", alpha), ("hlda gamma", cfg.hdp_gamma)):
-        want = cuda_hdp.table_counts_reference(ndk, a, m, seed)
-        for inst in ("shared", "global"):
-            ge = torch.empty((k_, m), dtype=torch.int32, device=dev)
-            got = cuda_hdp.table_counts(ndk, a, m, seed, ge=ge, instance=inst)
-            torch.cuda.synchronize()
-            check(torch.equal(ge, ge_eager), f"[3 hdp] ge ({label}, {inst}) "
-                  "differs from the eager bincount path")
-            check(torch.equal(got, want), f"[3 hdp] table counts ({label}, "
-                  f"{inst}) differ from the plain version on "
-                  f"{int((got != want).sum())} topics")
+    check(instance == "shared", f"[3 hdp] K={k_}, M={m} takes the {instance} "
+          "instance")
+    launches = {}
+    large_ndk, large_alpha = hdp_large_k_case(torch, corpus, dev)
+    large_m = m                       # the longest document, as at K=100
+    check(cuda_hdp.hist_instance(HDP_LARGE_K, large_m, dev) == "global",
+          f"[3 hdp] K={HDP_LARGE_K} takes the shared instance")
+    large_ge = hdp.doc_count_ge_histogram(large_ndk, large_m)
+    for label, nd, mm, ge_want, a_of, insts in (
+            ("K=100", ndk, m, ge_eager, (alpha, cfg.hdp_gamma),
+             ("shared", "global")),
+            (f"K={HDP_LARGE_K}", large_ndk, large_m, large_ge,
+             (large_alpha, cfg.hdp_gamma), ("global",))):
+        for a in a_of:
+            what = "alpha0 psi" if isinstance(a, torch.Tensor) else "gamma"
+            want = cuda_hdp.table_counts_reference(nd, a, mm, seed)
+            for inst in insts:
+                ge = torch.empty(ge_want.shape, dtype=torch.int32, device=dev)
+                scratch = torch.zeros((nd.shape[1], mm), dtype=torch.int32,
+                                      device=dev)
+                before = cuda_hdp.table_counts.launches
+                got = cuda_hdp.table_counts(nd, a, mm, seed, ge=ge,
+                                            instance=inst, hist=scratch)
+                launches[inst] = cuda_hdp.table_counts.launches - before
+                torch.cuda.synchronize()
+                check(torch.equal(ge, ge_want), f"[3 hdp] ge ({label}, "
+                      f"{what}, {inst}) differs from the eager bincount path")
+                check(torch.equal(got, want), f"[3 hdp] table counts "
+                      f"({label}, {what}, {inst}) differ from the plain "
+                      f"version on {int((got != want).sum())} topics")
+                check(not bool(scratch.any()), f"[3 hdp] {label} {inst}: the "
+                      "scratch is not left zero")
+    check(launches == {"shared": 2, "global": 2}, f"[3 hdp] table counts' "
+          f"launches a call {launches}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     p = cuda_hdp.table_probs(alpha, m, dev)
@@ -3341,6 +3390,17 @@ def hdp_phase(torch, model, rnd, smi):
                                                           seed, hist=hist))
     tab_global_ms = time_ms(torch, lambda: cuda_hdp.table_counts(
         ndk, alpha, m, seed, instance="global", hist=hist))
+    large_hist = torch.zeros((HDP_LARGE_K, large_m), dtype=torch.int32,
+                             device=dev)
+    tab_large_ms = time_ms(torch, lambda: cuda_hdp.table_counts(
+        large_ndk, large_alpha, large_m, seed, hist=large_hist))
+    occupancy = {inst: cuda_hdp.hist_blocks_per_sm(k_, m, inst, dev)
+                 for inst in ("shared", "global")}
+    regs = {name: ptxas_registers(_build, name)
+            for name in ("hist_kernel", "tables_kernel")}
+    parents = parent_times("hdp", parent, ["tables K=100",
+                                           "tables K=100 global"]) \
+        if parent else None
     tab_plain_ms = once_ms(torch, lambda: cuda_hdp.table_counts_reference(
         ndk, alpha, m, seed))
     with eager_discrete(torch, rnd):
@@ -3416,10 +3476,13 @@ def hdp_phase(torch, model, rnd, smi):
     print(f"[3 hdp] {smi}: ppu_hdplda K_max=100 after {HDP_STATE_ITERS} "
           f"iterations, D={d_}, M={m} (longest document): table counts "
           f"equal to the plain version on the same Philox words (alpha0 psi "
-          f"and hlda's gamma, shared and global instances; first launch "
-          f"{instance} here, {4 * k_ * m} B of histogram), ge equal to the "
-          f"eager bincount path; {tab_ms:.4f} ms (2 launches), global "
-          f"instance {tab_global_ms:.4f} ms, plain {tab_plain_ms:.2f} ms, "
+          f"and hlda's gamma, shared and global instances; "
+          f"{instance} here: a [{k_}, {m}] histogram in shared memory), "
+          f"ge equal to the "
+          f"eager bincount path, the scratch left zero; {tab_ms:.4f} ms "
+          f"({launches['shared']} launches), global instance "
+          f"{tab_global_ms:.4f} ms "
+          f"({launches['global']}), plain {tab_plain_ms:.2f} ms, "
           f"eager path (bincount + torch.binomial) {tab_eager_ms:.4f} ms, "
           f"torch.binomial of the draws alone {tab_binomial_ms:.4f} ms, "
           f"bound {tab_bound:.4f} ms ({tab_by}: {tab_bytes / 1e6:.2f} MB, "
@@ -3428,6 +3491,13 @@ def hdp_phase(torch, model, rnd, smi):
           f"{psi_ms:.4f} ms (1 launch), plain {psi_plain_ms:.2f} ms, eager "
           f"path (births + GEM + alpha) {psi_eager_ms:.4f} ms, bound "
           f"{psi_bound:.5f} ms ({psi_by})", flush=True)
+    print(f"[3 hdp] table counts at K={HDP_LARGE_K} (uniform z, n_dk up to "
+          f"{int(large_ndk.max())}, M={large_m}, global instance) equal "
+          f"to the plain version, ge to the eager path, scratch left zero; "
+          f"{tab_large_ms:.4f} ms; first "
+          f"launch blocks an SM {json.dumps(occupancy)}; ptxas "
+          f"{json.dumps(regs)}; parent and this checkout in turns (ms, "
+          f"medians) {json.dumps(parents)}", flush=True)
     print(f"[3 hdp] K_max={HDP_PSI_K} synthetic: psi kernel against the "
           f"plain version for {len(PSI_CASES)} cases (birth rules x "
           f"samplers x index priors): births and active exact, psi and "
@@ -3443,6 +3513,8 @@ def hdp_phase(torch, model, rnd, smi):
         "name": "hdp_table_counts", "route": "cuda", "source": src,
         "replaces": "ldagroupedgibbssampler_tpu/models/hdp.py:96",
         "max_abs_err": 0.0, "ms": tab_ms, "global_ms": tab_global_ms,
+        f"k{HDP_LARGE_K}_ms": tab_large_ms, "launches_a_call": launches,
+        "blocks_an_sm": occupancy, "ptxas": regs, "parent_times": parents,
         "instance": instance, "plain_ms": tab_plain_ms,
         "eager_ms": tab_eager_ms, "bound_ms": tab_bound, "bound_by": tab_by,
         "library_ms": None, "torch_binomial_ms": tab_binomial_ms,
@@ -3468,18 +3540,44 @@ def urn_operands(torch, corpus, dev):
     return torch.as_tensor(np.ascontiguousarray(nkw200), device=dev)
 
 
-def polya_urn_phase(torch, corpus, model, smi):
-    """[3 polya-urn]: the Polya-Urn kernels (csrc/polya_urn.cu, two
-    launches) at [100, 20,000] (a ppu_hdplda chain's N_kw, with and without
-    its active mask) and [200, 20,000] (a uniform z's): phi and the zero
+def urn_edge_cases(torch, dev, seed=19):
+    """[3 polya-urn]'s geometry and type cases: f32 counts with fractional
+    values, integers 0..12 and negatives, and NaN on [13, 37] (rows of two
+    groups, the second of 5 columns) and on [3, 4,100]; int32 Poisson
+    counts on [2, URN_LONG_ROW] (long rows, a head of counts 10..499) with
+    an active mask [True, False]."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for shape in ((13, 37), (3, 4100)):
+        x = rng.integers(0, 13, shape).astype(np.float32)
+        x = np.where(rng.random(shape) < 0.2, x + rng.random(shape), x)
+        x[0, :3] = (-1.0, np.nan, 9.999)
+        x[-1] = 0.0                                   # an all-zero row
+        out[f"f32 {list(shape)}"] = (torch.as_tensor(x, device=dev), None)
+    long_rows = rng.poisson(0.4, (2, URN_LONG_ROW)).astype(np.int32)
+    long_rows[:, :50] = rng.integers(10, 500, (2, 50))
+    out[f"int32 [2, {URN_LONG_ROW}] active [True, False]"] = (
+        torch.as_tensor(long_rows, device=dev),
+        torch.tensor([True, False], device=dev))
+    return out
+
+
+def polya_urn_phase(torch, corpus, model, smi, _build, parent=None):
+    """[3 polya-urn]: the Polya-Urn rows (csrc/polya_urn.cu, two launches,
+    the draws' 32-column groups dealt over a one-wave grid) at [100,
+    20,000] (a ppu_hdplda chain's N_kw, with and without its active mask)
+    and [200, 20,000] (a uniform z's), and on urn_edge_cases: phi and the
+    zero
     mask equal to polya_urn_reference on the same words, phi equal to the
     elementwise Poisson kernel's counts normalised, those counts against
     torch.poisson on the same rates (a chi-square of the values 0, 1 and 2+
     where lam < 10, KS of the standardised counts where lam >= 10); the
     elementwise Poisson kernel equal to its plain version on POISSON_GRID
     and KS against torch.poisson there. Times beside the plain version,
-    the eager path it replaced and torch.poisson. Returns the kernels-JSON
-    entry."""
+    the eager path it replaced and torch.poisson; the draw launch's grid
+    with its blocks an SM, ptxas's registers; with
+    `parent` (a checkout), the parent's rows and these in turns
+    (parent_times). Returns the kernels-JSON entry."""
     from scipy import stats as sps
 
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_polya_urn
@@ -3491,16 +3589,25 @@ def polya_urn_phase(torch, corpus, model, smi):
     beta = 0.01
     cases = {"K=100": (nkw100, None), "K=100 active": (nkw100, active),
              "K=200": (urn_operands(torch, corpus, dev), None)}
-    res = {}
-    for label, (nkw, act) in cases.items():
+    res, shapes = {}, {}
+    for label, (nkw, act) in (cases | urn_edge_cases(torch, dev)).items():
+        before = cuda_polya_urn.polya_urn.launches
         phi, zero = cuda_polya_urn.polya_urn(nkw, beta, seed, act,
                                              zero_mask=True)
+        check(cuda_polya_urn.polya_urn.launches - before == 2,
+              f"[3 polya-urn] {label}: not two launches")
         want, want_zero = cuda_polya_urn.polya_urn_reference(nkw, beta, seed,
                                                              act, True)
         torch.cuda.synchronize()
-        check(torch.equal(phi, want) and torch.equal(zero, want_zero),
-              f"[3 polya-urn] {label}: phi or its zeros differ from the plain "
-              f"version ({int((phi != want).sum())} values)")
+        check(torch.equal(phi, want), f"[3 polya-urn] {label}: phi "
+              f"differs from the plain version "
+              f"({int((phi != want).sum())} values)")
+        check(torch.equal(zero, want_zero), f"[3 polya-urn] {label}: the "
+              "zero mask differs from the plain version")
+        shapes[label] = cuda_polya_urn.urn_occupancy(
+            nkw.numel() // nkw.shape[-1], nkw.shape[-1], dev)
+        if label not in cases:
+            continue
         if act is not None:
             check(bool((phi[~act] == 0).all()), f"[3 polya-urn] {label}: an "
                   "inactive row is not zero")
@@ -3558,6 +3665,13 @@ def polya_urn_phase(torch, corpus, model, smi):
     pois_ms = time_ms(torch, lambda: cuda_polya_urn.poisson(lam_all, seed))
     pois_lib_ms = time_ms(torch, lambda: torch.poisson(lam_all,
                                                        generator=gen))
+    active_ms = time_ms(torch, lambda: cuda_polya_urn.polya_urn(
+        nkw100, beta, seed, active))
+    regs = {name: ptxas_registers(_build, name)
+            for name in ("urn_draw_kernel", "urn_normalise_kernel")}
+    parents = parent_times("polya_urn", parent, [
+        "rows K=100", "rows K=100 active", "rows K=200",
+        "poisson K=100"]) if parent else None
     for label, r in res.items():
         print(f"[3 polya-urn] {label} {smi}: phi and its zeros equal to the "
               f"plain version (with the active mask too, inactive rows 0), "
@@ -3573,6 +3687,12 @@ def polya_urn_phase(torch, corpus, model, smi):
           f"{got.numel()} draws at {POISSON_GRID}, KS against torch.poisson "
           f"{json.dumps(ks)}; {pois_ms:.4f} ms against torch.poisson "
           f"{pois_lib_ms:.4f} ms", flush=True)
+    print(f"[3 polya-urn] rows equal to the plain version also on "
+          f"{', '.join(k for k in shapes if k not in cases)}; K=100 with the "
+          f"active mask {active_ms:.4f} ms; the draw launch's grid "
+          f"{json.dumps(shapes)}; ptxas {json.dumps(regs)}; parent "
+          f"and this checkout in turns (ms, medians) {json.dumps(parents)}",
+          flush=True)
     main = res["K=100"]
     return {"name": "polya_urn", "route": "cuda",
             "source": "ldagroupedgibbssampler_tpu_torch/csrc/polya_urn.cu",
@@ -3582,9 +3702,10 @@ def polya_urn_phase(torch, corpus, model, smi):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None,
             "torch_poisson_ms": main["torch_poisson_ms"],
-            "cases": res, "poisson": {"ms": pois_ms,
-                                      "library_ms": pois_lib_ms, "ks": ks,
-                                      "draws": got.numel()}}
+            "cases": res, "active_ms": active_ms, "launch_shape": shapes,
+            "ptxas": regs, "parent_times": parents,
+            "poisson": {"ms": pois_ms, "library_ms": pois_lib_ms, "ks": ks,
+                        "draws": got.numel()}}
 
 
 def vs_dirichlet_phase(torch, corpus, model, rnd, smi, _build, parent=None):
@@ -7341,7 +7462,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--parent", default=None, help="a checkout whose "
-                    "pairwise kernels [3 pairwise] times beside these")
+                    "redesigned kernels phase 3 times beside these")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7574,8 +7695,10 @@ def main(argv=None) -> int:
         _build, parent=args.parent)
     torch.cuda.empty_cache()
     hdp_model = hdp_state(torch, corpus, LDAConfig, create_model)
-    tables_entry, psi_entry = hdp_phase(torch, hdp_model, rnd, smi)
-    urn_entry = polya_urn_phase(torch, corpus, hdp_model, smi)
+    tables_entry, psi_entry = hdp_phase(torch, corpus, hdp_model, rnd, smi,
+                                        _build, parent=args.parent)
+    urn_entry = polya_urn_phase(torch, corpus, hdp_model, smi, _build,
+                                parent=args.parent)
     vs_entry = vs_dirichlet_phase(torch, corpus, hdp_model, rnd, smi,
                                   _build, parent=args.parent)
     del hdp_model

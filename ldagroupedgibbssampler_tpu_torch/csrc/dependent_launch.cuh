@@ -1,0 +1,44 @@
+// Programmatic dependent launch (sm_90): a kernel launched with
+// `launch_dependent` right after another on the same stream is scheduled
+// while that one runs, once each of its blocks has called
+// `allow_dependent_launch` (or left), and its threads wait in
+// `wait_for_prerequisite` until it has finished and its writes are
+// visible. Without the attribute the wait returns at once. Included by
+// csrc/hdp.cu and csrc/polya_urn.cu for their second launches.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ void allow_dependent_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_prerequisite() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launch `kernel` on `blocks` blocks of `threads` threads, no dynamic
+// shared memory, as a programmatic dependent of the stream's previous
+// launch; returns the launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
+                             unsigned threads, cudaStream_t stream,
+                             Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<Args&&>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace

@@ -27,6 +27,11 @@
 //      p_j) (csrc/discrete.cuh, element k M + j - 1), summed in f32, exact
 //      for integers. It zeroes the cells it read, so the scratch histogram
 //      the wrapper keeps is zero for the next call without a fill.
+//   Launch 2 is a programmatic dependent launch: its blocks are scheduled
+//   while launch 1 runs (launch 1 allows them at its start; it is one
+//   wave) and wait in `griddepcontrol.wait` until launch 1 has finished
+//   and its writes are visible, so the second launch's latency overlaps
+//   the first launch's work.
 // Psi, one launch of one block (`lda_hdp_psi`), looping over K in chunks:
 //   births: n_add ~ Poisson(gamma) (element 1); for hdplda `budget`
 //     candidates (element 2 + c, word x of block 0): geometric,
@@ -47,9 +52,14 @@
 // the discrete draws (e << 24) | r with e >= 1, so the two never meet.
 //
 // What bounds it on the H100: at 20NG K_max = 100 the table counts read
-// n_dk once (4.5 MB, ~1.3 us at 3.35 TB/s) and draw K M ~ 17,000
-// Binomials, most of them n = 0 or one inversion step; psi is K elements.
-// Both are latency: two and one launches where the eager path took ~100.
+// n_dk once (4.5 MB, ~1.3 us at 3.35 TB/s) and make ~170 Binomial draws of
+// the K M ~ 17,000 terms (the rest are exact); psi is K elements. Both are
+// latency: two and one launches where the eager path took ~100. Launching
+// dominates the table counts: each of their launches takes ~0.01 ms in
+// turn with an empty body, against ~0.022 for both whole; one launch
+// whose last block ran the second's scan and draws took 0.048-0.078 (one
+// block cannot match 100), and a [K, 32] histogram or 8 loads in flight a
+// thread gained nothing (PERF.md, Findings).
 // The design keeps every intermediate (histogram, ge, p) out of device
 // memory but the scratch histogram, and never syncs with the host (n_add
 // stays on the device).
@@ -58,13 +68,15 @@
 
 #include <cstdint>
 
+#include "dependent_launch.cuh"
 #include "discrete.cuh"
 #include "marsaglia.cuh"
 
 namespace {
 
 constexpr int kHistThreads = 512;
-constexpr int kHistBlocks = 264;       // two a streaming multiprocessor
+constexpr int kHistBlocks = 264;       // two a streaming multiprocessor:
+                                       // one wave
 constexpr int kTableThreads = 256;
 constexpr int kPsiThreads = 1024;
 constexpr int kBirthsNone = 0, kBirthsCandidates = 1, kBirthsLowest = 2;
@@ -120,6 +132,7 @@ __global__ void __launch_bounds__(kHistThreads)
     hist_kernel(const int* __restrict__ ndk, long long D, int K, int M,
                 long long rows, int* __restrict__ hist) {
   extern __shared__ int h_s[];                     // [K M] when kShared
+  allow_dependent_launch();
   const long long r0 = static_cast<long long>(blockIdx.x) * rows;
   if (r0 >= D) return;
   const int nrows = static_cast<int>(D - r0 < rows ? D - r0 : rows);
@@ -153,6 +166,7 @@ __global__ void __launch_bounds__(kTableThreads)
   const int k = blockIdx.x;
   const float a = a_vec != nullptr ? a_vec[k] : a_scalar;
   const unsigned long long key = static_cast<unsigned long long>(seed[0]);
+  wait_for_prerequisite();                          // launch 1's histogram
   int carry = 0;
   float l = 0.f;
   for (int top = M; top > 0; top -= kTableThreads) {
@@ -361,6 +375,21 @@ extern "C" int lda_hdp_hist_shared(int K, int M, int device) {
   return bytes <= max_optin_shared(device) ? 1 : 0;
 }
 
+// out: int32 [1], launch 1's blocks an SM in the instance at (K, M).
+extern "C" int lda_hdp_hist_blocks_per_sm(int K, int M, int shared,
+                                          int device, void* out) {
+  cudaSetDevice(device);
+  if (!shared)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        static_cast<int*>(out), hist_kernel<false>, kHistThreads, 0));
+  const int smem = 4 * K * M;
+  const cudaError_t err = cudaFuncSetAttribute(
+      hist_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      static_cast<int*>(out), hist_kernel<true>, kHistThreads, smem));
+}
+
 // ndk: int32 [D, K]; a_vec: f32 [K] or null (then a_scalar on every
 // topic); seed: int64 [1]; hist: int32 [K, M] scratch, zero on entry and
 // left zero; tables: f32 [K]; ge: int32 [K, M] or null. shared: 1 counts
@@ -400,11 +429,11 @@ extern "C" int lda_hdp_table_counts(const void* ndk, const void* a_vec,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tables_kernel<<<static_cast<unsigned>(K), kTableThreads, 0, st>>>(
+  return static_cast<int>(launch_dependent(
+      tables_kernel, static_cast<unsigned>(K), kTableThreads, st,
       static_cast<int*>(hist), static_cast<const float*>(a_vec), a_scalar,
       static_cast<const long long*>(seed), static_cast<float*>(tables),
-      static_cast<int*>(ge), K, M);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int*>(ge), K, M));
 }
 
 // tables: f32 [K]; nk: int32 [K] (null where births_mode is 0);

@@ -90,6 +90,7 @@ _SIGNATURES = {
     # hdp.cu
     "lda_binomial": [_c_ptr] * 4 + [_c_i64, _c_int, _c_ptr],
     "lda_hdp_hist_shared": [_c_int, _c_int, _c_int],
+    "lda_hdp_hist_blocks_per_sm": [_c_int] * 4 + [_c_ptr],
     "lda_hdp_table_counts": [_c_ptr, _c_ptr, _c_f32] + [_c_ptr] * 4
     + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
     "lda_hdp_psi": [_c_ptr] * 8 + [_c_int, _c_int, _c_int, _c_f32, _c_int,
@@ -104,6 +105,7 @@ _SIGNATURES = {
     "lda_pairwise_blocks_per_sm": [_c_int, _c_int, _c_ptr],
     # polya_urn.cu
     "lda_poisson": [_c_ptr] * 3 + [_c_i64, _c_int, _c_ptr],
+    "lda_polya_urn_geometry": [_c_i64, _c_int, _c_int, _c_ptr],
     "lda_polya_urn": [_c_ptr, _c_int, _c_f32] + [_c_ptr] * 5
     + [_c_i64, _c_int, _c_int, _c_ptr],
     # vs_dirichlet.cu

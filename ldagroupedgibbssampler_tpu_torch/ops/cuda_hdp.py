@@ -13,7 +13,9 @@ Poisson samplers of `csrc/discrete.cuh` and the Gamma draw of
 
   - `table_counts`: l_k = sum_j Binomial(#docs with n_dk >= j,
     a_k / (a_k + j - 1)), two launches (a [K, M] histogram of n_dk, then a
-    block a topic: the reverse scan, the p's, the draws, the sum);
+    block a topic: the reverse scan, the p's, the draws, the sum; the
+    second a programmatic dependent launch, scheduled while the first
+    runs);
   - `psi_step`: births, the active mask, psi (GEM or Poisson) and alpha,
     one launch of one block;
   - `binomial`: Binomial(n, p) elementwise, one launch.
@@ -36,6 +38,7 @@ syncs with the host (n_add stays on the device).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -263,6 +266,19 @@ def hist_instance(num_topics: int, max_count: int, device) -> str:
     histogram fits the opt-in shared memory, else "global"."""
     return ("shared" if _build.library().lda_hdp_hist_shared(
         num_topics, max_count, device.index) else "global")
+
+
+def hist_blocks_per_sm(num_topics: int, max_count: int, instance: str,
+                       device) -> int:
+    """The table counts' first launch's blocks an SM of `device` in the
+    instance at (K, M), from the CUDA occupancy calculator."""
+    dev = torch.device(device)
+    out = (ctypes.c_int * 1)()
+    err = _build.library().lda_hdp_hist_blocks_per_sm(
+        num_topics, max_count, int(instance == "shared"), dev.index or 0,
+        ctypes.addressof(out))
+    _build.check(err, "lda_hdp_hist_blocks_per_sm")
+    return out[0]
 
 
 def table_counts(ndk: torch.Tensor, a, max_count: int, seed: torch.Tensor,

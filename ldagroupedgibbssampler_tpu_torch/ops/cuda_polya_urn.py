@@ -9,9 +9,15 @@ where that is 0) and of its `poisson`. The kernels are `csrc/polya_urn.cu`
 Poisson sampler of `csrc/discrete.cuh`: inversion below lam = 10 (the cdf
 searched in f64 from one uniform), Hoermann's PTRS from 10 up, as
 `jax.random.poisson` splits them. `poisson` draws elementwise in one
-launch; `polya_urn` draws, sums and normalises rows in two (a block a
-2,048-value chunk of a row, then the divide), zeroing the rows of inactive
-topics (the HDP family's `active`) in the same pass.
+launch; `polya_urn` draws and normalises rows in two: a one-wave grid
+draws every value, the matrix's 32-column groups dealt to its blocks in
+turn (`urn_launch_shape`, `urn_deal`) so that a heavy row or a
+vocabulary's head spreads over all of them, the values whose count is an
+integer 0..9 drawn from a table of the inversion's cdf terms
+(`inversion_table`), the others queued for the sampler, and writes the
+counts with each group's sum; then a block a 2,048-value chunk of a row
+divides by the row's total. The rows of inactive topics (the HDP
+family's `active`) are zeroed and drawn nowhere.
 
 The random words: element e (its flat index) takes its round-r Philox
 block at counter (e << 24) | r under `seed`, an int64 [1] tensor on the
@@ -28,15 +34,21 @@ syncs with the host.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ldagroupedgibbssampler_tpu_torch.ops import _build
 from ldagroupedgibbssampler_tpu_torch.ops.cuda_gamma import _unit23
 from ldagroupedgibbssampler_tpu_torch.ops.philox import element_words
 
-CHUNK = 2048                 # values of a row a block of polya_urn draws
 INVERSION_BELOW = 10.0       # Poisson: inversion below, PTRS from here
 MAX_INVERSION = 256          # csrc/discrete.cuh's kMaxInversion
+# csrc/polya_urn.cu's rows
+TABLE_RATES = 10             # table rows: the counts 0..9 (kRates)
+TABLE_TERMS = 24             # cdf terms a row (kTab)
+U_MAX = 1.0 - 2.0 ** -24     # the largest uniform (unit23)
+URN_WARPS = 8                # warps of a block of the draw launch (kWarps)
 
 
 def _f32(c: float, like: torch.Tensor) -> torch.Tensor:
@@ -134,8 +146,88 @@ def polya_urn_reference(counts, beta: float, seed, active=None,
     return phi, (c == 0 if zero_mask else None)
 
 
+def inversion_table(beta: float, device=None) -> torch.Tensor:
+    """The rows' kernel's table, f64 [TABLE_RATES, TABLE_TERMS]: row c the
+    inversion's cdf terms s_0, s_1, .. at lam = f32(c) + beta, as
+    `poisson_reference` forms them (p = exp(-lam), then p lam / k added
+    term by term), up to the first term >= U_MAX and 2.0 after it; a row
+    whose rate is not in (0, 10) is all 2.0 (its counts are queued)."""
+    lam = (torch.arange(TABLE_RATES, dtype=torch.float32, device=device)
+           + beta).double()
+    tab = torch.full((TABLE_RATES, TABLE_TERMS), 2.0, dtype=torch.float64,
+                     device=device)
+    for c in range(TABLE_RATES):
+        lam_c = lam[c:c + 1]
+        if not 0.0 < float(lam_c) < INVERSION_BELOW:
+            continue
+        p = torch.exp(-lam_c)
+        s = p.clone()
+        tab[c, 0] = s[0]
+        for k in range(1, TABLE_TERMS):
+            if float(s) >= U_MAX:
+                break
+            p = p * lam_c / k
+            s = s + p
+            tab[c, k] = s[0]
+    return tab
+
+
+def table_classes(counts, beta: float) -> torch.Tensor:
+    """Each value's table row in the rows' kernel: its count where that
+    is an integer c = 0..9 with f32(c) + beta in (0, 10), else -1 (the
+    value is queued for the sampler)."""
+    c = torch.as_tensor(counts).to(torch.float32)
+    lam = c + beta
+    on = ((c >= 0) & (c < TABLE_RATES) & (c == torch.floor(c))
+          & (lam > 0) & (lam < INVERSION_BELOW))
+    return torch.where(on, c, -1.0).to(torch.int64)
+
+
+def table_search(table, classes, u) -> torch.Tensor:
+    """The kernel's search: the number of terms of row `classes` below
+    the uniform u (f64), TABLE_TERMS past the row, -1 where the class is
+    -1."""
+    rows = table[classes.clamp_min(0)]
+    m = (rows < u[..., None]).to(torch.int64).cumprod(-1).sum(-1)
+    return torch.where(classes >= 0, m, -1)
+
+
+def urn_launch_shape(rows: int, num_cols: int, sms: int,
+                     blocks_an_sm: int) -> int:
+    """The draw launch's blocks for `rows` rows of num_cols values, as
+    `lda_polya_urn_geometry` sizes them: one wave (`sms` times the blocks
+    an SM holds at the chosen chunk's shared memory), or fewer where the
+    rows have fewer 32-column groups than the wave has warps."""
+    groups = rows * -(-num_cols // 32)
+    return max(1, min(-(-groups // URN_WARPS), sms * blocks_an_sm))
+
+
+def urn_deal(rows: int, num_cols: int, blocks: int) -> torch.Tensor:
+    """Where the draw launch draws each 32-column group g of the rows (row
+    g // G, columns 32 (g % G) .., G = ceil(num_cols / 32)): int64 [groups,
+    3] of (block g % blocks, warp (g // blocks) % URN_WARPS, round g //
+    (blocks URN_WARPS))."""
+    g = torch.arange(rows * -(-num_cols // 32), dtype=torch.int64)
+    return torch.stack([g % blocks, (g // blocks) % URN_WARPS,
+                        g // (blocks * URN_WARPS)], dim=1)
+
+
 def _check_seed(seed, dev):
     _build.check_tensor("seed", seed, (1,), torch.int64, dev)
+
+
+def urn_occupancy(rows: int, num_cols: int, device) -> dict:
+    """The draw launch's geometry on `device` as `lda_polya_urn` launches
+    it: its blocks, rounds a chunk (a warp's groups drawn together) and
+    threads, the blocks an SM holds at that chunk's shared memory (the
+    CUDA occupancy calculator) and the SMs."""
+    out = (ctypes.c_int * 4)()
+    err = _build.library().lda_polya_urn_geometry(
+        rows, num_cols, torch.device(device).index or 0,
+        ctypes.addressof(out))
+    _build.check(err, "lda_polya_urn_geometry")
+    return {"blocks": out[0], "rounds": out[1], "threads": 32 * URN_WARPS,
+            "blocks_an_sm": out[2], "sms": out[3]}
 
 
 def poisson(lam: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
@@ -161,8 +253,9 @@ def polya_urn(counts: torch.Tensor, beta: float, seed: torch.Tensor,
               active: torch.Tensor | None = None, zero_mask: bool = False):
     """Polya-Urn rows over the last axis of counts (int32 counts, or
     floats), beta the prior; `active` (bool, one entry a row) zeroes the
-    rows of inactive topics. Returns (phi f32 of counts' shape, the bool
-    mask c == 0 where `zero_mask`, else None)."""
+    rows of inactive topics. Two launches (`urn_launch_shape`). Returns
+    (phi f32 of counts' shape, the bool mask c == 0 where `zero_mask`,
+    else None)."""
     if counts.device.type == "cpu":
         return polya_urn_reference(counts, beta, seed, active, zero_mask)
     lib = _build.library()
@@ -183,13 +276,13 @@ def polya_urn(counts: torch.Tensor, beta: float, seed: torch.Tensor,
             if zero_mask else None)
     if x.numel() == 0:
         return out, zero
-    partial = torch.empty((rows, -(-last // CHUNK)), dtype=torch.float64,
-                          device=dev)
+    gsum = torch.empty(rows * -(-last // 32), dtype=torch.float64,
+                       device=dev)
     err = lib.lda_polya_urn(
         x.data_ptr(), int(ints), float(beta),
         None if active is None else active.data_ptr(), seed.data_ptr(),
         out.data_ptr(), None if zero is None else zero.data_ptr(),
-        partial.data_ptr(), rows, last, dev.index, _build.stream(dev))
+        gsum.data_ptr(), rows, last, dev.index, _build.stream(dev))
     _build.check(err, "lda_polya_urn")
     polya_urn.launches += 2
     return out, zero

@@ -57,12 +57,14 @@ and
     without its draws and gathers); the pack at both K;
   - hdp: `[3 hdp]`'s operands (`chip_smoke.py::hdp_state` and
     `psi_operands` of this checkout): the table counts of a ppu_hdplda
-    K_max=100 chain after 10 iterations in both instances of the first
-    launch, psi on its tables, and psi at K_max=4096 (GEM with the
-    hdplda births, Poisson with the hlda ones);
+    K_max=100 chain after 10 iterations in both instances, psi on its
+    tables, and psi at K_max=4096 (GEM with the hdplda births, Poisson
+    with the hlda ones); and a single-stepped iteration of ppu_hdplda
+    K_max=100 after 2;
   - polya_urn: `[3 polya-urn]`'s rows, that chain's N_kw [100, V] with
-    and without its active mask and a uniform z's [200, V], and the
-    elementwise Poisson at its rates;
+    and without its active mask and a uniform z's [200, V], the
+    elementwise Poisson at its rates, and a single-stepped iteration of
+    polyaurn K=100 after 2;
   - vs_dirichlet: `[3 vs-dirichlet]`'s rows at [100, V] and [200, V],
     the previous phi a Polya-Urn draw, and a single-stepped nzvsspalias
     iteration at K=100 and K=200 (ms by CUDA events, the host's gaps
@@ -75,9 +77,12 @@ and
 The workers start together, so builds and set-up run in parallel; then
 each case is timed with `chip_smoke.time_ms`, one worker at a time, the
 names first to last and back, `--rounds` times, so each has as many early
-turns as late ones. Nothing is checked but that every call succeeds: a
-source whose results differ from the committed kernel's may be timed as
-well. A worker that fails to build, fails a call, or takes longer than
+turns as late ones. An iteration case (its name starts with "iteration")
+is timed by CUDA events with the host's gaps between launches included,
+and also profiled over 5 calls (`chip_smoke.profile_numbers`): its host
+wall and device busy ms a call. Nothing is checked but that every call
+succeeds: a source whose results differ from the committed kernel's may
+be timed as well. A worker that fails to build, fails a call, or takes longer than
 `--call-timeout` seconds is stopped and left out of the rest. Prints one
 line per case with each name's median and its samples, the card's name and
 power limit, and writes every sample to the --json file.
@@ -128,7 +133,8 @@ def build_source(src: str, out_dir: str) -> tuple[ctypes.CDLL, list[str]]:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     return lib, regs
 
 
@@ -371,7 +377,17 @@ def hdp_cases(torch, cs, corpus, LDAConfig, create_model):
             "psi K=4096 poisson": (psi, (t4, n4, a4, seed),
                                    dict(gamma=3.0, budget=32,
                                         births="lowest", sampler="poisson",
-                                        alpha0=0.5))}
+                                        alpha0=0.5)),
+            "iteration ppu_hdplda K=100": _iteration(
+                own, LDAConfig, create_model, corpus, "ppu_hdplda")}
+
+
+def _iteration(own, LDAConfig, create_model, corpus, scheme):
+    """A single-stepped iteration of `scheme` at K=100 after 2."""
+    chain = create_model(own.pcgs_config(LDAConfig, scheme, own.K))
+    chain.add_instances(corpus)
+    chain.sample(2)
+    return chain.sample, (1,), {}
 
 
 def polya_urn_cases(torch, cs, corpus, LDAConfig, create_model):
@@ -385,7 +401,9 @@ def polya_urn_cases(torch, cs, corpus, LDAConfig, create_model):
             "rows K=100 active": (fn, (st.nkw, 0.01, seed, st.active), {}),
             "rows K=200": (fn, (nkw200, 0.01, seed), {}),
             "poisson K=100": (cuda_polya_urn.poisson,
-                              (st.nkw.to(torch.float32) + 0.01, seed), {})}
+                              (st.nkw.to(torch.float32) + 0.01, seed), {}),
+            "iteration polyaurn K=100": _iteration(
+                own, LDAConfig, create_model, corpus, "polyaurn")}
 
 
 def vs_dirichlet_cases(torch, cs, corpus, LDAConfig, create_model):
@@ -467,7 +485,12 @@ def worker(kernel: str, root: str, source: str, out_dir: str) -> int:
         if not name:
             continue
         fn, args, kw = cases[name]
-        say({"ms": cs.time_ms(torch, lambda: fn(*args, **kw))})
+        msg = {"ms": cs.time_ms(torch, lambda: fn(*args, **kw))}
+        if name.startswith("iteration"):
+            wall, busy, _rows = cs.profile_numbers(
+                torch, lambda: [fn(*args, **kw) for _ in range(5)], 5)
+            msg |= {"wall_ms": wall, "device_ms": busy}
+        say(msg)
     return 0
 
 
@@ -510,8 +533,7 @@ class Worker:
     def ask(self, case):
         self.proc.stdin.write(case + "\n")
         self.proc.stdin.flush()
-        msg = self.read(self.call_timeout)
-        return None if msg is None else msg.get("ms")
+        return self.read(self.call_timeout)
 
     def stop(self):
         self.alive = False
@@ -595,24 +617,33 @@ def main(argv=None) -> int:
             for _ in range(args.rounds):
                 order += names + names[::-1]
             samples = {n: [] for n in names}
+            extra = {n: [] for n in names}
             for name in order:
                 w = workers[name]
                 if not w.alive:
                     continue
-                ms = w.ask(case)
-                if ms is None:
+                msg = w.ask(case)
+                if msg is None or "ms" not in msg:
                     print(f"[{case}] {name}: call failed; dropped",
                           flush=True)
                     w.stop()
                     continue
-                samples[name].append(ms)
+                samples[name].append(msg.pop("ms"))
+                if msg:
+                    extra[name].append(msg)
             med = {n: float(np.median(s)) for n, s in samples.items() if s}
+            prof = {n: {k: float(np.median([e[k] for e in x])) for k in x[0]}
+                    for n, x in extra.items() if x}
             print(f"[{args.kernel} {case}] " + "; ".join(
                 f"{n} {med[n]:.4f} ms "
                 f"({', '.join(f'{x:.4f}' for x in samples[n])})"
+                + (f" profiled: host wall {prof[n]['wall_ms']:.4f}, device "
+                   f"busy {prof[n]['device_ms']:.4f} ms a call"
+                   if n in prof else "")
                 for n in med) + f" | {smi}", flush=True)
             results.append({"case": case, "order": order,
-                            "samples": samples, "median_ms": med})
+                            "samples": samples, "median_ms": med,
+                            "profiled": prof})
     finally:
         for w in workers.values():
             w.stop()
