@@ -9,8 +9,8 @@ Run from the repository root on a machine with one CUDA card:
 (--parent: a checkout of another commit, e.g. the parent unpacked with
 `git archive`; `[3 alias-mh]`, `[3 hdp]`, `[3 polya-urn]`, `[3
 vs-dirichlet]` and `[3 pairwise]` then also time its z-step, its table
-counts, its Polya-Urn rows, its VS rows and its uber, ks, js and canberra
-kernels beside this checkout's, in turns, with
+counts, its Polya-Urn rows, its VS rows and its uber, ks, js, canberra,
+chebychev and jaccard kernels beside this checkout's, in turns, with
 tools/time_kernel_builds.py.)
 
 Phases (each prints one line; any failure raises and exits non-zero):
@@ -118,12 +118,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      100 (the 20NG test x train matrix), 512 x 512 x 4096, 301 x 203 x 37
      and edge rows (identical, disjoint, all-zero and tied pairs, a 1 x 1
      Distance.calculate), ks also on the early end's edge rows at K=100
-     and 4096, canberra and js also on rows that send some blocks off
-     their fast paths (a negative value, NaN, inf, 2^40) beside blocks
-     on them with subnormal values, and the scaled division (uber's and
+     and 4096, canberra, js, chebychev and jaccard also on rows that send
+     some blocks off their fast paths (a negative value, NaN, inf, 2^40)
+     beside blocks on them with subnormal values, chebychev and jaccard
+     also on rows with an inf at one coordinate of both (NaN where the
+     plain version has it), and the scaled division (uber's and
      canberra's) bit-equal to __fdiv_rn on every tame term; at the first
-     shape and on its first 256 rows (uber, ks, js and canberra also at
-     512 x 512 x 4096) each kernel's time alone and with its call, its
+     shape and on its first 256 rows (uber, ks, js, canberra, chebychev
+     and jaccard also at 512 x 512 x 4096) each kernel's time alone and
+     with its call, its
      plain version's, the torch.cdist time for manhattan and chebychev,
      the bound (ks's from the merge steps the rows need, js's closed form
      beside its logf a term), the peak memory a call adds, ptxas's
@@ -291,6 +294,7 @@ false or when the port's package is not beside it.
 
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import os
@@ -3846,7 +3850,19 @@ JS_OPS_LOGF = (12, 1)          # js before its closed form: logf a term
 KS_STEP_OPS = 6
 # the metrics whose kernels were redesigned, timed at (b) and against a
 # parent checkout (--parent)
-PAIRWISE_REDESIGNED = ("uber", "ks", "js", "canberra")
+PAIRWISE_REDESIGNED = ("uber", "ks", "js", "canberra", "chebychev",
+                       "jaccard")
+# chebychev's and jaccard's kernel (minmax_kernel): one FADD and one FMNMX
+# a term, so 2 issued instructions a term at 4 schedulers x 32 lanes a
+# clock an SM is its floor (FMNMX's 16-lane ALU gives the same), at the
+# 1.98 GHz of F32_OPS_PER_S
+MINMAX_INSTRUCTIONS = 2
+INSTRUCTIONS_PER_S = 132 * 128 * 1.98e9
+# SASS opcodes by pipe: Hopper's 16-lane ALU (two clocks a warp) and its
+# FMA pipes; the rest only take an issue slot
+SASS_ALU = ("FMNMX", "FSETP", "FSEL", "ISETP", "IADD3", "LOP3", "LEA",
+            "SHF", "SEL", "IMNMX", "PLOP3", "MOV")
+SASS_FMA = ("FADD", "FMUL", "FFMA", "IMAD")
 PAIRWISE_LIBRARY = {"manhattan": 1.0, "chebychev": float("inf")}
 PAIRWISE_JAX_LINE = {"js": 69, "manhattan": 113, "chebychev": 118,
                      "canberra": 123, "jaccard": 138, "ks": 169, "uber": 198}
@@ -3892,6 +3908,26 @@ def pairwise_off_path_rows(X, Y) -> tuple:
     X[101] = 0.0
     X[101, 1:5] = np.array([1e-40, 2e-40, 3e-39, 5e-41], np.float32)
     return X, Y
+
+
+def pairwise_inf_rows(X, Y) -> tuple:
+    """Copies of X and Y (numpy, K >= 8, M > 5, N > 9) with an inf at
+    coordinate 7 of x row 5 and of y row 9: |inf - inf| is NaN, so the
+    plain chebychev is NaN at (5, 9) and inf on the rest of x row 5 and y
+    column 9, and the plain jaccard NaN at (5, 9) (inf / inf) and 1 or 0
+    on the rest of them (off every fast path)."""
+    X, Y = X.copy(), Y.copy()
+    X[5, 7] = np.inf
+    Y[9, 7] = np.inf
+    return X, Y
+
+
+def pairwise_nan_cases(X, Y) -> dict:
+    """{label: (X, Y)} of the rows that hold NaN and inf values, cut from
+    X's first 301 rows and Y's first 203 (numpy)."""
+    X, Y = X[:301], Y[:203]
+    return {"off path": pairwise_off_path_rows(X, Y),
+            "inf pair": pairwise_inf_rows(X, Y)}
 
 
 def ks_end_rows(k: int) -> tuple:
@@ -3957,27 +3993,132 @@ def pairwise_plain(torch, name, X, Y):
     return distances.DISTANCES[name].tiled(X, Y)
 
 
-def pairwise_agree(torch, name, got, want, label) -> float:
-    """Hold a kernel's result to its plain version: chebychev and ks bit
-    for bit, the rest within PAIRWISE_TOL, NaN where the plain version has
-    it (uber's cosine of an all-zero row). Returns max |got - want| over
-    the finite entries."""
+def pairwise_mismatch(torch, name, got, want):
+    """None where a kernel's result agrees with its plain version (the
+    same shape, NaN and inf where the plain version has them; chebychev
+    and ks bit for bit on the other entries, the rest within
+    PAIRWISE_TOL), else what differs."""
+    if got.shape != want.shape:
+        return f"shape {tuple(got.shape)}, not {tuple(want.shape)}"
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        where = torch.nonzero(torch.isnan(got) != nan)[:4].tolist()
+        return (f"NaN at {int((torch.isnan(got) != nan).sum())} other "
+                f"entries than the plain version's, e.g. {where}: "
+                f"{[float(got[i, j]) for i, j in where]} against "
+                f"{[float(want[i, j]) for i, j in where]}")
     fin = torch.isfinite(want)
-    check(got.shape == want.shape
-          and torch.equal(torch.isfinite(got), fin),
-          f"[3 pairwise] {name} {label}: shape {tuple(got.shape)}, or "
-          "finite where the plain version is not")
+    if not torch.equal(torch.isfinite(got), fin):
+        return "finite where the plain version is not"
     err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
     if name in PAIRWISE_EXACT:
-        check(torch.equal(got, want), f"[3 pairwise] {name} {label}: not "
-              f"bit-equal to the plain version (max |diff| {err:.3g}, "
-              f"{int((got != want).sum())} entries)")
-    else:
-        check(torch.allclose(got, want, rtol=PAIRWISE_TOL,
-                             atol=PAIRWISE_TOL, equal_nan=True),
-              f"[3 pairwise] {name} {label}: max |diff| {err:.3g} against "
-              f"the plain version")
-    return err
+        if not torch.equal(got[~nan], want[~nan]):
+            return (f"not bit-equal to the plain version (max |diff| "
+                    f"{err:.3g}, {int((got != want)[~nan].sum())} entries)")
+    elif not torch.allclose(got, want, rtol=PAIRWISE_TOL,
+                            atol=PAIRWISE_TOL, equal_nan=True):
+        return f"max |diff| {err:.3g} against the plain version"
+    return None
+
+
+def pairwise_agree(torch, name, got, want, label) -> float:
+    """Hold a kernel's result to its plain version (pairwise_mismatch):
+    NaN and inf where the plain version has them (uber's cosine of an
+    all-zero row, a NaN or |inf - inf| in chebychev and jaccard),
+    chebychev and ks bit for bit on the other entries, the rest within
+    PAIRWISE_TOL. Returns max |got - want| over the finite entries."""
+    wrong = pairwise_mismatch(torch, name, got, want)
+    check(wrong is None, f"[3 pairwise] {name} {label}: {wrong}")
+    fin = torch.isfinite(want)
+    return float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def pairwise_nan_report(torch, dev="cuda") -> dict:
+    """chebychev's and jaccard's kernels against their plain versions on
+    pairwise_nan_cases of Dirichlet rows at K=100 and K=37: {"K=k label
+    name": what differs}, empty where all agree. Raises nothing, so that a
+    kernel that drops a NaN (the parent's fmaxf / fminf) can be shown."""
+    out = {}
+    for k in (K, 37):
+        X, Y = pairwise_rows(301, k, 1), pairwise_rows(203, k, 2)
+        for label, (Xo, Yo) in pairwise_nan_cases(X, Y).items():
+            Xo, Yo = (torch.as_tensor(a, device=dev) for a in (Xo, Yo))
+            for name in ("chebychev", "jaccard"):
+                wrong = pairwise_mismatch(
+                    torch, name, pairwise_call(torch, name, Xo, Yo),
+                    pairwise_plain(torch, name, Xo, Yo))
+                if wrong is not None:
+                    out[f"K={k} {label} {name}"] = wrong
+    return out
+
+
+@functools.cache
+def sass_listing(tool: str, library: str) -> tuple:
+    """The kernels' SASS listings of `library` by cuobjdump (`tool`), one
+    a kernel, each starting with its mangled name."""
+    return tuple(subprocess.run([tool, "-sass", library],
+                                capture_output=True, text=True, timeout=300,
+                                check=True).stdout.split("Function : ")[1:])
+
+
+def sass_hot_loop(_build, entry: str):
+    """Opcode counts of the hot loop of the first kernel whose mangled name
+    holds `entry`, in the built library's SASS (cuobjdump beside nvcc):
+    the span of a backward branch with the largest share of FMNMX (the
+    innermost loop over coordinates, not the loops around it). None where
+    the toolkit has no cuobjdump."""
+    import collections
+    import re
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    for func in sass_listing(tool, str(_build.library_path())):
+        if entry not in func.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), op, args) for a, op, args in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+            r"([^;]*);", func)]
+        best = None
+        for a, op, args in ins:
+            m = re.match(r"\s*(0x[0-9a-f]+)", args)
+            if op.split(".")[0] != "BRA" or not m or int(m.group(1), 16) > a:
+                continue
+            body = collections.Counter(o.split(".")[0] for b, o, _ in ins
+                                       if int(m.group(1), 16) <= b <= a)
+
+            def share(c):
+                return c["FMNMX"] / sum(c.values())
+            if body["FMNMX"] and (best is None or share(body) > share(best)):
+                best = body
+        return best
+    return None
+
+
+def minmax_floors(_build, m, n, k) -> dict:
+    """chebychev's and jaccard's instruction floors (ms) at (m, n, k):
+    MINMAX_INSTRUCTIONS instructions a term at INSTRUCTIONS_PER_S, and from the SASS of
+    each kernel's hot loop (sass_hot_loop, one FMNMX a term): the larger
+    of its instructions at one a clock and its ALU instructions at one
+    every two clocks, a warp and scheduler, with the loop's counts by
+    pipe; "not measured" without cuobjdump."""
+    terms = float(m) * n * k
+    out = {"issue_floor_ms": terms * MINMAX_INSTRUCTIONS / INSTRUCTIONS_PER_S * 1e3}
+    for name, entry in (("chebychev", "minmax_kernelILi1ELb1E"),
+                        ("jaccard", "minmax_kernelILi3ELb1E")):
+        body = sass_hot_loop(_build, entry)
+        if not body or not body["FMNMX"]:
+            out[name] = "not measured"
+            continue
+        total = sum(body.values())
+        alu = sum(body[o] for o in SASS_ALU)
+        fma = sum(body[o] for o in SASS_FMA)
+        clocks = max(total, 2 * alu)
+        out[name] = {
+            "terms": body["FMNMX"], "instructions": total, "alu": alu,
+            "fma": fma, "lds": body["LDS"],
+            "floor_ms": terms / 32 / body["FMNMX"] * clocks
+            / (132 * 4 * 1.98e9) * 1e3}
+    return out
 
 
 def pairwise_bound(name, m, n, k, ks_steps=None, sfu=None, ops=None):
@@ -4094,10 +4235,13 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     Distance.calculate; ks also equal to ks_merge_reference at (c), (d)
     and on ks_end_rows at K and at 4096 (the global-memory walk); uber
     also at (c) with a value of 2^40 (the unscaled path in the blocks that
-    hold it); canberra and js also on the first 301 x 203 rows of (a) and
-    on (c) with pairwise_off_path_rows (blocks off their fast paths beside
-    blocks on them with subnormal values); the scaled division bit-equal
-    to __fdiv_rn on every tame term of (a)-(d) and of those rows. At (a)
+    hold it); canberra, js, chebychev and jaccard also on the first 301 x
+    203 rows of (a) and on (c) with pairwise_off_path_rows (blocks off
+    their fast paths beside blocks on them with subnormal values),
+    chebychev and jaccard also with pairwise_inf_rows (an inf at one
+    coordinate of both rows), NaN where the plain version has it; the
+    scaled division bit-equal to __fdiv_rn on every tame term of (a)-(d)
+    and of the off-path rows. At (a)
     and on its first 256 rows: each kernel's time alone and with its call
     (ks's sort, uber's products), the plain version, the library call,
     the bound (ks's from the merge steps these rows need, beside the 2K
@@ -4106,9 +4250,10 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     a call adds (at most twice its output at (a); ks also its rows' sort;
     uber its three product matrices and their temporaries); the kernels
     of PAIRWISE_REDESIGNED timed at (b) too; ptxas's registers and
-    spills; the blocks an SM of uber's kernel and of the shared KS
-    kernel. With `parent` (a checkout), also those kernels' times of that
-    checkout and of this one at (a) and (b), in turns
+    spills; the blocks an SM of uber's kernel, of the shared KS kernel
+    and of chebychev's and jaccard's; their instruction floors at (a) and
+    (b) (minmax_floors). With `parent` (a checkout), also those kernels'
+    times of that checkout and of this one at (a) and (b), in turns
     (parent_times). Returns the two kernels-JSON entries
     (manhattan's numbers at (a) for the elementwise kernel, every metric
     under `metrics`)."""
@@ -4142,20 +4287,24 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
                     f"(c) {m}x{n}x{k} with a value of 2^40")
             del got, want
         if label in ("a", "c"):
-            # canberra's and js's blocks off their fast paths (a negative
-            # value, NaN, inf, 2^40) beside blocks on them with subnormal
-            # values, at K=100 (16-byte loads) and K=37
-            Xo, Yo = (torch.as_tensor(v, device=dev) for v in
-                      pairwise_off_path_rows(X[:301].cpu().numpy(),
-                                             Y[:203].cpu().numpy()))
-            for name in ("canberra", "js"):
-                errs[name][f"{label} off path"] = pairwise_agree(
-                    torch, name, pairwise_call(torch, name, Xo, Yo),
-                    pairwise_plain(torch, name, Xo, Yo),
-                    f"({label}) 301x203x{k} off the fast paths")
-            division[f"{label} off path"] = pairwise_division_check(
-                torch, cp, Xo, Yo, f"({label}) off the fast paths")
-            del Xo, Yo
+            # blocks off canberra's, js's and jaccard's fast paths (a
+            # negative value, NaN, inf, 2^40) beside blocks on them with
+            # subnormal values; chebychev and jaccard also with an inf at
+            # one coordinate of both rows; at K=100 (16-byte loads) and
+            # K=37: NaN where the plain version has it
+            for case, rows in pairwise_nan_cases(
+                    X.cpu().numpy(), Y.cpu().numpy()).items():
+                Xo, Yo = (torch.as_tensor(v, device=dev) for v in rows)
+                for name in (("canberra", "js") if case == "off path"
+                             else ()) + ("chebychev", "jaccard"):
+                    errs[name][f"{label} {case}"] = pairwise_agree(
+                        torch, name, pairwise_call(torch, name, Xo, Yo),
+                        pairwise_plain(torch, name, Xo, Yo),
+                        f"({label}) 301x203x{k} {case}")
+                if case == "off path":
+                    division[f"{label} off path"] = pairwise_division_check(
+                        torch, cp, Xo, Yo, f"({label}) off the fast paths")
+                del Xo, Yo
         if label == "a":
             for name in PAIRWISE_METRICS:
                 timing[name]["a"] = pairwise_timing(torch, name, X, Y)
@@ -4204,22 +4353,34 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
               f"[3 pairwise] {name} (a): a call adds "
               f"{a['peak_added_bytes']} B, above {limit}")
     elementwise_regs = ptxas_registers(_build, "pairwise_kernel")
-    for name in ("canberra", "js"):
+    minmax_regs = ptxas_registers(_build, "minmax_kernel")
+    for name, found in (("canberra", elementwise_regs),
+                        ("js", elementwise_regs),
+                        ("chebychev", minmax_regs), ("jaccard", minmax_regs)):
         for vec, kind in (("1", "16-byte loads"), ("0", "4-byte loads")):
             key = f"{cp.METRICS[name]},{vec}"
-            check(key in elementwise_regs, f"[3 pairwise] no ptxas line of "
+            check(key in found, f"[3 pairwise] no ptxas line of "
                   f"the {name} kernel with {kind}")
     regs = {**{f"metric,vec {key}": v for key, v in
                elementwise_regs.items()},
+            **{f"minmax metric,vec {key}": v for key, v in
+               minmax_regs.items()},
             **{f"uber vec {key}": v for key, v in
                ptxas_registers(_build, "uber_kernel").items()},
             **{f"ks shared {key}": v for key, v in
                ptxas_registers(_build, "ks_kernel").items()}}
-    uber_blocks, ks_blocks = cp.blocks_per_sm(K, dev)
+    uber_blocks, ks_blocks, cheb_blocks, jac_blocks = cp.blocks_per_sm(K,
+                                                                       dev)
     check(uber_blocks >= 2, f"[3 pairwise] uber's kernel: {uber_blocks} "
           "block(s) an SM, fewer than 2")
+    check(min(cheb_blocks, jac_blocks) >= 1, "[3 pairwise] the chebychev "
+          f"and jaccard kernels: {cheb_blocks} and {jac_blocks} blocks an SM")
     occupancy = {"uber blocks an SM": uber_blocks,
-                 f"ks shared blocks an SM at K={K}": ks_blocks}
+                 f"ks shared blocks an SM at K={K}": ks_blocks,
+                 "chebychev blocks an SM": cheb_blocks,
+                 "jaccard blocks an SM": jac_blocks}
+    floors = {"a": minmax_floors(_build, PAIRWISE_TEST, PAIRWISE_TRAIN, K),
+              "b": minmax_floors(_build, 512, 512, 4096)}
     parents = parent_times("pairwise", parent, [
         f"{name} {case}" for name in PAIRWISE_REDESIGNED
         for case in ("a", "K=4096")]) if parent else None
@@ -4246,7 +4407,10 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
           f"bit-equal to __fdiv_rn on {json.dumps(division)} terms; ptxas "
           f"(canberra {cp.METRICS['canberra']}, js {cp.METRICS['js']}) "
           f"{json.dumps(regs)}; "
-          f"{json.dumps(occupancy)}; parent and this checkout in turns "
+          f"{json.dumps(occupancy)}; chebychev's and jaccard's "
+          f"instruction floors (2 issued a term; from the SASS of the hot "
+          f"loop by pipe) {json.dumps(floors)}; parent and this checkout "
+          f"in turns "
           f"(ms, medians) {json.dumps(parents)}; {seconds:.1f} s",
           flush=True)
 
@@ -4267,6 +4431,7 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
                                 "max_abs_err": errs[m], **timing[m]}
                             for m in kernel},
                 "ptxas": regs, "occupancy": occupancy,
+                "minmax_floors": floors,
                 "division_terms_checked": division,
                 "parent_times": parents}
     elementwise = [m for m in PAIRWISE_METRICS if m != "ks"]

@@ -9,11 +9,15 @@ are `csrc/pairwise.cu` (its header gives each metric's arithmetic, what
 bounds it on the H100 and the design):
 
   - `pairwise_elementwise(metric, X, Y, parts=None)`: one launch of a
-    64 x 64 tile of pairs a block for `manhattan`, `chebychev`,
-    `canberra`, `jaccard` or `js` (a block whose values are all tame
-    takes canberra's scaled division or js's closed form, any other
-    the general terms), or of a 64 x 32 tile for `uber`, whose `parts` are
-    the exact products' (M, N) matrices (cosine, euclidean, kl): the
+    64 x 64 tile of pairs a block for `manhattan`, `canberra` or `js` (a
+    block whose values are all tame takes canberra's scaled division or
+    js's closed form, any other the general terms), of a 128 x 64 tile
+    for `chebychev` or `jaccard` (`minmax_launch_shape`; max.NaN and
+    min.NaN, so a NaN reaches the result as in the plain versions; a
+    jaccard block of finite values in [0, 2^32] sums only the minima and
+    takes the union from its rows' sums), or of a 64 x 32 tile for
+    `uber`, whose `parts` are the exact products' (M, N) matrices
+    (cosine, euclidean, kl): the
     launch adds them to its four elementwise parts in the plain version's
     order and divides by 7;
   - `pairwise_ks(X, Y)`: X's and Y's rows sorted along K by `torch.sort`,
@@ -241,16 +245,60 @@ def division_check(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return counts
 
 
-def blocks_per_sm(K: int, device) -> tuple[int, int]:
+def blocks_per_sm(K: int, device) -> tuple[int, int, int, int]:
     """(uber's kernel, the shared-memory KS kernel at this K, 0 above its
-    largest K): the blocks an SM of `device` can hold, from the CUDA
-    occupancy calculator."""
+    largest K, the chebychev and the jaccard kernel): the blocks an SM of
+    `device` can hold, from the CUDA occupancy calculator."""
     dev = torch.device(device)
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 4)()
     err = _build.library().lda_pairwise_blocks_per_sm(
         int(K), dev.index or 0, ctypes.addressof(out))
     _build.check(err, "lda_pairwise_blocks_per_sm")
-    return out[0], out[1]
+    return out[0], out[1], out[2], out[3]
+
+
+# csrc/pairwise.cu's minmax_kernel (chebychev, jaccard): 16 x 16 threads,
+# MINMAX_TM x rows and MINMAX_TN y rows a thread, a ring of MINMAX_STAGES
+# chunks of MINMAX_CHUNK coordinates (rows MINMAX_LD floats apart); where
+# the tiles fill at most half the SMs, a cluster of up to
+# MINMAX_MAX_SPLIT blocks (as many as fit one wave) splits each tile's
+# chunks
+MINMAX_TM, MINMAX_TN = 8, 4
+MINMAX_CHUNK = 32
+MINMAX_LD = MINMAX_CHUNK + 4
+MINMAX_STAGES = 3
+MINMAX_MAX_SPLIT = 4
+H100_SMS = 132
+
+
+def minmax_thread_rows(t: int, n: int) -> list[int]:
+    """The n rows of the block's tile that thread coordinate t (its ty for
+    its MINMAX_TM x rows, its tx for its MINMAX_TN y rows) takes: t, t +
+    16, t + 32, ..."""
+    return [t + 16 * i for i in range(n)]
+
+
+def minmax_launch_shape(M: int, N: int, K: int, sms: int = H100_SMS
+                        ) -> dict:
+    """The chebychev and jaccard kernel's launch at (M, N, K) on a card of
+    `sms` SMs: its grid (blocks along N, along M, and the K split along z,
+    one cluster a tile), threads, x and y rows a thread, the block's tile
+    of pairs, the lengths of its chunks (the last one runs to K), each
+    split's chunks [c0, c1) in rank order, and its dynamic shared memory
+    (the ring of chunks of the block's rows)."""
+    tm, tn = MINMAX_TM, MINMAX_TN
+    rows_m, rows_n = 16 * tm, 16 * tn
+    gx, gy = -(-N // rows_n), -(-M // rows_m)
+    chunks = [min(MINMAX_CHUNK, K - k0) for k0 in range(0, K, MINMAX_CHUNK)]
+    splits = min(max(sms // (gx * gy), 1), MINMAX_MAX_SPLIT, len(chunks))
+    n = len(chunks)
+    return {"grid": (gx, gy, splits), "threads": 256,
+            "thread_rows": (tm, tn), "tile": (rows_m, rows_n),
+            "chunks": chunks,
+            "split_chunks": [(q * n // splits, (q + 1) * n // splits)
+                             for q in range(splits)],
+            "shared_bytes": MINMAX_STAGES * (rows_m + rows_n) * MINMAX_LD
+            * 4}
 
 
 # launches of the kernels (added where they launch, nowhere else);

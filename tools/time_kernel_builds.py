@@ -73,7 +73,9 @@ and
     pairwise_rows` and `pairwise_kernel_fns` of this checkout: ks with its
     rows' sort, uber on its products computed beforehand), each of
     the seven metrics at the 20NG test x train shape (5,635 x 5,634 x 100)
-    and on its first 256 rows, and at 512 x 512 x 4096.
+    and on its first 256 rows, and at 512 x 512 x 4096; jaccard also at
+    the first shape with a negative value in every 64th row ("jaccard a
+    general": every block off its tame path).
 The workers start together, so builds and set-up run in parallel; then
 each case is timed with `chip_smoke.time_ms`, one worker at a time, the
 names first to last and back, `--rounds` times, so each has as many early
@@ -442,6 +444,13 @@ def pairwise_cases(torch, cs, corpus, LDAConfig, create_model):
         for name in own.PAIRWISE_METRICS:
             kernel, _ = own.pairwise_kernel_fns(torch, name, X, Y)
             out[f"{name} {label}"] = (kernel, (), {})
+        if label == "a":
+            # a negative value in every 64th row: every block of jaccard's
+            # kernel off its tame path
+            Xg = X.clone()
+            Xg[::64, 0] = -1e-3
+            out["jaccard a general"] = (
+                own.pairwise_kernel_fns(torch, "jaccard", Xg, Y)[0], (), {})
     return out
 
 
