@@ -9,8 +9,9 @@ Run from the repository root on a machine with one CUDA card:
 (--parent: a checkout of another commit, e.g. the parent unpacked with
 `git archive`; `[3 alias-mh]`, `[3 hdp]`, `[3 polya-urn]`, `[3
 vs-dirichlet]` and `[3 pairwise]` then also time its z-step, its table
-counts, its Polya-Urn rows, its VS rows and its uber, ks, js, canberra,
-chebychev and jaccard kernels beside this checkout's, in turns, with
+counts, psi and a single-stepped ppu_hdplda iteration, its Polya-Urn
+rows, its VS rows and its uber, ks, js, canberra, chebychev, jaccard and
+manhattan kernels beside this checkout's, in turns, with
 tools/time_kernel_builds.py.)
 
 Phases (each prints one line; any failure raises and exits non-zero):
@@ -95,8 +96,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      scratch left zero, the same at K=4096 (the global instance), the
      first launch's blocks an SM and ptxas's registers,
      psi on the chain's tables and, at K_max=4096 on synthetic inputs,
-     for every birth rule, psi sampler and index prior: births and the
-     active mask exact, psi and alpha within 1e-5; the elementwise
+     for every birth rule, psi sampler and index prior (and at K = 37,
+     700 and 5000 for three of them): births and the active mask exact,
+     psi and alpha within 1e-5, also as the table counts' dependent
+     launch at K=100 and 4096, its launch's geometry, and one HDP step
+     under the profiler (one randint; psi right after the table counts'
+     second launch on the stream); the elementwise
      Binomial kernel equal to its plain version and KS against
      torch.binomial; `[3 polya-urn]` (csrc/polya_urn.cu, two launches,
      the draws' 32-column groups dealt over a one-wave grid): the rows at
@@ -118,14 +123,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      100 (the 20NG test x train matrix), 512 x 512 x 4096, 301 x 203 x 37
      and edge rows (identical, disjoint, all-zero and tied pairs, a 1 x 1
      Distance.calculate), ks also on the early end's edge rows at K=100
-     and 4096, canberra, js, chebychev and jaccard also on rows that send
-     some blocks off their fast paths (a negative value, NaN, inf, 2^40)
-     beside blocks on them with subnormal values, chebychev and jaccard
-     also on rows with an inf at one coordinate of both (NaN where the
-     plain version has it), and the scaled division (uber's and
+     and 4096, canberra, js, manhattan, chebychev and jaccard also on rows
+     that send some blocks off their fast paths (a negative value, NaN,
+     inf, 2^40) beside blocks on them with subnormal values, manhattan,
+     chebychev and jaccard also on rows with an inf at one coordinate of
+     both (NaN where the plain version has it), manhattan bit-equal to
+     its two-level sum's emulation (unsplit at the first shape: the
+     parent kernel's sum), and the scaled division (uber's and
      canberra's) bit-equal to __fdiv_rn on every tame term; at the first
-     shape and on its first 256 rows (uber, ks, js, canberra, chebychev
-     and jaccard also at 512 x 512 x 4096) each kernel's time alone and
+     shape and on its first 256 rows (uber, ks, js, canberra, chebychev,
+     jaccard and manhattan also at 512 x 512 x 4096) each kernel's time
+     alone and
      with its call, its
      plain version's, the torch.cdist time for manhattan and chebychev,
      the bound (ks's from the merge steps the rows need, js's closed form
@@ -3094,6 +3102,8 @@ def alias_mh_phase(torch, corpus, Corpus, LDAConfig, create_model, cam, smi,
 
 HDP_STATE_ITERS = 10        # the ppu_hdplda chain [3 hdp] starts from
 HDP_PSI_K = 4096            # [3 hdp]'s synthetic psi inputs
+PSI_EXTRA_K = (37, 700, 5000)   # psi's geometry: one block; a cluster of
+                                # 2; of 8 with two chunks a block
 HDP_LARGE_K = 4096          # [3 hdp]'s table counts past shared memory
 # psi and alpha, kernel against plain: the Gamma draws' last bits and the
 # f64 scans taken in another order, each rounded once to f32
@@ -3282,9 +3292,11 @@ def psi_operands(torch, k, dev, seed=0):
 def psi_check(torch, cuda_hdp, tables, nk, active, seed, label, **kw):
     """The psi kernel against psi_reference on the same words: the active
     mask and the births exact, psi and alpha within PSI_RTOL (relative,
-    zeros exact), psi summing to 1 within 1e-5. Returns (the largest
-    relative difference, the births)."""
+    zeros exact), psi summing to 1 within 1e-5. `dependent` (in kw) goes
+    to the kernel only. Returns (the largest relative difference, the
+    births)."""
     got = cuda_hdp.psi_step(tables, nk, active, seed, **kw)
+    kw.pop("dependent", None)
     want = cuda_hdp.psi_reference(tables, nk, active, seed, **kw)
     torch.cuda.synchronize()
     check(torch.equal(got[1], want[1]) and torch.equal(got[3], want[3]),
@@ -3302,6 +3314,37 @@ def psi_check(torch, cuda_hdp, tables, nk, active, seed, label, **kw):
     total = float(got[0].sum())
     check(abs(total - 1.0) <= 1e-5, f"{label}: psi sums to {total}")
     return rel, int(got[3].sum())
+
+
+def hdp_step_trace(torch, model) -> dict:
+    """One HDP step after the sweep (`_kernel_after_sweep` on the chain's
+    state) under torch.profiler: its `aten::randint` calls, the kernels
+    it launched in the order they started (each with its start and end
+    in us from the first one's start), and whether psi_kernel started
+    right after tables_kernel (no launch between them on the stream)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    st = model.state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model._kernel_after_sweep(st, st.ndk, st.nkw, st.nk)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+    tables = [i for i, n in enumerate(names) if "tables_kernel" in n]
+    return {"randint": sum(e.name == "aten::randint" for e in events),
+            "kernels": [[re.sub(r"\(.*", "", e.name.replace(
+                "(anonymous namespace)::", ""))[-40:],
+                round(e.time_range.start - kernels[0].time_range.start, 1),
+                round(e.time_range.end - kernels[0].time_range.start, 1)]
+                for e in kernels],
+            "psi_follows_tables": bool(tables) and tables[-1] + 1 < len(names)
+            and "psi_kernel" in names[tables[-1] + 1]}
 
 
 def ks_against(torch, mine, library) -> float:
@@ -3334,7 +3377,11 @@ def hdp_phase(torch, corpus, model, rnd, smi, _build, parent=None):
     (models/hdp.py::doc_count_ge_histogram); the same at K=HDP_LARGE_K
     (the global instance) on a uniform z's n_dk; the psi kernel
     on that chain's tables against its plain version; on synthetic inputs
-    at K_max=4096 every birth rule x psi sampler x index prior (psi_check).
+    at K_max=4096 every birth rule x psi sampler x index prior (psi_check),
+    and at PSI_EXTRA_K three of them (one block; clusters of 2 and 8);
+    psi as the table counts' dependent launch at K=100 and 4096; one HDP
+    step after the sweep under the profiler (hdp_step_trace: one
+    `randint`, psi_kernel right after tables_kernel on the stream).
     The elementwise Binomial kernel equal to its plain version, and KS
     against torch.binomial at BINOMIAL_KS. Times by CUDA events beside the
     plain versions, the eager path they replaced and the bound; ptxas's
@@ -3402,8 +3449,9 @@ def hdp_phase(torch, corpus, model, rnd, smi, _build, parent=None):
                  for inst in ("shared", "global")}
     regs = {name: ptxas_registers(_build, name)
             for name in ("hist_kernel", "tables_kernel")}
-    parents = parent_times("hdp", parent, ["tables K=100",
-                                           "tables K=100 global"]) \
+    parents = parent_times("hdp", parent, [
+        "tables K=100", "tables K=100 global", "psi K=100", "psi K=4096 gem",
+        "psi K=4096 poisson", "iteration ppu_hdplda K=100"]) \
         if parent else None
     tab_plain_ms = once_ms(torch, lambda: cuda_hdp.table_counts_reference(
         ndk, alpha, m, seed))
@@ -3456,6 +3504,31 @@ def hdp_phase(torch, corpus, model, rnd, smi, _build, parent=None):
     psi4096_plain_ms = once_ms(torch, lambda: cuda_hdp.psi_reference(
         t4, n4, a4, seed, gamma=3.0, budget=32, births="candidates",
         sampler="gem", alpha0=0.5))
+    # the launch's geometry at other K (slices of a cluster, one chunk or
+    # more), and psi as the dependent of the table counts' second launch
+    for k in PSI_EXTRA_K:
+        tk_, nk_, ak_ = psi_operands(torch, k, dev, seed=k)
+        for births, sampler in (("candidates", "gem"), ("lowest", "poisson"),
+                                ("lowest", "gem")):
+            r, _ = psi_check(torch, cuda_hdp, tk_, nk_, ak_, seed,
+                             f"[3 hdp] psi K={k} {births} {sampler}",
+                             gamma=3.0, budget=32, births=births,
+                             sampler=sampler, alpha0=0.5)
+            rel4096 = max(rel4096, r)
+    tables = cuda_hdp.table_counts(ndk, alpha, m, seed)
+    rel_dep, _ = psi_check(torch, cuda_hdp, tables, st.nk, st.active, seed,
+                           "[3 hdp] psi K=100 dependent", dependent=True,
+                           **kw)
+    # a cluster of 8 as the dependent: the table counts at K=4096
+    tables = cuda_hdp.table_counts(large_ndk, large_alpha, large_m, seed)
+    r, _ = psi_check(torch, cuda_hdp, tables, n4, a4, seed,
+                     f"[3 hdp] psi K={HDP_PSI_K} dependent", dependent=True,
+                     gamma=3.0, budget=32, births="candidates",
+                     sampler="gem", alpha0=0.5)
+    rel_dep = max(rel_dep, r)
+    step_trace = hdp_step_trace(torch, model)
+    check(step_trace["randint"] == 1 and step_trace["psi_follows_tables"],
+          f"[3 hdp] the HDP step: {json.dumps(step_trace)}")
     # the elementwise Binomial: plain-version agreement, KS, time
     n_all = torch.cat([torch.full((DRAW_KS,), float(n)) for n, _ in
                        BINOMIAL_KS]).to(dev)
@@ -3494,7 +3567,12 @@ def hdp_phase(torch, corpus, model, rnd, smi, _build, parent=None):
           f"{rel100:.2g} of the plain version, births and active exact, "
           f"{psi_ms:.4f} ms (1 launch), plain {psi_plain_ms:.2f} ms, eager "
           f"path (births + GEM + alpha) {psi_eager_ms:.4f} ms, bound "
-          f"{psi_bound:.5f} ms ({psi_by})", flush=True)
+          f"{psi_bound:.5f} ms ({psi_by}); as the table counts' dependent "
+          f"within {rel_dep:.2g}; psi launches "
+          f"{json.dumps({k: cuda_hdp.psi_launch_shape(k) for k in (K, HDP_PSI_K)})}"
+          f"; ptxas psi_kernel "
+          f"{json.dumps(ptxas_registers(_build, 'psi_kernel'))}; the HDP "
+          f"step by the profiler {json.dumps(step_trace)}", flush=True)
     print(f"[3 hdp] table counts at K={HDP_LARGE_K} (uniform z, n_dk up to "
           f"{int(large_ndk.max())}, M={large_m}, global instance) equal "
           f"to the plain version, ge to the eager path, scratch left zero; "
@@ -3504,8 +3582,9 @@ def hdp_phase(torch, corpus, model, rnd, smi, _build, parent=None):
           f"medians) {json.dumps(parents)}", flush=True)
     print(f"[3 hdp] K_max={HDP_PSI_K} synthetic: psi kernel against the "
           f"plain version for {len(PSI_CASES)} cases (birth rules x "
-          f"samplers x index priors): births and active exact, psi and "
-          f"alpha within {rel4096:.2g} (bar {PSI_RTOL}), births "
+          f"samplers x index priors; and at K={list(PSI_EXTRA_K)}): births "
+          f"and active exact, psi and alpha within {rel4096:.2g} (bar "
+          f"{PSI_RTOL}), births "
           f"{json.dumps(born)}; gem {psi4096_ms['gem']:.4f} ms, poisson "
           f"{psi4096_ms['poisson']:.4f} ms, plain {psi4096_plain_ms:.2f} ms; "
           f"Binomial kernel equal to its plain version on {got.numel()} "
@@ -3532,7 +3611,8 @@ def hdp_phase(torch, corpus, model, rnd, smi, _build, parent=None):
         "ms": psi_ms, "plain_ms": psi_plain_ms, "eager_ms": psi_eager_ms,
         "bound_ms": psi_bound, "bound_by": psi_by, "library_ms": None,
         "k4096": {"ms": psi4096_ms, "plain_ms": psi4096_plain_ms,
-                  "births": born}}
+                  "births": born},
+        "launch": cuda_hdp.psi_launch_shape(K), "step_trace": step_trace}
     return tab_entry, psi_entry
 
 
@@ -3851,11 +3931,11 @@ KS_STEP_OPS = 6
 # the metrics whose kernels were redesigned, timed at (b) and against a
 # parent checkout (--parent)
 PAIRWISE_REDESIGNED = ("uber", "ks", "js", "canberra", "chebychev",
-                       "jaccard")
-# chebychev's and jaccard's kernel (minmax_kernel): one FADD and one FMNMX
-# a term, so 2 issued instructions a term at 4 schedulers x 32 lanes a
-# clock an SM is its floor (FMNMX's 16-lane ALU gives the same), at the
-# 1.98 GHz of F32_OPS_PER_S
+                       "jaccard", "manhattan")
+# manhattan's, chebychev's and jaccard's kernel (minmax_kernel): two FADDs,
+# or one FADD and one FMNMX, a term, so 2 issued instructions a term at 4
+# schedulers x 32 lanes a clock an SM is its floor (FMNMX's 16-lane ALU
+# gives the same), at the 1.98 GHz of F32_OPS_PER_S
 MINMAX_INSTRUCTIONS = 2
 INSTRUCTIONS_PER_S = 132 * 128 * 1.98e9
 # SASS opcodes by pipe: Hopper's 16-lane ALU (two clocks a warp) and its
@@ -4033,17 +4113,21 @@ def pairwise_agree(torch, name, got, want, label) -> float:
     return float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
 
 
+PAIRWISE_NAN_METRICS = ("manhattan", "chebychev", "jaccard")
+
+
 def pairwise_nan_report(torch, dev="cuda") -> dict:
-    """chebychev's and jaccard's kernels against their plain versions on
-    pairwise_nan_cases of Dirichlet rows at K=100 and K=37: {"K=k label
-    name": what differs}, empty where all agree. Raises nothing, so that a
-    kernel that drops a NaN (the parent's fmaxf / fminf) can be shown."""
+    """manhattan's, chebychev's and jaccard's kernels against their plain
+    versions on pairwise_nan_cases of Dirichlet rows at K=100 and K=37:
+    {"K=k label name": what differs}, empty where all agree. Raises
+    nothing, so that a kernel that drops a NaN (the parent's fmaxf /
+    fminf) can be shown."""
     out = {}
     for k in (K, 37):
         X, Y = pairwise_rows(301, k, 1), pairwise_rows(203, k, 2)
         for label, (Xo, Yo) in pairwise_nan_cases(X, Y).items():
             Xo, Yo = (torch.as_tensor(a, device=dev) for a in (Xo, Yo))
-            for name in ("chebychev", "jaccard"):
+            for name in PAIRWISE_NAN_METRICS:
                 wrong = pairwise_mismatch(
                     torch, name, pairwise_call(torch, name, Xo, Yo),
                     pairwise_plain(torch, name, Xo, Yo))
@@ -4061,12 +4145,13 @@ def sass_listing(tool: str, library: str) -> tuple:
                                 check=True).stdout.split("Function : ")[1:])
 
 
-def sass_hot_loop(_build, entry: str):
+def sass_hot_loop(_build, entry: str, op: str = "FMNMX"):
     """Opcode counts of the hot loop of the first kernel whose mangled name
     holds `entry`, in the built library's SASS (cuobjdump beside nvcc):
-    the span of a backward branch with the largest share of FMNMX (the
-    innermost loop over coordinates, not the loops around it). None where
-    the toolkit has no cuobjdump."""
+    the span of a backward branch with the largest share of `op` (FMNMX
+    for chebychev and jaccard, FADD for manhattan: the innermost loop over
+    coordinates, not the loops around it). None where the toolkit has no
+    cuobjdump."""
     import collections
     import re
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -4075,49 +4160,77 @@ def sass_hot_loop(_build, entry: str):
     for func in sass_listing(tool, str(_build.library_path())):
         if entry not in func.split("\n", 1)[0]:
             continue
-        ins = [(int(a, 16), op, args) for a, op, args in re.findall(
+        ins = [(int(a, 16), o, args) for a, o, args in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
             r"([^;]*);", func)]
         best = None
-        for a, op, args in ins:
+        for a, opcode, args in ins:
             m = re.match(r"\s*(0x[0-9a-f]+)", args)
-            if op.split(".")[0] != "BRA" or not m or int(m.group(1), 16) > a:
+            if (opcode.split(".")[0] != "BRA" or not m
+                    or int(m.group(1), 16) > a):
                 continue
             body = collections.Counter(o.split(".")[0] for b, o, _ in ins
                                        if int(m.group(1), 16) <= b <= a)
 
             def share(c):
-                return c["FMNMX"] / sum(c.values())
-            if body["FMNMX"] and (best is None or share(body) > share(best)):
+                return c[op] / sum(c.values())
+            if body[op] and (best is None or share(body) > share(best)):
                 best = body
         return best
     return None
 
 
 def minmax_floors(_build, m, n, k) -> dict:
-    """chebychev's and jaccard's instruction floors (ms) at (m, n, k):
-    MINMAX_INSTRUCTIONS instructions a term at INSTRUCTIONS_PER_S, and from the SASS of
-    each kernel's hot loop (sass_hot_loop, one FMNMX a term): the larger
-    of its instructions at one a clock and its ALU instructions at one
-    every two clocks, a warp and scheduler, with the loop's counts by
+    """manhattan's, chebychev's and jaccard's instruction floors (ms) at
+    (m, n, k): MINMAX_INSTRUCTIONS instructions a term at
+    INSTRUCTIONS_PER_S, and from the SASS of each kernel's hot loop
+    (sass_hot_loop; a term is one FMNMX, or two FADDs for manhattan): the
+    larger of its instructions at one a clock and its ALU instructions at
+    one every two clocks, a warp and scheduler, with the loop's counts by
     pipe; "not measured" without cuobjdump."""
     terms = float(m) * n * k
-    out = {"issue_floor_ms": terms * MINMAX_INSTRUCTIONS / INSTRUCTIONS_PER_S * 1e3}
-    for name, entry in (("chebychev", "minmax_kernelILi1ELb1E"),
-                        ("jaccard", "minmax_kernelILi3ELb1E")):
-        body = sass_hot_loop(_build, entry)
-        if not body or not body["FMNMX"]:
+    out = {"issue_floor_ms":
+           terms * MINMAX_INSTRUCTIONS / INSTRUCTIONS_PER_S * 1e3}
+    for name, entry, op, per_term in (
+            ("chebychev", "minmax_kernelILi1ELb1E", "FMNMX", 1),
+            ("jaccard", "minmax_kernelILi3ELb1E", "FMNMX", 1),
+            ("manhattan", "minmax_kernelILi0ELb1E", "FADD", 2)):
+        body = sass_hot_loop(_build, entry, op)
+        if not body or body[op] < per_term:
             out[name] = "not measured"
             continue
         total = sum(body.values())
         alu = sum(body[o] for o in SASS_ALU)
         fma = sum(body[o] for o in SASS_FMA)
         clocks = max(total, 2 * alu)
+        loop_terms = body[op] // per_term
         out[name] = {
-            "terms": body["FMNMX"], "instructions": total, "alu": alu,
+            "terms": loop_terms, "instructions": total, "alu": alu,
             "fma": fma, "lds": body["LDS"],
-            "floor_ms": terms / 32 / body["FMNMX"] * clocks
+            "floor_ms": terms / 32 / loop_terms * clocks
             / (132 * 4 * 1.98e9) * 1e3}
+    return out
+
+
+def manhattan_emulation(torch, X, Y, splits=((0, None),)):
+    """The manhattan kernel's sum in float32 on X's device, operation by
+    operation: |x - y| summed in order into a fresh partial a chunk of
+    MINMAX_CHUNK coordinates (the last to K), each partial added to its
+    split's total, the splits' totals (chunks [c0, c1) each) added in rank
+    order. Without a split, the parent kernel's padded sum bit for bit
+    (its padding added +0 to partials >= 0)."""
+    from ldagroupedgibbssampler_tpu_torch.ops import cuda_pairwise as cp
+    k, chunk = X.shape[1], cp.MINMAX_CHUNK
+    out = None
+    for c0, c1 in splits:
+        total = torch.zeros((X.shape[0], Y.shape[0]), device=X.device)
+        end = k if c1 is None else min(c1 * chunk, k)
+        for c in range(c0 * chunk, end, chunk):
+            part = torch.zeros_like(total)
+            for kk in range(c, min(c + chunk, k)):
+                part += (X[:, kk, None] - Y[None, :, kk]).abs()
+            total += part
+        out = total if out is None else out + total
     return out
 
 
@@ -4238,8 +4351,10 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     hold it); canberra, js, chebychev and jaccard also on the first 301 x
     203 rows of (a) and on (c) with pairwise_off_path_rows (blocks off
     their fast paths beside blocks on them with subnormal values),
-    chebychev and jaccard also with pairwise_inf_rows (an inf at one
-    coordinate of both rows), NaN where the plain version has it; the
+    manhattan, chebychev and jaccard also with pairwise_inf_rows (an inf
+    at one coordinate of both rows), NaN where the plain version has it;
+    manhattan bit-equal to manhattan_emulation at (a), unsplit (the
+    parent kernel's sum), and at (c), split; the
     scaled division bit-equal to __fdiv_rn on every tame term of (a)-(d)
     and of the off-path rows. At (a)
     and on its first 256 rows: each kernel's time alone and with its call
@@ -4251,8 +4366,8 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     uber its three product matrices and their temporaries); the kernels
     of PAIRWISE_REDESIGNED timed at (b) too; ptxas's registers and
     spills; the blocks an SM of uber's kernel, of the shared KS kernel
-    and of chebychev's and jaccard's; their instruction floors at (a) and
-    (b) (minmax_floors). With `parent` (a checkout), also those kernels'
+    and of manhattan's, chebychev's and jaccard's; their instruction
+    floors at (a) and (b) (minmax_floors). With `parent` (a checkout), also those kernels'
     times of that checkout and of this one at (a) and (b), in turns
     (parent_times). Returns the two kernels-JSON entries
     (manhattan's numbers at (a) for the elementwise kernel, every metric
@@ -4263,6 +4378,7 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     errs = {name: {} for name in PAIRWISE_METRICS}
     timing = {name: {} for name in PAIRWISE_METRICS}
     division = {}
+    manhattan_exact = {}
     for label, m, n, k in PAIRWISE_SHAPES:
         X = torch.as_tensor(pairwise_rows(m, k, 1), device=dev)
         Y = torch.as_tensor(pairwise_rows(n, k, 2), device=dev)
@@ -4273,6 +4389,17 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
             want = pairwise_plain(torch, name, X, Y)
             errs[name][label] = pairwise_agree(torch, name, got, want,
                                                f"({label}) {m}x{n}x{k}")
+            if name == "manhattan" and label in ("a", "c"):
+                # bit-equal to its sum's emulation: unsplit at (a), the
+                # parent kernel's sum; split at (c)
+                splits = cp.minmax_launch_shape(m, n, k)["split_chunks"]
+                emu = manhattan_emulation(torch, X, Y, splits)
+                check(torch.equal(got, emu), f"[3 pairwise] manhattan "
+                      f"({label}): not bit-equal to its two-level sum in "
+                      f"{len(splits)} split(s) on "
+                      f"{int((got != emu).sum())} entries")
+                manhattan_exact[label] = len(splits)
+                del emu
             if name == "ks" and label == "c":
                 check(torch.equal(got, cp.ks_merge_reference(X, Y)),
                       "[3 pairwise] ks (c): not ks_merge_reference's")
@@ -4296,7 +4423,7 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
                     X.cpu().numpy(), Y.cpu().numpy()).items():
                 Xo, Yo = (torch.as_tensor(v, device=dev) for v in rows)
                 for name in (("canberra", "js") if case == "off path"
-                             else ()) + ("chebychev", "jaccard"):
+                             else ()) + PAIRWISE_NAN_METRICS:
                     errs[name][f"{label} {case}"] = pairwise_agree(
                         torch, name, pairwise_call(torch, name, Xo, Yo),
                         pairwise_plain(torch, name, Xo, Yo),
@@ -4356,7 +4483,8 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
     minmax_regs = ptxas_registers(_build, "minmax_kernel")
     for name, found in (("canberra", elementwise_regs),
                         ("js", elementwise_regs),
-                        ("chebychev", minmax_regs), ("jaccard", minmax_regs)):
+                        ("chebychev", minmax_regs), ("jaccard", minmax_regs),
+                        ("manhattan", minmax_regs)):
         for vec, kind in (("1", "16-byte loads"), ("0", "4-byte loads")):
             key = f"{cp.METRICS[name]},{vec}"
             check(key in found, f"[3 pairwise] no ptxas line of "
@@ -4369,16 +4497,18 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
                ptxas_registers(_build, "uber_kernel").items()},
             **{f"ks shared {key}": v for key, v in
                ptxas_registers(_build, "ks_kernel").items()}}
-    uber_blocks, ks_blocks, cheb_blocks, jac_blocks = cp.blocks_per_sm(K,
-                                                                       dev)
+    uber_blocks, ks_blocks, cheb_blocks, jac_blocks, man_blocks = \
+        cp.blocks_per_sm(K, dev)
     check(uber_blocks >= 2, f"[3 pairwise] uber's kernel: {uber_blocks} "
           "block(s) an SM, fewer than 2")
-    check(min(cheb_blocks, jac_blocks) >= 1, "[3 pairwise] the chebychev "
-          f"and jaccard kernels: {cheb_blocks} and {jac_blocks} blocks an SM")
+    check(min(cheb_blocks, jac_blocks, man_blocks) >= 1, "[3 pairwise] the "
+          f"chebychev, jaccard and manhattan kernels: {cheb_blocks}, "
+          f"{jac_blocks} and {man_blocks} blocks an SM")
     occupancy = {"uber blocks an SM": uber_blocks,
                  f"ks shared blocks an SM at K={K}": ks_blocks,
                  "chebychev blocks an SM": cheb_blocks,
-                 "jaccard blocks an SM": jac_blocks}
+                 "jaccard blocks an SM": jac_blocks,
+                 "manhattan blocks an SM": man_blocks}
     floors = {"a": minmax_floors(_build, PAIRWISE_TEST, PAIRWISE_TRAIN, K),
               "b": minmax_floors(_build, 512, 512, 4096)}
     parents = parent_times("pairwise", parent, [
@@ -4404,12 +4534,18 @@ def pairwise_phase(torch, _build, smi, dev="cuda", parent=None):
           f"{json.dumps({n: short(t['block']) for n, t in timing.items()})}"
           f"; at (b) {json.dumps(at_b)}"
           f"; the scaled division (uber's and canberra's tame blocks) "
-          f"bit-equal to __fdiv_rn on {json.dumps(division)} terms; ptxas "
-          f"(canberra {cp.METRICS['canberra']}, js {cp.METRICS['js']}) "
+          f"bit-equal to __fdiv_rn on {json.dumps(division)} terms; "
+          f"manhattan bit-equal to its two-level sum (splits "
+          f"{json.dumps(manhattan_exact)}; unsplit, the parent kernel's "
+          f"sum); ptxas (canberra {cp.METRICS['canberra']}, js "
+          f"{cp.METRICS['js']}; minmax: manhattan "
+          f"{cp.METRICS['manhattan']}, chebychev "
+          f"{cp.METRICS['chebychev']}, jaccard {cp.METRICS['jaccard']}) "
           f"{json.dumps(regs)}; "
-          f"{json.dumps(occupancy)}; chebychev's and jaccard's "
-          f"instruction floors (2 issued a term; from the SASS of the hot "
-          f"loop by pipe) {json.dumps(floors)}; parent and this checkout "
+          f"{json.dumps(occupancy)}; manhattan's, chebychev's and "
+          f"jaccard's instruction floors (2 issued a term; from the SASS "
+          f"of the hot loop by pipe) {json.dumps(floors)}; parent and "
+          f"this checkout "
           f"in turns "
           f"(ms, medians) {json.dumps(parents)}; {seconds:.1f} s",
           flush=True)

@@ -32,20 +32,34 @@
 //   wave) and wait in `griddepcontrol.wait` until launch 1 has finished
 //   and its writes are visible, so the second launch's latency overlaps
 //   the first launch's work.
-// Psi, one launch of one block (`lda_hdp_psi`), looping over K in chunks:
+// Psi, one launch (`lda_hdp_psi`): a thread-block cluster of S =
+// min(8, ceil(K / 512)) blocks, each taking P = ceil(K / S) topics with
+// the least power of two of threads from 128 to 1024 that gives two a
+// topic (K = 100: one block of 256; K = 4096: 8 blocks of 1024). After
+// the table counts it is their second launch's programmatic dependent
+// (`tables_kernel` allows it at its start): the births, which read only
+// nk, the active mask and the seed, run before `wait_for_prerequisite`
+// and write nothing to device memory, since the table counts may still
+// read theirs.
 //   births: n_add ~ Poisson(gamma) (element 1); for hdplda `budget`
 //     candidates (element 2 + c, word x of block 0): geometric,
 //     clip(floor(log u / log1p(-1 / (1 + gamma))), 0, K - 1), or uniform,
-//     the high word of u32 K; the first min(n_add, budget) counted into
-//     births. For hlda the min(n_add, budget) lowest-indexed slots not in
-//     the data are born (a block scan of their ranks).
+//     the high word of u32 K; the first min(n_add, budget) kept in shared
+//     memory, and after the wait each topic counts its own. For hlda the
+//     min(n_add, budget) lowest-indexed slots not in the data are born:
+//     block scans of the free slots up to the slice's end find the index
+//     past the take-th, below which each free slot is born.
 //   active: (active & n_k > 0) | births > 0 (hdplda, hlda); unchanged
 //     (all topics).
 //   psi, GEM: nu_k ~ Beta(1 + l_k, gamma + sum_{j>k} l_j + 1e-30) as two
 //     Marsaglia Gamma draws (csrc/marsaglia.cuh, gamma.cu's values: flat
-//     element k and K + k), clipped to [1e-7, 1 - 1e-7]; the exclusive
-//     scan of log1p(-nu) in f64; psi_k = exp(log nu_k + that), normalised
-//     by its f64 total. Poisson: eta_k = Poisson(l_k) (element 2 + budget
+//     element k and K + k) on two threads, clipped to [1e-7, 1 - 1e-7];
+//     the sum above a block's slice by a block reduction (integers: exact
+//     in any order); the exclusive scan of log1p(-nu) in f64, each block
+//     starting at the slices below it (their totals added in rank order
+//     through distributed shared memory); psi_k = exp(log nu_k + that),
+//     normalised by the f64 total, the slices' totals added in rank order
+//     by every block. Poisson: eta_k = Poisson(l_k) (element 2 + budget
 //     + k) + births_k, psi = eta / sum eta, 1/K everywhere if that is 0.
 //   alpha = alpha0 psi active.
 // Counters: the Gamma draws take gamma.cu's 8 i + r (< 2^24 for K < 2^20),
@@ -64,8 +78,10 @@
 // memory but the scratch histogram, and never syncs with the host (n_add
 // stays on the device).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "dependent_launch.cuh"
@@ -78,7 +94,11 @@ constexpr int kHistThreads = 512;
 constexpr int kHistBlocks = 264;       // two a streaming multiprocessor:
                                        // one wave
 constexpr int kTableThreads = 256;
-constexpr int kPsiThreads = 1024;
+constexpr int kPsiMinThreads = 128;    // psi: threads a block, at least
+constexpr int kPsiMaxThreads = 1024;   // and at most
+constexpr int kPsiSlice = 512;         // topics a block of a cluster, up to
+                                       // kPsiMaxBlocks blocks
+constexpr int kPsiMaxBlocks = 8;       // a portable cluster
 constexpr int kBirthsNone = 0, kBirthsCandidates = 1, kBirthsLowest = 2;
 
 // Exclusive scan of v over the block (blockDim.x == kT) and the block's
@@ -166,6 +186,7 @@ __global__ void __launch_bounds__(kTableThreads)
   const int k = blockIdx.x;
   const float a = a_vec != nullptr ? a_vec[k] : a_scalar;
   const unsigned long long key = static_cast<unsigned long long>(seed[0]);
+  allow_dependent_launch();                         // psi's births
   wait_for_prerequisite();                          // launch 1's histogram
   int carry = 0;
   float l = 0.f;
@@ -228,22 +249,40 @@ struct PsiArgs {
   float gamma, log1m_p, alpha0;
 };
 
-__global__ void __launch_bounds__(kPsiThreads) psi_kernel(PsiArgs g) {
-  __shared__ int warp_i[kPsiThreads / 32];
-  __shared__ double warp_d[kPsiThreads / 32];
-  __shared__ int n_add_s;
+// The psi step of the cluster's slice of topics (see the header). kT
+// threads a block; the cluster's S blocks take [rank P, rank P + P), P =
+// ceil(K / S). Nothing is written to device memory before
+// wait_for_prerequisite(): a dependent launch may start while the table
+// counts still run and still read their operands.
+template <int kT>
+__global__ void __launch_bounds__(kT) psi_kernel(PsiArgs g) {
+  namespace cg = cooperative_groups;
+  extern __shared__ int cand_s[];          // [budget]: candidates mode
+  __shared__ int warp_i[kT / 32];
+  __shared__ double warp_d[kT / 32];
+  __shared__ float a2_s[kT / 2], g2_s[kT / 2];
+  __shared__ int take_s, limit_s;
+  __shared__ double slice_s[2], carry_s[2];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int K = g.K, tid = threadIdx.x;
+  const int per = (K + ranks - 1) / ranks;
+  const int b0 = min(K, rank * per), b1 = min(K, b0 + per);
   const unsigned long long key = static_cast<unsigned long long>(g.seed[0]);
-  for (int k = tid; k < K; k += kPsiThreads) g.births[k] = 0;
-  if (tid == 0)
-    n_add_s = g.births_mode == kBirthsNone
-                  ? 0
-                  : static_cast<int>(poisson_draw(key, 1, g.gamma));
+  // births: n_add, then the candidates (hdplda) or the index past the
+  // take-th slot not in the data (hlda); they read nk, active and the seed
+  if (tid == 0) {
+    const int n_add = g.births_mode == kBirthsNone
+                          ? 0
+                          : static_cast<int>(poisson_draw(key, 1, g.gamma));
+    take_s = min(n_add, g.budget);
+    limit_s = take_s > 0 ? K : 0;
+  }
   __syncthreads();
-  const int take = min(n_add_s, g.budget);
-  // births and the active mask
+  const int take = take_s;
   if (g.births_mode == kBirthsCandidates) {
-    for (int c = tid; c < take; c += kPsiThreads) {
+    for (int c = tid; c < take; c += kT) {
       const unsigned w = draw_block(key, 2 + c, 0).x;
       int cand;
       if (g.geometric) {
@@ -254,88 +293,144 @@ __global__ void __launch_bounds__(kPsiThreads) psi_kernel(PsiArgs g) {
       } else {
         cand = static_cast<int>(__umulhi(w, static_cast<unsigned>(K)));
       }
-      atomicAdd(g.births + cand, 1);
+      cand_s[c] = cand;
     }
-    __syncthreads();
-    for (int k = tid; k < K; k += kPsiThreads)
-      g.active_out[k] = (g.active_in[k] && g.nk[k] > 0) || g.births[k] > 0;
   } else if (g.births_mode == kBirthsLowest) {
+    // the slots below b1 suffice: those of this slice are born where they
+    // lie before the take-th free slot
     int carry = 0;
-    for (int k0 = 0; k0 < K; k0 += kPsiThreads) {
+    for (int k0 = 0; k0 < b1 && carry < take; k0 += kT) {
       const int k = k0 + tid;
-      const bool in_data = k < K && g.active_in[k] && g.nk[k] > 0;
-      const int free = k < K && !in_data;
+      const int free = k < K && !(g.active_in[k] && g.nk[k] > 0);
       int total;
-      const int rank = carry + block_exclusive_scan<kPsiThreads>(
-                                   free, warp_i, &total);
+      const int r = carry + block_exclusive_scan<kT>(free, warp_i, &total);
+      if (free && r == take - 1) limit_s = k + 1;
       carry += total;
-      if (k < K) {
-        const bool born = free && rank < take;
-        g.births[k] = born;
-        g.active_out[k] = in_data || born;
-      }
     }
-  } else {
-    for (int k = tid; k < K; k += kPsiThreads) g.active_out[k] = g.active_in[k];
   }
   __syncthreads();
-  // psi, unnormalised, into g.psi; its f64 total
-  double total = 0.0;
+  wait_for_prerequisite();                         // the table counts
+  // the slice's births and active mask (each thread's topics b0 + tid +
+  // i kT, the same in every loop below)
+  for (int k = b0 + tid; k < b1; k += kT) {
+    int born = 0;
+    bool act;
+    if (g.births_mode == kBirthsCandidates) {
+      for (int c = 0; c < take; ++c) born += cand_s[c] == k;
+      act = (g.active_in[k] && g.nk[k] > 0) || born > 0;
+    } else if (g.births_mode == kBirthsLowest) {
+      const bool in_data = g.active_in[k] && g.nk[k] > 0;
+      born = !in_data && k < limit_s;
+      act = in_data || born;
+    } else {
+      act = g.active_in[k];
+    }
+    g.births[k] = born;
+    g.active_out[k] = act;
+  }
+  // psi, unnormalised, into g.psi; the slice's f64 total
+  double part = 0.0;
   if (g.gem) {
-    // sticks from the top topic down: rest_k = sum_{j > k} l_j; nu_k kept
-    // in g.psi, log1p(-nu_k) in g.alpha until the forward scan
-    double above = 0.0;
-    for (int top = K - 1; top >= 0; top -= kPsiThreads) {
-      const int k = top - tid;
-      const double l = k >= 0 ? static_cast<double>(g.tables[k]) : 0.0;
+    // sticks from the top topic down, a topic's two Gamma draws on two
+    // threads (j of each half): rest_k = sum_{j > k} l_j (integers below
+    // 2^53: exact in any order); nu_k kept in g.psi, log1p(-nu_k) in
+    // g.alpha until the forward scan
+    constexpr int kHalf = kT / 2;
+    const int j = tid % kHalf, h = tid / kHalf;
+    double above = 0.0, log1m = 0.0;
+    if (b1 < K) {
+      double v = 0.0;
+      for (int k = b1 + tid; k < K; k += kT)
+        v += static_cast<double>(g.tables[k]);
+      block_exclusive_scan<kT>(v, warp_d, &above);
+    }
+    for (int top = b1 - 1; top >= b0; top -= kHalf) {
+      const int k = top - j;
+      const bool mine = k >= b0;
+      const float lk = mine ? g.tables[k] : 0.f;
       double chunk;
-      const double rest = above + block_exclusive_scan<kPsiThreads>(
-                                      l, warp_d, &chunk);
+      const double rest =
+          above + block_exclusive_scan<kT>(
+                      h == 0 && mine ? static_cast<double>(lk) : 0.0,
+                      warp_d, &chunk);
       above += chunk;
-      if (k < 0) continue;
-      const float lk = g.tables[k];
-      const float a1 = __fadd_rn(1.f, lk);
-      const float a2 = __fadd_rn(
-          __fadd_rn(g.gamma, fmaxf(static_cast<float>(rest), 0.f)),
-          LDA_F32(1e-30));
-      const float g1 = gamma_draw(key, k, a1);
-      const float g2 = gamma_draw(key, static_cast<long long>(K) + k, a2);
-      float nu = __fdiv_rn(g1, fmaxf(__fadd_rn(g1, g2), kFloor));
-      nu = fminf(fmaxf(nu, LDA_F32(1e-7)), LDA_F32(1.0 - 1e-7));
-      g.psi[k] = nu;
-      g.alpha[k] = log1pf(-nu);
+      if (h == 0 && mine)
+        a2_s[j] = __fadd_rn(
+            __fadd_rn(g.gamma, fmaxf(static_cast<float>(rest), 0.f)),
+            LDA_F32(1e-30));
+      __syncthreads();
+      float draw = 0.f;
+      if (mine)
+        draw = h == 0 ? gamma_draw(key, k, __fadd_rn(1.f, lk))
+                      : gamma_draw(key, static_cast<long long>(K) + k,
+                                   a2_s[j]);
+      if (h == 1 && mine) g2_s[j] = draw;
+      __syncthreads();
+      if (h == 0 && mine) {
+        float nu = __fdiv_rn(draw, fmaxf(__fadd_rn(draw, g2_s[j]), kFloor));
+        nu = fminf(fmaxf(nu, LDA_F32(1e-7)), LDA_F32(1.0 - 1e-7));
+        const float lm = log1pf(-nu);
+        g.psi[k] = nu;
+        g.alpha[k] = lm;
+        log1m += lm;
+      }
+    }
+    // the forward scan starts at the sum of log1p(-nu) of the slices
+    // below, in rank order
+    double before = 0.0;
+    if (ranks > 1) {
+      double slice;
+      block_exclusive_scan<kT>(log1m, warp_d, &slice);
+      if (tid == 0) slice_s[0] = slice;
+      cluster.sync();
+      if (tid == 0) {
+        double c = 0.0;
+        for (int q = 0; q < rank; ++q)
+          c += *cluster.map_shared_rank(slice_s, q);
+        carry_s[0] = c;
+      }
     }
     __syncthreads();
-    double before = 0.0, part = 0.0;
-    for (int k0 = 0; k0 < K; k0 += kPsiThreads) {
+    if (ranks > 1) before = carry_s[0];
+    for (int k0 = b0; k0 < b1; k0 += kT) {
       const int k = k0 + tid;
-      const double lm = k < K ? static_cast<double>(g.alpha[k]) : 0.0;
+      const double lm = k < b1 ? static_cast<double>(g.alpha[k]) : 0.0;
       double chunk;
-      const double ex = before + block_exclusive_scan<kPsiThreads>(
-                                     lm, warp_d, &chunk);
+      const double ex = before + block_exclusive_scan<kT>(lm, warp_d, &chunk);
       before += chunk;
-      if (k >= K) continue;
-      const float raw = expf(__fadd_rn(logf(g.psi[k]), static_cast<float>(ex)));
+      if (k >= b1) continue;
+      const float raw =
+          expf(__fadd_rn(logf(g.psi[k]), static_cast<float>(ex)));
       g.psi[k] = raw;
       part += raw;
     }
-    total = part;
   } else {
-    double part = 0.0;
-    for (int k = tid; k < K; k += kPsiThreads) {
+    for (int k = b0 + tid; k < b1; k += kT) {
       const float eta = __fadd_rn(
           poisson_draw(key, 2ull + g.budget + k, g.tables[k]),
           static_cast<float>(g.births[k]));
       g.psi[k] = eta;
       part += eta;
     }
-    total = part;
   }
   double sum;
-  block_exclusive_scan<kPsiThreads>(total, warp_d, &sum);
+  block_exclusive_scan<kT>(part, warp_d, &sum);
+  if (ranks > 1) {
+    // every block adds the slices' totals in rank order: the same total
+    if (tid == 0) slice_s[1] = sum;
+    cluster.sync();
+    if (tid == 0) {
+      double t = 0.0;
+      for (int q = 0; q < ranks; ++q)
+        t += cluster.map_shared_rank(slice_s, q)[1];
+      carry_s[1] = t;
+    }
+    cluster.sync();                    // no block leaves while read
+    sum = carry_s[1];
+  }
   const float total_f = static_cast<float>(sum);
   const float uniform = LDA_F32(1.0 / K);
-  for (int k = tid; k < K; k += kPsiThreads) {
+  for (int k = b0 + tid; k < b1; k += kT) {
     float psi;
     if (g.gem)
       psi = static_cast<float>(static_cast<double>(g.psi[k]) / sum);
@@ -345,6 +440,33 @@ __global__ void __launch_bounds__(kPsiThreads) psi_kernel(PsiArgs g) {
     g.alpha[k] = __fmul_rn(__fmul_rn(g.alpha0, psi),
                            g.active_out[k] ? 1.f : 0.f);
   }
+}
+
+// The psi launch's geometry at K (ops/cuda_hdp.py::psi_launch_shape):
+// blocks of a cluster, each taking ceil(K / blocks) topics, and threads a
+// block, two a topic up to kPsiMaxThreads.
+struct PsiShape {
+  int blocks, threads;
+};
+
+PsiShape psi_shape(int K) {
+  const int blocks = std::min(kPsiMaxBlocks, (K + kPsiSlice - 1) / kPsiSlice);
+  const int per = (K + blocks - 1) / blocks;
+  int threads = kPsiMinThreads;
+  while (threads < 2 * per && threads < kPsiMaxThreads) threads *= 2;
+  return {blocks, threads};
+}
+
+template <int kT>
+cudaError_t launch_psi(const PsiArgs& args, int blocks, int smem,
+                       bool dependent, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        psi_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  return launch_ex(psi_kernel<kT>, static_cast<unsigned>(blocks), kT,
+                   static_cast<unsigned>(blocks), smem, dependent, st, args);
 }
 
 int max_optin_shared(int device) {
@@ -441,17 +563,24 @@ extern "C" int lda_hdp_table_counts(const void* ndk, const void* a_vec,
 // births: int32 [K]. births_mode 0 none (all topics), 1 candidates
 // (hdplda; geometric 1 with log1m_p = f32(log1p(-1 / (1 + gamma))), or
 // uniform), 2 the lowest slots not in the data (hlda); gem 1 the GEM
-// sticks, 0 the Poisson psi.
+// sticks, 0 the Poisson psi. dependent 1: a programmatic dependent launch
+// of the stream's previous launch, which must write none of nk,
+// active_in and seed (the births read them before the wait): the table
+// counts' second.
 extern "C" int lda_hdp_psi(const void* tables, const void* nk,
                            const void* active_in, const void* seed, void* psi,
                            void* active_out, void* alpha, void* births, int K,
                            int births_mode, int gem, float gamma, int budget,
                            int geometric, float log1m_p, float alpha0,
-                           int device, void* stream) {
+                           int dependent, int device, void* stream) {
   cudaSetDevice(device);
   if (K <= 0) return static_cast<int>(cudaGetLastError());
   if (K >= (1 << 20) || budget < 0 || births_mode < 0 || births_mode > 2
       || (births_mode != kBirthsNone && nk == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the candidates' list; past the opt-in shared memory, refused
+  const long long list = births_mode == kBirthsCandidates ? 4LL * budget : 0;
+  if (list > max_optin_shared(device) - 16 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   PsiArgs args{static_cast<const float*>(tables),
                static_cast<const int*>(nk),
@@ -463,6 +592,23 @@ extern "C" int lda_hdp_psi(const void* tables, const void* nk,
                static_cast<int*>(births),
                K, births_mode, gem, budget, geometric,
                gamma, log1m_p, alpha0};
-  psi_kernel<<<1, kPsiThreads, 0, static_cast<cudaStream_t>(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  const PsiShape shape = psi_shape(K);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(list);
+  cudaError_t err;
+  switch (shape.threads) {
+    case 128:
+      err = launch_psi<128>(args, shape.blocks, smem, dependent, st);
+      break;
+    case 256:
+      err = launch_psi<256>(args, shape.blocks, smem, dependent, st);
+      break;
+    case 512:
+      err = launch_psi<512>(args, shape.blocks, smem, dependent, st);
+      break;
+    default:
+      err = launch_psi<kPsiMaxThreads>(args, shape.blocks, smem, dependent,
+                                       st);
+  }
+  return static_cast<int>(err);
 }

@@ -38,10 +38,11 @@ does not change the chain. One iteration:
 
 On the card, steps 2-5 are the hand-written kernels of `ops/cuda_hdp.py`
 (csrc/hdp.cu: the table counts in two launches; births, the active mask,
-psi and alpha in one) and `ops/cuda_polya_urn.py` (csrc/polya_urn.cu: the
+psi and alpha in one, a programmatic dependent launch of the table
+counts' second) and `ops/cuda_polya_urn.py` (csrc/polya_urn.cu: the
 Polya-Urn rows with the inactive rows zeroed, two launches), each keyed by
-one int64 drawn from the chain's generator (`ops/random.py::kernel_seed`);
-on the CPU they are the plain PyTorch functions below, drawing from the
+one int64 of three drawn in one launch from the chain's generator
+(`ops/random.py::kernel_seeds`); on the CPU they are the plain PyTorch functions below, drawing from the
 generator. Nothing in `_step` reads a value back to the host;
 `post_iteration` reads n_k once an iteration for the active-topic
 statistics, as the JAX class does.
@@ -300,24 +301,27 @@ class PoissonPolyaUrnHDPLDAInfiniteTopics(FusedPCGSSweepMixin,
 
     def _kernel_after_sweep(self, state: HDPState, ndk, nkw, nk):
         """Steps 2-5 on the card: the table counts (two launches), births,
-        the active mask, psi and alpha (one), the Polya-Urn phi with the
-        inactive rows zeroed (two), each from its own kernel seed. Sets
-        tables, psi, active, alpha and phi of `state`."""
+        the active mask, psi and alpha (one, a programmatic dependent of
+        the table counts' second), the Polya-Urn phi with the inactive
+        rows zeroed (two), each from its own kernel seed, the three drawn
+        in one launch. Sets tables, psi, active, alpha and phi of
+        `state`."""
         cfg, gen, dev = self.config, self.generator, self.device
         if self._table_hist is None:
             self._table_hist = torch.zeros((cfg.topics, self._max_count),
                                            dtype=torch.int32, device=dev)
+        seeds = rnd.kernel_seeds(gen, dev, 3)
         tables = cuda_hdp.table_counts(ndk, self._table_concentration(state),
-                                       self._max_count,
-                                       rnd.kernel_seed(gen, dev),
+                                       self._max_count, seeds[0:1],
                                        hist=self._table_hist)
         psi, active, alpha, _births = cuda_hdp.psi_step(
-            tables, nk, state.active, rnd.kernel_seed(gen, dev),
+            tables, nk, state.active, seeds[1:2],
             gamma=cfg.hdp_gamma, budget=cfg.hdp_birth_budget,
             births=self.birth_rule, sampler=self._psi_sampler_name(),
-            dist=cfg.hdp_gamma_dist, alpha0=float(cfg.alpha))
+            dist=cfg.hdp_gamma_dist, alpha0=float(cfg.alpha),
+            dependent=True)
         phi, _zero = cuda_polya_urn.polya_urn(
-            nkw, float(cfg.beta), rnd.kernel_seed(gen, dev),
+            nkw, float(cfg.beta), seeds[2:3],
             active=active if self.use_active_mask else None)
         state.phi, state.psi, state.tables, state.active = (phi, psi,
                                                             tables, active)

@@ -94,7 +94,8 @@ _SIGNATURES = {
     "lda_hdp_table_counts": [_c_ptr, _c_ptr, _c_f32] + [_c_ptr] * 4
     + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
     "lda_hdp_psi": [_c_ptr] * 8 + [_c_int, _c_int, _c_int, _c_f32, _c_int,
-                                   _c_int, _c_f32, _c_f32, _c_int, _c_ptr],
+                                   _c_int, _c_f32, _c_f32, _c_int, _c_int,
+                                   _c_ptr],
     # pairwise.cu
     "lda_pairwise_elementwise": [_c_ptr] * 6 + [_c_i64, _c_i64, _c_int,
                                                 _c_int, _c_int, _c_ptr],

@@ -17,7 +17,10 @@ Poisson samplers of `csrc/discrete.cuh` and the Gamma draw of
     second a programmatic dependent launch, scheduled while the first
     runs);
   - `psi_step`: births, the active mask, psi (GEM or Poisson) and alpha,
-    one launch of one block;
+    one launch of a cluster of up to 8 blocks sized to K
+    (`psi_launch_shape`); after `table_counts` (`dependent=True`) a
+    programmatic dependent launch of its second, whose births run while
+    the table counts do;
   - `binomial`: Binomial(n, p) elementwise, one launch.
 
 The random words: Binomial draw j of topic k is element k M + j - 1, so
@@ -436,18 +439,43 @@ def _gamma_at(a, key, base):
     return cuda_gamma.mt_boost(a, out, key, base)
 
 
+# csrc/hdp.cu's psi launch: a cluster of up to PSI_MAX_BLOCKS blocks of
+# PSI_SLICE topics or more, PSI_MIN_THREADS to PSI_MAX_THREADS threads a
+# block (a power of two), two a topic where they reach
+PSI_MIN_THREADS, PSI_MAX_THREADS = 128, 1024
+PSI_SLICE = 512
+PSI_MAX_BLOCKS = 8
+
+
+def psi_launch_shape(num_topics: int) -> dict:
+    """The psi kernel's launch at K = num_topics: its blocks (one cluster),
+    threads a block, and each block's topics [b0, b1) in rank order."""
+    k = int(num_topics)
+    blocks = min(PSI_MAX_BLOCKS, -(-k // PSI_SLICE))
+    per = -(-k // blocks)
+    threads = PSI_MIN_THREADS
+    while threads < 2 * per and threads < PSI_MAX_THREADS:
+        threads *= 2
+    return {"blocks": blocks, "threads": threads,
+            "slices": [(min(k, b * per), min(k, b * per + per))
+                       for b in range(blocks)]}
+
+
 def psi_step(tables: torch.Tensor, nk: torch.Tensor | None,
              active: torch.Tensor, seed: torch.Tensor, *, gamma: float,
              budget: int, births: str, sampler: str,
-             dist: str = "geometric", alpha0: float = 1.0):
+             dist: str = "geometric", alpha0: float = 1.0,
+             dependent: bool = False):
     """Births, the active mask, psi and alpha = alpha0 psi active from the
     table counts, in one launch. tables: f32 [K]; nk: int32 [K] (may be
     None where births is "none"); active: bool [K]; seed: int64 [1].
     births: "none" (all topics), "candidates" (hdplda: n_add ~
     Poisson(gamma) indices from the `dist` prior, at most `budget`) or
     "lowest" (hlda: the n_add lowest slots not in the data); sampler:
-    "gem" or "poisson". Returns (psi f32, active bool, alpha f32, births
-    int32), each [K]."""
+    "gem" or "poisson". `dependent`: launched as a programmatic dependent
+    of the stream's previous launch, which must be `table_counts`' second
+    (the births read nk, active and seed before waiting for it). Returns
+    (psi f32, active bool, alpha f32, births int32), each [K]."""
     _check_options(births, sampler, dist)
     if nk is None and births != "none":
         raise ValueError(f"births {births!r} needs the topic totals nk")
@@ -475,8 +503,8 @@ def psi_step(tables: torch.Tensor, nk: torch.Tensor | None,
         active.data_ptr(), seed.data_ptr(), psi.data_ptr(),
         active_out.data_ptr(), alpha.data_ptr(), born.data_ptr(), k,
         BIRTHS[births], int(sampler == "gem"), float(gamma), int(budget),
-        int(dist == "geometric"), _log1m_p(gamma), float(alpha0), dev.index,
-        _build.stream(dev))
+        int(dist == "geometric"), _log1m_p(gamma), float(alpha0),
+        int(dependent), dev.index, _build.stream(dev))
     _build.check(err, "lda_hdp_psi")
     psi_step.launches += 1
     return psi, active_out, alpha, born

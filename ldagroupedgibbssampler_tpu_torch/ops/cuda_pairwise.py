@@ -9,13 +9,14 @@ are `csrc/pairwise.cu` (its header gives each metric's arithmetic, what
 bounds it on the H100 and the design):
 
   - `pairwise_elementwise(metric, X, Y, parts=None)`: one launch of a
-    64 x 64 tile of pairs a block for `manhattan`, `canberra` or `js` (a
-    block whose values are all tame takes canberra's scaled division or
-    js's closed form, any other the general terms), of a 128 x 64 tile
-    for `chebychev` or `jaccard` (`minmax_launch_shape`; max.NaN and
-    min.NaN, so a NaN reaches the result as in the plain versions; a
-    jaccard block of finite values in [0, 2^32] sums only the minima and
-    takes the union from its rows' sums), or of a 64 x 32 tile for
+    64 x 64 tile of pairs a block for `canberra` or `js` (a block whose
+    values are all tame takes canberra's scaled division or js's closed
+    form, any other the general terms), of a 128 x 64 tile for
+    `manhattan`, `chebychev` or `jaccard` (`minmax_launch_shape`; a NaN
+    reaches the result as in the plain versions, through max.NaN and
+    min.NaN for the last two; a jaccard block of finite values in [0,
+    2^32] sums only the minima and takes the union from its rows' sums),
+    or of a 64 x 32 tile for
     `uber`, whose `parts` are the exact products' (M, N) matrices
     (cosine, euclidean, kl): the
     launch adds them to its four elementwise parts in the plain version's
@@ -245,22 +246,23 @@ def division_check(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return counts
 
 
-def blocks_per_sm(K: int, device) -> tuple[int, int, int, int]:
+def blocks_per_sm(K: int, device) -> tuple[int, int, int, int, int]:
     """(uber's kernel, the shared-memory KS kernel at this K, 0 above its
-    largest K, the chebychev and the jaccard kernel): the blocks an SM of
-    `device` can hold, from the CUDA occupancy calculator."""
+    largest K, the chebychev, the jaccard and the manhattan kernel): the
+    blocks an SM of `device` can hold, from the CUDA occupancy
+    calculator."""
     dev = torch.device(device)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     err = _build.library().lda_pairwise_blocks_per_sm(
         int(K), dev.index or 0, ctypes.addressof(out))
     _build.check(err, "lda_pairwise_blocks_per_sm")
-    return out[0], out[1], out[2], out[3]
+    return tuple(out)
 
 
-# csrc/pairwise.cu's minmax_kernel (chebychev, jaccard): 16 x 16 threads,
-# MINMAX_TM x rows and MINMAX_TN y rows a thread, a ring of MINMAX_STAGES
-# chunks of MINMAX_CHUNK coordinates (rows MINMAX_LD floats apart); where
-# the tiles fill at most half the SMs, a cluster of up to
+# csrc/pairwise.cu's minmax_kernel (manhattan, chebychev, jaccard): 16 x
+# 16 threads, MINMAX_TM x rows and MINMAX_TN y rows a thread, a ring of
+# MINMAX_STAGES chunks of MINMAX_CHUNK coordinates (rows MINMAX_LD floats
+# apart); where the tiles fill at most half the SMs, a cluster of up to
 # MINMAX_MAX_SPLIT blocks (as many as fit one wave) splits each tile's
 # chunks
 MINMAX_TM, MINMAX_TN = 8, 4
@@ -280,12 +282,12 @@ def minmax_thread_rows(t: int, n: int) -> list[int]:
 
 def minmax_launch_shape(M: int, N: int, K: int, sms: int = H100_SMS
                         ) -> dict:
-    """The chebychev and jaccard kernel's launch at (M, N, K) on a card of
-    `sms` SMs: its grid (blocks along N, along M, and the K split along z,
-    one cluster a tile), threads, x and y rows a thread, the block's tile
-    of pairs, the lengths of its chunks (the last one runs to K), each
-    split's chunks [c0, c1) in rank order, and its dynamic shared memory
-    (the ring of chunks of the block's rows)."""
+    """The manhattan, chebychev and jaccard kernel's launch at (M, N, K)
+    on a card of `sms` SMs: its grid (blocks along N, along M, and the K
+    split along z, one cluster a tile), threads, x and y rows a thread,
+    the block's tile of pairs, the lengths of its chunks (the last one
+    runs to K), each split's chunks [c0, c1) in rank order, and its
+    dynamic shared memory (the ring of chunks of the block's rows)."""
     tm, tn = MINMAX_TM, MINMAX_TN
     rows_m, rows_n = 16 * tm, 16 * tn
     gx, gy = -(-N // rows_n), -(-M // rows_m)

@@ -50,7 +50,15 @@ def kernel_seed(generator: torch.Generator,
                 device: torch.device) -> torch.Tensor:
     """The Philox key of one kernel draw: int64 [1] on the device, from
     the generator (no host sync)."""
-    return torch.randint(0, 2 ** 62, (1,), generator=generator,
+    return kernel_seeds(generator, device, 1)
+
+
+def kernel_seeds(generator: torch.Generator, device: torch.device,
+                 n: int) -> torch.Tensor:
+    """The Philox keys of n kernel draws in one launch: int64 [n] on the
+    device, from the generator (no host sync); key i is the view
+    [i:i + 1]."""
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
                          device=device, dtype=torch.int64)
 
 

@@ -1,5 +1,6 @@
 """The `chebychev` and `jaccard` kernel of csrc/pairwise.cu
-(`minmax_kernel`), its arithmetic emulated on the CPU.
+(`minmax_kernel`, which also runs `manhattan`: tests/
+test_torch_pairwise_manhattan.py), its arithmetic emulated on the CPU.
 
 NaN: the JAX package's `chebychev` (`jnp.max`) and `jaccard`
 (`jnp.minimum` / `jnp.maximum` summed, then `where(inter > 0, 1 - inter /
@@ -9,7 +10,8 @@ the kernel's repair (a NaN in a row) and on chip_smoke.py's off-path and
 inf-pair rows. The kernel takes max.NaN / min.NaN for that.
 
 `minmax_emulation` repeats the kernel in float32 operation by operation:
-chebychev the max of |x - y| (exact: a max is free of order); jaccard per
+chebychev the max of |x - y| (exact: a max is free of order); manhattan
+the two-level sum of |x - y|; jaccard per
 128 x 64 block: where every staged value of the block's rows is finite,
 >= 0 and at most 2^32, inter = the two-level sum of the minima (chunks of
 32 summed into fresh partials, the last chunk to K), Sx and Sy the rows'
@@ -106,7 +108,8 @@ def block_paths(X, Y) -> dict:
 
 
 def minmax_emulation(metric, X, Y, sms=cp.H100_SMS):
-    """The kernel's chebychev or jaccard of every pair in float32,
+    """The kernel's manhattan, chebychev or jaccard of every pair in
+    float32,
     operation by operation, with the K split of its launch on a card of
     `sms` SMs (minmax_launch_shape)."""
     X, Y = np.asarray(X, F32), np.asarray(Y, F32)
@@ -116,6 +119,8 @@ def minmax_emulation(metric, X, Y, sms=cp.H100_SMS):
     with np.errstate(invalid="ignore", over="ignore"):
         if metric == "chebychev":
             return np.abs(x - y).astype(F32).max(-1)
+        if metric == "manhattan":
+            return two_level(np.abs(x - y).astype(F32), splits)
         inter = two_level(np.minimum(x, y), splits)
         union = np.empty_like(inter)
         sx, sy = two_level(X, splits), two_level(Y, splits)
@@ -191,7 +196,7 @@ def test_chip_smoke_nan_rows_agree(case, k):
     # XLA on the CPU flushes (its inter 0, the plain version's > 0: the
     # divergence pinned in tests/test_torch_pairwise_js_canberra.py)
     keep = np.arange(len(X)) != (101 if case == "off path" else -1)
-    for metric in ("chebychev", "jaccard"):
+    for metric in ("chebychev", "jaccard", "manhattan"):
         jax_r, plain = _jax(metric, X, Y), _plain(metric, X, Y)
         emu = minmax_emulation(metric, X, Y)
         _same_nan_and_close(plain[keep], jax_r[keep])
@@ -232,7 +237,10 @@ def test_nan_report_is_empty_for_the_plain_versions():
     card, finds nothing on CPU tensors (the plain versions on both sides)
     and covers both metrics, both row sets and both K."""
     assert chip_smoke.pairwise_nan_report(torch, "cpu") == {}
-    assert {"chebychev", "jaccard"} <= set(chip_smoke.PAIRWISE_REDESIGNED)
+    assert set(chip_smoke.PAIRWISE_NAN_METRICS) == {"chebychev", "jaccard",
+                                                    "manhattan"}
+    assert set(chip_smoke.PAIRWISE_NAN_METRICS) <= set(
+        chip_smoke.PAIRWISE_REDESIGNED)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +256,7 @@ def test_emulation_equals_jax_and_the_plain_version(m, n, k):
     version and within 1e-5 of JAX (every block tame)."""
     X, Y = _probs(m + k, m, k), _probs(n + k + 1, n, k)
     assert set(block_paths(X, Y).values()) == {"tame"}
-    for metric in ("chebychev", "jaccard"):
+    for metric in ("chebychev", "jaccard", "manhattan"):
         emu = minmax_emulation(metric, X, Y)
         np.testing.assert_allclose(emu, _jax(metric, X, Y), rtol=TOL,
                                    atol=TOL)
@@ -275,6 +283,10 @@ def test_inter_equals_the_parents_padded_sum(k):
                                   tk._chunked_sum(np.minimum(x, y)))
     np.testing.assert_array_equal(two_level(np.maximum(x, y)),
                                   tk._chunked_sum(np.maximum(x, y)))
+    d = np.abs(x - y).astype(F32)
+    np.testing.assert_array_equal(minmax_emulation("manhattan", X, Y,
+                                                   sms=1),
+                                  tk._chunked_sum(d))
     splits = cp.minmax_launch_shape(4, 5, k)["split_chunks"]
     assert len(splits) == min(4, -(-k // CHUNK))
     split = two_level(np.minimum(x, y), splits)
@@ -414,7 +426,8 @@ def test_launch_shape_constants_are_the_sources():
     floors = chip_smoke.minmax_floors(
         types.SimpleNamespace(_nvcc=lambda: "/nonexistent/nvcc"),
         chip_smoke.PAIRWISE_TEST, chip_smoke.PAIRWISE_TRAIN, 100)
-    assert floors["chebychev"] == floors["jaccard"] == "not measured"
+    assert floors["chebychev"] == floors["jaccard"] == floors[
+        "manhattan"] == "not measured"
     assert round(floors["issue_floor_ms"], 4) == 0.1898
 
 
@@ -452,6 +465,9 @@ def test_sass_hot_loop_counts_the_innermost_fmnmx_loop(monkeypatch):
     assert body == collections.Counter(
         {"LDS": 1, "FMNMX": 2, "FADD": 2, "BRA": 1})
     assert chip_smoke.sass_hot_loop(fake, "minmax_kernelILi1ELb1E") is None
+    # manhattan's loop is found by its FADDs (two a term)
+    assert chip_smoke.sass_hot_loop(fake, "minmax_kernelILi3ELb1E",
+                                    "FADD") == body
     floors = chip_smoke.minmax_floors(fake, 32, 1, 2)
     # 6 instructions, 2 on the ALU: max(6, 4) clocks for 2 terms a warp
     assert floors["jaccard"]["floor_ms"] == pytest.approx(

@@ -16,7 +16,9 @@ FMNMX), `max.NaN` (max.NaN.f32), `min.NaN`, `absmax` (add.f32 into a
 second chain, then max.NaN.f32 of its absolute value: the chebychev
 term's FADD and FMNMX), `minadd` (the same add, then min.NaN.f32 of it
 into an add.f32 sum: the jaccard term's FMNMX and FADD beside one more
-FADD), `imax` (max.s32) and `ffma` (fma.rn.f32). The chains' inputs
+FADD), `absadd` (the same add, then add.f32 of its absolute value into
+a sum: the manhattan term's two FADDs), `imax` (max.s32) and `ffma`
+(fma.rn.f32). The chains' inputs
 change every step, so that the assembler can hoist nothing out of the
 loop. Clocks come from clock64() around the loop (the SM's
 own clock), and the SM clock rate from those clocks over the launch's
@@ -41,9 +43,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 OPS = {"add": 0, "max": 1, "max.NaN": 2, "min.NaN": 3, "absmax": 4,
-       "minadd": 5, "imax": 6, "ffma": 7}
+       "minadd": 5, "imax": 6, "ffma": 7, "absadd": 8}
 # PTX instructions a chain step of each case issues
-PER_STEP = {"absmax": 2, "minadd": 3}
+PER_STEP = {"absmax": 2, "minadd": 3, "absadd": 2}
 SOURCE = r"""
 #include <cuda_runtime.h>
 
@@ -87,6 +89,10 @@ __global__ void chains(float* out, long long* clocks, int steps) {
       if constexpr (kOp == 7)
         asm volatile("fma.rn.f32 %0, %0, %1, %1;" : "+f"(a[i])
                      : "f"(c[i % 8]));
+      if constexpr (kOp == 8)
+        asm volatile("{.reg .f32 d;\n\tadd.f32 %1, %1, %2;\n\t"
+                     "abs.f32 d, %1;\n\tadd.f32 %0, %0, d;}"
+                     : "+f"(a[i]), "+f"(b[i]) : "f"(c[i % 8]));
     }
   }
   const long long t1 = clock64();
@@ -115,7 +121,8 @@ extern "C" int issue_rates_run(int op, void* out, void* clocks, int blocks,
     case 4: return run<4>(o, c, blocks, threads, steps);
     case 5: return run<5>(o, c, blocks, threads, steps);
     case 6: return run<6>(o, c, blocks, threads, steps);
-    default: return run<7>(o, c, blocks, threads, steps);
+    case 7: return run<7>(o, c, blocks, threads, steps);
+    default: return run<8>(o, c, blocks, threads, steps);
   }
 }
 """

@@ -59,8 +59,10 @@ and
     `psi_operands` of this checkout): the table counts of a ppu_hdplda
     K_max=100 chain after 10 iterations in both instances, psi on its
     tables, and psi at K_max=4096 (GEM with the hdplda births, Poisson
-    with the hlda ones); and a single-stepped iteration of ppu_hdplda
-    K_max=100 after 2;
+    with the hlda ones); the whole step after that chain's sweep
+    (`_kernel_after_sweep`: its seeds, the table counts, psi and the
+    Polya-Urn rows, by CUDA events); and a single-stepped iteration of
+    ppu_hdplda K_max=100 after 2;
   - polya_urn: `[3 polya-urn]`'s rows, that chain's N_kw [100, V] with
     and without its active mask and a uniform z's [200, V], the
     elementwise Poisson at its rates, and a single-stepped iteration of
@@ -354,7 +356,8 @@ def _hdp_chain(torch, corpus, LDAConfig, create_model):
 
 def hdp_cases(torch, cs, corpus, LDAConfig, create_model):
     """[3 hdp]'s timed calls: the table counts in both instances, psi at
-    K_max=100 on the chain's tables and at K_max=4096 on synthetic ones."""
+    K_max=100 on the chain's tables and at K_max=4096 on synthetic ones,
+    the step after the chain's sweep, a single-stepped iteration."""
     from ldagroupedgibbssampler_tpu_torch.ops import cuda_hdp
     own, model, seed = _hdp_chain(torch, corpus, LDAConfig, create_model)
     cfg, st = model.config, model.state
@@ -380,6 +383,8 @@ def hdp_cases(torch, cs, corpus, LDAConfig, create_model):
                                    dict(gamma=3.0, budget=32,
                                         births="lowest", sampler="poisson",
                                         alpha0=0.5)),
+            "step ppu_hdplda K=100": (model._kernel_after_sweep,
+                                      (st, st.ndk, st.nkw, st.nk), {}),
             "iteration ppu_hdplda K=100": _iteration(
                 own, LDAConfig, create_model, corpus, "ppu_hdplda")}
 
