@@ -279,7 +279,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (tokenizer, cell blocks, stream blocks), with both paths' seconds.
      Phase 3's `[3 layout]` builds the 20NG cell blocks natively (1.35M
      tokens, above the 1M switch) and with NumPy, bit-equal, and prints
-     both seconds.
+     both seconds;
+  9. the chain-level checks (`tools/card_geweke_check.py`,
+     `tools/card_bf16_gate.py`): `[9 geweke]`, every Geweke chain of
+     `card_geweke_check.CHAINS` at its CPU test's length (D=6, L=8, V=8,
+     K=2; K_max 4 for the HDP chains), GEWEKE_JOBS spawned processes
+     sharing the card, one line a chain with its statistics, steps and
+     seconds; a chain that misses its bar, or whose named launch counters
+     did not rise over its sample(1) calls, fails; then `[9 bf16 gate]`,
+     one bf16 `ggs` chain and 6 precise seeds at K=100 on the synthetic
+     20NG corpus (200 iterations, the held-out LL by the left-to-right
+     kernel), one line a statistic with its predictive interval; a failed
+     gate fails the script.
 Then one JSON line describing every kernel (gamma, left_to_right,
 alias_mh_rounds, alias_mh_pack, hdp_table_counts, hdp_psi, polya_urn and
 vs_dirichlet among them, the last four with their launches in every run
@@ -313,8 +324,9 @@ import time
 
 import numpy as np
 
-D, V, K = 11269, 20000, 100
-MEAN_LEN = 120
+from tools.synth_corpus import D, V, synth_corpus
+
+K = 100
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 # per SM and clock, 64 32-bit integer lanes and 16 special-function lanes
@@ -334,20 +346,6 @@ def fail(msg: str) -> int:
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
-
-
-def synth_corpus(Corpus, seed=0):
-    """The synthetic 20NG corpus of bench.py: Poisson(120) lengths (min 5),
-    Zipf(1.1) types over V."""
-    rng = np.random.default_rng(seed)
-    lengths = np.maximum(5, rng.poisson(MEAN_LEN, D)).astype(np.int64)
-    n = int(lengths.sum())
-    probs = 1.0 / np.arange(1, V + 1, dtype=np.float64) ** 1.1
-    probs /= probs.sum()
-    tokens = rng.choice(V, size=n, p=probs).astype(np.int32)
-    offsets = np.concatenate([[0], np.cumsum(lengths)])
-    return Corpus(tokens=tokens, doc_offsets=offsets,
-                  vocab=[f"w{i}" for i in range(V)])
 
 
 def time_ms(torch, fn, reps=7, calls=10):
@@ -7759,6 +7757,36 @@ def ingest_phase(torch, smi, LDAConfig, create_model, cuda_counts,
     return launches, kernels
 
 
+# ---- 9. the chain-level checks ------------------------------------------
+GEWEKE_JOBS = 8             # the chains' processes: one a host core
+
+
+def chain_checks_phase(smi: str, jobs: int = GEWEKE_JOBS):
+    """`[9 geweke]` and `[9 bf16 gate]`: the Geweke chains through every
+    sampling kernel, then the bf16 gate; any failure raises."""
+    from tools import card_bf16_gate, card_geweke_check
+    t0 = time.perf_counter()
+    reports = card_geweke_check.run(
+        list(card_geweke_check.CHAINS), "cuda", jobs=jobs,
+        echo=lambda line: print(f"[9 geweke] {line}", flush=True))
+    failed = [r["name"] for r in reports if not r["ok"]]
+    steps = sum(r["steps"] for r in reports)
+    print(f"[9 geweke] {len(reports)} chains, {steps} steps in "
+          f"{time.perf_counter() - t0:.1f} s ({jobs} processes); {smi}",
+          flush=True)
+    check(not failed, f"Geweke chains failed on the card: {failed}")
+    report = card_bf16_gate.gate(card_bf16_gate.gate_corpus(), "cuda")
+    for name in card_bf16_gate.CHECKS:
+        print(f"[9 bf16 gate] "
+              f"{card_bf16_gate.check_line(name, report['checks'][name])} "
+              f"({report['seconds']:.1f} s)", flush=True)
+    print(f"[9 bf16 gate] launches {json.dumps(report['launches'])}; "
+          f"{smi}", flush=True)
+    check(report["gate_pass"], "the bf16 gate failed on the card: "
+          + json.dumps(report["checks"]) + " missing counters "
+          + json.dumps(report["counters_missing"]))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
@@ -8190,6 +8218,9 @@ def main(argv=None) -> int:
     ingest_launches, ingest_kernels = ingest_phase(
         torch, smi, LDAConfig, create_model, cuda_counts, cuda_zdraw,
         cuda_pcgs)
+
+    # ---- 9. the chain-level checks --------------------------------------
+    chain_checks_phase(smi)
 
     kernels = [
         {**counts_entry, "launches": aliasmh_launches["blocked_label_counts"],

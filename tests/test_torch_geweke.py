@@ -9,113 +9,42 @@ its negative control, `test_geweke_uncollapsed_unsmoothed_phi_deviates`,
 `test_geweke_hdp_all_topics`, `test_geweke_hdp_dynamic_birth_death` and
 `test_geweke_hlda_dynamic_contiguous_growth`, each with the JAX test's
 bars (the measured deviations of the reference's approximations pinned in
-direction and size, as there).
+direction and size, as there); and two chains of the card's check with no
+JAX counterpart: the vectorised VS rows, run in both packages, and
+`spalias_priors`.
 
 A marginal-conditional simulator (ancestral draws of phi, theta, z, w) and
 a successive-conditional chain (the port's `sample(1)` alternated with a
 data-replication draw w ~ Cat(phi_z), fed back through
 `swap_corpus_tokens`) must share every marginal if and only if the
 transition leaves p(latents | w) invariant. The harness (statistics,
-batch-means z-scores, thinned KS) is the JAX test's, unchanged; only the
-model under it is the port's, through its plain sweep versions.
+batch-means z-scores, thinned KS) is the JAX test's, unchanged, and lives
+in tools/card_geweke_check.py, which runs the same chains on the card;
+only the model under it is the port's, here through its plain versions.
 """
 
-import numpy as np
 import pytest
 from scipy import stats as sps
 
-from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
-from ldagroupedgibbssampler_tpu_torch.corpus.ragged import Corpus
-from ldagroupedgibbssampler_tpu_torch.models.registry import create_model
+from tools.card_geweke_check import (HDP_ALPHA0, HDP_GAMMA, HDP_KMAX, SV,
+                                     _agree, _geweke_z, _hdp_mc_draws,
+                                     _hdp_sc_series, _hdp_stats,
+                                     _judge_nzvs, _mc_draws, _mc_draws_asym,
+                                     _sc_series, _sc_series_asym,
+                                     _sc_series_ex, _stats4, _vs_mc_draws,
+                                     stat_table)
 
 # thousands of sampler steps per chain: the slow tier
 pytestmark = pytest.mark.slow
 
-D, L, V, K = 6, 8, 8, 2
-ALPHA, BETA = 0.8, 0.6
-VOCAB = [f"w{i}" for i in range(V)]
-STATS = ["theta00", "phi00", "frac_z0", "frac_w0"]
-
-
-def _stats(theta00, phi00, z, w):
-    return (theta00, phi00, float(np.mean(z == 0)), float(np.mean(w == 0)))
-
-
-def _mc_draws(n, seed):
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        phi = rng.dirichlet(np.full(V, BETA), K)          # [K, V]
-        theta = rng.dirichlet(np.full(K, ALPHA), D)       # [D, K]
-        z = np.array([rng.choice(K, p=theta[d]) for d in range(D)
-                      for _ in range(L)])
-        w = np.array([rng.choice(V, p=phi[k]) for k in z])
-        out.append(_stats(theta[0, 0], phi[0, 0], z, w))
-    return np.array(out)
-
-
-def _resample_w(rng, phi, z):
-    """w_i ~ Cat(phi[z_i]) vectorised (phi rows renormalised in f64)."""
-    p = phi[z].astype(np.float64)
-    cdf = np.cumsum(p, axis=1)
-    u = rng.random(len(z)) * cdf[:, -1]
-    return np.minimum((cdf <= u[:, None]).sum(axis=1), V - 1).astype(np.int32)
-
-
-def _corpus(w):
-    return Corpus.from_token_lists(
-        [list(w[d * L:(d + 1) * L]) for d in range(D)], VOCAB)
-
-
-def _sc_series(scheme, steps, burn, seed):
-    """Post-burn-in series of the 4 statistics from one SC chain."""
-    rng = np.random.default_rng(seed)
-    phi0 = rng.dirichlet(np.full(V, BETA), K)
-    theta0 = rng.dirichlet(np.full(K, ALPHA), D)
-    z = np.array([rng.choice(K, p=theta0[d]) for d in range(D)
-                  for _ in range(L)]).astype(np.int32)
-    w = np.array([rng.choice(V, p=phi0[k]) for k in z], np.int32)
-    m = create_model(LDAConfig(scheme=scheme, topics=K, alpha=ALPHA,
-                               beta=BETA, seed=seed, exec_time=-1,
-                               device="cpu"))
-    m.add_instances(_corpus(w))
-    m.set_z_indicators(z)
-    out = []
-    for s in range(steps):
-        m.sample(1)
-        z = m.get_z_indicators()
-        phi = m.get_phi()[:K]                              # [K, V]
-        theta00 = (float(m.state.theta[0, 0])
-                   if m.state.theta is not None else np.nan)
-        if s >= burn:
-            out.append(_stats(theta00, phi[0, 0], z, w))
-        w = _resample_w(rng, phi, z)
-        m.swap_corpus_tokens(_corpus(w))
-    return np.array(out)
-
-
-def _geweke_z(mc_col, sc_col, nbatch=20):
-    """Mean-difference z-score with a batch-means SC standard error."""
-    n = len(sc_col) // nbatch * nbatch
-    bm = sc_col[:n].reshape(nbatch, -1).mean(axis=1)
-    se2 = mc_col.var() / len(mc_col) + bm.var(ddof=1) / nbatch
-    return float((mc_col.mean() - sc_col.mean()) / np.sqrt(se2))
-
-
-def _agree(mc, sc, cols, label, zmax=5.0, ks_alpha=1e-4, thin=20):
-    for i in cols:
-        z = _geweke_z(mc[:, i], sc[:, i])
-        assert abs(z) < zmax, (label, STATS[i], z,
-                               mc[:, i].mean(), sc[:, i].mean())
-        p = sps.ks_2samp(mc[:, i], sc[::thin, i]).pvalue
-        assert p > ks_alpha, (label, STATS[i], p)
+CPU = "cpu"
 
 
 def test_geweke_ggs():
     """The port's GGS transition leaves the joint invariant: all four
     statistics agree."""
     mc = _mc_draws(4000, seed=101)
-    sc = _sc_series("ggs", steps=2600, burn=200, seed=202)
+    sc = _sc_series("ggs", steps=2600, burn=200, seed=202, device=CPU)
     _agree(mc, sc, [0, 1, 2, 3], "ggs")
 
 
@@ -124,7 +53,7 @@ def test_geweke_ggs_test_variant_fails():
     the same check, so the harness has the power to reject a broken
     transition."""
     mc = _mc_draws(4000, seed=103)
-    sc = _sc_series("ggs_test", steps=1200, burn=200, seed=204)
+    sc = _sc_series("ggs_test", steps=1200, burn=200, seed=204, device=CPU)
     zs = [abs(_geweke_z(mc[:, i], sc[:, i])) for i in range(4)]
     assert max(zs) > 10.0, zs
 
@@ -134,7 +63,7 @@ def test_geweke_pcgs():
     updates, then phi | z, w) leaves the collapsed-theta joint invariant:
     phi_00, topic-0 fraction and word-0 frequency agree."""
     mc = _mc_draws(4000, seed=105)
-    sc = _sc_series("pcgs", steps=2600, burn=200, seed=206)
+    sc = _sc_series("pcgs", steps=2600, burn=200, seed=206, device=CPU)
     _agree(mc, sc, [1, 2, 3], "pcgs")
 
 
@@ -143,7 +72,7 @@ def test_geweke_cgs():
     z-sweep leaves p(z | w) invariant and the augmented phi / theta draws
     are exact conditionals, so all four statistics agree."""
     mc = _mc_draws(4000, seed=107)
-    sc = _sc_series("collapsed", steps=2600, burn=200, seed=208)
+    sc = _sc_series("collapsed", steps=2600, burn=200, seed=208, device=CPU)
     _agree(mc, sc, [0, 1, 2, 3], "collapsed")
 
 
@@ -156,7 +85,7 @@ def test_geweke_adlda():
     exact-chain bar: phi_00, topic-0 fraction and word-0 frequency
     agree (phi is its diagnostic Dir(N_kw + beta) draw)."""
     mc = _mc_draws(4000, seed=503)
-    sc = _sc_series("adlda", steps=2000, burn=200, seed=504)
+    sc = _sc_series("adlda", steps=2000, burn=200, seed=504, device=CPU)
     _agree(mc, sc, [1, 2, 3], "adlda")
 
 
@@ -166,7 +95,7 @@ def test_geweke_lightpclda():
     leave the target invariant, then phi | z, w. No theta in the MH
     family's state."""
     mc = _mc_draws(4000, seed=109)
-    sc = _sc_series("lightpclda", steps=2600, burn=200, seed=210)
+    sc = _sc_series("lightpclda", steps=2600, burn=200, seed=210, device=CPU)
     _agree(mc, sc, [1, 2, 3], "lightpclda")
 
 
@@ -175,7 +104,7 @@ def test_geweke_lightpclda_w2_count_proposal():
     type-topic counts N_kw + beta instead of phi, a different proposal
     whose acceptance ratio must still leave the target invariant."""
     mc = _mc_draws(4000, seed=307)
-    sc = _sc_series("lightpcldaw2", steps=2000, burn=200, seed=308)
+    sc = _sc_series("lightpcldaw2", steps=2000, burn=200, seed=308, device=CPU)
     _agree(mc, sc, [1, 2, 3], "lightpcldaw2")
 
 
@@ -185,7 +114,8 @@ def test_geweke_lightcollapsed():
     staleness is negligible and the transition must reproduce the joint
     (phi is its diagnostic Dir(N_kw + beta) draw)."""
     mc = _mc_draws(4000, seed=307)
-    sc = _sc_series("lightcollapsed", steps=2000, burn=200, seed=310)
+    sc = _sc_series("lightcollapsed", steps=2000, burn=200, seed=310,
+                    device=CPU)
     _agree(mc, sc, [1, 2, 3], "lightcollapsed")
 
 
@@ -195,84 +125,21 @@ def test_geweke_ggs_aliasmh():
     leaves the same joint invariant as exact GGS: all four statistics
     agree."""
     mc = _mc_draws(4000, seed=601)
-    sc = _sc_series("ggs_aliasmh", steps=2600, burn=200, seed=602)
+    sc = _sc_series("ggs_aliasmh", steps=2600, burn=200, seed=602,
+                        device=CPU)
     _agree(mc, sc, [0, 1, 2, 3], "ggs_aliasmh")
 
 
 # The symmetric-alpha run above cannot tell the uniform fallback's true
 # density per topic (alpha_sum / K) from alpha_k: under a symmetric alpha
-# they coincide. These runs use alpha = [0.3, 1.5], as tests/test_geweke.py.
-ALPHA_VEC = np.array([0.3, 1.5])
-
-
-def _mc_draws_asym(n, seed):
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        phi = rng.dirichlet(np.full(V, BETA), K)
-        theta = rng.dirichlet(ALPHA_VEC, D)
-        z = np.array([rng.choice(K, p=theta[d]) for d in range(D)
-                      for _ in range(L)])
-        w = np.array([rng.choice(V, p=phi[k]) for k in z])
-        out.append(_stats(theta[0, 0], phi[0, 0], z, w))
-    return np.array(out)
-
-
-def _sc_series_asym(steps, burn, seed, buggy=False):
-    """SC chain of the port's ggs_aliasmh with state.alpha = ALPHA_VEC.
-    `buggy=True` patches the doc proposal's density to n_dk + alpha_k (the
-    proposal itself still falls back uniformly), on the test side only:
-    the negative control."""
-    import torch
-
-    from ldagroupedgibbssampler_tpu_torch.models import ggs_aliasmh as gam
-
-    rng = np.random.default_rng(seed)
-    phi0 = rng.dirichlet(np.full(V, BETA), K)
-    theta0 = rng.dirichlet(ALPHA_VEC, D)
-    z = np.array([rng.choice(K, p=theta0[d]) for d in range(D)
-                  for _ in range(L)]).astype(np.int32)
-    w = np.array([rng.choice(V, p=phi0[k]) for k in z], np.int32)
-    m = create_model(LDAConfig(scheme="ggs_aliasmh", topics=K,
-                               alpha=float(ALPHA_VEC.mean()), beta=BETA,
-                               seed=seed, exec_time=-1, device="cpu"))
-    m.add_instances(_corpus(w))
-    m.set_z_indicators(z)
-    m.state.alpha = torch.as_tensor(ALPHA_VEC, dtype=torch.float32)
-
-    orig = gam.alias_mh_rounds
-    if buggy:
-        a_corr = torch.as_tensor(ALPHA_VEC - ALPHA_VEC.sum() / K,
-                                 dtype=torch.float32)
-
-        def patched(zz, gw, gd, *rest, **kw):
-            def gd2(k):
-                t, q = gd(k)
-                return t, q + a_corr[k]
-            return orig(zz, gw, gd2, *rest, **kw)
-        gam.alias_mh_rounds = patched
-    try:
-        out = []
-        for s in range(steps):
-            m.sample(1)
-            z = m.get_z_indicators()
-            phi = m.get_phi()[:K]
-            theta00 = float(m.state.theta[0, 0])
-            if s >= burn:
-                out.append(_stats(theta00, phi[0, 0], z, w))
-            w = _resample_w(rng, phi, z)
-            m.swap_corpus_tokens(_corpus(w))
-    finally:
-        gam.alias_mh_rounds = orig
-    return np.array(out)
-
-
+# they coincide. These runs use alpha = [0.3, 1.5] (the harness's
+# ALPHA_VEC), as tests/test_geweke.py.
 def test_geweke_ggs_aliasmh_asym_alpha():
     """ggs_aliasmh under an asymmetric alpha = [0.3, 1.5]: the acceptance
     ratio's doc-proposal density must be the uniform fallback's true mass
     per topic, alpha_sum / K, for the chain to stay exact."""
     mc = _mc_draws_asym(4000, seed=811)
-    sc = _sc_series_asym(steps=2600, burn=200, seed=812)
+    sc = _sc_series_asym(steps=2600, burn=200, seed=812, device=CPU)
     _agree(mc, sc, [0, 1, 2, 3], "ggs_aliasmh_asym")
 
 
@@ -281,7 +148,8 @@ def test_geweke_ggs_aliasmh_asym_alpha_negative_control():
     fallback must fail the same check (the JAX test's bars: z below -8 on
     the topic-0 fraction and below -3.5 on theta_00)."""
     mc = _mc_draws_asym(4000, seed=811)
-    sc = _sc_series_asym(steps=2600, burn=200, seed=813, buggy=True)
+    sc = _sc_series_asym(steps=2600, burn=200, seed=813, device=CPU,
+                         buggy=True)
     z_frac = _geweke_z(mc[:, 2], sc[:, 2])
     z_th = _geweke_z(mc[:, 0], sc[:, 0])
     assert z_frac < -8.0, z_frac
@@ -294,45 +162,10 @@ def test_geweke_uncollapsed_unsmoothed_phi_deviates():
     (UncollapsedParallelLDA.java:1313-1315), so against the
     beta-smoothed joint its phi marginal must deviate."""
     mc = _mc_draws(4000, seed=111)
-    sc = _sc_series("uncollapsed", steps=1200, burn=200, seed=212)
+    sc = _sc_series("uncollapsed", steps=1200, burn=200, seed=212,
+                    device=CPU)
     zs = [abs(_geweke_z(mc[:, i], sc[:, i])) for i in [1, 2, 3]]
     assert max(zs) > 10.0, zs
-
-
-def _sc_series_ex(scheme, steps, burn, seed, stat_fn, k_eff=K,
-                  cfg_kw=None, model_patch=None):
-    """tests/test_geweke.py::_sc_series_ex on the port: a custom topic
-    count, config keys, a per-step statistic `stat_fn(model, phi, z, w)`
-    and a hook that patches the model before add_instances."""
-    rng = np.random.default_rng(seed)
-    phi0 = rng.dirichlet(np.full(V, BETA), k_eff)
-    theta0 = rng.dirichlet(np.full(k_eff, 1.0), D)
-    z = np.array([rng.choice(k_eff, p=theta0[d]) for d in range(D)
-                  for _ in range(L)]).astype(np.int32)
-    w = np.array([rng.choice(V, p=phi0[k]) for k in z], np.int32)
-    kw = dict(alpha=ALPHA, beta=BETA)
-    kw.update(cfg_kw or {})
-    m = create_model(LDAConfig(scheme=scheme, topics=k_eff, seed=seed,
-                               exec_time=-1, device="cpu", **kw))
-    if model_patch:
-        model_patch(m)
-    m.add_instances(_corpus(w))
-    m.set_z_indicators(z)
-    out = []
-    for s in range(steps):
-        m.sample(1)
-        z = m.get_z_indicators()
-        phi = m.get_phi()[:k_eff]
-        if s >= burn:
-            out.append(stat_fn(m, phi, z, w))
-        w = _resample_w(rng, phi, z)
-        m.swap_corpus_tokens(_corpus(w))
-    return np.array(out)
-
-
-def _stats4(m, phi, z, w):
-    return (phi[0, 0], float(np.mean(z == 0)), float(np.mean(w == 0)),
-            float(np.mean(phi == 0.0)))
 
 
 def test_geweke_nzvsspalias_sequential():
@@ -343,28 +176,12 @@ def test_geweke_nzvsspalias_sequential():
     phi zero fraction carries the JAX test's bounded bias (the reference
     counts currently-zero coordinates where the exact conditional would
     count included ones)."""
-    pi = 0.5
-    rng = np.random.default_rng(301)
-    out = []
-    for _ in range(4000):
-        inc = rng.random((K, V)) < pi
-        while not (inc.sum(axis=1) > 0).all():
-            inc = rng.random((K, V)) < pi
-        phi = np.zeros((K, V))
-        for k in range(K):
-            s = np.flatnonzero(inc[k])
-            phi[k, s] = rng.dirichlet(np.full(len(s), BETA))
-        theta = rng.dirichlet(np.full(K, ALPHA), D)
-        z = np.array([rng.choice(K, p=theta[d]) for d in range(D)
-                      for _ in range(L)])
-        w = np.array([rng.choice(V, p=phi[k]) for k in z])
-        out.append(_stats4(None, phi, z, w))
-    mc = np.array(out)
+    mc = _vs_mc_draws(4000, 301)
 
     def patch(m):
         m.vs_sequential = True
     sc = _sc_series_ex("nzvsspalias", steps=2000, burn=200, seed=302,
-                       stat_fn=_stats4, model_patch=patch)
+                       stat_fn=_stats4, device=CPU, model_patch=patch)
     for i in (0, 1, 2):
         z = _geweke_z(mc[:, i], sc[:, i])
         assert abs(z) < 5.0, (i, z)
@@ -382,7 +199,7 @@ def test_geweke_polyaurn_phi_atoms():
     fraction above 0.1, KS rejects), as the JAX test pins."""
     mc = _mc_draws(4000, seed=303)[:, [1, 2, 3]]
     sc = _sc_series_ex("polyaurn", steps=2000, burn=200, seed=304,
-                       stat_fn=_stats4)
+                       stat_fn=_stats4, device=CPU)
     for i in (0, 1, 2):
         z = _geweke_z(mc[:, i], sc[:, i])
         assert abs(z) < 5.0, (i, z)
@@ -399,30 +216,12 @@ def test_geweke_hdp_all_topics():
     Dir(beta), theta ~ Dir(alpha0 psi). psi_0, topic-0 fraction, word-0
     frequency and the phi00 mean agree; phi00's shape carries the
     Polya-Urn atom at zero."""
-    kmax, alpha0, gamma = 4, 2.0, 1.0
-    rng = np.random.default_rng(305)
-    out = []
-    for _ in range(4000):
-        b = np.clip(rng.beta(1.0, gamma, kmax), 1e-7, 1 - 1e-7)
-        psi = b * np.concatenate([[1.0], np.cumprod(1 - b)[:-1]])
-        psi = psi / psi.sum()
-        phi = rng.dirichlet(np.full(V, BETA), kmax)
-        sh = rng.gamma(np.maximum(alpha0 * psi, 1e-8), 1.0, (D, kmax))
-        theta = sh / np.maximum(sh.sum(axis=1, keepdims=True), 1e-300)
-        z = np.array([rng.choice(kmax, p=theta[d]) for d in range(D)
-                      for _ in range(L)])
-        w = np.array([rng.choice(V, p=phi[k]) for k in z])
-        out.append((phi[0, 0], float(np.mean(z == 0)),
-                    float(np.mean(w == 0)), float(psi[0])))
-    mc = np.array(out)
-
-    def hdp_stats(m, phi, z, w):
-        return (phi[0, 0], float(np.mean(z == 0)), float(np.mean(w == 0)),
-                float(m.state.psi[0]))
+    mc = _hdp_mc_draws(4000, 305)[:, :4]
     sc = _sc_series_ex("ppu_hdplda_all_topics", steps=2000, burn=200,
-                       seed=306, stat_fn=hdp_stats, k_eff=kmax,
-                       cfg_kw=dict(alpha=alpha0, hdp_gamma=gamma,
-                                   hdp_start_topics=kmax))
+                       seed=306, stat_fn=_hdp_stats, device=CPU,
+                       k_eff=HDP_KMAX,
+                       cfg_kw=dict(alpha=HDP_ALPHA0, hdp_gamma=HDP_GAMMA,
+                                   hdp_start_topics=HDP_KMAX))
     for i in range(4):
         z = _geweke_z(mc[:, i], sc[:, i])
         assert abs(z) < 5.0, (i, z)
@@ -431,72 +230,14 @@ def test_geweke_hdp_all_topics():
     assert sps.ks_2samp(mc[:, 0], sc[::20, 0]).pvalue < 1e-3
 
 
-HDP_KMAX, HDP_ALPHA0, HDP_GAMMA = 4, 2.0, 1.0
-
-
-def _hdp_mc_draws(n, seed):
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        b = np.clip(rng.beta(1.0, HDP_GAMMA, HDP_KMAX), 1e-7, 1 - 1e-7)
-        psi = b * np.concatenate([[1.0], np.cumprod(1 - b)[:-1]])
-        psi = psi / psi.sum()
-        phi = rng.dirichlet(np.full(V, BETA), HDP_KMAX)
-        sh = rng.gamma(np.maximum(HDP_ALPHA0 * psi, 1e-8), 1.0,
-                       (D, HDP_KMAX))
-        theta = sh / np.maximum(sh.sum(axis=1, keepdims=True), 1e-300)
-        z = np.array([rng.choice(HDP_KMAX, p=theta[d]) for d in range(D)
-                      for _ in range(L)])
-        w = np.array([rng.choice(V, p=phi[k]) for k in z])
-        out.append((phi[0, 0], float(np.mean(z == 0)),
-                    float(np.mean(w == 0)), float(psi[0]),
-                    float(len(np.unique(z)))))
-    return np.array(out)
-
-
-def _hdp_sc_series(scheme, steps, burn, seed):
-    """The dynamic HDP chains from a truncated-GEM ancestral start, all
-    K_max topics active; statistics (phi00, frac_z0, frac_w0, psi0,
-    occupied topics)."""
-    rng = np.random.default_rng(seed)
-    b = np.clip(rng.beta(1.0, HDP_GAMMA, HDP_KMAX), 1e-7, 1 - 1e-7)
-    psi0 = b * np.concatenate([[1.0], np.cumprod(1 - b)[:-1]])
-    psi0 = psi0 / psi0.sum()
-    phi0 = rng.dirichlet(np.full(V, BETA), HDP_KMAX)
-    sh = rng.gamma(np.maximum(HDP_ALPHA0 * psi0, 1e-8), 1.0, (D, HDP_KMAX))
-    theta0 = sh / sh.sum(axis=1, keepdims=True)
-    z = np.array([rng.choice(HDP_KMAX, p=theta0[d]) for d in range(D)
-                  for _ in range(L)]).astype(np.int32)
-    w = np.array([rng.choice(V, p=phi0[k]) for k in z], np.int32)
-    m = create_model(LDAConfig(scheme=scheme, topics=HDP_KMAX,
-                               alpha=HDP_ALPHA0, beta=BETA, seed=seed,
-                               exec_time=-1, hdp_gamma=HDP_GAMMA,
-                               hdp_start_topics=HDP_KMAX, device="cpu"))
-    m.add_instances(_corpus(w))
-    m.set_z_indicators(z)
-    out = []
-    for s in range(steps):
-        m.sample(1)
-        z = m.get_z_indicators()
-        phi = m.get_phi()[:HDP_KMAX]
-        if s >= burn:
-            out.append((phi[0, 0], float(np.mean(z == 0)),
-                        float(np.mean(w == 0)), float(m.state.psi[0]),
-                        float(len(np.unique(z)))))
-        # after a sweep no token sits on a dead (phi-zeroed) topic, so
-        # the data-replication draw is well defined
-        w = _resample_w(rng, phi, z)
-        m.swap_corpus_tokens(_corpus(w))
-    return np.array(out)
-
-
 def test_geweke_hdp_dynamic_birth_death():
     """`ppu_hdplda`: phi00 and frac_w0 agree with the truncated-GEM joint;
     the birth and death policy concentrates topic mass (fewer occupied
     topics, psi_0 and frac_z0 above the ancestral draw), pinned in
     direction and size as the JAX test pins it."""
     mc = _hdp_mc_draws(4000, 601)
-    sc = _hdp_sc_series("ppu_hdplda", steps=2000, burn=200, seed=602)
+    sc = _hdp_sc_series("ppu_hdplda", steps=2000, burn=200, seed=602,
+                        device=CPU)
     for i in (0, 2):
         z = _geweke_z(mc[:, i], sc[:, i])
         assert abs(z) < 5.0, (i, z)
@@ -512,7 +253,8 @@ def test_geweke_hlda_dynamic_contiguous_growth():
     rebirth spreads topic mass (psi_0 and frac_z0 below the size-ordered
     GEM draw, occupancy close), pinned as the JAX test pins it."""
     mc = _hdp_mc_draws(4000, 601)
-    sc = _hdp_sc_series("ppu_hlda", steps=2000, burn=200, seed=602)
+    sc = _hdp_sc_series("ppu_hlda", steps=2000, burn=200, seed=602,
+                        device=CPU)
     z_w0 = _geweke_z(mc[:, 2], sc[:, 2])
     assert abs(z_w0) < 5.0, z_w0
     z_psi = _geweke_z(mc[:, 3], sc[:, 3])
@@ -523,3 +265,113 @@ def test_geweke_hlda_dynamic_contiguous_growth():
     z_occ = _geweke_z(mc[:, 4], sc[:, 4])
     assert abs(z_occ) < 8.0, z_occ
     assert sc[:, 4].mean() >= mc[:, 4].mean() - 0.5
+
+
+def test_geweke_nzvsspalias_vectorised():
+    """The vectorised VS rows (`vs_sequential = False`, the default; on
+    the card the kernel of csrc/vs_dirichlet.cu), in both packages
+    through the same harness at the sequential test's seeds and length:
+    phi_00, topic-0 fraction and word-0 frequency agree, and the phi zero
+    fraction carries the same kind of bounded bias as the sequential
+    chain, pinned in direction and size (SC below MC: 0 < z < 9, a gap
+    of 0 to 0.05). The card's chain is held to these bars
+    (tools/card_geweke_check.py::_judge_nzvs)."""
+    import test_geweke as jax_harness
+
+    mc = _vs_mc_draws(4000, 301)
+    sc_port = _sc_series_ex("nzvsspalias", steps=2000, burn=200, seed=302,
+                            stat_fn=_stats4, device=CPU)
+    sc_jax = jax_harness._sc_series_ex("nzvsspalias", steps=2000, burn=200,
+                                       seed=302, stat_fn=jax_harness._stats4)
+    for label, sc in (("port", sc_port), ("jax", sc_jax)):
+        table = stat_table(mc, sc, SV)
+        failed = [bar for bar, ok in _judge_nzvs(table, mc, sc) if not ok]
+        assert not failed, (label, failed, table)
+
+
+def test_geweke_spalias_priors():
+    """Scheme `spalias_priors` without a prior file: phi ~ Dir(N_k + beta)
+    through the elementwise Gamma draw (on the card the Gamma kernel, the
+    only scheme step that launches it), then the PCGS sweep: phi_00,
+    topic-0 fraction and word-0 frequency agree."""
+    mc = _mc_draws(4000, seed=113)
+    sc = _sc_series("spalias_priors", steps=2000, burn=200, seed=214,
+                    device=CPU)
+    _agree(mc, sc, [1, 2, 3], "spalias_priors")
+
+
+class _TruncatedGemPsi:
+    """The all-topics psi step made exact for the truncated, renormalised
+    stick prior: an independence Metropolis-Hastings step whose proposal
+    is `gem_psi`'s draw (nu_k ~ Beta(1 + l_k, gamma + sum_{j>k} l_j), the
+    K_max sticks renormalised) and whose target carries the factor that
+    draw leaves out, (the sticks' sum S)^-L with L = sum_k l_k. It accepts
+    with probability min(1, (S / S')^L), S the current sticks' sum and S'
+    the proposal's; a draw with no tables (the chain's first) is taken."""
+
+    def __init__(self):
+        self.current = None       # (S, psi)
+
+    def __call__(self, tables, gamma, generator):
+        import torch
+
+        from ldagroupedgibbssampler_tpu_torch.ops import random as rnd
+
+        rest = tables.flip(-1).cumsum(dim=-1).flip(-1) - tables
+        b = rnd.beta(1.0 + tables, gamma + rest.clamp_min(0.0) + 1e-30,
+                     generator).clamp(1e-7, 1.0 - 1e-7)
+        log1m = torch.log1p(-b)
+        raw = torch.exp(torch.log(b) + torch.cumsum(log1m, dim=-1) - log1m)
+        s_new = raw.sum()
+        tables_n = float(tables.sum())
+        if self.current is not None and tables_n > 0:
+            s_old, psi_old = self.current
+            u = float(torch.rand((), generator=generator))
+            if u >= float(s_old / s_new) ** tables_n:
+                return psi_old
+        self.current = (s_new, raw / s_new)
+        return raw / s_new
+
+
+@pytest.mark.parametrize("restored", [False, True],
+                         ids=["gem_step", "truncation_restored"])
+def test_geweke_hdp_all_topics_psi_drift(restored, monkeypatch):
+    """`ppu_hdplda_all_topics`' psi0 and topic-0 fraction sit above the
+    MC draws: over SC seeds 306-321 at the chain's 2000 steps the mean z
+    (MC minus SC) of each is below -1. The psi step is the cause: made
+    exact for the truncated prior (`_TruncatedGemPsi`), the same chains
+    lose the drift (|mean z| < 1). Both packages' `gem_psi` leave the
+    same factor out (tests/test_torch_card_quality.py::
+    test_gem_psi_step_omits_the_truncation_factor_in_both_packages); the
+    card's chain drifts as the CPU's does (PERF.md §6)."""
+    import numpy as np
+    import torch
+
+    from ldagroupedgibbssampler_tpu_torch.models import hdp as port_hdp
+
+    if restored:
+        monkeypatch.setattr(port_hdp, "gem_psi", _TruncatedGemPsi())
+    # sixteen chains of tiny steps: one host thread is several times
+    # faster than a thread pool per op
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    mc = _hdp_mc_draws(4000, 305)[:, :4]
+    zs = []
+    try:
+        for seed in range(306, 322):
+            sc = _sc_series_ex("ppu_hdplda_all_topics", steps=2000,
+                               burn=200, seed=seed, stat_fn=_hdp_stats,
+                               device=CPU, k_eff=HDP_KMAX,
+                               cfg_kw=dict(alpha=HDP_ALPHA0,
+                                           hdp_gamma=HDP_GAMMA,
+                                           hdp_start_topics=HDP_KMAX))
+            zs.append([_geweke_z(mc[:, i], sc[:, i]) for i in (1, 3)])
+    finally:
+        torch.set_num_threads(threads)
+    mean = np.mean(zs, axis=0)            # frac_z0, psi0
+    print(f"mean z over the seeds: frac_z0 {mean[0]:+.2f}, psi0 "
+          f"{mean[1]:+.2f}")
+    if restored:
+        assert np.all(np.abs(mean) < 1.0), (mean, zs)
+    else:
+        assert np.all(mean < -1.0), (mean, zs)

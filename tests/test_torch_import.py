@@ -89,6 +89,34 @@ def test_port_imports_no_jax():
     assert line == ["LOADED:"], out.stdout
 
 
+_TOOLS_PROBE = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+import tools.card_bf16_gate
+import tools.card_geweke_check
+import tools.synth_corpus
+chip_smoke.synth_corpus
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "ldagroupedgibbssampler_tpu"
+             or m.startswith("ldagroupedgibbssampler_tpu."))
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_chain_check_tools_and_chip_smoke_import_no_jax():
+    """The two chain-level tools that chip_smoke.py's phase 9 runs on the
+    card, and chip_smoke.py itself, load neither JAX nor the JAX
+    package."""
+    out = subprocess.run([sys.executable, "-I", "-c", _TOOLS_PROBE, ROOT],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("LOADED:")]
+    assert line == ["LOADED:"], out.stdout
+
+
 def test_cuda_request_without_cuda_raises(monkeypatch):
     from ldagroupedgibbssampler_tpu_torch.config.lda_config import LDAConfig
     from ldagroupedgibbssampler_tpu_torch.models.ggs import (
