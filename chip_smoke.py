@@ -290,7 +290,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      one bf16 `ggs` chain and 6 precise seeds at K=100 on the synthetic
      20NG corpus (200 iterations, the held-out LL by the left-to-right
      kernel), one line a statistic with its predictive interval; a failed
-     gate fails the script.
+     gate fails the script;
+ 10. the large-K quality study (`tools/card_largek_quality.py`,
+     `[10 largek]`) on the synthetic 20NG corpus at K=4096, alpha 50/K:
+     A, the bf16 gate (one bf16 `ggs` chain at seed 6 against precise
+     seeds 1-5, 200 iterations); B, dense `ggs` against `ggs_aliasmh` at
+     1, 4 and 16 rounds (seed 2019, 200 iterations); C, both schemes on
+     the 90% split at seeds 1-3 for LARGEK_ITERS_C iterations, then the
+     held-out LL (256 documents, 20 particles); one line a chain, check
+     and summary. A failed gate, an LL that is not finite, a trajectory
+     that did not rise from its first reading to its last, or a chain
+     whose scheme's launch counters did not move, fails the script.
 Then one JSON line describing every kernel (gamma, left_to_right,
 alias_mh_rounds, alias_mh_pack, hdp_table_counts, hdp_psi, polya_urn and
 vs_dirichlet among them, the last four with their launches in every run
@@ -7787,6 +7797,31 @@ def chain_checks_phase(smi: str, jobs: int = GEWEKE_JOBS):
           + json.dumps(report["counters_missing"]))
 
 
+# ---- 10. the large-K quality study ---------------------------------------
+LARGEK_ITERS_C = 1000       # section C's chains (the study's default 3000)
+
+
+def largek_phase(smi: str):
+    """`[10 largek]`: sections A, B and C of the large-K study, C cut to
+    LARGEK_ITERS_C iterations; any failure raises."""
+    from tools import card_largek_quality as lq
+    t0 = time.perf_counter()
+    data = lq.study(lq.study_corpus(), "cuda", iters_c=LARGEK_ITERS_C,
+                    echo=lambda line: print(f"[10 largek] {line}; {smi}",
+                                            flush=True))
+    for line in lq.summary_lines(data):
+        print(f"[10 largek] {line}; {smi}", flush=True)
+    per_chain = {tag: round(rec["ms_per_iteration"], 4)
+                 for _, tag, _, rec in lq.chains_of(data)}
+    print(f"[10 largek] launches {json.dumps(data['launches'])}; ms an "
+          f"iteration {json.dumps(per_chain)}; phase "
+          f"{time.perf_counter() - t0:.1f} s; {smi}", flush=True)
+    failed = lq.failures(data)
+    missing = [n for n in lq.COUNTERS if data["launches"][n] <= 0]
+    check(not failed and not missing, "the large-K study failed on the "
+          f"card: {failed}; counters that did not move: {missing}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
@@ -8221,6 +8256,9 @@ def main(argv=None) -> int:
 
     # ---- 9. the chain-level checks --------------------------------------
     chain_checks_phase(smi)
+
+    # ---- 10. the large-K quality study ----------------------------------
+    largek_phase(smi)
 
     kernels = [
         {**counts_entry, "launches": aliasmh_launches["blocked_label_counts"],

@@ -148,9 +148,10 @@ class LDAConfig:
     paranoid: bool = False         # run count invariants every iteration
     scan_chunk: int = 1            # iterations fused per captured group
     prng_impl: str = "rbg"         # "rbg" (fast on TPU) or "threefry2x32"
-    zdraw_kernel: str = "auto"     # z-draw: "auto" | "fused" | "xla"
-    #   | "interpret" (test-only: fused sweep kernels under the pltpu
-    #     interpreter on any backend; in-kernel PRNG lowers to zeros)
+    zdraw_kernel: str = "auto"     # the JAX package's z-draw choice, kept
+    #   for its INI key: the port reads it nowhere. The card always runs
+    #   csrc/zdraw.cu, the CPU its plain version; zdraw_precise selects
+    #   the f32 tables.
     zdraw_precise: bool = False    # fused kernel: bf16x2 tables + f32 cdf
     aliasmh_rounds: int = 2        # ggs_aliasmh: word+doc MH round pairs per sweep (large-K O(1)-per-token z-step; more rounds = better mixing, linear cost)
     aliasmh_packed: str = "auto"   # ggs_aliasmh table layout: "packed" [.,2] f32 rows (1 gather/eval, +8*(VK+DK) bytes) | "unpacked" (2 gathers/eval, zero extra memory) | "auto" = packed while the extra stays within 4 GiB

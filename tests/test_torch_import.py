@@ -95,6 +95,7 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 import tools.card_bf16_gate
 import tools.card_geweke_check
+import tools.card_largek_quality
 import tools.synth_corpus
 chip_smoke.synth_corpus
 bad = sorted(m for m in sys.modules
@@ -106,8 +107,8 @@ print("LOADED:" + ",".join(bad))
 
 
 def test_chain_check_tools_and_chip_smoke_import_no_jax():
-    """The two chain-level tools that chip_smoke.py's phase 9 runs on the
-    card, and chip_smoke.py itself, load neither JAX nor the JAX
+    """The chain-level tools that chip_smoke.py's phases 9 and 10 run on
+    the card, and chip_smoke.py itself, load neither JAX nor the JAX
     package."""
     out = subprocess.run([sys.executable, "-I", "-c", _TOOLS_PROBE, ROOT],
                          cwd=ROOT, capture_output=True, text=True,

@@ -77,8 +77,10 @@ from tools.card_geweke_check import counter_values  # noqa: E402
 from tools.synth_corpus import synth_corpus  # noqa: E402
 
 N_PRECISE_SEEDS = 6
-# two-sided 99% Student-t quantile, df = N_PRECISE_SEEDS - 1 = 5
-T_CRIT_995_DF5 = 4.032
+# two-sided 99% Student-t quantiles t(.995, df) by df = n - 1 of an
+# ensemble of n seeds, to the JAX scripts' three decimals
+T_CRIT_995 = {4: 4.604, 5: 4.032}
+T_CRIT_995_DF5 = T_CRIT_995[5]
 PRECISE_SEEDS = tuple(range(1, N_PRECISE_SEEDS + 1))
 BF16_SEED = N_PRECISE_SEEDS + 1
 CHECKS = ("final_model_ll", "held_out_ll", "nk_gini")
@@ -140,11 +142,14 @@ def run_chain(corpus, train, evl, precise: bool, seed: int, device: str,
 
 def predictive_check(bf16_value: float, precise_values) -> dict:
     """Two-sided 99% predictive-interval check of one scalar statistic
-    against the precise seed ensemble (df = n - 1)."""
+    against the precise seed ensemble (df = n - 1, the quantile from
+    T_CRIT_995)."""
     pv = np.asarray(precise_values, float)
     n = len(pv)
+    if n - 1 not in T_CRIT_995:
+        raise ValueError(f"no t quantile for {n} precise seeds")
     m, s = float(pv.mean()), float(pv.std(ddof=1))
-    half_width = T_CRIT_995_DF5 * s * float(np.sqrt(1.0 + 1.0 / n))
+    half_width = T_CRIT_995[n - 1] * s * float(np.sqrt(1.0 + 1.0 / n))
     delta = float(abs(bf16_value - m))
     return {"bf16": bf16_value, "precise_mean": m, "precise_sd": s,
             "df": n - 1, "n_precise_seeds": n,
