@@ -300,7 +300,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      held-out LL (256 documents, 20 particles); one line a chain, check
      and summary. A failed gate, an LL that is not finite, a trajectory
      that did not rise from its first reading to its last, or a chain
-     whose scheme's launch counters did not move, fails the script.
+     whose scheme's launch counters did not move, fails the script;
+ 11. the PubMed-scale rehearsal (`tools/card_pubmed_rehearsal.py`,
+     `[11 pubmed]`) at its defaults: the JAX script's synthetic PubMed
+     subsample (V=141,043, 10% of PubMed's tokens, seed 7), whose size
+     must be PUBMED_REHEARSAL.json's (else numpy draws another corpus,
+     and the phase fails saying so); the partition over 8
+     vocabulary-sharded ranks, whose token counts, imbalance and
+     13 B-a-slot bytes a token must equal the record's; vocab_sharded_ggs
+     at 8 gloo ranks sharing the card on the first 10% of the documents
+     and ggs on one card on the whole subsample, doc_span 1024, 1 + 2
+     iterations each, with exact recounts, every rank exiting 0 before
+     its deadline, and the z-draw, count and Dirichlet kernels launched
+     in each arm and on each rank; one line an arm with its seconds, peak
+     GiB on the card and the host and ms an iteration.
 Then one JSON line describing every kernel (gamma, left_to_right,
 alias_mh_rounds, alias_mh_pack, hdp_table_counts, hdp_psi, polya_urn and
 vs_dirichlet among them, the last four with their launches in every run
@@ -312,7 +325,8 @@ with the launches of
 `[4 sample_chunked]`'s ggs K=100 run as `launches_chunked`, the gamma
 entry its capture and replay numbers as `chunked`; the counts, z-draw and PCGS
 entries with their launches in phase 6 as `launches_apps`, every entry
-with its launches in phase 7 as `launches_parallel`; the counts, z-draw
+with its launches in phase 7 as `launches_parallel` and in phase 11 as
+`launches_pubmed`; the counts, z-draw
 and streamed PCGS entries with phase 8's launches by scheme as
 `launches_ingest` and their numbers at that shape as `ingest`), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
@@ -7822,6 +7836,65 @@ def largek_phase(smi: str):
           f"card: {failed}; counters that did not move: {missing}")
 
 
+# ---- 11. the PubMed-scale rehearsal ---------------------------------------
+PUBMED_MESH_DEADLINE_S = 480   # the 8 ranks of the mesh arm, all together
+
+
+def pubmed_phase(smi: str) -> dict:
+    """`[11 pubmed]`: tools/card_pubmed_rehearsal.py at its defaults,
+    held to PUBMED_REHEARSAL.json; any failure raises. Returns the
+    launches of each counter by arm."""
+    from tools import card_pubmed_rehearsal as pr
+    with open(os.path.join(ROOT, "PUBMED_REHEARSAL.json")) as f:
+        jax = json.load(f)
+    t0 = time.perf_counter()
+    corpus = pr.pubmed_corpus(pr.TOKENS)
+    synth_s = time.perf_counter() - t0
+    sub = jax["subsample"]
+    check(corpus.num_docs == sub["docs"], f"[11 pubmed] {corpus.num_docs} "
+          f"documents, the JAX record {sub['docs']}")
+    bad = pr.corpus_mismatches(corpus, jax)
+    check(not bad, f"[11 pubmed] {bad}")
+    work = os.path.join(ROOT, "build", "chip_smoke", "pubmed")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        report = pr.rehearse(corpus, exec_tokens=pr.EXEC_TOKENS,
+                             device="cuda", jax=jax, work_dir=work,
+                             mesh_deadline_s=PUBMED_MESH_DEADLINE_S,
+                             echo=lambda line: None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    a, mesh, card = report["analysis"], report["mesh"], report["card"]
+    beside = report["beside_jax_record"]
+    print(f"[11 pubmed] corpus D={corpus.num_docs} V={pr.V_FULL} "
+          f"N={corpus.num_tokens} in {synth_s:.1f} s (numpy "
+          f"{np.__version__}); {pr.RANKS} shards' tokens {a['shard_tokens']}"
+          f", imbalance {a['shard_imbalance_maxmean']}, padded slots "
+          f"{a['padded_slots']}, {a['measured_bytes_per_token']} B a token "
+          f"at the JAX model's 13 B a slot, n_dk all-reduce "
+          f"{json.dumps(a['ndk_allreduce_wire'])}; equal to "
+          f"PUBMED_REHEARSAL.json: "
+          f"{json.dumps({k: r['equal'] for k, r in beside.items() if 'equal' in r})}; "
+          f"partition {a['build_seconds']:.1f} s; {smi}", flush=True)
+    print(f"[11 pubmed] mesh: {pr.mesh_line(mesh)}; {smi}", flush=True)
+    print(f"[11 pubmed] one card: {card['seconds']:.1f} s; "
+          f"{pr.card_line(card)}; PubMed projected "
+          f"{json.dumps(report['pubmed_projection'])}; {smi}", flush=True)
+    print(f"[11 pubmed] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    for key in ("subsample", "shard_tokens", "shard_imbalance_maxmean",
+                "measured_bytes_per_token", "executed_mesh_subsample"):
+        check(beside[key]["equal"], f"[11 pubmed] {key}: ours "
+              f"{beside[key]['ours']}, the JAX record "
+              f"{beside[key]['jax_record']}")
+    check(not report["failures"], f"[11 pubmed] {report['failures']}")
+    launches = {"one card": card["launches"]}
+    for r in mesh["rank_results"]:
+        arm = launches.setdefault(f"{pr.RANKS} gloo ranks", {})
+        for k, v in r["launches"].items():
+            arm[k] = arm.get(k, 0) + v
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
@@ -8260,6 +8333,9 @@ def main(argv=None) -> int:
     # ---- 10. the large-K quality study ----------------------------------
     largek_phase(smi)
 
+    # ---- 11. the PubMed-scale rehearsal ---------------------------------
+    pubmed_launches = pubmed_phase(smi)
+
     kernels = [
         {**counts_entry, "launches": aliasmh_launches["blocked_label_counts"],
          "launches_ggs": launches["blocked_label_counts"],
@@ -8316,6 +8392,9 @@ def main(argv=None) -> int:
         entry["launches_parallel"] = {
             run: sum(parallel_launches.get(k, {}).get(run, 0) for k in keys)
             for run in ("2 gloo ranks", "1 nccl rank")}
+        entry["launches_pubmed"] = {
+            arm: sum(got.get(k, 0) for k in keys)
+            for arm, got in pubmed_launches.items()}
     # phase 8's launches by scheme, and the kernel's numbers at its shape
     ingest_of = {"blocked_label_counts": "counts",
                  "fused_zdraw_nkw": "zdraw",

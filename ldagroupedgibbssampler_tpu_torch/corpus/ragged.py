@@ -736,5 +736,9 @@ def real_slot_list(mask):
     only: the flat indices of `mask` (validity, any shape) in slot order,
     int32 [N]."""
     mask = np.asarray(mask)
-    assert mask.size < 2 ** 31, "slot indices must fit int32"
+    if mask.size >= 2 ** 31:
+        raise ValueError(
+            f"a layout of {mask.size} slots reaches 2^31 = {2 ** 31}, past "
+            "the int32 slot indexes of the z-draw kernel; a wider doc_span "
+            "pads fewer slots a token")
     return np.flatnonzero(mask.reshape(-1)).astype(np.int32)

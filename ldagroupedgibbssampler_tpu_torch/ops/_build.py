@@ -187,6 +187,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def check_int32_extent(**counts):
+    """Raise unless every count (a layout's slots, a table's elements) is
+    below 2^31, the extent of the kernels' int32 indexes: a larger operand
+    would wrap them, so it is refused by name."""
+    for name, n in counts.items():
+        if n >= 2 ** 31:
+            raise ValueError(f"{name}: {n} elements reach 2^31 = {2 ** 31}, "
+                             "the limit of the kernels' int32 indexes")
+
+
 def check_tensor(name, t, shape, dtype=torch.int32, device=None):
     """Validate a kernel operand: a contiguous CUDA tensor of the expected
     dtype and shape, on `device` when given."""

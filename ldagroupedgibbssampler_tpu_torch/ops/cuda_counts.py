@@ -97,6 +97,8 @@ def blocked_label_counts(w_local, labels, win, first, *, nwin, vspan,
             num_labels=num_labels)
     nb, block = w_local.shape
     dev = w_local.device
+    _build.check_int32_extent(slots=nb * block,
+                              counts=nwin * vspan * num_labels)
     _build.check_tensor("w_local", w_local, (nb, block), device=dev)
     _build.check_tensor("labels", labels, (nb, block), device=dev)
     _build.check_tensor("win", win, (nb,), device=dev)

@@ -130,6 +130,10 @@ def fused_zdraw_nkw(w3, d3, z_old, theta_dk, phi_vk, seed, win_w, first_w,
     nb, chunks, chunk = w3.shape
     dev = w3.device
     num_docs, num_types = theta_dk.shape[0], phi_vk.shape[0]
+    # real_slots holds int32 slot indexes
+    _build.check_int32_extent(slots=w3.numel(), theta_dk=theta_dk.numel(),
+                              phi_vk=phi_vk.numel(),
+                              nkw=nwin_w * vspan * num_topics)
     if not 0 < num_topics <= MAX_TOPICS:
         raise ValueError(f"num_topics={num_topics} outside the kernel's "
                          f"range (1..{MAX_TOPICS})")

@@ -47,6 +47,7 @@ from ldagroupedgibbssampler_tpu_torch.parallel.mesh import (
 from ldagroupedgibbssampler_tpu_torch.parallel.sharded import ShardedMixin
 
 _CHUNK = 128
+_SUMMARY_SLICE = 1 << 26     # tokens a pass of vocab_shard_summary's count
 
 
 def interleave_permutation(type_counts: np.ndarray, vspan: int):
@@ -101,6 +102,52 @@ def partition_windows(type_counts: np.ndarray, vspan: int, num_shards: int):
 
 
 @dataclasses.dataclass
+class VocabShardSummary:
+    """The whole vocabulary-sharded partition of a corpus, for every rank:
+    the JAX model's shard bookkeeping (`shard_token_counts`,
+    `shard_pad_slots`) beside the type permutation and the window bounds
+    that every rank's layout starts from."""
+    perm: np.ndarray         # int32 [V] original type -> permuted id
+    inv: np.ndarray          # int32 [V] permuted id -> original type
+    win_bounds: np.ndarray   # [S+1] w-window bounds of the ranks
+    shard_token_counts: list   # tokens of each rank
+    shard_pad_slots: list      # layout-A slots of each rank (w_local.size)
+
+
+def vocab_shard_summary(corpus: Corpus, *, block: int, vspan: int,
+                        dspan: int, num_ranks: int,
+                        chunk: int = _CHUNK) -> VocabShardSummary:
+    """The partition of `corpus` over `num_ranks` ranks, computed once on
+    the host with no process group: each rank's token count, and the slot
+    count of the cell blocks `build_cell_blocks` would give it (each
+    (w-window, d-window) cell padded to whole chunks, each window's chunks
+    to whole blocks, one chunk block for an empty window, and one
+    all-padding tail block), without building them."""
+    tf = corpus.type_frequencies()
+    perm, inv = interleave_permutation(tf, vspan)
+    wb = partition_windows(tf[inv], vspan, num_ranks)
+    nwin_w = max(1, -(-len(tf) // vspan))
+    nwin_d = max(1, -(-corpus.num_docs // dspan))
+    # tokens of each (w-window, d-window) cell, a slice of tokens at a time
+    cells = np.zeros(nwin_w * nwin_d, np.int64)
+    docs = corpus.token_doc_ids()
+    for a in range(0, corpus.num_tokens, _SUMMARY_SLICE):
+        sl = slice(a, a + _SUMMARY_SLICE)
+        cells += np.bincount(
+            (perm[corpus.tokens[sl]] // vspan).astype(np.int64) * nwin_d
+            + docs[sl] // dspan, minlength=nwin_w * nwin_d)
+    bpc = block // chunk
+    win_real = (-(-cells // chunk)).reshape(nwin_w, nwin_d).sum(axis=1)
+    win_rows = np.where(win_real == 0, bpc, -(-win_real // bpc) * bpc)
+    shard_tokens = np.add.reduceat(tf[inv], wb[:-1] * vspan)
+    return VocabShardSummary(
+        perm=perm, inv=inv, win_bounds=wb,
+        shard_token_counts=[int(t) for t in shard_tokens],
+        shard_pad_slots=[int(win_rows[wb[s]: wb[s + 1]].sum() + bpc) * chunk
+                         for s in range(num_ranks)])
+
+
+@dataclasses.dataclass
 class VocabRankLayout:
     """One rank's part of the vocabulary-sharded layout."""
     blocks: CellBlocks       # its windows' cell blocks; flat_index global
@@ -109,16 +156,20 @@ class VocabRankLayout:
 
 
 def vocab_rank_layout(corpus: Corpus, *, block: int, vspan: int, dspan: int,
-                      num_ranks: int, rank: int) -> VocabRankLayout:
+                      num_ranks: int, rank: int,
+                      summary: VocabShardSummary | None = None
+                      ) -> VocabRankLayout:
     """Rank `rank`'s cell blocks of a `num_ranks`-rank vocabulary-sharded
     layout: the JAX package's per-shard arrays of shard `rank`
     (`VocabShardedGGS._prepare_device_data`) without the padding to the
     largest shard's block count, and with the flat index in corpus token
-    order."""
-    tf = corpus.type_frequencies()
-    perm, inv = interleave_permutation(tf, vspan)
-    ptokens = perm[corpus.tokens]
-    wb = partition_windows(tf[inv], vspan, num_ranks)
+    order. `summary`, the corpus's `vocab_shard_summary` at these spans,
+    saves computing the permutation again."""
+    if summary is None:
+        summary = vocab_shard_summary(corpus, block=block, vspan=vspan,
+                                      dspan=dspan, num_ranks=num_ranks)
+    wb = summary.win_bounds
+    ptokens = summary.perm[corpus.tokens]
     ww = ptokens // vspan
     idx = np.nonzero((ww >= wb[rank]) & (ww < wb[rank + 1]))[0]
     nwin = int(wb[rank + 1] - wb[rank])
@@ -130,7 +181,7 @@ def vocab_rank_layout(corpus: Corpus, *, block: int, vspan: int, dspan: int,
     valid = fi >= 0
     fi[valid] = idx[fi[valid]]            # rank-local -> corpus order
     return VocabRankLayout(blocks=dataclasses.replace(b, flat_index=fi),
-                           inv=inv, row0=int(wb[rank] * vspan))
+                           inv=summary.inv, row0=int(wb[rank] * vspan))
 
 
 class VocabShardedGGS(ShardedMixin, LDAGroupedGibbsSampler):
@@ -149,10 +200,14 @@ class VocabShardedGGS(ShardedMixin, LDAGroupedGibbsSampler):
 
     def _prepare_device_data(self, corpus: Corpus):
         cfg = self.config
-        lay = vocab_rank_layout(corpus, block=cfg.token_block,
-                                vspan=cfg.vocab_span, dspan=cfg.doc_span,
-                                num_ranks=self.mesh.size,
-                                rank=self.mesh.rank)
+        spans = dict(block=cfg.token_block, vspan=cfg.vocab_span,
+                     dspan=cfg.doc_span, num_ranks=self.mesh.size)
+        summary = vocab_shard_summary(corpus, **spans)
+        # the JAX model's shard bookkeeping, the same on every rank
+        self.shard_token_counts = summary.shard_token_counts
+        self.shard_pad_slots = summary.shard_pad_slots
+        lay = vocab_rank_layout(corpus, **spans, rank=self.mesh.rank,
+                                summary=summary)
         self._upload_blocks(lay.blocks)
         # the original type of each of its rows that is a type (the last
         # window of the permuted space may end before its span)
@@ -165,6 +220,9 @@ class VocabShardedGGS(ShardedMixin, LDAGroupedGibbsSampler):
         # the n_dk partials and their sums are bounded by the document
         # lengths: in int16 over NCCL when those fit
         self._ndk_bound = int(np.max(corpus.doc_lengths(), initial=0))
+        # the JAX model's int16 decision (every document below 2^15); the
+        # dtype on the wire is count_reduce_dtype's, int32 over gloo
+        self._ndk_i16 = self._ndk_bound < 2 ** 15
         self._ndk_dtype = count_reduce_dtype(self.mesh, self._ndk_bound)
 
     def _zdraw_phi(self, phi_vk):

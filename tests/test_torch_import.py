@@ -96,6 +96,7 @@ import chip_smoke
 import tools.card_bf16_gate
 import tools.card_geweke_check
 import tools.card_largek_quality
+import tools.card_pubmed_rehearsal
 import tools.synth_corpus
 chip_smoke.synth_corpus
 bad = sorted(m for m in sys.modules
@@ -107,8 +108,8 @@ print("LOADED:" + ",".join(bad))
 
 
 def test_chain_check_tools_and_chip_smoke_import_no_jax():
-    """The chain-level tools that chip_smoke.py's phases 9 and 10 run on
-    the card, and chip_smoke.py itself, load neither JAX nor the JAX
+    """The tools that chip_smoke.py's phases 9, 10 and 11 run on the
+    card, and chip_smoke.py itself, load neither JAX nor the JAX
     package."""
     out = subprocess.run([sys.executable, "-I", "-c", _TOOLS_PROBE, ROOT],
                          cwd=ROOT, capture_output=True, text=True,

@@ -147,3 +147,61 @@ def test_mesh_is_the_world():
     gloo = dataclasses.replace(nccl, backend="gloo")
     assert count_reduce_dtype(gloo, 100) == torch.int32
     assert count_reduce_dtype(mesh, 100) == torch.int32
+
+
+def _port_vocab_model(shards, rank):
+    """The port's vocab_sharded_ggs as rank `rank` of `shards`, without a
+    process group (its bookkeeping needs none)."""
+    mesh = Mesh(group=None, rank=rank, size=shards, axis_name="data",
+                backend=None)
+    return vocab_sharded_ggs.VocabShardedGGS(
+        config("vocab_sharded_ggs", vocab_span=VSPAN), mesh=mesh)
+
+
+def _jax_vocab_model(shards):
+    return jax_vocab.VocabShardedGGS(
+        JaxConfig(scheme="ggs", topics=3, token_block=256, vocab_span=VSPAN,
+                  doc_span=16), mesh=jax_mesh((shards,)))
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_shard_bookkeeping_equals_jax(shards):
+    """shard_token_counts, shard_pad_slots and _ndk_i16 on every rank are
+    the JAX model's; vocab_shard_summary gives them with no group, each
+    rank's padded slots are its own layout's, and the wire dtype stays
+    count_reduce_dtype's."""
+    corpus = zipf_corpus()
+    jm = _jax_vocab_model(shards)
+    jm._prepare_device_data(_jax(corpus))
+    summary = vocab_sharded_ggs.vocab_shard_summary(
+        corpus, block=256, vspan=VSPAN, dspan=16, num_ranks=shards)
+    assert summary.shard_token_counts == jm.shard_token_counts
+    assert summary.shard_pad_slots == jm.shard_pad_slots
+    assert np.array_equal(summary.win_bounds, jm.win_bounds)
+    for rank in {0, shards - 1}:
+        m = _port_vocab_model(shards, rank)
+        m._prepare_device_data(corpus)
+        assert m.shard_token_counts == jm.shard_token_counts
+        assert m.shard_pad_slots == jm.shard_pad_slots
+        assert m._ndk_i16 is True and jm._ndk_i16 is True
+        assert m._ndk_dtype == torch.int32
+        assert m._blocks.w_local.size == m.shard_pad_slots[rank]
+        assert int(m._blocks.mask.sum()) == m.shard_token_counts[rank]
+
+
+def test_long_document_turns_int16_off_in_both_packages():
+    """A document of 2^15 tokens turns the int16 n_dk decision off in the
+    JAX model and in the port's, and one token shorter keeps it on."""
+    base = zipf_corpus()
+    for length, want in ((2 ** 15, False), (2 ** 15 - 1, True)):
+        docs = [list(base.tokens[a:b]) for a, b in zip(
+            base.doc_offsets[:-1], base.doc_offsets[1:])]
+        docs.append([7] * length)
+        corpus = Corpus.from_token_lists(docs, base.vocab)
+        jm = _jax_vocab_model(2)
+        jm._prepare_device_data(_jax(corpus))
+        m = _port_vocab_model(2, 1)
+        m._prepare_device_data(corpus)
+        assert jm._ndk_i16 is want and m._ndk_i16 is want
+        assert m.shard_token_counts == jm.shard_token_counts
+        assert m.shard_pad_slots == jm.shard_pad_slots
